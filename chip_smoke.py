@@ -25,10 +25,34 @@ order; any failure raises and exits non-zero (nothing is caught):
      and Fig 2/3 series, every job completed), then a 2k-job 3-schedd
      fair-share day the same way.  The kernel's launch count is read
      from each run;
-  5. a JSON line per kernel, the card line, and the result line.
+  5. build the flash-attention kernel from the checkout's CUDA source;
+  6. the kernel against its plain PyTorch version (float32) on the card:
+     the reference suite's eight cases in float32 and bfloat16, fully
+     masked rows, the rolling-window permutation, and qwen2-1.5b's
+     serving shapes (prefill B=1, Sq=Skv=512 and 2048; decode B=8, Sq=1
+     against the engine's 2048-slot cache) in float32 and in bfloat16,
+     the bfloat16 calls timed beside their bound, the plain version and
+     SDPA (a yardstick only);
+  7. qwen2-1.5b at full width (28 layers, random weights from a seeded
+     generator): forward logits with the kernel against the same model
+     with attention forced through the plain version, in float32 and in
+     bfloat16; prefill of a prefix then token-by-token decode against the
+     teacher-forced forward in float32; a float32 engine with the serving
+     run's slots and cache gives the same greedy tokens with the kernel
+     as with the plain version;
+  8. serving: `ServeEngine` in bfloat16 with 8 slots and a 2048-token
+     cache, 16 requests of 64-1024 prompt tokens and 32 new tokens each;
+     every request must finish, and the kernel's launches must equal 28 x
+     (prefill calls + decode ticks).  Then tokens/s, prefill ms, decode
+     ms per tick, and a `torch.profiler` pass over decode ticks (device
+     busy and idle share; attention, GEMM and unembedding device time;
+     launches and synchronisations per tick); then the spot reclaim of
+     examples/spot_serving.py at full width;
+  9. a JSON line per kernel, the card line, and the result line.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -53,7 +77,34 @@ TIERS = {
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12        # dense tensor-core rate
 KERNEL_REPS = 20
+
+# the cases of tests/test_kernel_flash_attention.py: B, Sq, Skv, Hq, Hkv,
+# Dh, causal, window, softcap
+FLASH_CASES = [
+    (2, 256, 256, 8, 4, 64, True, None, None),
+    (1, 200, 200, 4, 4, 64, True, None, None),
+    (2, 128, 384, 8, 2, 128, True, 64, None),
+    (1, 1, 256, 8, 4, 64, True, None, None),
+    (2, 64, 128, 4, 4, 32, False, None, None),
+    (1, 96, 96, 6, 2, 64, True, 32, None),
+    (2, 128, 128, 4, 2, 64, True, None, 30.0),
+    (1, 300, 100, 4, 1, 64, True, None, None),
+]
+# the reference suite's tolerances, against the plain version in float32
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ARCH = "qwen2-1.5b"
+# the serving run: slots, cache capacity, requests, prompt lengths, and
+# new tokens per request
+SERVE = dict(slots=8, max_seq=2048, requests=16, prompt=(64, 1024), new=32)
+# full-width model gates, on max |logits difference| / max |logits|:
+# float32 kernel vs plain attention differ only in the order of the
+# attention sums; prefill+decode vs forward also in cuBLAS's GEMM shapes;
+# bfloat16 rounds each layer's output to 8 bits, so a 1-ulp difference in
+# an attention output can move later layers by an ulp each
+GATE_F32 = 1e-4
+GATE_BF16 = 5e-2
 
 
 def build_problem(MatchProblem, jobs: int, C: int, W: int, seed: int = 0):
@@ -303,6 +354,479 @@ def run_e2e(label, trace, mods, **kw):
     return launches, rec.largest
 
 
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def attention_inputs(seed, B, Sq, Skv, Hq, Hkv, Dh, dtype, device, *,
+                     lengths=None):
+    """The reference suite's inputs (normal q/k/v, queries at the last Sq
+    positions, every 7th cache slot empty), or, with ``lengths``, a
+    serving cache: row b holds positions 0..lengths[b]-1 and is empty
+    (-1) after them, and its query sits at position lengths[b]."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                            device=device)
+               for shape in ((B, Sq, Hq, Dh), (B, Skv, Hkv, Dh),
+                             (B, Skv, Hkv, Dh)))
+    kp = torch.arange(Skv, dtype=torch.int32,
+                      device=device).expand(B, Skv).clone()
+    if lengths is None:
+        qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32,
+                          device=device).expand(B, Sq).contiguous()
+        kp[:, ::7] = -1
+    else:
+        ln = torch.tensor(lengths, dtype=torch.int32, device=device)
+        kp[kp >= ln[:, None]] = -1
+        qp = ln[:, None].contiguous()
+    return q, k, v, qp, kp
+
+
+def flash_bound(q, k, v, q_pos, kv_pos, mask):
+    """Least time for this call, counting what this data needs: q, both
+    position arrays and the output once, and the K and V rows of the
+    cache slots that some query attends (an empty or never-attended slot
+    need not be read), at the HBM rate; against the QK^T and PV FLOPs of
+    the unmasked (query, key) pairs (4 * Dh per pair and query head) at
+    the tensor-core bf16 rate (float32 at the vector rate).  Returns
+    (ms, bound by, bytes, FLOPs)."""
+    item = q.element_size()
+    Hkv, Dh = k.shape[2], k.shape[3]
+    attended = int(mask.any(dim=1).sum().item())          # (b, slot) pairs
+    nbytes = 2 * q.numel() * item + 2 * attended * Hkv * Dh * item \
+        + 4 * (q_pos.numel() + kv_pos.numel())
+    flops = 4 * Dh * q.shape[2] * int(mask.sum().item())
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes", nbytes, flops
+    return 1e3 * t_ops, "operations", nbytes, flops
+
+
+def check_flash(label, fa, q, k, v, qp, kp, *, timed=False, **kw):
+    """Kernel vs plain version (float32) on the card, at the reference
+    suite's tolerance; with ``timed``, CUDA-event medians of the kernel,
+    the plain version and SDPA beside the bound."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_mask, attention_reference,
+    )
+    out = fa.flash_attention(q, k, v, qp, kp, **kw)
+
+    def plain():
+        return attention_reference(q.float(), k.float(), v.float(), qp, kp,
+                                   **kw)
+
+    ref = plain()
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[q.dtype]
+    if out.dtype != q.dtype or out.shape != q.shape:
+        raise AssertionError(f"{label}: output {out.dtype} {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: kernel output is not finite")
+    err = (out.float() - ref).abs()
+    if bool((err > tol + tol * ref.abs()).any()):
+        raise AssertionError(f"{label}: kernel differs from the plain "
+                             f"version by {float(err.max()):.3g} > {tol}")
+    row = {"flash_case": label, "dtype": str(q.dtype).split(".")[1],
+           "shape": [*q.shape, k.shape[1], k.shape[2]],
+           "max_abs_err": float(err.max()), "tol": tol}
+    if timed:
+        mask = attention_mask(qp, kp, causal=kw.get("causal", True),
+                              window=kw.get("window")).expand(
+            q.shape[0], q.shape[1], k.shape[1])
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa_mask = mask[:, None].contiguous()
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True)
+
+        bound_ms, bound_by, nbytes, flops = flash_bound(q, k, v, qp, kp, mask)
+        row.update(
+            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, qp, kp, **kw),
+                       KERNEL_REPS),
+            plain_ms=cuda_ms(plain, KERNEL_REPS),
+            library_ms=cuda_ms(library, KERNEL_REPS),
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def check_fully_masked_rows(flash_attention, device):
+    """Rows with no visible key give 0, not NaN."""
+    q, k, v, qp, kp = attention_inputs(2, 1, 8, 16, 2, 2, 32, torch.float32,
+                                       device)
+    out = flash_attention(q, k, v, qp, torch.full_like(kp, -1), causal=True)
+    if bool(out.isnan().any()) or float(out.abs().max()) != 0.0:
+        raise AssertionError("fully masked rows: output is not all zero")
+
+
+def check_rolling_window(flash_attention, device):
+    """A windowed decode over a rolling cache does not depend on the order
+    of the cache's slots."""
+    C, W = 64, 32
+    q, k, v, _, _ = attention_inputs(3, 1, 1, C, 4, 2, 32, torch.float32,
+                                     device)
+    qp = torch.tensor([[100 + C]], dtype=torch.int32, device=device)
+    kp = torch.arange(100, 100 + C, dtype=torch.int32, device=device)[None]
+    perm = torch.as_tensor(np.random.default_rng(3).permutation(C),
+                           device=device)
+    out1 = flash_attention(q, k, v, qp, kp, causal=True, window=W)
+    out2 = flash_attention(q, k[:, perm].contiguous(),
+                           v[:, perm].contiguous(), qp,
+                           kp[:, perm].contiguous(), causal=True, window=W)
+    if float((out1 - out2).abs().max()) > 1e-5:
+        raise AssertionError("rolling window: slot order changed the output")
+
+
+def serving_shapes():
+    """qwen2-1.5b's attention at the serving run's shapes (12 query heads
+    over 2 kv heads, d_head 128): label, seed, B, Sq, Skv and the cache
+    rows' lengths (None: the reference suite's positions)."""
+    lengths = np.random.default_rng(5).integers(
+        SERVE["prompt"][0], SERVE["prompt"][1] + SERVE["new"], SERVE["slots"])
+    return [(f"prefill-{Sq}", 4, 1, Sq, Sq, None) for Sq in (512, 2048)] + [
+        (f"decode-{SERVE['slots']}x{SERVE['max_seq']}", 6, SERVE["slots"], 1,
+         SERVE["max_seq"], lengths.tolist())]
+
+
+def flash_phase(fa, device):
+    """Every case of the reference suite in both dtypes, the two special
+    cases, then the serving shapes in float32 and in bfloat16 (timed)."""
+    for case in FLASH_CASES:
+        B, Sq, Skv, Hq, Hkv, Dh, causal, window, softcap = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, qp, kp = attention_inputs(0, B, Sq, Skv, Hq, Hkv, Dh,
+                                               dtype, device)
+            check_flash(f"case{case}", fa, q, k, v, qp, kp, causal=causal,
+                        window=window, softcap=softcap)
+    check_fully_masked_rows(fa.flash_attention, device)
+    check_rolling_window(fa.flash_attention, device)
+    print(json.dumps({"flash_case": "fully-masked-rows+rolling-window",
+                      "ok": True}), flush=True)
+
+    rows = []
+    for label, seed, B, Sq, Skv, lengths in serving_shapes():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, qp, kp = attention_inputs(seed, B, Sq, Skv, 12, 2, 128,
+                                               dtype, device, lengths=lengths)
+            row = check_flash(label, fa, q, k, v, qp, kp,
+                              timed=dtype == torch.bfloat16)
+        rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the model and the serving engine at full width
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_attention():
+    """Routes the model's attention through the plain version (the
+    comparison's other side); the kernel is back on exit."""
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.models import attention as attn_mod
+    kernel = attn_mod.flash_attention
+    attn_mod.flash_attention = attention_reference
+    try:
+        yield
+    finally:
+        attn_mod.flash_attention = kernel
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+def gate(label, value, limit):
+    print(json.dumps({"gate": label, "value": value, "limit": limit}),
+          flush=True)
+    if not value <= limit:
+        raise AssertionError(f"{label}: {value:.3g} > {limit:.3g}")
+
+
+def model_phase(cfg, device, *, prompt_len=320, n_pre=256, seed=0):
+    """Kernel vs plain attention in the whole model at cfg's widths, and
+    prefill+decode vs forward; returns the float32 parameters for the
+    engine check."""
+    from repro_torch.models import model as model_lib
+    toks = torch.tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, prompt_len)), device=device)
+    batch = {"tokens": toks}
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              activation_dtype="float32")
+    from repro_torch.models.param import param_count
+    t0 = time.perf_counter()
+    params = model_lib.init_model(f32, seed=seed, device=device)
+    torch.cuda.synchronize()
+    print(json.dumps({"model": cfg.name, "layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                      "params": param_count(params),
+                      "init_s": time.perf_counter() - t0}), flush=True)
+    logits = model_lib.forward(params, f32, batch)
+    with plain_attention():
+        logits_plain = model_lib.forward(params, f32, batch)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("float32 forward logits are not finite")
+    gate("f32 forward: kernel vs plain attention", rel_err(logits,
+                                                          logits_plain),
+         GATE_F32)
+
+    cache = model_lib.init_cache(f32, 1, prompt_len + 16, device=device)
+    step, cache, lengths = model_lib.prefill(
+        params, f32, {"tokens": toks[:, :n_pre]}, cache)
+    worst = rel_err(step, logits[:, n_pre - 1])
+    for s in range(n_pre, prompt_len):
+        step, cache, lengths = model_lib.decode_step(
+            params, f32, toks[:, s:s + 1], cache, lengths)
+        worst = max(worst, rel_err(step, logits[:, s]))
+    gate(f"f32 prefill({n_pre}) + decode({prompt_len - n_pre}) vs forward",
+         worst, GATE_F32)
+    del logits, logits_plain, cache
+
+    bf = model_lib.init_model(cfg, seed=seed, device=device)
+    logits = model_lib.forward(bf, cfg, batch)
+    with plain_attention():
+        logits_plain = model_lib.forward(bf, cfg, batch)
+    gate("bf16 forward: kernel vs plain attention", rel_err(logits,
+                                                           logits_plain),
+         GATE_BF16)
+    return f32, params, bf
+
+
+def make_requests(cfg, n, prompt, new, seed):
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, size=int(rng.integers(prompt[0], prompt[1] + 1))
+    ).astype(np.int32), max_new_tokens=new) for i in range(n)]
+
+
+def outputs(engine) -> dict:
+    return {i: r.output for i, r in engine.done.items()}
+
+
+def engine_equal_phase(cfg, params, *, n=12, new=8):
+    """The float32 engine, with the serving run's slots, cache and prompt
+    lengths but fewer requests and tokens, gives the same greedy tokens
+    with the kernel as with attention forced through the plain version."""
+    from repro_torch.serve.engine import ServeEngine
+    runs = []
+    for plain in (False, True):
+        eng = ServeEngine(cfg, params, batch_slots=SERVE["slots"],
+                          max_seq=SERVE["max_seq"])
+        for r in make_requests(cfg, n, SERVE["prompt"], new, seed=21):
+            eng.submit(r)
+        with plain_attention() if plain else contextlib.nullcontext():
+            eng.run_until_drained()
+        runs.append(outputs(eng))
+    if runs[0] != runs[1] or len(runs[0]) != n:
+        raise AssertionError("float32 engine: greedy tokens differ between "
+                             "the kernel and the plain version")
+    print(json.dumps({"f32_engine_greedy_equal": True, "requests": n,
+                      "tokens": sum(len(o) for o in runs[0].values())}),
+          flush=True)
+
+
+class TimedModel:
+    """Wraps the model's prefill and decode entry points, as the engine
+    calls them, with a host clock that ends in a synchronise."""
+
+    def __init__(self, model_lib):
+        self.lib = model_lib
+        self.prefill_s: list[float] = []
+        self.decode_s: list[float] = []
+
+    def _wrap(self, fn, into):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    @contextlib.contextmanager
+    def on(self):
+        saved = self.lib.prefill, self.lib.decode_step
+        self.lib.prefill = self._wrap(saved[0], self.prefill_s)
+        self.lib.decode_step = self._wrap(saved[1], self.decode_s)
+        try:
+            yield self
+        finally:
+            self.lib.prefill, self.lib.decode_step = saved
+
+
+def profile_ticks(cfg, params, engine, ticks=4):
+    """`torch.profiler` over a few decode ticks of a full engine: the
+    device's busy time against the host's wall (the idle share), the
+    flash kernel's, the GEMMs' and the unembedding's device time, the
+    kernels that take the most, and the runtime calls per tick.  The
+    profiler's own host cost inflates the wall; the unprofiled tick is
+    the serving run's ``decode_ms_per_tick``."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import model as model_lib
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    unembed = model_lib._unembed
+
+    def labelled(*a, **kw):
+        with record_function("unembed"):
+            return unembed(*a, **kw)
+
+    torch.cuda.synchronize()
+    model_lib._unembed = labelled
+    try:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(ticks):
+                logits, engine.cache, engine.lengths = model_lib.decode_step(
+                    params, cfg, engine.last_tok, engine.cache,
+                    engine.lengths)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        model_lib._unembed = unembed
+    stats = prof.key_averages()
+    # kernels only: a CPU op's entry repeats its kernels' device time
+    device = [e for e in stats
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def ms(events):
+        return sum(e.self_device_time_total for e in events) / 1e3 / ticks
+
+    busy = ms(device)
+    attention = ms(e for e in device if "flash_attention_kernel" in e.key)
+    gemm = ms(e for e in device if "nvjet" in e.key or "gemm" in e.key)
+    unembed_ms = sum(e.device_time_total for e in stats
+                     if e.key == "unembed") / 1e3 / ticks
+    runtime = {e.key: e.count / ticks for e in stats
+               if "LaunchKernel" in e.key or e.key in (
+                   "cudaMemcpyAsync", "cudaStreamSynchronize",
+                   "cudaDeviceSynchronize")}
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
+    wall_ms = 1e3 * wall / ticks
+    row = {"ticks": ticks, "wall_ms_per_tick": wall_ms,
+           "device_busy_ms_per_tick": busy,
+           "device_idle_share": 1 - busy / wall_ms if busy else None,
+           "attention_ms_per_tick": attention,
+           "gemm_ms_per_tick": gemm, "unembed_ms_per_tick": unembed_ms,
+           "attention_share_of_busy": attention / busy if busy else None,
+           "kernels_per_tick": sum(e.count for e in device) / ticks,
+           "aten_ops_per_tick": sum(e.count for e in stats
+                                    if e.key.startswith("aten::")) / ticks,
+           "runtime_calls_per_tick": runtime,
+           "top_kernels": [{"name": e.key[:80],
+                            "ms_per_tick": e.self_device_time_total / 1e3
+                            / ticks, "calls_per_tick": e.count / ticks}
+                           for e in top]}
+    print(json.dumps({"decode_tick_profile": row}), flush=True)
+    return row
+
+
+def serve_phase(cfg, params, launch_counts):
+    """The main path: `ServeEngine` at full width.  The kernel's count is
+    set to 0 just before the run and read just after."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import ServeEngine
+    reqs = make_requests(cfg, SERVE["requests"], SERVE["prompt"],
+                         SERVE["new"], seed=11)
+    engine = ServeEngine(cfg, params, batch_slots=SERVE["slots"],
+                         max_seq=SERVE["max_seq"])
+    for r in reqs:
+        engine.submit(r)
+    timer = TimedModel(model_lib)
+    torch.cuda.synchronize()
+    with timer.on():
+        launch_counts["flash_attention"] = 0
+        t0 = time.perf_counter()
+        ticks = engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts["flash_attention"]
+    calls = engine.prefill_calls + engine.decode_ticks
+    if len(engine.done) != len(reqs) or any(
+            len(r.output) != SERVE["new"] for r in engine.done.values()):
+        raise AssertionError("serving: not every request finished with "
+                             f"{SERVE['new']} tokens")
+    if launches == 0 or launches != cfg.n_layers * calls:
+        raise AssertionError(
+            f"serving: {launches} flash-attention launches, expected "
+            f"{cfg.n_layers} x ({engine.prefill_calls} prefills + "
+            f"{engine.decode_ticks} decode ticks)")
+    tokens = sum(len(r.output) for r in engine.done.values())
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    row = {"serve": cfg.name, "slots": SERVE["slots"],
+           "max_seq": SERVE["max_seq"], "requests": len(reqs),
+           "prompt_tokens": prompt_tokens, "new_tokens": tokens,
+           "ticks": ticks, "prefill_calls": engine.prefill_calls,
+           "decode_ticks": engine.decode_ticks,
+           "flash_launches": launches, "wall_s": wall,
+           "tokens_per_s": tokens / wall,
+           "prefill_ms_per_request": 1e3 * statistics.mean(timer.prefill_s),
+           "prefill_ms_max": 1e3 * max(timer.prefill_s),
+           "prefill_s_total": sum(timer.prefill_s),
+           "decode_ms_per_tick": 1e3 * statistics.median(timer.decode_s),
+           "decode_s_total": sum(timer.decode_s)}
+    print(json.dumps(row), flush=True)
+
+    # the tick's device-time breakdown, on a fresh full engine (its
+    # launches are not the main path's)
+    probe = ServeEngine(cfg, params, batch_slots=SERVE["slots"],
+                        max_seq=SERVE["max_seq"])
+    for r in make_requests(cfg, SERVE["slots"], SERVE["prompt"],
+                           SERVE["new"], seed=12):
+        probe.submit(r)
+    probe.step()                                         # admit, warm
+    prof = row["profile"] = profile_ticks(cfg, params, probe)
+    print(json.dumps({"decode_tick_shares": {
+        "decode_ms_per_tick": row["decode_ms_per_tick"],
+        "attention": prof["attention_ms_per_tick"] / row["decode_ms_per_tick"],
+        "gemm": prof["gemm_ms_per_tick"] / row["decode_ms_per_tick"],
+        "unembed": prof["unembed_ms_per_tick"] / row["decode_ms_per_tick"],
+        "device_busy": prof["device_busy_ms_per_tick"]
+        / row["decode_ms_per_tick"]}}), flush=True)
+    return row
+
+
+def reclaim_phase(cfg, params):
+    """examples/spot_serving.py at full width: the engine is lost after a
+    few ticks, its unfinished requests go to a fresh engine, and every
+    request is served."""
+    from repro_torch.serve.engine import ServeEngine
+    new = 8
+    reqs = make_requests(cfg, 12, (64, 256), new, seed=31)
+    engine = ServeEngine(cfg, params, batch_slots=SERVE["slots"],
+                         max_seq=SERVE["max_seq"])
+    for r in reqs[:10]:
+        engine.submit(r)
+    for _ in range(10):
+        engine.step()
+    lost = [r for r in reqs[:10] if r.rid not in engine.done]
+    in_flight, queued = engine.busy_slots(), engine.queue_depth()
+    for r in lost:
+        r.output = None
+    del engine
+    engine2 = ServeEngine(cfg, params, batch_slots=SERVE["slots"],
+                          max_seq=SERVE["max_seq"])
+    for r in lost + reqs[10:]:
+        engine2.submit(r)
+    engine2.run_until_drained()
+    served = {r.rid for r in reqs if r.output is not None}
+    if served != set(range(len(reqs))) or any(
+            len(r.output) != new for r in reqs):
+        raise AssertionError("spot reclaim: not every request was served")
+    print(json.dumps({"spot_reclaim": True, "requests": len(reqs),
+                      "lost_in_flight": in_flight, "lost_queued": queued,
+                      "served_by_replacement": len(engine2.done)}),
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -361,18 +885,62 @@ def main() -> int:
     run_e2e("diurnal-2k-3schedd-fairshare", diurnal_day(2_000, seed=11),
             mods, schedds=3, fairshare=True)
 
-    # the kernel line: timed at the largest problem the 10k day solved
+    # the water-fill's line: timed at the largest problem the 10k day solved
     p, kw = largest
     row = check_case("main-path-largest", p, budget=kw.get("budget"),
                      active=kw.get("active"), plain_reps=3, **check)
-    print(json.dumps({"kernels": [{
+    waterfill_line = {
         "name": "waterfill", "route": "cuda",
         "source": "src/repro_torch/kernels/waterfill/waterfill.cu",
         "replaces": "src/repro/kernels/waterfill/kernel.py:120",
         "launches": launches, "max_abs_err": row["max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}
+
+    # phase 5: build the flash-attention kernel
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.build import launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lib = fa.build()
+    print(f"built {lib.relative_to(ROOT)} in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if fa.build_log:
+        print(fa.build_log.strip(), flush=True)
+
+    # phase 6: the kernel against its plain version, timed at the serving
+    # shapes
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shapes = flash_phase(fa, dev)
+
+    # phase 7: the model at full width
+    cfg = get_config(ARCH)
+    f32_cfg, f32_params, params = model_phase(cfg, dev)
+    engine_equal_phase(f32_cfg, f32_params)
+    del f32_params
+    torch.cuda.empty_cache()
+
+    # phase 8: serving, the main path, then the spot reclaim
+    served = serve_phase(cfg, params, launch_counts)
+    reclaim_phase(cfg, params)
+    decode = shapes[-1]
+    flash_line = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:136",
+        "launches": served["flash_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in shapes),
+        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+        "library_ms": decode["library_ms"],
+        "shapes": [{k: r[k] for k in (
+            "flash_case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")} for r in shapes]}
+    print(json.dumps({"kernels": [waterfill_line, flash_line]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

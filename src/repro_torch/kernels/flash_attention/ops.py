@@ -1,0 +1,170 @@
+"""Attention entry point: the Hopper kernel for CUDA tensors, the plain
+PyTorch version for CPU tensors.
+
+`flash_attention` keeps the JAX package's signature and layouts
+(q (B, Sq, Hq, Dh), k/v (B, Skv, Hkv, Dh), int32 positions (B, S)).  On
+a CUDA tensor it checks dtype, shape, contiguity, alignment and device,
+then launches `flash_attention.cu` on the current stream, or raises; on
+a CPU tensor, and only there, it runs `ref.attention_reference`.
+
+The CUDA source is built at first use by `repro_torch.kernels.build`
+(nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
+headers).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import build_library, launch_counts
+from repro_torch.kernels.flash_attention.ref import (
+    NEG_INF, attention_reference,
+)
+
+SOURCE = Path(__file__).with_name("flash_attention.cu")
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128)
+_MAX_GROUP = 32                 # query heads per kv head (rows per block)
+_MAX_GRID_YZ = 65535
+_lib: ctypes.CDLL | None = None
+#: the opt-in dynamic shared-memory limit of each device set up so far
+_max_smem: dict[int, int] = {}
+#: nvcc's output (ptxas register and shared-memory report) of the build
+#: this process loaded, or None before the first build.
+build_log: str | None = None
+
+
+def build() -> Path:
+    """Compile `flash_attention.cu` unless this source and these flags
+    were built before; returns the shared library's path."""
+    global build_log
+    out, log = build_library(SOURCE, NVCC_FLAGS)
+    if log is not None:
+        build_log = log
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_launch.argtypes = [
+            i, i, i, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, f, f, vp]
+        lib.flash_attention_launch.restype = i
+        lib.flash_attention_smem.argtypes = [i, i, i]
+        lib.flash_attention_smem.restype = i
+        lib.flash_attention_init.argtypes = [i]
+        lib.flash_attention_init.restype = i
+        lib.flash_attention_error_string.argtypes = [i]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _device_smem(lib: ctypes.CDLL, index: int) -> int:
+    """The device's opt-in shared-memory limit; the first call per device
+    also lets the kernel use all of it."""
+    if index not in _max_smem:
+        got = lib.flash_attention_init(index)
+        if got < 0:
+            raise RuntimeError("flash_attention kernel set-up failed: "
+                               + lib.flash_attention_error_string(-got)
+                               .decode())
+        _max_smem[index] = got
+    return _max_smem[index]
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device):
+    if t.dtype != dtype:
+        raise TypeError(f"flash_attention: {name} must be {dtype}, "
+                        f"got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"flash_attention: {name} must have shape "
+                         f"{tuple(shape)}, got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"flash_attention: {name} is on {t.device}, "
+                         f"expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"flash_attention: {name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Position-masked GQA attention (see ref.py for the semantics);
+    returns (B, Sq, Hq, Dh) in q's dtype."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, q_pos, kv_pos, causal=causal,
+                                   window=window, softcap=softcap,
+                                   scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dev, dt = q.device, q.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"flash_attention: float32 or bfloat16 only, "
+                        f"got {dt}")
+    if Dh not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim must be one of "
+                         f"{_HEAD_DIMS}, got {Dh}")
+    if Hkv <= 0 or Hq % Hkv or Hq // Hkv > _MAX_GROUP:
+        raise ValueError(f"flash_attention: Hq={Hq} must be a multiple of "
+                         f"Hkv={Hkv} with at most {_MAX_GROUP} per group")
+    if min(B, Sq, Skv) <= 0:
+        raise ValueError(f"flash_attention: empty shapes B={B} Sq={Sq} "
+                         f"Skv={Skv}")
+    if max(B, Hkv) > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: B={B} and Hkv={Hkv} must be at "
+                         f"most {_MAX_GRID_YZ} (the grid's y and z axes)")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window must be positive, "
+                         f"got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention: softcap must be positive, "
+                         f"got {softcap}")
+    _check("q", q, dt, (B, Sq, Hq, Dh), dev)
+    _check("k", k, dt, (B, Skv, Hkv, Dh), dev)
+    _check("v", v, dt, (B, Skv, Hkv, Dh), dev)
+    _check("q_pos", q_pos, torch.int32, (B, Sq), dev)
+    _check("kv_pos", kv_pos, torch.int32, (B, Skv), dev)
+    lib = _library()
+    need = lib.flash_attention_smem(Dh, Hq // Hkv, Sq)
+    if need > _device_smem(lib, dev.index):
+        raise ValueError(f"flash_attention: needs {need} B of shared "
+                         f"memory, the device allows "
+                         f"{_max_smem[dev.index]}")
+    out = torch.empty_like(q)
+    if scale is None:
+        scale = 1.0 / (Dh ** 0.5)
+    err = lib.flash_attention_launch(
+        dev.index, _DTYPES[dt], Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(), B, Sq, Skv, Hq,
+        Hkv, int(causal), window or 0, float(scale), float(softcap or 0.0),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_attention kernel launch failed: "
+                           + lib.flash_attention_error_string(err).decode())
+    launch_counts["flash_attention"] += 1
+    return out
+
+
+__all__ = ["flash_attention", "attention_reference", "NEG_INF", "build",
+           "launch_counts"]

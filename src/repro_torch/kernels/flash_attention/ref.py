@@ -1,0 +1,78 @@
+"""Plain PyTorch version of position-masked GQA attention.
+
+The same semantics as the JAX package's dense oracle
+(``repro/kernels/flash_attention/ref.py``), which the Hopper kernel
+(`flash_attention.cu`) is held against:
+
+  q:      (B, Sq, Hq, Dh)
+  k, v:   (B, Skv, Hkv, Dh)   with Hq % Hkv == 0 (GQA, group-major heads)
+  q_pos:  (B, Sq)  int32 absolute positions of the query tokens
+  kv_pos: (B, Skv) int32 absolute positions of cached kv tokens; -1 = empty
+
+  valid(b, i, j) =  kv_pos[b,j] >= 0
+                  & (not causal  or kv_pos[b,j] <= q_pos[b,i])
+                  & (window is None or q_pos[b,i] - kv_pos[b,j] < window)
+
+Softmax and the value sum are computed in float32 over the valid set;
+fully masked rows return 0.  Optional logit soft-capping:
+logits = cap * tanh(logits / cap).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                   causal: bool, window: int | None) -> torch.Tensor:
+    """Boolean mask (B, Sq, Skv); True = attend."""
+    qp = q_pos[:, :, None].to(torch.int32)
+    kp = kv_pos[:, None, :].to(torch.int32)
+    valid = kp >= 0
+    if causal:
+        valid = valid & (kp <= qp)
+    if window is not None:
+        valid = valid & ((qp - kp) < window)
+    return valid
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    B, Sq, Hq, Dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (Dh ** 0.5)
+
+    qf = q.float().reshape(B, Sq, Hkv, G, Dh)
+    kf, vf = k.float(), v.float()
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+
+    mask = attention_mask(q_pos, kv_pos, causal=causal,
+                          window=window)[:, None, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    # guard fully masked rows: their max is NEG_INF; shift to avoid NaN
+    m = torch.clamp(m, min=NEG_INF / 2)
+    p = torch.where(mask, torch.exp(logits - m), 0.0)
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+    return out.reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+__all__ = ["NEG_INF", "attention_mask", "attention_reference"]

@@ -8,36 +8,25 @@ On a CUDA tensor it launches `waterfill.cu` on the current stream, or
 raises; on a CPU tensor, and only there, it runs
 `ref.waterfill_reference` over the same rows.
 
-The CUDA source is compiled at first use with ``nvcc`` into a plain-C
-shared library under ``build/repro_torch/`` at the repository root
-(named after a hash of the source and flags, so an edit rebuilds) and
-bound with ctypes: no PyTorch headers, so the build takes seconds.
-A failed build raises with nvcc's output.
+The CUDA source is built at first use by `repro_torch.kernels.build`
+(nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
+headers).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
 from repro_torch.core.matchmaker.base import FIT_EPS
+from repro_torch.kernels.build import build_library, launch_counts
 from repro_torch.kernels.waterfill.ref import waterfill_reference
 
 SOURCE = Path(__file__).with_name("waterfill.cu")
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC")
-
-#: Kernel launches since the count was last reset, by kernel name.  Only
-#: the CUDA branch of a wrapper adds to it, once per launch.
-launch_counts = {"waterfill": 0}
 
 _DTYPES = {torch.float64: 0, torch.float32: 1}
 _WARP_TOTALS_BYTES = 2 * 32 * 8       # the kernel's static shared memory
@@ -49,37 +38,13 @@ _max_smem: dict[int, int] = {}
 build_log: str | None = None
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the water-fill kernel is built from source")
-
-
 def build() -> Path:
     """Compile `waterfill.cu` unless this source and these flags were
     built before; returns the shared library's path."""
     global build_log
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"waterfill-{tag}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        tmp_out = Path(tmp) / out.name
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_out), str(SOURCE)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE.name} "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
-        build_log = proc.stdout + proc.stderr
-        os.replace(tmp_out, out)       # atomic: concurrent builds agree
+    out, log = build_library(SOURCE, NVCC_FLAGS)
+    if log is not None:
+        build_log = log
     return out
 
 

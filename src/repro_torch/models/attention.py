@@ -1,0 +1,157 @@
+"""GQA attention block: projections, RoPE, QK-norm, KV caches, windows.
+
+The port of the JAX package's ``models/attention.py`` for self-attention.
+The (q, k, v) -> o core is `kernels.flash_attention.flash_attention`:
+the Hopper kernel on CUDA tensors, the plain version on CPU tensors.
+Everything is position-driven, so the same code covers the full-sequence
+forward, prefill and rolling-window decode.
+
+KV cache layout per attention layer (stacked over the scan axis by the
+stack):
+  k:   (B, C, Hkv, Dh)    C = capacity (full seq len, or window for local layers)
+  v:   (B, C, Hkv, Dh)
+  pos: (B, C) int32       absolute position held in each slot; -1 = empty
+
+Rolling-window layers write slot = position % C; global layers slot =
+position.  RoPE is applied before caching, so cached keys never need
+re-rotation.  Unlike the reference, whose arrays are immutable,
+`cache_fill` writes the cache in place (and returns it), which saves a
+copy of the whole cache per layer and token.
+
+Not ported here: cross-attention (whisper; ROADMAP Queue 1 item 11's
+encoder-decoder part) and sequence-parallel attention under a mesh
+(Queue 1 item 14).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    apply_linear, apply_rmsnorm, apply_rope, init_linear,
+)
+from repro_torch.models.param import Init, torch_dtype
+
+_NO_CROSS = ("cross-attention is not ported yet (ROADMAP Queue 1 item 11: "
+             "the encoder-decoder model comes with a later slice)")
+
+
+def init_attention(init: Init, cfg: ModelConfig) -> dict:
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt = cfg.param_dtype
+    p = {
+        "wq": init_linear(init, d, H * Dh, dt, bias=cfg.qkv_bias),
+        "wk": init_linear(init, d, Hkv * Dh, dt, bias=cfg.qkv_bias),
+        "wv": init_linear(init, d, Hkv * Dh, dt, bias=cfg.qkv_bias),
+        "wo": init_linear(init, H * Dh, d, dt),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": init.ones((Dh,), dt)}
+        p["k_norm"] = {"scale": init.ones((Dh,), dt)}
+    return p
+
+
+def _project_qkv(p: dict, cfg: ModelConfig, xq: torch.Tensor,
+                 xkv: torch.Tensor, *, rope_on: bool,
+                 q_positions: torch.Tensor, kv_positions: torch.Tensor):
+    B, Sq, _ = xq.shape
+    Skv = xkv.shape[1]
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+    q = apply_linear(p["wq"], xq).reshape(B, Sq, H, Dh)
+    k = apply_linear(p["wk"], xkv).reshape(B, Skv, Hkv, Dh)
+    v = apply_linear(p["wv"], xkv).reshape(B, Skv, Hkv, Dh)
+    if cfg.qk_norm:
+        q = apply_rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = apply_rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    if rope_on:
+        q = apply_rope(q, q_positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
+    return q, k, v
+
+
+def default_positions(B: int, S: int, device) -> torch.Tensor:
+    """(B, S) int32 positions 0..S-1, contiguous (the kernel's layout)."""
+    return torch.arange(S, dtype=torch.int32,
+                        device=device).expand(B, S).contiguous()
+
+
+def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                 rope_on: bool = True, window: int | None = None,
+                 causal: bool = True, positions: torch.Tensor | None = None,
+                 kv_ctx: torch.Tensor | None = None,
+                 return_kv: bool = False):
+    """Full-sequence self-attention (forward / prefill).  With
+    return_kv=True returns (out, (k, v)) for cache filling -- k is
+    post-RoPE, matching the decode path's cache convention."""
+    if kv_ctx is not None:
+        raise NotImplementedError(_NO_CROSS)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = default_positions(B, S, x.device)
+    positions = positions.to(torch.int32).contiguous()
+    q, k, v = _project_qkv(p, cfg, x, x, rope_on=rope_on,
+                           q_positions=positions, kv_positions=positions)
+    o = flash_attention(q, k, v, positions, positions, causal=causal,
+                        window=window, softcap=cfg.attn_logit_softcap)
+    out = apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.d_head))
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# KV-cache decode path
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, *,
+                  device: torch.device) -> dict:
+    Hkv, Dh = cfg.n_kv_heads, cfg.d_head
+    dt = torch_dtype(dtype)
+    return {
+        "k": torch.zeros((batch, capacity, Hkv, Dh), dtype=dt, device=device),
+        "v": torch.zeros((batch, capacity, Hkv, Dh), dtype=dt, device=device),
+        "pos": torch.full((batch, capacity), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def cache_fill(cache: dict, k: torch.Tensor, v: torch.Tensor,
+               positions: torch.Tensor) -> dict:
+    """Writes keys/values in place at slot = position % capacity (exact
+    for global layers, rolling for local windows) and returns the cache.
+    When one write covers more positions than the cache holds, only the
+    last C are written: later positions overwrite earlier slots, as the
+    window semantics and the reference's scatter have it.  One indexed
+    write serves both of the reference's forms (its masked update for
+    B = S = 1 and its scatter)."""
+    C = cache["k"].shape[1]
+    if positions.shape[1] > C:
+        k, v, positions = k[:, -C:], v[:, -C:], positions[:, -C:]
+    slots = (positions % C).long()
+    bidx = torch.arange(k.shape[0], device=k.device)[:, None]
+    cache["k"][bidx, slots] = k.to(cache["k"].dtype)
+    cache["v"][bidx, slots] = v.to(cache["v"].dtype)
+    cache["pos"][bidx, slots] = positions.to(torch.int32)
+    return cache
+
+
+def attn_decode(p: dict, cfg: ModelConfig, x_t: torch.Tensor, cache: dict,
+                lengths: torch.Tensor, *, rope_on: bool = True,
+                window: int | None = None, cross: bool = False):
+    """One decode step: x_t (B, 1, d_model) at positions ``lengths``
+    (B,).  Returns (out, cache), the cache updated in place."""
+    if cross:
+        raise NotImplementedError(_NO_CROSS)
+    B = x_t.shape[0]
+    q_positions = lengths[:, None].to(torch.int32).contiguous()
+    q, k_t, v_t = _project_qkv(p, cfg, x_t, x_t, rope_on=rope_on,
+                               q_positions=q_positions,
+                               kv_positions=q_positions)
+    cache = cache_fill(cache, k_t, v_t, q_positions)
+    o = flash_attention(q, cache["k"], cache["v"], q_positions, cache["pos"],
+                        causal=True, window=window,
+                        softcap=cfg.attn_logit_softcap)
+    o = o.reshape(B, 1, cfg.n_heads * cfg.d_head)
+    return apply_linear(p["wo"], o), cache

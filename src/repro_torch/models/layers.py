@@ -1,0 +1,178 @@
+"""Core layer primitives: norms, linears, embeddings, RoPE, MLPs.
+
+The port of the JAX package's ``models/layers.py``: each ``init_*``
+returns a dict of tensors drawn by an `Init`, each ``apply_*`` reads the
+same dict.  The arithmetic follows the reference step for step:
+
+  * norms, RoPE and the MLP's activation run in float32 and cast back to
+    the input dtype;
+  * a linear layer casts its (float32-accumulated) product to the input
+    dtype *before* adding the bias;
+  * the MLP's up and gate products, and the unembedding's logits, stay in
+    float32 (the reference's ``preferred_element_type=float32``);
+  * LayerNorm uses the population variance; ``gelu`` is the tanh
+    approximation (``jax.nn.gelu``'s default);
+  * RoPE rotates interleaved pairs ``(x[..., 0::2], x[..., 1::2])`` with
+    frequencies computed in float64 by numpy, then cast to float32.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.param import Init
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with float32 products and accumulation, returned in
+    float32 whatever the inputs' dtype."""
+    if x.dtype == torch.float32:
+        return x @ w.float()
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(init: Init, d: int, dtype) -> dict:
+    return {"scale": init.ones((d,), dtype)}
+
+
+def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(init: Init, d: int, dtype) -> dict:
+    return {"scale": init.ones((d,), dtype), "bias": init.zeros((d,), dtype)}
+
+
+def apply_layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def init_norm(init: Init, kind: str, d: int, dtype) -> dict:
+    if kind == "layernorm":
+        return init_layernorm(init, d, dtype)
+    return init_rmsnorm(init, d, dtype)
+
+
+def apply_norm(kind: str, p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    if kind == "layernorm":
+        return apply_layernorm(p, x, eps)
+    return apply_rmsnorm(p, x, eps)
+
+
+# ---------------------------------------------------------------------------
+# Linear / embedding
+# ---------------------------------------------------------------------------
+
+def init_linear(init: Init, d_in: int, d_out: int, dtype, *,
+                bias: bool = False) -> dict:
+    p = {"w": init.dense((d_in, d_out), dtype, fan_in=d_in)}
+    if bias:
+        p["b"] = init.zeros((d_out,), dtype)
+    return p
+
+
+def apply_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    # a product in x's dtype is the float32-accumulated product cast to
+    # it, which is what the reference computes before the bias
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def init_embedding(init: Init, vocab: int, d: int, dtype) -> dict:
+    return {"table": init.embed((vocab, d), dtype)}
+
+
+def apply_embedding(p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def apply_unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: logits = x @ table^T (float32 logits)."""
+    return matmul_f32(x, p["table"].T)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(d_head: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, d_head, 2, dtype=np.float64) / d_head))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(d_head: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The float32 frequencies on ``device``, made once: the reference's
+    jit folds them into a constant, and a copy from the host per call
+    would synchronise the stream twice per layer."""
+    return torch.tensor(rope_frequencies(d_head, theta), dtype=torch.float32,
+                        device=device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate pairs (x[..., ::2], x[..., 1::2]).  x: [..., seq, heads,
+    d_head], positions: broadcastable to [..., seq]."""
+    freqs = _rope_freqs(x.shape[-1], float(theta), x.device)
+    angles = positions[..., :, None].float() * freqs     # [..., S, d/2]
+    cos = torch.cos(angles)[..., :, None, :]             # over heads
+    sin = torch.sin(angles)[..., :, None, :]
+    x1 = x[..., 0::2].float()
+    x2 = x[..., 1::2].float()
+    r1 = x1 * cos - x2 * sin
+    r2 = x1 * sin + x2 * cos
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward blocks
+# ---------------------------------------------------------------------------
+
+def init_mlp(init: Init, d_model: int, d_ff: int, dtype, *,
+             gated: bool = True) -> dict:
+    p = {
+        "up": init.dense((d_model, d_ff), dtype),
+        "down": init.dense((d_ff, d_model), dtype, fan_in=d_ff),
+    }
+    if gated:
+        p["gate"] = init.dense((d_model, d_ff), dtype)
+    return p
+
+
+def _activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu(x)
+    raise ValueError(f"unknown activation {name}")
+
+
+def apply_mlp(p: dict, x: torch.Tensor, *, gated: bool = True,
+              act: str = "silu") -> torch.Tensor:
+    up = matmul_f32(x, p["up"])
+    if gated:
+        h = _activation(act, matmul_f32(x, p["gate"])) * up
+    else:
+        h = _activation(act, up)
+    return h.to(x.dtype) @ p["down"].to(x.dtype)

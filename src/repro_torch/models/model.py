@@ -1,0 +1,164 @@
+"""Top-level model: embeddings + stack + prefill/decode entry points.
+
+The port of the JAX package's ``models/model.py`` for token-only
+decoders (the dense family).  Batch conventions:
+  tokens : (B, S)     token ids (int)
+
+The model's parameters live on one device, chosen when they are made:
+`init_model` defaults to cuda and raises without a GPU unless the caller
+passes ``device="cpu"``, which runs every kernel's plain version.  The
+other entry points follow the parameters' device.
+
+Not on this slice: ``loss_fn`` and training (ROADMAP Queue 1 item 12),
+the encoder of enc-dec models and the VLM patch prefix (item 11).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import transformer as tfm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    apply_embedding, apply_norm, apply_unembed, init_embedding, init_norm,
+    matmul_f32,
+)
+from repro_torch.models.param import Init, PyTree, torch_dtype
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """cuda unless the caller says otherwise; raises when cuda is asked
+    for (or left as the default) and there is no GPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the model runs its attention kernel on a CUDA device and none "
+            "is available; pass device='cpu' to run the plain PyTorch "
+            "versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _check_family(cfg: ModelConfig):
+    tfm.slot_specs(cfg)             # refuses SSM mixers and MoE FFNs
+    if cfg.encoder is not None or cfg.frontend is not None or not cfg.rope:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder, the VLM prefix and absolute position "
+            f"embeddings are not ported yet (ROADMAP Queue 1 item 11)")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def init_model(cfg: ModelConfig, *, seed: int = 0,
+               device: str | torch.device | None = None) -> PyTree:
+    """Random parameters drawn from a ``torch.Generator`` seeded with
+    ``seed`` on ``device`` (cuda by default)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    init = Init(gen, dev)
+    p = {
+        "embed": init_embedding(init, cfg.vocab_size, cfg.d_model,
+                                cfg.param_dtype),
+        "stack": tfm.init_stack(init, cfg),
+        "final_norm": init_norm(init, cfg.norm, cfg.d_model, cfg.param_dtype),
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = {"w": init.dense((cfg.d_model, cfg.vocab_size),
+                                        cfg.param_dtype)}
+    return p
+
+
+def params_device(params: PyTree) -> torch.device:
+    return params["embed"]["table"].device
+
+
+# ---------------------------------------------------------------------------
+# Helpers
+# ---------------------------------------------------------------------------
+
+def _unembed(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """float32 logits."""
+    if cfg.tie_embeddings:
+        return apply_unembed(params["embed"], x)
+    return matmul_f32(x, params["unembed"]["w"])
+
+
+def _input_embeds(params: PyTree, cfg: ModelConfig, batch: dict
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x (B,S,d), positions (B,S)) for a token-only batch."""
+    _check_family(cfg)
+    tokens = batch["tokens"].to(params_device(params))
+    B, S = tokens.shape
+    x = apply_embedding(params["embed"], tokens)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S).contiguous()
+    return x.to(torch_dtype(cfg.activation_dtype)), positions
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
+            remat: str = "none", unroll: bool = False) -> torch.Tensor:
+    """Returns logits (B, S, vocab) float32."""
+    x, positions = _input_embeds(params, cfg, batch)
+    x = tfm.stack_forward(params["stack"], cfg, x, positions=positions,
+                          causal=True, remat=remat, unroll=unroll)
+    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    return _unembed(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
+               device: str | torch.device | None = None) -> PyTree:
+    _check_family(cfg)
+    return tfm.init_stack_cache(cfg, batch, seq_len,
+                                torch_dtype(cfg.activation_dtype),
+                                device=resolve_device(device))
+
+
+@torch.no_grad()
+def prefill(params: PyTree, cfg: ModelConfig, batch: dict, cache: PyTree
+            ) -> tuple[torch.Tensor, PyTree, torch.Tensor]:
+    """Processes the prompt, fills the cache (in place).  Returns
+    (last_logits (B, V) float32, cache, lengths (B,) int32)."""
+    x, positions = _input_embeds(params, cfg, batch)
+    x, cache = tfm.stack_prefill(params["stack"], cfg, x, cache,
+                                 positions=positions)
+    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    logits = _unembed(params, cfg, x[:, -1, :])
+    lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
+                         device=x.device)
+    return logits, cache, lengths
+
+
+@torch.no_grad()
+def decode_step(params: PyTree, cfg: ModelConfig, tokens_t: torch.Tensor,
+                cache: PyTree, lengths: torch.Tensor
+                ) -> tuple[torch.Tensor, PyTree, torch.Tensor]:
+    """One token per sequence.  tokens_t: (B, 1).  Returns (logits (B, V)
+    float32, cache (updated in place), new lengths)."""
+    _check_family(cfg)
+    dev = params_device(params)
+    x = apply_embedding(params["embed"], tokens_t.to(dev))
+    x = x.to(torch_dtype(cfg.activation_dtype))
+    x, cache = tfm.stack_decode(params["stack"], cfg, x, cache,
+                                lengths.to(dev))
+    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    logits = _unembed(params, cfg, x[:, 0, :])
+    return logits, cache, lengths.to(dev) + 1
+
+
+__all__ = ["init_model", "init_cache", "forward", "prefill", "decode_step",
+           "resolve_device", "params_device"]

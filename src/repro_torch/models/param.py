@@ -1,0 +1,115 @@
+"""Parameter initialisers, and the loader that carries the JAX package's
+weights across.
+
+Parameters are plain nested dicts of tensors with the JAX package's tree
+paths and layouts: linear weights are stored (d_in, d_out), and every
+leaf of the layer stack carries a leading ``n_scan`` axis.  `Init` draws
+them with the reference's distributions from an explicit
+``torch.Generator`` on an explicit device:
+
+  * matmul weights: truncated normal in [-2, 2] times ``1/sqrt(fan_in)``;
+  * embeddings: normal(0, 1);
+  * zeros and ones.
+
+Values are drawn in float32 and cast to the parameter dtype, as
+``materialize`` does.  JAX's random bits cannot be reproduced, so
+parity tests load the reference's own arrays with
+`params_from_reference` instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+PyTree = Any
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64}
+
+
+def torch_dtype(name: str | torch.dtype) -> torch.dtype:
+    if isinstance(name, torch.dtype):
+        return name
+    if name not in _DTYPES:
+        raise ValueError(f"unknown dtype {name!r}; known: {tuple(_DTYPES)}")
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class Init:
+    """Draws parameters of shape ``lead + shape`` on ``device`` from
+    ``generator`` (a generator of that device)."""
+
+    generator: torch.Generator
+    device: torch.device
+    lead: tuple[int, ...] = ()
+
+    def stacked(self, n: int) -> "Init":
+        """The same draws with a leading stack axis of ``n`` layers."""
+        return dataclasses.replace(self, lead=(n, *self.lead))
+
+    def _empty(self, shape) -> torch.Tensor:
+        return torch.empty((*self.lead, *shape), dtype=torch.float32,
+                           device=self.device)
+
+    def dense(self, shape: tuple[int, ...], dtype, *,
+              fan_in: int | None = None) -> torch.Tensor:
+        """Truncated-normal matmul weight with 1/sqrt(fan_in) scaling."""
+        if fan_in is None:
+            fan_in = shape[0]
+        stddev = 1.0 / math.sqrt(max(fan_in, 1))
+        w = torch.nn.init.trunc_normal_(self._empty(shape), 0.0, 1.0, -2.0,
+                                        2.0, generator=self.generator)
+        return (w * stddev).to(torch_dtype(dtype))
+
+    def embed(self, shape: tuple[int, ...], dtype) -> torch.Tensor:
+        w = self._empty(shape).normal_(generator=self.generator)
+        return w.to(torch_dtype(dtype))
+
+    def zeros(self, shape: tuple[int, ...], dtype) -> torch.Tensor:
+        return torch.zeros((*self.lead, *shape), dtype=torch_dtype(dtype),
+                           device=self.device)
+
+    def ones(self, shape: tuple[int, ...], dtype) -> torch.Tensor:
+        return torch.ones((*self.lead, *shape), dtype=torch_dtype(dtype),
+                          device=self.device)
+
+
+def _leaf_tensor(arr: np.ndarray) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":        # ml_dtypes' bfloat16
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True))
+
+
+def params_from_reference(tree: PyTree, *,
+                          device: str | torch.device) -> PyTree:
+    """Loads the JAX package's parameter tree into the port.
+
+    ``tree`` is ``materialize(init_model(cfg), key)`` with every leaf
+    converted to a numpy array (``jax.tree_util.tree_map(np.asarray,
+    params)``; bfloat16 leaves arrive as ml_dtypes' bfloat16).  The tree
+    paths are kept as they are (``embed.table``,
+    ``stack.slot{s}.{norm1,mixer.{wq,wk,wv,wo}.{w,b},q_norm,k_norm,
+    norm2,ffn.{up,gate,down}}``, ``final_norm``), and so are the layouts:
+    each stack leaf keeps its leading ``n_scan`` axis, and linear
+    weights stay (d_in, d_out), which is the layout the port's layers
+    read, so nothing is transposed."""
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device=device)
+                for k, v in tree.items()}
+    return _leaf_tensor(tree).to(device)
+
+
+def param_count(tree: PyTree) -> int:
+    if isinstance(tree, dict):
+        return sum(param_count(v) for v in tree.values())
+    return tree.numel()
+
+
+__all__ = ["Init", "params_from_reference", "param_count", "torch_dtype"]

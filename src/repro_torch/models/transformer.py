@@ -1,0 +1,234 @@
+"""Layer-stack composition: pre-norm blocks looped over depth.
+
+The port of the JAX package's ``models/transformer.py`` for the dense
+family (mixer ``attn``, ffn ``dense``).  Parameters keep the reference's
+structure, ``{"slot0": stacked, ..., "slot{p-1}": stacked}`` with each
+leaf stacked over ``n_scan = n_layers // p``, and the reference's
+``lax.scan`` over depth becomes a Python loop over the stack axis.
+
+Decode and prefill thread per-layer caches the same way (attention slots
+carry {k, v, pos}); here the caches are written in place, layer by layer,
+through views of the stacked cache tensors.
+
+Not on this slice, and refused with NotImplementedError: SSM mixers
+(ROADMAP Queue 1 item 9), MoE FFNs (item 10), cross-attention (item 11),
+and ``remat``/``unroll``, which only matter to training (item 12) and to
+the dry-run's cost analysis (item 15).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    apply_mlp, apply_norm, init_mlp, init_norm,
+)
+from repro_torch.models.param import Init
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
+                               f"item {item})")
+
+
+# ---------------------------------------------------------------------------
+# Static per-slot layer description
+# ---------------------------------------------------------------------------
+
+class SlotSpec:
+    """Static description of sublayer slot `s` of the period."""
+
+    def __init__(self, cfg: ModelConfig, slot: int, *, cross: bool = False):
+        self.slot = slot
+        self.mixer = cfg.mixer_kind(slot)
+        self.ffn = cfg.ffn_kind(slot)
+        self.cross = cross
+        self.rope_on = cfg.layer_uses_rope(slot)
+        if self.mixer == "attn":
+            if cfg.attn_window is not None and not cfg.layer_uses_global_attn(slot):
+                self.window = cfg.attn_window
+            else:
+                self.window = None
+        else:
+            self.window = None
+
+    def cache_capacity(self, cfg: ModelConfig, seq_len: int) -> int:
+        if self.window is not None:
+            return min(self.window, seq_len)
+        return seq_len
+
+
+def slot_specs(cfg: ModelConfig, *, cross: bool = False) -> list[SlotSpec]:
+    """The period's slot specs; raises for the kinds this slice does not
+    run."""
+    if cross:
+        raise _not_ported("cross-attention", "11")
+    specs = [SlotSpec(cfg, s) for s in range(cfg.period)]
+    for spec in specs:
+        if spec.mixer != "attn":
+            raise _not_ported(f"mixer {spec.mixer!r} ({cfg.name})", "9")
+        if spec.ffn != "dense":
+            raise _not_ported(f"ffn {spec.ffn!r} ({cfg.name})", "10")
+    return specs
+
+
+def _check_modes(*, remat: str = "none", unroll: bool = False):
+    if remat != "none":
+        raise _not_ported(f"remat={remat!r} (training)", "12")
+    if unroll:
+        raise _not_ported("unroll=True (the dry-run's cost analysis)", "15")
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked tree: views, so cache writes land in the
+    stacked tensors."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Single block init/apply
+# ---------------------------------------------------------------------------
+
+def init_block(init: Init, cfg: ModelConfig, spec: SlotSpec) -> dict:
+    d, dt = cfg.d_model, cfg.param_dtype
+    return {
+        "norm1": init_norm(init, cfg.norm, d, dt),
+        "mixer": attn.init_attention(init, cfg),
+        "norm2": init_norm(init, cfg.norm, d, dt),
+        "ffn": init_mlp(init, d, cfg.d_ff, dt, gated=cfg.gated_mlp),
+    }
+
+
+def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+    return x + apply_mlp(p["ffn"], h, gated=cfg.gated_mlp, act=cfg.act)
+
+
+def apply_block(p: dict, cfg: ModelConfig, spec: SlotSpec, x: torch.Tensor,
+                *, positions: torch.Tensor, causal: bool) -> torch.Tensor:
+    """Full-sequence block."""
+    h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    x = x + attn.attn_forward(p["mixer"], cfg, h, rope_on=spec.rope_on,
+                              window=spec.window, causal=causal,
+                              positions=positions)
+    return _ffn(p, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# Stack init
+# ---------------------------------------------------------------------------
+
+def init_stack(init: Init, cfg: ModelConfig) -> dict:
+    """Stacked params: {"slotS": leaf(n_scan, ...)}."""
+    stacked = init.stacked(cfg.n_scan)
+    return {f"slot{spec.slot}": init_block(stacked, cfg, spec)
+            for spec in slot_specs(cfg)}
+
+
+def _n_scan(params: dict) -> int:
+    leaf = params["slot0"]["norm1"]["scale"]
+    return leaf.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Stack forward (prefill-as-forward)
+# ---------------------------------------------------------------------------
+
+def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                  positions: torch.Tensor | None = None, causal: bool = True,
+                  cross: bool = False, remat: str = "none",
+                  unroll: bool = False) -> torch.Tensor:
+    _check_modes(remat=remat, unroll=unroll)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = attn.default_positions(B, S, x.device)
+    specs = slot_specs(cfg, cross=cross)
+    for i in range(_n_scan(params)):
+        for spec in specs:
+            x = apply_block(_layer(params[f"slot{spec.slot}"], i), cfg, spec,
+                            x, positions=positions, causal=causal)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Decode: caches threaded through the layer loop
+# ---------------------------------------------------------------------------
+
+def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, *,
+                     device: torch.device, cross: bool = False) -> dict:
+    """Cache tree matching the stacked params; each leaf has a leading
+    n_scan axis."""
+    n_scan = cfg.n_scan
+    out = {}
+    for spec in slot_specs(cfg, cross=cross):
+        cap = spec.cache_capacity(cfg, seq_len)
+        base = attn.init_kv_cache(cfg, batch, cap, dtype, device=device)
+        out[f"slot{spec.slot}"] = {"self": {
+            k: t[None].repeat(n_scan, *([1] * t.dim()))
+            for k, t in base.items()}}
+    return out
+
+
+def apply_block_decode(p: dict, cfg: ModelConfig, spec: SlotSpec,
+                       x_t: torch.Tensor, cache: dict,
+                       lengths: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg.norm, p["norm1"], x_t, cfg.norm_eps)
+    mix, _ = attn.attn_decode(p["mixer"], cfg, h, cache["self"], lengths,
+                              rope_on=spec.rope_on, window=spec.window)
+    return _ffn(p, cfg, x_t + mix)
+
+
+def stack_decode(params: dict, cfg: ModelConfig, x_t: torch.Tensor,
+                 cache: dict, lengths: torch.Tensor, *, cross: bool = False,
+                 unroll: bool = False) -> tuple[torch.Tensor, dict]:
+    """One token per row through every layer; the cache is updated in
+    place and returned."""
+    _check_modes(unroll=unroll)
+    specs = slot_specs(cfg, cross=cross)
+    for i in range(_n_scan(params)):
+        for spec in specs:
+            key = f"slot{spec.slot}"
+            x_t = apply_block_decode(_layer(params[key], i), cfg, spec, x_t,
+                                     _layer(cache[key], i), lengths)
+    return x_t, cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill: full-sequence forward that also fills the decode caches
+# ---------------------------------------------------------------------------
+
+def apply_block_prefill(p: dict, cfg: ModelConfig, spec: SlotSpec,
+                        x: torch.Tensor, cache: dict, *,
+                        positions: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    mix, (k, v) = attn.attn_forward(p["mixer"], cfg, h, rope_on=spec.rope_on,
+                                    window=spec.window, causal=True,
+                                    positions=positions, return_kv=True)
+    attn.cache_fill(cache["self"], k, v, positions)
+    return _ffn(p, cfg, x + mix)
+
+
+def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                  cache: dict, *, positions: torch.Tensor | None = None,
+                  cross: bool = False, unroll: bool = False
+                  ) -> tuple[torch.Tensor, dict]:
+    _check_modes(unroll=unroll)
+    B, S, _ = x.shape
+    if positions is None:
+        positions = attn.default_positions(B, S, x.device)
+    specs = slot_specs(cfg, cross=cross)
+    for i in range(_n_scan(params)):
+        for spec in specs:
+            key = f"slot{spec.slot}"
+            x = apply_block_prefill(_layer(params[key], i), cfg, spec, x,
+                                    _layer(cache[key], i),
+                                    positions=positions)
+    return x, cache
+
+
+__all__ = ["SlotSpec", "slot_specs", "init_block", "apply_block",
+           "init_stack", "stack_forward", "init_stack_cache",
+           "apply_block_decode", "stack_decode", "apply_block_prefill",
+           "stack_prefill"]

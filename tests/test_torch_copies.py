@@ -24,6 +24,13 @@ COPIES = [
       for m in ("__init__", "registry", "spans", "profiler")),
     *(f"workload/{m}.py" for m in ("trace", "generators", "replay",
                                    "compare")),
+    "models/__init__.py", "models/config.py",
+    "kernels/flash_attention/__init__.py",
+    *(f"configs/{m}.py" for m in (
+        "shapes", "granite_8b", "jamba_v0_1_52b",
+        "llama4_maverick_400b_a17b", "llama4_scout_17b_a16e",
+        "llava_next_mistral_7b", "mamba2_1_3b", "qwen2_1_5b", "qwen3_32b",
+        "starcoder2_7b", "whisper_medium")),
 ]
 #: copies that differ from the reference, and how
 DIFFERING = {
@@ -32,13 +39,20 @@ DIFFERING = {
     "workload/__init__.py": "docstring: the command-line front end is not "
                             "ported yet",
     "core/matchmaker/base.py": "adds problem_from_reference at the end",
+    "configs/__init__.py": "no ShapeDtypeStruct input specs (only the "
+                           "dry-run reads them, and it is not ported)",
 }
 #: modules of the port with no reference counterpart to copy
 PORT_OWN = {
     "__init__.py", "core/matchmaker/__init__.py",
     "core/matchmaker/torch_backend.py", "kernels/__init__.py",
     "kernels/waterfill/__init__.py", "kernels/waterfill/ops.py",
-    "kernels/waterfill/ref.py",
+    "kernels/waterfill/ref.py", "kernels/build.py",
+    "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
+    "models/param.py", "models/layers.py", "models/attention.py",
+    "models/transformer.py", "models/model.py",
+    "serve/__init__.py", "serve/engine.py",
+    "launch/__init__.py", "launch/serve.py",
 }
 
 
@@ -87,3 +101,20 @@ def test_every_port_file_is_classified():
     known = set(COPIES) | set(DIFFERING) | PORT_OWN
     assert files == known, (f"unclassified: {sorted(files - known)}; "
                             f"missing: {sorted(known - files)}")
+
+
+def test_config_registry_is_the_reference_without_input_specs():
+    """configs/__init__.py keeps the reference's registry and
+    reduced_config verbatim and drops only the dry-run's input specs."""
+    def functions(text):
+        return {n.name: ast.get_source_segment(text, n)
+                for n in ast.parse(text).body
+                if isinstance(n, ast.FunctionDef)}
+
+    ref = functions(substituted("configs/__init__.py"))
+    port = functions((PORT / "configs/__init__.py").read_text())
+    specs = {"_text_len", "train_input_specs", "prefill_input_specs",
+             "decode_input_specs", "input_specs"}
+    assert set(ref) - specs == set(port)
+    for name in port:
+        assert port[name] == ref[name], name

@@ -1,14 +1,24 @@
-"""The water-fill kernel on the card (marker ``cuda``; skips without a
+"""The port's kernels on the card (marker ``cuda``; skips without a
 GPU).  Imports nothing of JAX, so it runs where only PyTorch is
 installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Each case builds the kernel's inputs through `TorchMatchmaker`, launches
-the kernel and holds it against the plain version on the same CUDA
-tensors (takes equal, free_after bit for bit), then holds the
-matchmaker's plan against the NumPy backend's.
+Water-fill: each case builds the kernel's inputs through
+`TorchMatchmaker`, launches the kernel and holds it against the plain
+version on the same CUDA tensors (takes equal, free_after bit for bit),
+then holds the matchmaker's plan against the NumPy backend's.
+
+Flash attention: the reference suite's eight cases, the fully masked
+rows and the rolling-window permutation, and qwen2-1.5b's serving shapes,
+each against the plain version in float32 on the same CUDA tensors, at
+the reference's tolerances (2e-5 for float32 inputs, 2e-2 for bfloat16).
+The cases, inputs and checks are chip_smoke.py's own, so the two cannot
+drift apart.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,8 +26,16 @@ import torch
 from repro_torch.core.matchmaker import (
     MatchProblem, NumpyMatchmaker, TorchMatchmaker,
 )
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.waterfill import launch_counts, waterfill
 from repro_torch.kernels.waterfill.ref import waterfill_reference
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import (  # noqa: E402
+    FLASH_CASES, FLASH_TOL, attention_inputs, check_fully_masked_rows,
+    check_rolling_window, serving_shapes,
+)
 
 pytestmark = pytest.mark.cuda
 R = 6
@@ -119,3 +137,58 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert torch.equal(bad["want"], args["want"])
     with pytest.raises(ValueError, match="contiguous"):
         waterfill(**bad)
+
+
+def assert_kernel_matches_plain(q, k, v, qp, kp, **kw):
+    before = launch_counts["flash_attention"]
+    out = flash_attention(q, k, v, qp, kp, **kw)
+    assert launch_counts["flash_attention"] == before + 1
+    ref = attention_reference(q.float(), k.float(), v.float(), qp, kp, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype and out.shape == q.shape
+    tol = FLASH_TOL[q.dtype]
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+    return out
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_equals_plain_version(cuda, case, dtype):
+    B, Sq, Skv, Hq, Hkv, Dh, causal, window, softcap = case
+    q, k, v, qp, kp = attention_inputs(0, B, Sq, Skv, Hq, Hkv, Dh, dtype,
+                                       cuda)
+    assert_kernel_matches_plain(q, k, v, qp, kp, causal=causal,
+                                window=window, softcap=softcap)
+
+
+@pytest.mark.parametrize("label,seed,B,Sq,Skv,lengths", serving_shapes())
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_qwen2_serving_shapes(cuda, label, seed, B, Sq, Skv,
+                                              lengths, dtype):
+    """Prefill and decode at qwen2-1.5b's attention widths (12 query
+    heads over 2 kv heads, d_head 128), with empty slots."""
+    q, k, v, qp, kp = attention_inputs(seed, B, Sq, Skv, 12, 2, 128, dtype,
+                                       cuda, lengths=lengths)
+    assert_kernel_matches_plain(q, k, v, qp, kp, causal=True)
+
+
+def test_flash_fully_masked_rows_give_zero(cuda):
+    check_fully_masked_rows(flash_attention, cuda)
+
+
+def test_flash_rolling_window_is_permutation_invariant(cuda):
+    check_rolling_window(flash_attention, cuda)
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, qp, kp = attention_inputs(4, 1, 4, 8, 2, 1, 32, torch.float32,
+                                       cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), k.half(), v.half(), qp, kp)
+    with pytest.raises(TypeError, match="q_pos"):
+        flash_attention(q, k, v, qp.long(), kp)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, torch.cat([k, k], dim=-1)[..., :32], v, qp, kp)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                        v[..., :16].contiguous(), qp, kp)

@@ -30,24 +30,30 @@ def test_every_port_module_imports_without_jax_or_reference():
     module, then chip_smoke; afterwards no jax* or repro.* module may be
     loaded and no kernel may have been launched."""
     mods = port_modules()
-    first = "repro_torch.kernels.waterfill.ops"
+    first = ["repro_torch.kernels.waterfill.ops",
+             "repro_torch.kernels.flash_attention.ops"]
     code = (
         "import importlib, json, sys\n"
-        f"for m in {json.dumps([first] + mods + ['chip_smoke'])}:\n"
+        f"for m in {json.dumps(first + mods + ['chip_smoke'])}:\n"
         "    importlib.import_module(m)\n"
-        "from repro_torch.kernels.waterfill import ops\n"
+        "from repro_torch.kernels.waterfill import ops as wf\n"
+        "from repro_torch.kernels.flash_attention import ops as fa\n"
+        "from repro_torch.kernels import build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(json.dumps({'bad': bad, 'launches': ops.launch_counts, "
-        "'built': ops.build_log is not None}))\n")
+        "print(json.dumps({'bad': bad, 'launches': build.launch_counts, "
+        "'built': [wf.build_log, fa.build_log, wf._lib, fa._lib] != "
+        "[None] * 4}))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res == {"bad": [], "launches": {"waterfill": 0}, "built": False}
-    assert len(mods) >= 30
+    assert res == {"bad": [], "launches": {"waterfill": 0,
+                                           "flash_attention": 0},
+                   "built": False}
+    assert len(mods) >= 55
 
 
 @pytest.mark.parametrize("path", SOURCES,
