@@ -5,18 +5,21 @@ Run from the repository root on a machine with the card:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package.  Phases, in
-order; any failure raises and exits non-zero (nothing is caught):
+order; any failure raises and exits non-zero (nothing is caught, and
+nothing falls back to the CPU or to a plain version):
 
   1. the card: name and power limit as nvidia-smi reports them;
-  2. build the water-fill kernel from the checkout's CUDA source;
-  3. the kernel against its plain PyTorch version on the card, on the
-     matchmaking tiers (10k/100k/1m jobs), a fractional-request problem,
-     a finite budget with an `active` mask, a drained pool, worker
-     counts 129/1000/1500/6000 (one and several lanes per thread, free
-     carry in shared and in device memory) and float32: takes equal and
-     free_after bitwise; the matchmaker's plan against the NumPy
-     backend's: takes equal, free_after within 1e-7.  Kernel time is
-     the median of CUDA-event timings, printed beside its bytes/operations
+  2. build every kernel from the checkout's CUDA sources, one nvcc per
+     source, all started together (water-fill, flash attention, SSD),
+     with ptxas' register and shared-memory report;
+  3. the water-fill kernel against its plain PyTorch version on the card,
+     on the matchmaking tiers (10k/100k/1m jobs), a fractional-request
+     problem, a finite budget with an `active` mask, a drained pool,
+     worker counts 129/1000/1500/6000 (one and several lanes per thread,
+     free carry in shared and in device memory) and float32: takes equal
+     and free_after bitwise; the matchmaker's plan against the NumPy
+     backend's: takes equal, free_after within 1e-7.  Kernel time is the
+     median of CUDA-event timings, printed beside its bytes/operations
      bound and beside the time of the step-floor probe (the kernel's
      scan-and-barrier skeleton alone, one step per cohort it works on);
   4. end to end: `run_policy` over the 10k-job diurnal day on the
@@ -25,30 +28,44 @@ order; any failure raises and exits non-zero (nothing is caught):
      and Fig 2/3 series, every job completed), then a 2k-job 3-schedd
      fair-share day the same way.  The kernel's launch count is read
      from each run;
-  5. build the flash-attention kernel from the checkout's CUDA source;
-  6. the kernel against its plain PyTorch version (float32) on the card:
-     the reference suite's eight cases in float32 and bfloat16, fully
-     masked rows, the rolling-window permutation, and qwen2-1.5b's
-     serving shapes (prefill B=1, Sq=Skv=512 and 2048; decode B=8, Sq=1
-     against the engine's 2048-slot cache) in float32 and in bfloat16,
-     the bfloat16 calls timed beside their bound, the plain version and
-     SDPA (a yardstick only);
-  7. qwen2-1.5b at full width (28 layers, random weights from a seeded
+  5. the flash-attention kernel against its plain PyTorch version
+     (float32) on the card: the reference suite's eight cases in float32
+     and bfloat16, fully masked rows, the rolling-window permutation, and
+     qwen2-1.5b's serving shapes (prefill B=1, Sq=Skv=512 and 2048;
+     decode B=8, Sq=1 against the engine's 2048-slot cache) in float32
+     and in bfloat16, the bfloat16 calls timed beside their bound, the
+     plain version and SDPA (a yardstick only);
+  6. qwen2-1.5b at full width (28 layers, random weights from a seeded
      generator): forward logits with the kernel against the same model
      with attention forced through the plain version, in float32 and in
      bfloat16; prefill of a prefix then token-by-token decode against the
      teacher-forced forward in float32; a float32 engine with the serving
      run's slots and cache gives the same greedy tokens with the kernel
      as with the plain version;
-  8. serving: `ServeEngine` in bfloat16 with 8 slots and a 2048-token
-     cache, 16 requests of 64-1024 prompt tokens and 32 new tokens each;
-     every request must finish, and the kernel's launches must equal 28 x
-     (prefill calls + decode ticks).  Then tokens/s, prefill ms, decode
-     ms per tick, and a `torch.profiler` pass over decode ticks (device
-     busy and idle share; attention, GEMM and unembedding device time;
-     launches and synchronisations per tick); then the spot reclaim of
-     examples/spot_serving.py at full width;
-  9. a JSON line per kernel, the card line, and the result line.
+  7. serving qwen2: `ServeEngine` in bfloat16 with 8 slots and a
+     2048-token cache, 16 requests of 64-1024 prompt tokens and 32 new
+     tokens each; every request must finish, and the flash kernel's
+     launches must equal 28 x (prefill calls + decode ticks).  Then
+     tokens/s, prefill ms, decode ms per tick, and a `torch.profiler`
+     pass over decode ticks (device busy and idle share; the kernel's,
+     GEMM and unembedding device time; launches and synchronisations per
+     tick); then the spot reclaim of examples/spot_serving.py at full
+     width;
+  8. the SSD kernel against its plain chunked version and the sequential
+     oracle on the card, y and the final state: the reference suite's
+     four cases in float32 (2e-3) and bfloat16 (5e-2), then mamba2-1.3b's
+     serving shapes (B=1, 64 heads of 64, d_state 128, one group, chunk
+     256; S = 512, 1024 and a ragged 777, with and without an initial
+     state) in both dtypes, the bfloat16 calls at S = 512 and 1024 timed
+     beside their bound and the plain version (no single PyTorch call
+     computes the scan, so there is no library yardstick);
+  9. mamba2-1.3b at full width (48 layers, random weights from a seeded
+     generator): the gates of phase 6 with the SSD scan forced through
+     its plain version in place of attention;
+ 10. serving mamba2 like phase 7 (same slots, requests and lengths); the
+     SSD kernel's launches must equal 48 x prefill calls (decode runs the
+     plain one-token update), then the decode-tick profile;
+ 11. a JSON line per kernel, the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -105,6 +122,23 @@ SERVE = dict(slots=8, max_seq=2048, requests=16, prompt=(64, 1024), new=32)
 # an attention output can move later layers by an ulp each
 GATE_F32 = 1e-4
 GATE_BF16 = 5e-2
+
+# the cases of tests/test_kernel_ssd.py: B, S, H, P, G, N, chunk, init
+SSD_CASES = [
+    (2, 512, 4, 64, 1, 128, 256, False),
+    (1, 300, 8, 32, 2, 64, 128, True),
+    (2, 64, 2, 64, 1, 32, 256, False),    # S < chunk
+    (1, 128, 4, 16, 4, 16, 32, True),     # many groups
+]
+# the reference suite's tolerances (atol and rtol), against the plain
+# version and the sequential oracle
+SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+SSD_ARCH = "mamba2-1.3b"
+# mamba2-1.3b's scan at the serving prefill: B, H, P, G, N, chunk, and
+# the prompt lengths (777 leaves a ragged last chunk)
+SSD_SERVING = dict(B=1, H=64, P=64, G=1, N=128, chunk=256,
+                   S=(512, 1024, 777))
+SSD_TIMED = (512, 1024)
 
 
 def build_problem(MatchProblem, jobs: int, C: int, W: int, seed: int = 0):
@@ -518,21 +552,177 @@ def flash_phase(fa, device):
 
 
 # ---------------------------------------------------------------------------
+# SSD (the Mamba2 scan)
+# ---------------------------------------------------------------------------
+
+def ssd_arrays(seed, B, S, H, P, G, N, init):
+    """The reference suite's `_mk` inputs as float32 numpy arrays: normal
+    x, dt = |normal| * 0.3 + 0.01, A = -(|normal| + 0.1), B and C normal
+    * 0.3, D normal, and with ``init`` an initial state |normal| * 0.1."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    x = rng.standard_normal((B, S, H, P)).astype(f32)
+    dt = (np.abs(rng.standard_normal((B, S, H))) * 0.3 + 0.01).astype(f32)
+    A = (-(np.abs(rng.standard_normal(H)) + 0.1)).astype(f32)
+    Bm = (rng.standard_normal((B, S, G, N)) * 0.3).astype(f32)
+    Cm = (rng.standard_normal((B, S, G, N)) * 0.3).astype(f32)
+    D = rng.standard_normal(H).astype(f32)
+    st = (np.abs(rng.standard_normal((B, H, P, N))) * 0.1).astype(f32) \
+        if init else None
+    return x, dt, A, Bm, Cm, D, st
+
+
+def ssd_inputs(seed, B, S, H, P, G, N, init, dtype, device):
+    """`ssd_arrays` as tensors on ``device``: x, B and C in ``dtype``, the
+    rest float32."""
+    x, dt, A, Bm, Cm, D, st = ssd_arrays(seed, B, S, H, P, G, N, init)
+
+    def t(a, to=torch.float32):
+        return None if a is None else torch.tensor(a, device=device).to(to)
+
+    return (t(x, dtype), t(dt), t(A), t(Bm, dtype), t(Cm, dtype), t(D),
+            t(st))
+
+
+def ssd_serving_cases():
+    """mamba2-1.3b's scan at the serving prefill's shapes: label, seed and
+    the case tuple, with and without an initial state."""
+    c = SSD_SERVING
+    return [(f"serving-S{S}{'-init' if init else ''}", 40 + S + init,
+             (c["B"], S, c["H"], c["P"], c["G"], c["N"], c["chunk"], init))
+            for S in c["S"] for init in (False, True)]
+
+
+def ssd_flops(S, chunk, H, P, N, B=1):
+    """The causal work of a chunked scan: per head and chunk of L steps,
+    the L(L+1)/2 (query, key) pairs' C.B and score.x products (2N and 2P
+    FLOPs each), and the inter-chunk output and state update (2PN each
+    per step)."""
+    Q = min(chunk, S)
+    total = 0
+    for t0 in range(0, S, Q):
+        L = min(Q, S - t0)
+        total += L * (L + 1) * (N + P) + 4 * L * P * N
+    return B * H * total
+
+
+def ssd_bound(x, dt, Bm, Cm, init, chunk):
+    """Least time for one call: x, dt, A, D, B and C per group, and the
+    initial state once in, y and the final state once out, at the HBM
+    rate; against the causal FLOPs (`ssd_flops`) at the tensor-core bf16
+    rate (float32 at the vector rate).  Returns (ms, bound by, bytes,
+    FLOPs)."""
+    Bsz, S, H, P = x.shape
+    N, item = Bm.shape[3], x.element_size()
+    state = Bsz * H * P * N * 4
+    nbytes = (2 * x.numel() * item + dt.numel() * 4 + 2 * H * 4
+              + (Bm.numel() + Cm.numel()) * item + state
+              + (state if init is not None else 0))
+    flops = ssd_flops(S, chunk, H, P, N, Bsz)
+    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes", nbytes, flops
+    return 1e3 * t_ops, "operations", nbytes, flops
+
+
+def check_ssd(label, so, case, seed, dtype, device, *, timed=False):
+    """Kernel vs the plain version and vs the sequential oracle on the
+    card, y and the final state at the reference suite's tolerance; with
+    ``timed``, CUDA-event medians of the kernel and the plain version
+    beside the bound."""
+    from repro_torch.kernels.ssd.ref import ssd_reference
+    B, S, H, P, G, N, chunk, init = case
+    x, dt, A, Bm, Cm, D, st = ssd_inputs(seed, B, S, H, P, G, N, init,
+                                         dtype, device)
+    y, fin = so.ssd(x, dt, A, Bm, Cm, D, chunk=chunk, initial_state=st)
+
+    def plain():
+        return so.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
+                              initial_state=st)
+
+    refs = {"plain": plain(),
+            "oracle": ssd_reference(x, dt, A, Bm, Cm, D, initial_state=st)}
+    torch.cuda.synchronize()
+    tol = SSD_TOL[dtype]
+    if y.dtype != dtype or y.shape != x.shape or fin.shape != (B, H, P, N):
+        raise AssertionError(f"{label}: output {y.dtype} {tuple(y.shape)}, "
+                             f"state {tuple(fin.shape)}")
+    if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())):
+        raise AssertionError(f"{label}: kernel output is not finite")
+    errs = {}
+    for name, (yr, fr) in refs.items():
+        for what, got, want in (("y", y, yr), ("state", fin, fr)):
+            err = (got.float() - want.float()).abs()
+            if bool((err > tol + tol * want.float().abs()).any()):
+                raise AssertionError(
+                    f"{label}: kernel {what} differs from the {name} version "
+                    f"by {float(err.max()):.3g} > {tol}")
+            errs[f"{what}_vs_{name}"] = float(err.max())
+    row = {"ssd_case": label, "dtype": str(dtype).split(".")[1],
+           "shape": list(case), "max_abs_err": errs["y_vs_plain"],
+           "errs": errs, "tol": tol}
+    if timed:
+        bound_ms, bound_by, nbytes, flops = ssd_bound(x, dt, Bm, Cm, st,
+                                                      chunk)
+        row.update(
+            ms=cuda_ms(lambda: so.ssd(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                      initial_state=st), KERNEL_REPS),
+            plain_ms=cuda_ms(plain, KERNEL_REPS), library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def ssd_phase(so, device):
+    """Every case of the reference suite in both dtypes, then mamba2's
+    serving shapes in both dtypes; the bfloat16 serving calls without an
+    initial state at SSD_TIMED lengths are timed.  Returns the timed
+    rows, then every serving row."""
+    for case in SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_ssd(f"case{case}", so, case, 0, dtype, device)
+    timed, rows = [], []
+    for label, seed, case in ssd_serving_cases():
+        for dtype in (torch.float32, torch.bfloat16):
+            t = (dtype == torch.bfloat16 and not case[-1]
+                 and case[1] in SSD_TIMED)
+            row = check_ssd(label, so, case, seed, dtype, device, timed=t)
+            rows.append(row)
+            if t:
+                timed.append(row)
+    return timed, rows
+
+
+# ---------------------------------------------------------------------------
 # the model and the serving engine at full width
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def plain_attention():
-    """Routes the model's attention through the plain version (the
-    comparison's other side); the kernel is back on exit."""
-    from repro_torch.kernels.flash_attention.ref import attention_reference
-    from repro_torch.models import attention as attn_mod
-    kernel = attn_mod.flash_attention
-    attn_mod.flash_attention = attention_reference
+def swapped(module, name, plain):
+    """Routes ``module.name`` through ``plain`` (the comparison's other
+    side); the kernel is back on exit."""
+    kernel = getattr(module, name)
+    setattr(module, name, plain)
     try:
         yield
     finally:
-        attn_mod.flash_attention = kernel
+        setattr(module, name, kernel)
+
+
+def plain_attention():
+    """The model's attention through the plain version."""
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    from repro_torch.models import attention as attn_mod
+    return swapped(attn_mod, "flash_attention", attention_reference)
+
+
+def plain_ssd():
+    """The model's SSD scan through the plain version."""
+    from repro_torch.kernels.ssd.ops import ssd_chunked
+    from repro_torch.models import ssm as ssm_mod
+    return swapped(ssm_mod, "ssd", ssd_chunked)
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -548,10 +738,12 @@ def gate(label, value, limit):
         raise AssertionError(f"{label}: {value:.3g} > {limit:.3g}")
 
 
-def model_phase(cfg, device, *, prompt_len=320, n_pre=256, seed=0):
-    """Kernel vs plain attention in the whole model at cfg's widths, and
-    prefill+decode vs forward; returns the float32 parameters for the
-    engine check."""
+def model_phase(cfg, device, *, plain=plain_attention, what="attention",
+                prompt_len=320, n_pre=256, seed=0):
+    """Kernel vs plain version (``plain``, of the model's ``what``) in
+    the whole model at cfg's widths, and prefill+decode vs forward;
+    returns the float32 config and parameters for the engine check, and
+    the bfloat16 parameters."""
     from repro_torch.models import model as model_lib
     toks = torch.tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, prompt_len)), device=device)
@@ -567,13 +759,12 @@ def model_phase(cfg, device, *, prompt_len=320, n_pre=256, seed=0):
                       "params": param_count(params),
                       "init_s": time.perf_counter() - t0}), flush=True)
     logits = model_lib.forward(params, f32, batch)
-    with plain_attention():
+    with plain():
         logits_plain = model_lib.forward(params, f32, batch)
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("float32 forward logits are not finite")
-    gate("f32 forward: kernel vs plain attention", rel_err(logits,
-                                                          logits_plain),
-         GATE_F32)
+    gate(f"{cfg.name} f32 forward: kernel vs plain {what}",
+         rel_err(logits, logits_plain), GATE_F32)
 
     cache = model_lib.init_cache(f32, 1, prompt_len + 16, device=device)
     step, cache, lengths = model_lib.prefill(
@@ -583,17 +774,18 @@ def model_phase(cfg, device, *, prompt_len=320, n_pre=256, seed=0):
         step, cache, lengths = model_lib.decode_step(
             params, f32, toks[:, s:s + 1], cache, lengths)
         worst = max(worst, rel_err(step, logits[:, s]))
-    gate(f"f32 prefill({n_pre}) + decode({prompt_len - n_pre}) vs forward",
-         worst, GATE_F32)
+    gate(f"{cfg.name} f32 prefill({n_pre}) + decode({prompt_len - n_pre}) "
+         f"vs forward", worst, GATE_F32)
     del logits, logits_plain, cache
 
     bf = model_lib.init_model(cfg, seed=seed, device=device)
     logits = model_lib.forward(bf, cfg, batch)
-    with plain_attention():
+    with plain():
         logits_plain = model_lib.forward(bf, cfg, batch)
-    gate("bf16 forward: kernel vs plain attention", rel_err(logits,
-                                                           logits_plain),
-         GATE_BF16)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("bfloat16 forward logits are not finite")
+    gate(f"{cfg.name} bf16 forward: kernel vs plain {what}",
+         rel_err(logits, logits_plain), GATE_BF16)
     return f32, params, bf
 
 
@@ -609,24 +801,26 @@ def outputs(engine) -> dict:
     return {i: r.output for i, r in engine.done.items()}
 
 
-def engine_equal_phase(cfg, params, *, n=12, new=8):
+def engine_equal_phase(cfg, params, *, plain=plain_attention, n=12, new=8):
     """The float32 engine, with the serving run's slots, cache and prompt
     lengths but fewer requests and tokens, gives the same greedy tokens
-    with the kernel as with attention forced through the plain version."""
+    with the kernel as with the model forced through the plain version."""
     from repro_torch.serve.engine import ServeEngine
     runs = []
-    for plain in (False, True):
+    for use_plain in (False, True):
         eng = ServeEngine(cfg, params, batch_slots=SERVE["slots"],
                           max_seq=SERVE["max_seq"])
         for r in make_requests(cfg, n, SERVE["prompt"], new, seed=21):
             eng.submit(r)
-        with plain_attention() if plain else contextlib.nullcontext():
+        with plain() if use_plain else contextlib.nullcontext():
             eng.run_until_drained()
         runs.append(outputs(eng))
     if runs[0] != runs[1] or len(runs[0]) != n:
-        raise AssertionError("float32 engine: greedy tokens differ between "
-                             "the kernel and the plain version")
-    print(json.dumps({"f32_engine_greedy_equal": True, "requests": n,
+        raise AssertionError(f"{cfg.name} float32 engine: greedy tokens "
+                             f"differ between the kernel and the plain "
+                             f"version")
+    print(json.dumps({"f32_engine_greedy_equal": True, "model": cfg.name,
+                      "requests": n,
                       "tokens": sum(len(o) for o in runs[0].values())}),
           flush=True)
 
@@ -660,13 +854,15 @@ class TimedModel:
             self.lib.prefill, self.lib.decode_step = saved
 
 
-def profile_ticks(cfg, params, engine, ticks=4):
+def profile_ticks(cfg, params, engine, ticks=4,
+                  kernel="flash_attention_kernel"):
     """`torch.profiler` over a few decode ticks of a full engine: the
     device's busy time against the host's wall (the idle share), the
-    flash kernel's, the GEMMs' and the unembedding's device time, the
-    kernels that take the most, and the runtime calls per tick.  The
-    profiler's own host cost inflates the wall; the unprofiled tick is
-    the serving run's ``decode_ms_per_tick``."""
+    device time of the port's ``kernel`` (None: the tick runs none), the
+    GEMMs' and the unembedding's, the kernels that take the most, and
+    the runtime calls per tick.  The profiler's own host cost inflates
+    the wall; the unprofiled tick is the serving run's
+    ``decode_ms_per_tick``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.models import model as model_lib
@@ -701,7 +897,7 @@ def profile_ticks(cfg, params, engine, ticks=4):
         return sum(e.self_device_time_total for e in events) / 1e3 / ticks
 
     busy = ms(device)
-    attention = ms(e for e in device if "flash_attention_kernel" in e.key)
+    port_kernel = ms(e for e in device if kernel and kernel in e.key)
     gemm = ms(e for e in device if "nvjet" in e.key or "gemm" in e.key)
     unembed_ms = sum(e.device_time_total for e in stats
                      if e.key == "unembed") / 1e3 / ticks
@@ -714,9 +910,9 @@ def profile_ticks(cfg, params, engine, ticks=4):
     row = {"ticks": ticks, "wall_ms_per_tick": wall_ms,
            "device_busy_ms_per_tick": busy,
            "device_idle_share": 1 - busy / wall_ms if busy else None,
-           "attention_ms_per_tick": attention,
+           "kernel": kernel, "kernel_ms_per_tick": port_kernel,
            "gemm_ms_per_tick": gemm, "unembed_ms_per_tick": unembed_ms,
-           "attention_share_of_busy": attention / busy if busy else None,
+           "kernel_share_of_busy": port_kernel / busy if busy else None,
            "kernels_per_tick": sum(e.count for e in device) / ticks,
            "aten_ops_per_tick": sum(e.count for e in stats
                                     if e.key.startswith("aten::")) / ticks,
@@ -729,9 +925,12 @@ def profile_ticks(cfg, params, engine, ticks=4):
     return row
 
 
-def serve_phase(cfg, params, launch_counts):
-    """The main path: `ServeEngine` at full width.  The kernel's count is
-    set to 0 just before the run and read just after."""
+def serve_phase(cfg, params, launch_counts, *, kernel="flash_attention",
+                expect=lambda e: e.prefill_calls + e.decode_ticks,
+                profile_kernel="flash_attention_kernel"):
+    """The main path: `ServeEngine` at full width.  Every count is set
+    to 0 just before the run and read just after; ``kernel``'s must be
+    n_layers x ``expect(engine)`` (the model calls that run it)."""
     from repro_torch.models import model as model_lib
     from repro_torch.serve.engine import ServeEngine
     reqs = make_requests(cfg, SERVE["requests"], SERVE["prompt"],
@@ -743,22 +942,23 @@ def serve_phase(cfg, params, launch_counts):
     timer = TimedModel(model_lib)
     torch.cuda.synchronize()
     with timer.on():
-        launch_counts["flash_attention"] = 0
+        for name in launch_counts:
+            launch_counts[name] = 0
         t0 = time.perf_counter()
         ticks = engine.run_until_drained()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = launch_counts["flash_attention"]
-    calls = engine.prefill_calls + engine.decode_ticks
+        counts = dict(launch_counts)
+    launches = counts[kernel]
     if len(engine.done) != len(reqs) or any(
             len(r.output) != SERVE["new"] for r in engine.done.values()):
-        raise AssertionError("serving: not every request finished with "
-                             f"{SERVE['new']} tokens")
-    if launches == 0 or launches != cfg.n_layers * calls:
+        raise AssertionError(f"serving {cfg.name}: not every request "
+                             f"finished with {SERVE['new']} tokens")
+    if launches == 0 or launches != cfg.n_layers * expect(engine):
         raise AssertionError(
-            f"serving: {launches} flash-attention launches, expected "
-            f"{cfg.n_layers} x ({engine.prefill_calls} prefills + "
-            f"{engine.decode_ticks} decode ticks)")
+            f"serving {cfg.name}: {launches} {kernel} launches, expected "
+            f"{cfg.n_layers} x {expect(engine)} ({engine.prefill_calls} "
+            f"prefills, {engine.decode_ticks} decode ticks)")
     tokens = sum(len(r.output) for r in engine.done.values())
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     row = {"serve": cfg.name, "slots": SERVE["slots"],
@@ -766,7 +966,8 @@ def serve_phase(cfg, params, launch_counts):
            "prompt_tokens": prompt_tokens, "new_tokens": tokens,
            "ticks": ticks, "prefill_calls": engine.prefill_calls,
            "decode_ticks": engine.decode_ticks,
-           "flash_launches": launches, "wall_s": wall,
+           f"{kernel}_launches": launches, "launch_counts": counts,
+           "wall_s": wall,
            "tokens_per_s": tokens / wall,
            "prefill_ms_per_request": 1e3 * statistics.mean(timer.prefill_s),
            "prefill_ms_max": 1e3 * max(timer.prefill_s),
@@ -783,10 +984,11 @@ def serve_phase(cfg, params, launch_counts):
                            SERVE["new"], seed=12):
         probe.submit(r)
     probe.step()                                         # admit, warm
-    prof = row["profile"] = profile_ticks(cfg, params, probe)
+    prof = row["profile"] = profile_ticks(cfg, params, probe,
+                                          kernel=profile_kernel)
     print(json.dumps({"decode_tick_shares": {
-        "decode_ms_per_tick": row["decode_ms_per_tick"],
-        "attention": prof["attention_ms_per_tick"] / row["decode_ms_per_tick"],
+        "model": cfg.name, "decode_ms_per_tick": row["decode_ms_per_tick"],
+        "kernel": prof["kernel_ms_per_tick"] / row["decode_ms_per_tick"],
         "gemm": prof["gemm_ms_per_tick"] / row["decode_ms_per_tick"],
         "unembed": prof["unembed_ms_per_tick"] / row["decode_ms_per_tick"],
         "device_busy": prof["device_busy_ms_per_tick"]
@@ -827,6 +1029,27 @@ def reclaim_phase(cfg, params):
           flush=True)
 
 
+def build_all(modules) -> None:
+    """Builds every kernel at once, one nvcc per source, and prints each
+    build's time and ptxas' register and shared-memory report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def timed(mod):
+        t0 = time.perf_counter()
+        lib = mod.build()
+        return lib, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(modules)) as pool:
+        built = list(pool.map(timed, modules))
+    for mod, (lib, secs) in zip(modules, built):
+        print(f"built {lib.relative_to(ROOT)} in {secs:.3f} s", flush=True)
+        if mod.build_log:
+            print(mod.build_log.strip(), flush=True)
+    print(f"all kernels built in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -839,22 +1062,21 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.core.matchmaker import (
         MatchProblem, NumpyMatchmaker, TorchMatchmaker,
     )
+    from repro_torch.kernels.build import launch_counts
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd import ops as so
     from repro_torch.kernels.waterfill import ops
     from repro_torch.kernels.waterfill.ref import waterfill_reference
     from repro_torch.workload import (
         PolicySpec, diurnal_day, run_policy, standard_policy,
     )
 
-    # phase 2: build
-    t0 = time.perf_counter()
-    lib = ops.build()
-    print(f"built {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-    if ops.build_log:
-        print(ops.build_log.strip(), flush=True)
+    # phase 2: build every kernel from the checkout's sources
+    build_all([ops, fa, so])
 
     # phase 3: kernel vs plain version, matchmaker vs numpy
     mm, ref_mm = TorchMatchmaker(), NumpyMatchmaker()
@@ -898,41 +1120,32 @@ def main() -> int:
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": None}
 
-    # phase 5: build the flash-attention kernel
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.build import launch_counts
-    from repro_torch.kernels.flash_attention import ops as fa
+    # phase 5: flash attention against its plain version, timed at the
+    # serving shapes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    lib = fa.build()
-    print(f"built {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
-    if fa.build_log:
-        print(fa.build_log.strip(), flush=True)
-
-    # phase 6: the kernel against its plain version, timed at the serving
-    # shapes
     dev = torch.device("cuda", torch.cuda.current_device())
     shapes = flash_phase(fa, dev)
 
-    # phase 7: the model at full width
+    # phase 6: qwen2-1.5b at full width
     cfg = get_config(ARCH)
     f32_cfg, f32_params, params = model_phase(cfg, dev)
     engine_equal_phase(f32_cfg, f32_params)
     del f32_params
     torch.cuda.empty_cache()
 
-    # phase 8: serving, the main path, then the spot reclaim
+    # phase 7: serving qwen2, its main path, then the spot reclaim
     served = serve_phase(cfg, params, launch_counts)
     reclaim_phase(cfg, params)
+    del params
+    torch.cuda.empty_cache()
     decode = shapes[-1]
     flash_line = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:136",
-        "launches": served["flash_launches"],
+        "launches": served["flash_attention_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -940,7 +1153,39 @@ def main() -> int:
         "shapes": [{k: r[k] for k in (
             "flash_case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err")} for r in shapes]}
-    print(json.dumps({"kernels": [waterfill_line, flash_line]}), flush=True)
+
+    # phase 8: the SSD scan against its plain version and the oracle,
+    # timed at mamba2's serving shapes
+    ssd_timed, ssd_rows = ssd_phase(so, dev)
+
+    # phase 9: mamba2-1.3b at full width
+    cfg = get_config(SSD_ARCH)
+    f32_cfg, f32_params, params = model_phase(cfg, dev, plain=plain_ssd,
+                                              what="SSD scan")
+    engine_equal_phase(f32_cfg, f32_params, plain=plain_ssd)
+    del f32_params
+    torch.cuda.empty_cache()
+
+    # phase 10: serving mamba2, its main path: the scan runs once per
+    # layer and prefill, and decode runs the plain one-token update
+    served = serve_phase(cfg, params, launch_counts, kernel="ssd",
+                         expect=lambda e: e.prefill_calls,
+                         profile_kernel=None)
+    longest = ssd_timed[-1]
+    ssd_line = {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:113",
+        "launches": served["ssd_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
+        "ms": longest["ms"], "plain_ms": longest["plain_ms"],
+        "bound_ms": longest["bound_ms"], "bound_by": longest["bound_by"],
+        "library_ms": None,
+        "shapes": [{k: r[k] for k in (
+            "ssd_case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")} for r in ssd_timed]}
+    print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,294 @@
+"""Chunked SSD (state-space duality), the Mamba2 scan: the Hopper kernel
+for CUDA tensors, the plain PyTorch version for CPU tensors.
+
+Block decomposition over chunks of length Q (Dao & Gu, arXiv:2405.21060
+§6), as in the JAX package's ``repro/kernels/ssd/ops.py``:
+
+  within-chunk (quadratic):
+      L[i,j]   = exp(cumA_i - cumA_j) * dt_j          (j <= i, else 0)
+      scores   = (C_i . B_j) * L[i,j]
+      Y_intra  = scores @ X
+  chunk state contribution:
+      S_c      = sum_j exp(cumA_Q - cumA_j) * dt_j * X_j (outer) B_j
+  inter-chunk recurrence (linear scan over n_chunks):
+      state_c  = exp(cumA_Q) * state_{c-1} + S_c
+      Y_inter[i] = exp(cumA_i) * (C_i @ state_{c-1})
+
+`ssd` keeps the JAX signature and layouts.  On a CUDA tensor it checks
+dtype, shape, strides and device, then launches `ssd.cu` on the current
+stream, or raises; on a CPU tensor, and only there, it runs
+`ssd_chunked`, the plain version, which mirrors ``ssd_chunked_jnp``.
+`ssd_decode_step`, the one-token update, is plain PyTorch on every
+device, as the JAX package computes it outside any kernel.
+
+The CUDA source is built at first use by `repro_torch.kernels.build`
+(nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
+headers).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.build import build_library, launch_counts
+from repro_torch.kernels.ssd.ref import expand_groups, ssd_reference
+
+SOURCE = Path(__file__).with_name("ssd.cu")
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+_MAX_STATE = 128                # d_state, a multiple of 16
+_MAX_CHUNK = 256
+_MAX_GRID_Y = 65535
+_lib: ctypes.CDLL | None = None
+#: the opt-in dynamic shared-memory limit of each device set up so far
+_max_smem: dict[int, int] = {}
+#: nvcc's output (ptxas register and shared-memory report) of the build
+#: this process loaded, or None before the first build.
+build_log: str | None = None
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    chunk: int = 256,
+    initial_state: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B,S,H,P), final_state (B,H,P,N)).  Sequences that are
+    not a multiple of the chunk are zero-padded at the tail: pad steps
+    have dt = 0, so decay = exp(0) = 1 and contribution = 0 -- the state
+    passes through unchanged and padded outputs are sliced off."""
+    Bsz, S_orig, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S_orig)
+    if S_orig % Q != 0:
+        pad = Q - S_orig % Q
+        x, dt, Bm, Cm = (F.pad(t, [0, 0] * (t.dim() - 2) + [0, pad])
+                         for t in (x, dt, Bm, Cm))
+    S = x.shape[1]
+    nc = S // Q
+
+    xf = x.float().reshape(Bsz, nc, Q, H, P)
+    dtf = dt.float().reshape(Bsz, nc, Q, H)
+    Bh = expand_groups(Bm.float(), H, 2).reshape(Bsz, nc, Q, H, N)
+    Ch = expand_groups(Cm.float(), H, 2).reshape(Bsz, nc, Q, H, N)
+    Af, Df = A.float(), D.float()
+
+    dA = dtf * Af                       # (B,nc,Q,H) log-decay per step
+    cumA = torch.cumsum(dA, dim=2)      # inclusive cumsum within chunk
+    totA = cumA[:, :, -1, :]            # (B,nc,H)
+
+    # ---- within-chunk quadratic term -----------------------------------
+    ci = cumA[:, :, :, None, :]         # (B,nc,Q,1,H)
+    cj = cumA[:, :, None, :, :]         # (B,nc,1,Q,H)
+    li = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                               device=x.device))[None, None, :, :, None]
+    decay = torch.where(li, torch.exp(ci - cj), 0.0)   # (B,nc,Q,Q,H)
+    scores = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh) * decay
+    scores = scores * dtf[:, :, None, :, :]            # multiply dt_j
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, xf)
+
+    # ---- chunk state contributions -------------------------------------
+    w = torch.exp(totA[:, :, None, :] - cumA) * dtf    # (B,nc,Q,H)
+    s_contrib = torch.einsum("bcjh,bcjhp,bcjhn->bchpn", w, xf, Bh)
+
+    # ---- inter-chunk linear recurrence ---------------------------------
+    if initial_state is None:
+        state = torch.zeros((Bsz, H, P, N), dtype=torch.float32,
+                            device=x.device)
+    else:
+        state = initial_state.float()
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = torch.exp(totA[:, c])[:, :, None, None] * state \
+            + s_contrib[:, c]
+    prev_states = torch.stack(prev, dim=1)  # (B,nc,H,P,N) entering chunk
+
+    # ---- inter-chunk output term ---------------------------------------
+    y_inter = torch.einsum("bcihn,bchpn->bcihp",
+                           Ch * torch.exp(cumA)[..., None], prev_states)
+
+    y = y_intra + y_inter + Df[None, None, None, :, None] * xf
+    y = y.reshape(Bsz, S, H, P)[:, :S_orig].to(x.dtype)
+    return y, state
+
+
+def ssd_decode_step(
+    state: torch.Tensor,  # (B,H,P,N) float32
+    x_t: torch.Tensor,    # (B,H,P)
+    dt_t: torch.Tensor,   # (B,H)
+    A: torch.Tensor,      # (H,)
+    B_t: torch.Tensor,    # (B,G,N)
+    C_t: torch.Tensor,    # (B,G,N)
+    D: torch.Tensor,      # (H,)
+    *,
+    out: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token state update; O(H*P*N) per token, O(1) in context.
+    With ``out`` (which may be ``state`` itself) the new state is written
+    there in place instead of into a new tensor."""
+    H = state.shape[1]
+    Bh = expand_groups(B_t.float(), H, 1)              # (B,H,N)
+    Ch = expand_groups(C_t.float(), H, 1)
+    xf, dtf = x_t.float(), dt_t.float()
+    decay = torch.exp(dtf * A.float())[:, :, None, None]
+    delta = (dtf[:, :, None] * xf)[..., None] * Bh[:, :, None, :]
+    new_state = torch.mul(state, decay, out=out)
+    new_state += delta
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    y = y + D.float()[None, :, None] * xf
+    return new_state, y.to(x_t.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper kernel
+# ---------------------------------------------------------------------------
+
+def build() -> Path:
+    """Compile `ssd.cu` unless this source and these flags were built
+    before; returns the shared library's path."""
+    global build_log
+    out, log = build_library(SOURCE, NVCC_FLAGS)
+    if log is not None:
+        build_log = log
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.ssd_launch.argtypes = [
+            i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
+            ll, ll, ll, ll, ll, ll, ll, ll, ll, vp]
+        lib.ssd_launch.restype = i
+        lib.ssd_smem.argtypes = [i, i]
+        lib.ssd_smem.restype = i
+        lib.ssd_init.argtypes = [i]
+        lib.ssd_init.restype = i
+        lib.ssd_error_string.argtypes = [i]
+        lib.ssd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _device_smem(lib: ctypes.CDLL, index: int) -> int:
+    """The device's opt-in shared-memory limit; the first call per device
+    also lets the kernel use all of it."""
+    if index not in _max_smem:
+        got = lib.ssd_init(index)
+        if got < 0:
+            raise RuntimeError("ssd kernel set-up failed: "
+                               + lib.ssd_error_string(-got).decode())
+        _max_smem[index] = got
+    return _max_smem[index]
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device, *,
+           rows: bool = False):
+    """dtype, shape and device; contiguous, or with ``rows`` only the last
+    axis (the kernel takes the strides of the others)."""
+    if t.dtype != dtype:
+        raise TypeError(f"ssd: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"ssd: {name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"ssd: {name} is on {t.device}, expected {device}")
+    if rows:
+        if t.stride(-1) != 1:
+            raise ValueError(f"ssd: {name} must be contiguous in its last "
+                             f"axis")
+    elif not t.is_contiguous():
+        raise ValueError(f"ssd: {name} must be contiguous")
+
+
+def ssd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    chunk: int = 256,
+    initial_state: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (see the module docstring): y (B,S,H,P) in x's dtype
+    and the final state (B,H,P,N) in float32.  x, Bm and Cm may be views
+    whose last axis is contiguous (as `_split_xbc` makes them)."""
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
+                           initial_state=initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd: no kernel for device {x.device}")
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    dev, dtype = x.device, x.dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"ssd: float32 or bfloat16 only, got {dtype}")
+    if P not in _HEAD_DIMS:
+        raise ValueError(f"ssd: head dim must be one of {_HEAD_DIMS}, "
+                         f"got {P}")
+    if N <= 0 or N % 16 or N > _MAX_STATE:
+        raise ValueError(f"ssd: d_state must be a multiple of 16 up to "
+                         f"{_MAX_STATE}, got {N}")
+    if G <= 0 or H % G:
+        raise ValueError(f"ssd: H={H} heads must split evenly over "
+                         f"G={G} groups")
+    if min(Bsz, S, H) <= 0:
+        raise ValueError(f"ssd: empty shapes B={Bsz} S={S} H={H}")
+    if not 0 < chunk <= _MAX_CHUNK:
+        raise ValueError(f"ssd: chunk must be in 1..{_MAX_CHUNK}, "
+                         f"got {chunk}")
+    if Bsz > _MAX_GRID_Y:
+        raise ValueError(f"ssd: B={Bsz} must be at most {_MAX_GRID_Y} "
+                         f"(the grid's y axis)")
+    _check("x", x, dtype, (Bsz, S, H, P), dev, rows=True)
+    _check("dt", dt, torch.float32, (Bsz, S, H), dev)
+    _check("A", A, torch.float32, (H,), dev)
+    _check("Bm", Bm, dtype, (Bsz, S, G, N), dev, rows=True)
+    _check("Cm", Cm, dtype, (Bsz, S, G, N), dev, rows=True)
+    _check("D", D, torch.float32, (H,), dev)
+    if initial_state is not None:
+        _check("initial_state", initial_state, torch.float32,
+               (Bsz, H, P, N), dev)
+    lib = _library()
+    need = lib.ssd_smem(P, N)
+    if need > _device_smem(lib, dev.index):
+        raise ValueError(f"ssd: needs {need} B of shared memory, the device "
+                         f"allows {_max_smem[dev.index]}")
+    y = torch.empty((Bsz, S, H, P), dtype=dtype, device=dev)
+    final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
+    err = lib.ssd_launch(
+        dev.index, _DTYPES[dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+        Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
+        None if initial_state is None else initial_state.data_ptr(),
+        y.data_ptr(), final.data_ptr(), Bsz, S, H, P, G, N, min(chunk, S),
+        *x.stride()[:3], *Bm.stride()[:3], *Cm.stride()[:3],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("ssd kernel launch failed: "
+                           + lib.ssd_error_string(err).decode())
+    launch_counts["ssd"] += 1
+    return y, final
+
+
+__all__ = ["ssd", "ssd_chunked", "ssd_decode_step", "ssd_reference",
+           "build", "launch_counts"]

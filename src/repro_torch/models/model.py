@@ -1,8 +1,11 @@
 """Top-level model: embeddings + stack + prefill/decode entry points.
 
 The port of the JAX package's ``models/model.py`` for token-only
-decoders (the dense family).  Batch conventions:
+decoders (the dense and the Mamba2 families).  Batch conventions:
   tokens : (B, S)     token ids (int)
+
+Models without RoPE (mamba2) add sinusoidal absolute position embeddings
+at the input, in float32, as the reference does.
 
 The model's parameters live on one device, chosen when they are made:
 `init_model` defaults to cuda and raises without a GPU unless the caller
@@ -13,6 +16,8 @@ Not on this slice: ``loss_fn`` and training (ROADMAP Queue 1 item 12),
 the encoder of enc-dec models and the VLM patch prefix (item 11).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -31,9 +36,9 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "the model runs its attention kernel on a CUDA device and none "
-            "is available; pass device='cpu' to run the plain PyTorch "
-            "versions on the CPU")
+            "the model runs its kernels (attention, SSD scan) on a CUDA "
+            "device and none is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, got {dev}")
     if dev.type == "cuda" and dev.index is None:
@@ -42,11 +47,11 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 
 def _check_family(cfg: ModelConfig):
-    tfm.slot_specs(cfg)             # refuses SSM mixers and MoE FFNs
-    if cfg.encoder is not None or cfg.frontend is not None or not cfg.rope:
+    tfm.slot_specs(cfg)             # refuses MoE FFNs
+    if cfg.encoder is not None or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the encoder, the VLM prefix and absolute position "
-            f"embeddings are not ported yet (ROADMAP Queue 1 item 11)")
+            f"{cfg.name}: the encoder and the VLM prefix are not ported yet "
+            f"(ROADMAP Queue 1 item 11)")
 
 
 # ---------------------------------------------------------------------------
@@ -82,6 +87,22 @@ def params_device(params: PyTree) -> torch.device:
 # Helpers
 # ---------------------------------------------------------------------------
 
+def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, S) int -> (B, S, d) float32 sinusoidal embeddings."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / max(half - 1, 1))
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _maybe_abs_pos(cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    if cfg.rope:
+        return x
+    return (x.float() + sinusoidal(positions, cfg.d_model)).to(x.dtype)
+
+
 def _unembed(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """float32 logits."""
     if cfg.tie_embeddings:
@@ -98,6 +119,7 @@ def _input_embeds(params: PyTree, cfg: ModelConfig, batch: dict
     x = apply_embedding(params["embed"], tokens)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S).contiguous()
+    x = _maybe_abs_pos(cfg, x, positions)
     return x.to(torch_dtype(cfg.activation_dtype)), positions
 
 
@@ -151,14 +173,15 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens_t: torch.Tensor,
     float32, cache (updated in place), new lengths)."""
     _check_family(cfg)
     dev = params_device(params)
+    lengths = lengths.to(dev)
     x = apply_embedding(params["embed"], tokens_t.to(dev))
+    x = _maybe_abs_pos(cfg, x, lengths[:, None])
     x = x.to(torch_dtype(cfg.activation_dtype))
-    x, cache = tfm.stack_decode(params["stack"], cfg, x, cache,
-                                lengths.to(dev))
+    x, cache = tfm.stack_decode(params["stack"], cfg, x, cache, lengths)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = _unembed(params, cfg, x[:, 0, :])
-    return logits, cache, lengths.to(dev) + 1
+    return logits, cache, lengths + 1
 
 
 __all__ = ["init_model", "init_cache", "forward", "prefill", "decode_step",
-           "resolve_device", "params_device"]
+           "resolve_device", "params_device", "sinusoidal"]

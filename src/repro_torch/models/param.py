@@ -9,7 +9,10 @@ them with the reference's distributions from an explicit
 
   * matmul weights: truncated normal in [-2, 2] times ``1/sqrt(fan_in)``;
   * embeddings: normal(0, 1);
-  * zeros and ones.
+  * zeros and ones;
+  * the Mamba2 block's scan parameters (reference ``models/ssm.py``):
+    ``A_log = log U[1, 16)`` and ``dt_bias``, the inverse softplus of a
+    step drawn from LogUniform(1e-3, 1e-1), both float32.
 
 Values are drawn in float32 and cast to the parameter dtype, as
 ``materialize`` does.  JAX's random bits cannot be reproduced, so
@@ -70,6 +73,22 @@ class Init:
         w = self._empty(shape).normal_(generator=self.generator)
         return w.to(torch_dtype(dtype))
 
+    def uniform(self, shape: tuple[int, ...], low: float = 0.0,
+                high: float = 1.0) -> torch.Tensor:
+        """float32 U[low, high)."""
+        return self._empty(shape).uniform_(low, high,
+                                           generator=self.generator)
+
+    def a_log(self, shape: tuple[int, ...]) -> torch.Tensor:
+        """float32 ``log A`` with A ~ U[1, 16), the Mamba2 init."""
+        return torch.log(self.uniform(shape, 1.0, 16.0))
+
+    def dt_bias(self, shape: tuple[int, ...]) -> torch.Tensor:
+        """float32 inverse softplus of dt ~ LogUniform(1e-3, 1e-1)."""
+        lo, hi = math.log(1e-3), math.log(0.1)
+        dt0 = torch.exp(self.uniform(shape) * (hi - lo) + lo)
+        return dt0 + torch.log(-torch.expm1(-dt0))
+
     def zeros(self, shape: tuple[int, ...], dtype) -> torch.Tensor:
         return torch.zeros((*self.lead, *shape), dtype=torch_dtype(dtype),
                            device=self.device)
@@ -96,10 +115,13 @@ def params_from_reference(tree: PyTree, *,
     params)``; bfloat16 leaves arrive as ml_dtypes' bfloat16).  The tree
     paths are kept as they are (``embed.table``,
     ``stack.slot{s}.{norm1,mixer.{wq,wk,wv,wo}.{w,b},q_norm,k_norm,
-    norm2,ffn.{up,gate,down}}``, ``final_norm``), and so are the layouts:
-    each stack leaf keeps its leading ``n_scan`` axis, and linear
-    weights stay (d_in, d_out), which is the layout the port's layers
-    read, so nothing is transposed."""
+    norm2,ffn.{up,gate,down}}`` for attention blocks,
+    ``stack.slot{s}.{norm1,mixer.{in_proj.w,conv_w,conv_b,A_log,D,
+    dt_bias,norm_scale,out_proj.w}}`` for Mamba2 blocks, ``final_norm``),
+    and so are the layouts: each stack leaf keeps its leading ``n_scan``
+    axis, linear weights stay (d_in, d_out) and the conv taps (d_conv,
+    channels), which are the layouts the port's layers read, so nothing
+    is transposed."""
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device=device)
                 for k, v in tree.items()}

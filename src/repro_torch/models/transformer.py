@@ -1,25 +1,29 @@
 """Layer-stack composition: pre-norm blocks looped over depth.
 
 The port of the JAX package's ``models/transformer.py`` for the dense
-family (mixer ``attn``, ffn ``dense``).  Parameters keep the reference's
-structure, ``{"slot0": stacked, ..., "slot{p-1}": stacked}`` with each
-leaf stacked over ``n_scan = n_layers // p``, and the reference's
-``lax.scan`` over depth becomes a Python loop over the stack axis.
+family (mixer ``attn``, ffn ``dense``) and the Mamba2 family (mixer
+``ssm``, ffn ``none``: a Mamba2 block has no separate FFN).  Parameters
+keep the reference's structure, ``{"slot0": stacked, ...,
+"slot{p-1}": stacked}`` with each leaf stacked over ``n_scan = n_layers
+// p``, and the reference's ``lax.scan`` over depth becomes a Python loop
+over the stack axis.
 
 Decode and prefill thread per-layer caches the same way (attention slots
-carry {k, v, pos}); here the caches are written in place, layer by layer,
-through views of the stacked cache tensors.
+carry {"self": {k, v, pos}}, SSM slots {"ssm": {conv, ssm}}); here the
+caches are written in place, layer by layer, through views of the stacked
+cache tensors.
 
-Not on this slice, and refused with NotImplementedError: SSM mixers
-(ROADMAP Queue 1 item 9), MoE FFNs (item 10), cross-attention (item 11),
-and ``remat``/``unroll``, which only matter to training (item 12) and to
-the dry-run's cost analysis (item 15).
+Not on this slice, and refused with NotImplementedError: MoE FFNs
+(ROADMAP Queue 1 item 10, which also holds the jamba hybrid),
+cross-attention (item 11), and ``remat``/``unroll``, which only matter to
+training (item 12) and to the dry-run's cost analysis (item 15).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, init_mlp, init_norm,
@@ -66,9 +70,7 @@ def slot_specs(cfg: ModelConfig, *, cross: bool = False) -> list[SlotSpec]:
         raise _not_ported("cross-attention", "11")
     specs = [SlotSpec(cfg, s) for s in range(cfg.period)]
     for spec in specs:
-        if spec.mixer != "attn":
-            raise _not_ported(f"mixer {spec.mixer!r} ({cfg.name})", "9")
-        if spec.ffn != "dense":
+        if spec.ffn == "moe":
             raise _not_ported(f"ffn {spec.ffn!r} ({cfg.name})", "10")
     return specs
 
@@ -93,15 +95,21 @@ def _layer(tree: dict, i: int) -> dict:
 
 def init_block(init: Init, cfg: ModelConfig, spec: SlotSpec) -> dict:
     d, dt = cfg.d_model, cfg.param_dtype
-    return {
-        "norm1": init_norm(init, cfg.norm, d, dt),
-        "mixer": attn.init_attention(init, cfg),
-        "norm2": init_norm(init, cfg.norm, d, dt),
-        "ffn": init_mlp(init, d, cfg.d_ff, dt, gated=cfg.gated_mlp),
-    }
+    p = {"norm1": init_norm(init, cfg.norm, d, dt)}
+    if spec.mixer == "attn":
+        p["mixer"] = attn.init_attention(init, cfg)
+    else:
+        p["mixer"] = ssm_mod.init_ssm(init, cfg)
+    if spec.ffn == "dense":
+        p["norm2"] = init_norm(init, cfg.norm, d, dt)
+        p["ffn"] = init_mlp(init, d, cfg.d_ff, dt, gated=cfg.gated_mlp)
+    return p
 
 
-def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _ffn(p: dict, cfg: ModelConfig, spec: SlotSpec,
+         x: torch.Tensor) -> torch.Tensor:
+    if spec.ffn == "none":
+        return x
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
     return x + apply_mlp(p["ffn"], h, gated=cfg.gated_mlp, act=cfg.act)
 
@@ -110,10 +118,13 @@ def apply_block(p: dict, cfg: ModelConfig, spec: SlotSpec, x: torch.Tensor,
                 *, positions: torch.Tensor, causal: bool) -> torch.Tensor:
     """Full-sequence block."""
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
-    x = x + attn.attn_forward(p["mixer"], cfg, h, rope_on=spec.rope_on,
-                              window=spec.window, causal=causal,
-                              positions=positions)
-    return _ffn(p, cfg, x)
+    if spec.mixer == "attn":
+        mix = attn.attn_forward(p["mixer"], cfg, h, rope_on=spec.rope_on,
+                                window=spec.window, causal=causal,
+                                positions=positions)
+    else:
+        mix = ssm_mod.ssm_forward(p["mixer"], cfg, h)
+    return _ffn(p, cfg, spec, x + mix)
 
 
 # ---------------------------------------------------------------------------
@@ -163,9 +174,14 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, *,
     n_scan = cfg.n_scan
     out = {}
     for spec in slot_specs(cfg, cross=cross):
-        cap = spec.cache_capacity(cfg, seq_len)
-        base = attn.init_kv_cache(cfg, batch, cap, dtype, device=device)
-        out[f"slot{spec.slot}"] = {"self": {
+        if spec.mixer == "attn":
+            cap = spec.cache_capacity(cfg, seq_len)
+            kind = "self"
+            base = attn.init_kv_cache(cfg, batch, cap, dtype, device=device)
+        else:
+            kind = "ssm"
+            base = ssm_mod.init_ssm_state(cfg, batch, dtype, device=device)
+        out[f"slot{spec.slot}"] = {kind: {
             k: t[None].repeat(n_scan, *([1] * t.dim()))
             for k, t in base.items()}}
     return out
@@ -175,9 +191,12 @@ def apply_block_decode(p: dict, cfg: ModelConfig, spec: SlotSpec,
                        x_t: torch.Tensor, cache: dict,
                        lengths: torch.Tensor) -> torch.Tensor:
     h = apply_norm(cfg.norm, p["norm1"], x_t, cfg.norm_eps)
-    mix, _ = attn.attn_decode(p["mixer"], cfg, h, cache["self"], lengths,
-                              rope_on=spec.rope_on, window=spec.window)
-    return _ffn(p, cfg, x_t + mix)
+    if spec.mixer == "attn":
+        mix, _ = attn.attn_decode(p["mixer"], cfg, h, cache["self"], lengths,
+                                  rope_on=spec.rope_on, window=spec.window)
+    else:
+        mix, _ = ssm_mod.ssm_decode(p["mixer"], cfg, h, cache["ssm"])
+    return _ffn(p, cfg, spec, x_t + mix)
 
 
 def stack_decode(params: dict, cfg: ModelConfig, x_t: torch.Tensor,
@@ -203,11 +222,16 @@ def apply_block_prefill(p: dict, cfg: ModelConfig, spec: SlotSpec,
                         x: torch.Tensor, cache: dict, *,
                         positions: torch.Tensor) -> torch.Tensor:
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
-    mix, (k, v) = attn.attn_forward(p["mixer"], cfg, h, rope_on=spec.rope_on,
-                                    window=spec.window, causal=True,
-                                    positions=positions, return_kv=True)
-    attn.cache_fill(cache["self"], k, v, positions)
-    return _ffn(p, cfg, x + mix)
+    if spec.mixer == "attn":
+        mix, (k, v) = attn.attn_forward(
+            p["mixer"], cfg, h, rope_on=spec.rope_on, window=spec.window,
+            causal=True, positions=positions, return_kv=True)
+        attn.cache_fill(cache["self"], k, v, positions)
+    else:
+        mix, state = ssm_mod.ssm_forward(p["mixer"], cfg, h,
+                                         return_state=True)
+        ssm_mod.ssm_fill(cache["ssm"], state)
+    return _ffn(p, cfg, spec, x + mix)
 
 
 def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,

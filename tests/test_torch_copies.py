@@ -49,8 +49,9 @@ PORT_OWN = {
     "kernels/waterfill/__init__.py", "kernels/waterfill/ops.py",
     "kernels/waterfill/ref.py", "kernels/build.py",
     "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
+    "kernels/ssd/__init__.py", "kernels/ssd/ops.py", "kernels/ssd/ref.py",
     "models/param.py", "models/layers.py", "models/attention.py",
-    "models/transformer.py", "models/model.py",
+    "models/transformer.py", "models/model.py", "models/ssm.py",
     "serve/__init__.py", "serve/engine.py",
     "launch/__init__.py", "launch/serve.py",
 }

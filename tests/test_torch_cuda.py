@@ -13,6 +13,13 @@ Flash attention: the reference suite's eight cases, the fully masked
 rows and the rolling-window permutation, and qwen2-1.5b's serving shapes,
 each against the plain version in float32 on the same CUDA tensors, at
 the reference's tolerances (2e-5 for float32 inputs, 2e-2 for bfloat16).
+
+SSD: the reference suite's four cases and mamba2-1.3b's serving shapes
+(B = 1, 64 heads of 64, d_state 128, chunk 256, S = 512, 1024 and a
+ragged 777, with and without an initial state), in float32 and
+bfloat16, y and the final state against the plain chunked version and
+the sequential oracle at the reference's tolerances (2e-3 and 5e-2).
+
 The cases, inputs and checks are chip_smoke.py's own, so the two cannot
 drift apart.
 """
@@ -28,13 +35,16 @@ from repro_torch.core.matchmaker import (
 )
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.kernels.ssd import ssd, ssd_chunked
+from repro_torch.kernels.ssd.ref import ssd_reference
 from repro_torch.kernels.waterfill import launch_counts, waterfill
 from repro_torch.kernels.waterfill.ref import waterfill_reference
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    FLASH_CASES, FLASH_TOL, attention_inputs, check_fully_masked_rows,
-    check_rolling_window, serving_shapes,
+    FLASH_CASES, FLASH_TOL, SSD_CASES, SSD_TOL, attention_inputs,
+    check_fully_masked_rows, check_rolling_window, serving_shapes,
+    ssd_arrays, ssd_inputs, ssd_serving_cases,
 )
 
 pytestmark = pytest.mark.cuda
@@ -192,3 +202,71 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q[..., :16].contiguous(), k[..., :16].contiguous(),
                         v[..., :16].contiguous(), qp, kp)
+
+
+def assert_ssd_matches_plain(case, seed, dtype, device):
+    B, S, H, P, G, N, chunk, init = case
+    x, dt, A, Bm, Cm, D, st = ssd_inputs(seed, B, S, H, P, G, N, init,
+                                         dtype, device)
+    before = launch_counts["ssd"]
+    y, fin = ssd(x, dt, A, Bm, Cm, D, chunk=chunk, initial_state=st)
+    assert launch_counts["ssd"] == before + 1
+    plain = ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk, initial_state=st)
+    oracle = ssd_reference(x, dt, A, Bm, Cm, D, initial_state=st)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == x.shape
+    assert fin.dtype == torch.float32 and fin.shape == (B, H, P, N)
+    tol = SSD_TOL[dtype]
+    for yr, fr in (plain, oracle):
+        torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(fin, fr, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_equals_plain_version(cuda, case, dtype):
+    assert_ssd_matches_plain(case, 0, dtype, cuda)
+
+
+@pytest.mark.parametrize("label,seed,case", ssd_serving_cases())
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_at_mamba2_serving_shapes(cuda, label, seed, case, dtype):
+    assert_ssd_matches_plain(case, seed, dtype, cuda)
+
+
+def test_ssd_kernel_reads_views_through_their_strides(cuda):
+    """x, B and C as views of one fused projection, as the model passes
+    them: the kernel's result is the contiguous copies' result."""
+    B, S, H, P, G, N = 2, 100, 4, 32, 2, 16
+    x, dt, A, Bm, Cm, D, _ = ssd_inputs(8, B, S, H, P, G, N, False,
+                                        torch.bfloat16, cuda)
+    fused = torch.cat([x.flatten(2), Bm.flatten(2), Cm.flatten(2)], dim=-1)
+    xv, bv, cv = torch.split(fused, [H * P, G * N, G * N], dim=-1)
+    y, fin = ssd(xv.unflatten(-1, (H, P)), dt, A, bv.unflatten(-1, (G, N)),
+                 cv.unflatten(-1, (G, N)), D, chunk=32)
+    y_c, fin_c = ssd(x, dt, A, Bm, Cm, D, chunk=32)
+    assert torch.equal(y, y_c) and torch.equal(fin, fin_c)
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, A, Bm, Cm, D, st = ssd_inputs(9, 1, 16, 2, 16, 1, 16, True,
+                                         torch.float32, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd(x.half(), dt, A, Bm.half(), Cm.half(), D)
+    with pytest.raises(TypeError, match="Bm"):
+        ssd(x, dt, A, Bm.bfloat16(), Cm, D)
+    with pytest.raises(TypeError, match="dt"):
+        ssd(x, dt.double(), A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="last axis"):
+        ssd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="dt must be contiguous"):
+        ssd(x, dt.transpose(1, 2).contiguous().transpose(1, 2), A, Bm, Cm,
+            D)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd(x[..., :8], dt, A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd(x, dt, A, Bm[..., :8], Cm[..., :8], D)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd(x, dt, A, Bm, Cm, D, chunk=512)
+    with pytest.raises(ValueError, match="initial_state"):
+        ssd(x, dt, A, Bm, Cm, D, initial_state=st[..., :8])

@@ -31,19 +31,21 @@ def test_every_port_module_imports_without_jax_or_reference():
     loaded and no kernel may have been launched."""
     mods = port_modules()
     first = ["repro_torch.kernels.waterfill.ops",
-             "repro_torch.kernels.flash_attention.ops"]
+             "repro_torch.kernels.flash_attention.ops",
+             "repro_torch.kernels.ssd.ops"]
     code = (
         "import importlib, json, sys\n"
         f"for m in {json.dumps(first + mods + ['chip_smoke'])}:\n"
         "    importlib.import_module(m)\n"
         "from repro_torch.kernels.waterfill import ops as wf\n"
         "from repro_torch.kernels.flash_attention import ops as fa\n"
+        "from repro_torch.kernels.ssd import ops as so\n"
         "from repro_torch.kernels import build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps({'bad': bad, 'launches': build.launch_counts, "
-        "'built': [wf.build_log, fa.build_log, wf._lib, fa._lib] != "
-        "[None] * 4}))\n")
+        "'built': [wf.build_log, fa.build_log, so.build_log, wf._lib, "
+        "fa._lib, so._lib] != [None] * 6}))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -51,9 +53,9 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"bad": [], "launches": {"waterfill": 0,
-                                           "flash_attention": 0},
+                                           "flash_attention": 0, "ssd": 0},
                    "built": False}
-    assert len(mods) >= 55
+    assert len(mods) >= 59
 
 
 @pytest.mark.parametrize("path", SOURCES,

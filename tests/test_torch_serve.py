@@ -68,7 +68,8 @@ def test_queue_depth_is_demand_signal(rng):
     assert eng.queue_depth() < d0  # admission consumed from the queue
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "starcoder2-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "starcoder2-7b",
+                                  "mamba2-1.3b"])
 def test_greedy_tokens_equal_the_jax_engine(rng, arch):
     """Same weights (carried across), same prompts: the port's engine
     emits the JAX engine's greedy tokens, request by request."""
@@ -135,6 +136,13 @@ def test_model_defaults_to_cuda(monkeypatch):
 
 def test_launcher_serves_on_the_cpu(capsys):
     serve_main(["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
+                "--requests", "3", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "[serve] 3/3 requests, 9 tokens" in out and "on cpu" in out
+
+
+def test_launcher_serves_mamba2_on_the_cpu(capsys):
+    serve_main(["--arch", "mamba2-1.3b", "--reduced", "--device", "cpu",
                 "--requests", "3", "--max-new", "3"])
     out = capsys.readouterr().out
     assert "[serve] 3/3 requests, 9 tokens" in out and "on cpu" in out
