@@ -10,8 +10,8 @@ nothing falls back to the CPU or to a plain version):
 
   1. the card: name and power limit as nvidia-smi reports them;
   2. build every kernel from the checkout's CUDA sources, one nvcc per
-     source, all started together (water-fill, flash attention, SSD),
-     with ptxas' register and shared-memory report;
+     source, all started together (water-fill, flash attention, SSD,
+     grouped matmul), with ptxas' register and shared-memory report;
   3. the water-fill kernel against its plain PyTorch version on the card,
      on the matchmaking tiers (10k/100k/1m jobs), a fractional-request
      problem, a finite budget with an `active` mask, a drained pool,
@@ -65,7 +65,27 @@ nothing falls back to the CPU or to a plain version):
  10. serving mamba2 like phase 7 (same slots, requests and lengths); the
      SSD kernel's launches must equal 48 x prefill calls (decode runs the
      plain one-token update), then the decode-tick profile;
- 11. a JSON line per kernel, the card line, and the result line.
+ 11. the grouped-matmul kernel against its plain version on the card:
+     the reference suite's four cases in float32 (1e-4) and bfloat16
+     (5e-2), ragged groups (unaligned, empty, a tail; also bfloat16 in,
+     float32 out), then jamba-v0.1-52b's expert products (16 experts,
+     4096 x 14336, gate/up and down) at a prefill of 1024 and of 512
+     tokens and at a decode tick of 8 slots, in float32 and in bfloat16
+     with float32 output, the bfloat16 calls timed beside their bound,
+     the plain version and `torch.bmm` (a yardstick only); then one
+     full-width MoE layer, kernel against plain, in both dtypes;
+ 12. jamba at full width, depth cut to one period (8 layers: 7 Mamba, 1
+     attention, 4 MoE FFNs) in float32: forward with every kernel
+     against every plain version, prefill + decode against the forward,
+     the float32 engine's greedy tokens with the kernels and without;
+ 13. jamba at full width, depth cut to two periods (16 layers, bfloat16,
+     ~52 GB; the published 32 are ~103 GB): forward with the kernels
+     against the plain versions over the positions before the first one
+     routed to other experts, then serving like phase 7; every launch
+     count must equal `expected_launches` (gmm 3 x 8 x (prefills +
+     ticks), flash 2 x (prefills + ticks), SSD 14 x prefills), then the
+     decode-tick profile;
+ 14. a JSON line per kernel, the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -139,6 +159,29 @@ SSD_ARCH = "mamba2-1.3b"
 SSD_SERVING = dict(B=1, H=64, P=64, G=1, N=128, chunk=256,
                    S=(512, 1024, 777))
 SSD_TIMED = (512, 1024)
+
+# the cases of tests/test_kernel_moe_gmm.py: E, K, N, BT, group sizes (BT
+# aligned), tail padding rows
+GMM_CASES = [
+    (4, 256, 512, 128, [256, 128, 0, 384], 256),
+    (2, 64, 64, 128, [128, 128], 0),
+    (8, 128, 256, 128, [0, 0, 1024, 0, 0, 0, 0, 0], 128),
+    (3, 100, 96, 64, [64, 192, 64], 64),
+]
+# ragged groups the kernel takes and the Pallas kernel does not: unaligned
+# sizes, empty groups, a tail (E, K, N, sizes, tail)
+GMM_RAGGED = [(4, 32, 48, [7, 0, 13, 21], 5),
+              (5, 136, 200, [0, 65, 1, 0, 9], 31)]
+# the reference suite's tolerances (atol and rtol), against the plain version
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+MOE_ARCH = "jamba-v0.1-52b"
+# the prefill lengths at which jamba's expert products are checked and
+# timed (the serving prompts' range), beside a decode tick of the 8 slots
+MOE_PREFILLS = (1024, 512)
+# jamba's depths here: one period (8 layers) in float32 for the kernel vs
+# plain gates, two periods (16 layers) in bfloat16 for serving: the
+# published 32 layers are ~103 GB in bfloat16, more than the card holds
+MOE_F32_LAYERS, MOE_SERVE_LAYERS = 8, 16
 
 
 def build_problem(MatchProblem, jobs: int, C: int, W: int, seed: int = 0):
@@ -696,6 +739,149 @@ def ssd_phase(so, device):
 
 
 # ---------------------------------------------------------------------------
+# grouped matmul (the MoE expert products)
+# ---------------------------------------------------------------------------
+
+def gmm_arrays(seed, E, K, N, sizes, tail):
+    """The reference suite's inputs as float32 numpy arrays: normal lhs
+    (sum(sizes) + tail, K) and rhs (E, K, N), and the int32 group sizes."""
+    rng = np.random.default_rng(seed)
+    lhs = rng.standard_normal((sum(sizes) + tail, K)).astype(np.float32)
+    rhs = rng.standard_normal((E, K, N)).astype(np.float32)
+    return lhs, rhs, np.asarray(sizes, np.int32)
+
+
+def gmm_inputs(seed, E, K, N, sizes, tail, dtype, device):
+    """`gmm_arrays` as tensors on ``device``, lhs and rhs in ``dtype``."""
+    lhs, rhs, gs = gmm_arrays(seed, E, K, N, sizes, tail)
+    return (torch.tensor(lhs, device=device).to(dtype),
+            torch.tensor(rhs, device=device).to(dtype),
+            torch.tensor(gs, device=device))
+
+
+def moe_serving_shapes():
+    """jamba's expert products at the serving run's shapes (16 experts,
+    d_model 4096, d_ff 14336, C rows each): label, rows (E x C), K and
+    N, for the gate/up product (d -> f) and the down product (f -> d),
+    at the prefill lengths and at a decode tick."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+    cfg = get_config(MOE_ARCH)
+    E, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    calls = [(f"prefill-{S}", S) for S in MOE_PREFILLS] + [
+        (f"decode-{SERVE['slots']}", SERVE["slots"])]
+    return [(f"{label}-{what}", E * capacity(cfg, T), K, N)
+            for label, T in calls
+            for what, K, N in (("gate", d, f), ("down", f, d))]
+
+
+def moe_serving_inputs(rows, K, N, dtype, device, seed=0):
+    """Unit-normal activations (rows, K), jamba's E expert weights
+    (E, K, N) drawn as the model draws them (`Init.dense`, fan-in K), and
+    E equal groups."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.param import Init
+    E = get_config(MOE_ARCH).moe.n_experts
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rhs = Init(gen, device).dense((E, K, N), dtype, fan_in=K)
+    lhs = torch.randn((rows, K), generator=gen, device=device).to(dtype)
+    gs = torch.full((E,), rows // E, dtype=torch.int32, device=device)
+    return lhs, rhs, gs
+
+
+def gmm_bound(lhs, rhs, group_sizes, out):
+    """Least time for one call, counting what this data needs: lhs, the
+    weights of the experts whose groups are non-empty, the group sizes
+    and the output once, at the HBM rate; against 2 x K x N FLOPs per row
+    in a group at the tensor-core bf16 rate (float32 at the vector rate).
+    Returns (ms, bound by, bytes, FLOPs)."""
+    E, K, N = rhs.shape
+    sizes = group_sizes.tolist()
+    rows = min(sum(max(g, 0) for g in sizes), lhs.shape[0])
+    live = sum(1 for g in sizes if g > 0)
+    nbytes = (lhs.numel() * lhs.element_size()
+              + live * K * N * rhs.element_size() + 4 * E
+              + out.numel() * out.element_size())
+    flops = 2 * rows * K * N
+    rate = BF16_OPS_PER_S if lhs.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes", nbytes, flops
+    return 1e3 * t_ops, "operations", nbytes, flops
+
+
+def check_gmm(label, gm, lhs, rhs, gs, out_dtype=None, *, timed=False):
+    """Kernel vs plain version on the card, at the reference suite's
+    tolerance; with ``timed``, CUDA-event medians of the kernel, the
+    plain version and `torch.bmm` over the (E, C, K) x (E, K, N) layout
+    (a yardstick only; equal groups) beside the bound."""
+    out = gm.gmm(lhs, rhs, gs, out_dtype=out_dtype)
+    ref = gm.gmm_plain(lhs, rhs, gs, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    tol = GMM_TOL[lhs.dtype]
+    if out.dtype != (out_dtype or lhs.dtype) or out.shape != ref.shape:
+        raise AssertionError(f"{label}: output {out.dtype} {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{label}: kernel output is not finite")
+    err = (out.float() - ref).abs()
+    if bool((err > tol + tol * ref.abs()).any()):
+        raise AssertionError(f"{label}: kernel differs from the plain "
+                             f"version by {float(err.max()):.3g} > {tol}")
+    E, K, N = rhs.shape
+    row = {"gmm_case": label, "dtype": str(lhs.dtype).split(".")[1],
+           "out_dtype": str(out.dtype).split(".")[1],
+           "shape": [lhs.shape[0], K, N, E], "max_abs_err": float(err.max()),
+           "tol": tol}
+    if timed:
+        C = lhs.shape[0] // E
+        batched = lhs.view(E, C, K)
+
+        def library():
+            return torch.bmm(batched, rhs)
+
+        bound_ms, bound_by, nbytes, flops = gmm_bound(lhs, rhs, gs, out)
+        row.update(
+            ms=cuda_ms(lambda: gm.gmm(lhs, rhs, gs, out_dtype=out_dtype),
+                       KERNEL_REPS),
+            plain_ms=cuda_ms(lambda: gm.gmm_plain(lhs, rhs, gs,
+                                                  out_dtype=out_dtype),
+                             KERNEL_REPS),
+            library_ms=cuda_ms(library, KERNEL_REPS),
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def gmm_phase(gm, device):
+    """Every case of the reference suite in both dtypes, the ragged cases
+    (also bfloat16 in, float32 out), then jamba's serving products in
+    float32 and in bfloat16 with float32 output (the MoE's call), the
+    bfloat16 calls timed.  Returns the timed rows."""
+    for E, K, N, _bt, sizes, tail in GMM_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_gmm(f"case{(E, K, N, sizes, tail)}", gm,
+                      *gmm_inputs(0, E, K, N, sizes, tail, dtype, device))
+    for E, K, N, sizes, tail in GMM_RAGGED:
+        for dtype, out_dtype in ((torch.float32, None), (torch.bfloat16, None),
+                                 (torch.bfloat16, torch.float32)):
+            check_gmm(f"ragged{(E, K, N, sizes, tail)}", gm,
+                      *gmm_inputs(1, E, K, N, sizes, tail, dtype, device),
+                      out_dtype)
+    timed = []
+    for label, rows, K, N in moe_serving_shapes():
+        for dtype in (torch.float32, torch.bfloat16):
+            lhs, rhs, gs = moe_serving_inputs(rows, K, N, dtype, device)
+            row = check_gmm(label, gm, lhs, rhs, gs, torch.float32,
+                            timed=dtype == torch.bfloat16)
+            del lhs, rhs
+        timed.append(row)
+    torch.cuda.empty_cache()
+    return timed
+
+
+# ---------------------------------------------------------------------------
 # the model and the serving engine at full width
 # ---------------------------------------------------------------------------
 
@@ -725,6 +911,65 @@ def plain_ssd():
     return swapped(ssm_mod, "ssd", ssd_chunked)
 
 
+def plain_gmm():
+    """The MoE's expert products through the plain version."""
+    from repro_torch.kernels.moe_gmm.ops import gmm_plain
+    from repro_torch.models import moe as moe_mod
+    return swapped(moe_mod, "gmm", gmm_plain)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel of the model through its plain version."""
+    with plain_attention(), plain_ssd(), plain_gmm():
+        yield
+
+
+class Routes:
+    """Records the experts each MoE layer call routes each token to (as
+    sets: the order of a token's k experts changes no rank)."""
+
+    def __init__(self):
+        self.calls: list[torch.Tensor] = []
+
+    @contextlib.contextmanager
+    def on(self):
+        from repro_torch.models import moe as moe_mod
+        topk = moe_mod._router_topk
+
+        def recorded(logits, k):
+            probs, gates, idx = topk(logits, k)
+            self.calls.append(idx.sort(dim=-1).values)
+            return probs, gates, idx
+
+        moe_mod._router_topk = recorded
+        try:
+            yield self
+        finally:
+            moe_mod._router_topk = topk
+
+    def dropped(self, cfg) -> int:
+        """Assignments over the capacity in the recorded calls."""
+        from repro_torch.models.moe import capacity
+        E = cfg.moe.n_experts
+        return sum(int((torch.bincount(idx.reshape(-1), minlength=E)
+                        - capacity(cfg, idx.shape[0])).clamp(min=0).sum())
+                   for idx in self.calls)
+
+
+def no_drops(cfg):
+    """cfg with a capacity that holds every assignment (C = T).  The
+    capacity is per model call (T tokens), so a forward over S tokens
+    and a prefill plus one-token decodes drop different tokens by design,
+    in the JAX package too; comparing the two paths needs a capacity
+    that drops none."""
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| / max |b|."""
     return float((a.float() - b.float()).abs().max()
@@ -739,11 +984,12 @@ def gate(label, value, limit):
 
 
 def model_phase(cfg, device, *, plain=plain_attention, what="attention",
-                prompt_len=320, n_pre=256, seed=0):
+                prompt_len=320, n_pre=256, seed=0, bf16=True):
     """Kernel vs plain version (``plain``, of the model's ``what``) in
-    the whole model at cfg's widths, and prefill+decode vs forward;
-    returns the float32 config and parameters for the engine check, and
-    the bfloat16 parameters."""
+    the whole model at cfg's widths, and prefill+decode vs forward (with
+    `no_drops`' capacity for an MoE model); returns the float32 config
+    and parameters for the engine check, and, with ``bf16``, the
+    bfloat16 parameters."""
     from repro_torch.models import model as model_lib
     toks = torch.tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, prompt_len)), device=device)
@@ -756,27 +1002,39 @@ def model_phase(cfg, device, *, plain=plain_attention, what="attention",
     torch.cuda.synchronize()
     print(json.dumps({"model": cfg.name, "layers": cfg.n_layers,
                       "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-                      "params": param_count(params),
+                      "dtype": "float32", "params": param_count(params),
                       "init_s": time.perf_counter() - t0}), flush=True)
-    logits = model_lib.forward(params, f32, batch)
+    with Routes().on() as routes:
+        logits = model_lib.forward(params, f32, batch)
     with plain():
         logits_plain = model_lib.forward(params, f32, batch)
     if not bool(torch.isfinite(logits).all()):
         raise AssertionError("float32 forward logits are not finite")
+    if cfg.moe is not None:
+        print(json.dumps({"model": cfg.name, "forward_tokens": prompt_len,
+                          "moe_calls": len(routes.calls),
+                          "dropped_assignments": routes.dropped(f32)}),
+              flush=True)
     gate(f"{cfg.name} f32 forward: kernel vs plain {what}",
          rel_err(logits, logits_plain), GATE_F32)
+    del logits_plain
 
-    cache = model_lib.init_cache(f32, 1, prompt_len + 16, device=device)
+    full = no_drops(f32)
+    if full is not f32:
+        logits = model_lib.forward(params, full, batch)
+    cache = model_lib.init_cache(full, 1, prompt_len + 16, device=device)
     step, cache, lengths = model_lib.prefill(
-        params, f32, {"tokens": toks[:, :n_pre]}, cache)
+        params, full, {"tokens": toks[:, :n_pre]}, cache)
     worst = rel_err(step, logits[:, n_pre - 1])
     for s in range(n_pre, prompt_len):
         step, cache, lengths = model_lib.decode_step(
-            params, f32, toks[:, s:s + 1], cache, lengths)
+            params, full, toks[:, s:s + 1], cache, lengths)
         worst = max(worst, rel_err(step, logits[:, s]))
     gate(f"{cfg.name} f32 prefill({n_pre}) + decode({prompt_len - n_pre}) "
          f"vs forward", worst, GATE_F32)
-    del logits, logits_plain, cache
+    del logits, cache
+    if not bf16:
+        return f32, params, None
 
     bf = model_lib.init_model(cfg, seed=seed, device=device)
     logits = model_lib.forward(bf, cfg, batch)
@@ -787,6 +1045,78 @@ def model_phase(cfg, device, *, plain=plain_attention, what="attention",
     gate(f"{cfg.name} bf16 forward: kernel vs plain {what}",
          rel_err(logits, logits_plain), GATE_BF16)
     return f32, params, bf
+
+
+def routed_bf16_phase(cfg, device, *, prompt_len=320, seed=0):
+    """The bfloat16 model (cfg's depth) with every kernel against every
+    plain version, over the positions before the first one whose experts
+    differ in any MoE layer: the model is causal and an expert's
+    capacity rank counts only earlier tokens, so those positions saw the
+    same routing on both sides.  Returns the parameters."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import param_count
+    t0 = time.perf_counter()
+    params = model_lib.init_model(cfg, seed=seed, device=device)
+    torch.cuda.synchronize()
+    print(json.dumps({"model": cfg.name, "layers": cfg.n_layers,
+                      "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+                      "params": param_count(params),
+                      "memory_allocated_gb": torch.cuda.memory_allocated()
+                      / 1e9, "init_s": time.perf_counter() - t0}),
+          flush=True)
+    batch = {"tokens": torch.tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, prompt_len)), device=device)}
+    with Routes().on() as kernel_routes:
+        logits = model_lib.forward(params, cfg, batch)
+    with plain_kernels(), Routes().on() as plain_routes:
+        logits_plain = model_lib.forward(params, cfg, batch)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("bfloat16 forward logits are not finite")
+    differ = torch.stack([(a != b).any(dim=-1) for a, b in zip(
+        kernel_routes.calls, plain_routes.calls)])      # (layers, tokens)
+    moved = differ.any(dim=0).nonzero()
+    first = int(moved[0]) if len(moved) else prompt_len
+    print(json.dumps({"model": cfg.name, "forward_tokens": prompt_len,
+                      "moe_calls": differ.shape[0],
+                      "routes_differing": int(differ.sum()),
+                      "first_differing_position": first,
+                      "dropped_assignments": kernel_routes.dropped(cfg)}),
+          flush=True)
+    if first == 0:
+        raise AssertionError(f"{cfg.name} bf16: the kernels route position 0 "
+                             f"to other experts than the plain versions")
+    gate(f"{cfg.name} bf16 forward: kernels vs plain versions, positions "
+         f"0..{first - 1}", rel_err(logits[:, :first],
+                                    logits_plain[:, :first]), GATE_BF16)
+    return params
+
+
+def moe_layer_phase(cfg, device, tokens=1024, seed=0):
+    """One full-width MoE layer, kernel against plain, on the same input
+    in float32 and in bfloat16: routing is identical by construction, so
+    y is held to the model gates and the auxiliary loss must be equal."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.param import Init
+    for dtype, limit in (("float32", GATE_F32), ("bfloat16", GATE_BF16)):
+        c = dataclasses.replace(cfg, param_dtype=dtype,
+                                activation_dtype=dtype)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        p = moe_mod.init_moe(Init(gen, device), c)
+        h = torch.randn((1, tokens, c.d_model), generator=gen,
+                        device=device).to(p["gate"].dtype)
+        y, aux = moe_mod.moe_forward_dense(p, c, h)
+        with plain_gmm():
+            y_plain, aux_plain = moe_mod.moe_forward_dense(p, c, h)
+        if not bool(torch.isfinite(y).all()) or y.dtype != h.dtype:
+            raise AssertionError(f"MoE layer {dtype}: output {y.dtype}, "
+                                 f"finite {bool(torch.isfinite(y).all())}")
+        if not torch.equal(aux, aux_plain):
+            raise AssertionError(f"MoE layer {dtype}: aux loss differs")
+        gate(f"{cfg.name} MoE layer {dtype}, {tokens} tokens: kernel vs "
+             f"plain", rel_err(y, y_plain), limit)
+        del p, h, y, y_plain
+    torch.cuda.empty_cache()
 
 
 def make_requests(cfg, n, prompt, new, seed):
@@ -925,12 +1255,28 @@ def profile_ticks(cfg, params, engine, ticks=4,
     return row
 
 
-def serve_phase(cfg, params, launch_counts, *, kernel="flash_attention",
-                expect=lambda e: e.prefill_calls + e.decode_ticks,
+def expected_launches(cfg, engine) -> dict:
+    """The launches a serving run must count, by kernel: flash attention
+    once per attention layer and model call, the SSD scan once per Mamba
+    layer and prefill (decode runs the plain one-token update), the
+    grouped matmul three times (gate, up, down) per MoE layer and model
+    call, and no water-fill."""
+    mixers = [cfg.mixer_kind(s) for s in range(cfg.period)]
+    ffns = [cfg.ffn_kind(s) for s in range(cfg.period)]
+    attn = cfg.n_scan * mixers.count("attn")
+    ssm = cfg.n_scan * mixers.count("ssm")
+    moe = cfg.n_scan * ffns.count("moe")
+    calls = engine.prefill_calls + engine.decode_ticks
+    return {"waterfill": 0, "flash_attention": attn * calls,
+            "ssd": ssm * engine.prefill_calls, "gmm": 3 * moe * calls}
+
+
+def serve_phase(cfg, params, launch_counts, *, kernels=("flash_attention",),
                 profile_kernel="flash_attention_kernel"):
     """The main path: `ServeEngine` at full width.  Every count is set
-    to 0 just before the run and read just after; ``kernel``'s must be
-    n_layers x ``expect(engine)`` (the model calls that run it)."""
+    to 0 just before the run and read just after; each must equal
+    `expected_launches`, and each of ``kernels`` (the path's) must have
+    launched."""
     from repro_torch.models import model as model_lib
     from repro_torch.serve.engine import ServeEngine
     reqs = make_requests(cfg, SERVE["requests"], SERVE["prompt"],
@@ -949,24 +1295,23 @@ def serve_phase(cfg, params, launch_counts, *, kernel="flash_attention",
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(launch_counts)
-    launches = counts[kernel]
+    expected = expected_launches(cfg, engine)
     if len(engine.done) != len(reqs) or any(
             len(r.output) != SERVE["new"] for r in engine.done.values()):
         raise AssertionError(f"serving {cfg.name}: not every request "
                              f"finished with {SERVE['new']} tokens")
-    if launches == 0 or launches != cfg.n_layers * expect(engine):
+    if counts != expected or not all(counts[k] > 0 for k in kernels):
         raise AssertionError(
-            f"serving {cfg.name}: {launches} {kernel} launches, expected "
-            f"{cfg.n_layers} x {expect(engine)} ({engine.prefill_calls} "
-            f"prefills, {engine.decode_ticks} decode ticks)")
+            f"serving {cfg.name}: launches {counts}, expected {expected} "
+            f"({engine.prefill_calls} prefills, {engine.decode_ticks} "
+            f"decode ticks), each of {kernels} at least once")
     tokens = sum(len(r.output) for r in engine.done.values())
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     row = {"serve": cfg.name, "slots": SERVE["slots"],
            "max_seq": SERVE["max_seq"], "requests": len(reqs),
            "prompt_tokens": prompt_tokens, "new_tokens": tokens,
            "ticks": ticks, "prefill_calls": engine.prefill_calls,
-           "decode_ticks": engine.decode_ticks,
-           f"{kernel}_launches": launches, "launch_counts": counts,
+           "decode_ticks": engine.decode_ticks, "launch_counts": counts,
            "wall_s": wall,
            "tokens_per_s": tokens / wall,
            "prefill_ms_per_request": 1e3 * statistics.mean(timer.prefill_s),
@@ -1068,6 +1413,7 @@ def main() -> int:
     )
     from repro_torch.kernels.build import launch_counts
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.moe_gmm import ops as gm
     from repro_torch.kernels.ssd import ops as so
     from repro_torch.kernels.waterfill import ops
     from repro_torch.kernels.waterfill.ref import waterfill_reference
@@ -1076,7 +1422,7 @@ def main() -> int:
     )
 
     # phase 2: build every kernel from the checkout's sources
-    build_all([ops, fa, so])
+    build_all([ops, fa, so, gm])
 
     # phase 3: kernel vs plain version, matchmaker vs numpy
     mm, ref_mm = TorchMatchmaker(), NumpyMatchmaker()
@@ -1145,7 +1491,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:136",
-        "launches": served["flash_attention_launches"],
+        "launches": served["launch_counts"]["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in shapes),
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
@@ -1168,15 +1514,14 @@ def main() -> int:
 
     # phase 10: serving mamba2, its main path: the scan runs once per
     # layer and prefill, and decode runs the plain one-token update
-    served = serve_phase(cfg, params, launch_counts, kernel="ssd",
-                         expect=lambda e: e.prefill_calls,
+    served = serve_phase(cfg, params, launch_counts, kernels=("ssd",),
                          profile_kernel=None)
     longest = ssd_timed[-1]
     ssd_line = {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/ssd.cu",
         "replaces": "src/repro/kernels/ssd/kernel.py:113",
-        "launches": served["ssd_launches"],
+        "launches": served["launch_counts"]["ssd"],
         "max_abs_err": max(r["max_abs_err"] for r in ssd_rows),
         "ms": longest["ms"], "plain_ms": longest["plain_ms"],
         "bound_ms": longest["bound_ms"], "bound_by": longest["bound_by"],
@@ -1184,8 +1529,48 @@ def main() -> int:
         "shapes": [{k: r[k] for k in (
             "ssd_case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err")} for r in ssd_timed]}
-    print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line]}),
-          flush=True)
+    del params
+    torch.cuda.empty_cache()
+
+    # phase 11: the grouped matmul against its plain version, timed at
+    # jamba's serving products; one full-width MoE layer
+    gmm_timed = gmm_phase(gm, dev)
+    cfg = get_config(MOE_ARCH)
+    moe_layer_phase(cfg, dev)
+
+    # phase 12: jamba at full width, one period (8 layers) in float32;
+    # freed before the 16-layer model is made
+    f32_cfg, f32_params, _ = model_phase(
+        dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS), dev,
+        plain=plain_kernels, what="kernels", bf16=False)
+    engine_equal_phase(f32_cfg, f32_params, plain=plain_kernels)
+    del f32_params
+    torch.cuda.empty_cache()
+
+    # phase 13: jamba at full width, two periods (16 layers) in bfloat16:
+    # the routed gate, then serving, its main path
+    cfg = dataclasses.replace(cfg, n_layers=MOE_SERVE_LAYERS)
+    params = routed_bf16_phase(cfg, dev)
+    served = serve_phase(cfg, params, launch_counts,
+                         kernels=("flash_attention", "ssd", "gmm"),
+                         profile_kernel="gmm_kernel")
+    del params
+    torch.cuda.empty_cache()
+    decode = gmm_timed[-2]                  # the decode tick's gate/up call
+    gmm_line = {
+        "name": "gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/gmm.cu",
+        "replaces": "src/repro/kernels/moe_gmm/kernel.py:76",
+        "launches": served["launch_counts"]["gmm"],
+        "max_abs_err": max(r["max_abs_err"] for r in gmm_timed),
+        "ms": decode["ms"], "plain_ms": decode["plain_ms"],
+        "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
+        "library_ms": decode["library_ms"],
+        "shapes": [{k: r[k] for k in (
+            "gmm_case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err")} for r in gmm_timed]}
+    print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
+                                  gmm_line]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,173 @@
+"""Expert-grouped matmul (ragged GEMM): the Hopper kernel for CUDA
+tensors, the plain PyTorch version for CPU tensors.
+
+``gmm(lhs, rhs, group_sizes)`` computes ``out[t] = lhs[t] @ rhs[e(t)]``
+for rows sorted by expert (see `ref.py`), with float32 accumulation, and
+zeros for the rows past ``sum(group_sizes)``.  It takes any group sizes,
+zero-sized and unaligned ones included, as the JAX package's ``ops.gmm``
+does off the TPU through ``lax.ragged_dot``.  ``out_dtype`` defaults to
+``lhs.dtype``; the MoE layer asks for float32, the reference's
+``preferred_element_type``.
+
+On a CUDA tensor `gmm` checks dtype, shape, contiguity and device, then
+launches `gmm.cu` on the current stream, or raises; it never reads the
+group sizes on the host, so it does not synchronise.  On a CPU tensor,
+and only there, it runs `gmm_plain`, a loop of one matmul per group.
+
+`tile_expert_map` is the reference kernel's row-tile-to-expert map for
+groups aligned to the row tile (``kernel.py:63``); the CUDA kernel walks
+the general (expert, tile-within-group) pairs of ragged groups itself.
+
+The CUDA source is built at first use by `repro_torch.kernels.build`
+(nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
+headers).
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import build_library, launch_counts
+from repro_torch.kernels.moe_gmm.ref import expert_of_row, gmm_reference
+
+SOURCE = Path(__file__).with_name("gmm.cu")
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: rows per tile: the prefill-sized tile, and the tile for groups of a few
+#: rows (decode), taken when the mean group T / E is at most SMALL_GROUP
+BIG_TILE, SMALL_TILE, SMALL_GROUP = 64, 8, 16
+_MAX_COL_TILES = 65535          # the grid's y axis, 128 columns each
+_INT32_MAX = 2 ** 31 - 1
+_lib: ctypes.CDLL | None = None
+#: nvcc's output (ptxas register and shared-memory report) of the build
+#: this process loaded, or None before the first build.
+build_log: str | None = None
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor,
+              group_sizes: torch.Tensor, *,
+              out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """One float32 matmul per group, no gather; rows past the total are
+    zero, and a group reaching past row T is cut there."""
+    T = lhs.shape[0]
+    out = torch.zeros((T, rhs.shape[2]), dtype=torch.float32,
+                      device=lhs.device)
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(int(size), 0), T)
+        if end > start:
+            out[start:end] = lhs[start:end].float() @ rhs[g].float()
+        start = end
+    return out.to(out_dtype or lhs.dtype)
+
+
+def tile_expert_map(group_sizes: torch.Tensor, n_tiles: int,
+                    bt: int) -> torch.Tensor:
+    """Expert id owning each row tile of ``bt`` rows (tiles past the
+    total get E), for groups that are multiples of ``bt``."""
+    offsets = torch.cumsum(group_sizes, 0)                  # end offsets
+    starts = torch.arange(n_tiles, dtype=offsets.dtype,
+                          device=group_sizes.device) * bt   # tile start rows
+    return (starts[:, None] >= offsets[None, :]).sum(1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the Hopper kernel
+# ---------------------------------------------------------------------------
+
+def build() -> Path:
+    """Compile `gmm.cu` unless this source and these flags were built
+    before; returns the shared library's path."""
+    global build_log
+    out, log = build_library(SOURCE, NVCC_FLAGS)
+    if log is not None:
+        build_log = log
+    return out
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.gmm_launch.argtypes = [i, i, i, i, vp, vp, vp, vp, i, i, i, i,
+                                   vp]
+        lib.gmm_launch.restype = i
+        lib.gmm_error_string.argtypes = [i]
+        lib.gmm_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def row_tile(T: int, E: int) -> int:
+    """Rows per tile for ``T`` rows in ``E`` groups: a shape, not a
+    group size, so choosing needs nothing from the device."""
+    return SMALL_TILE if T <= SMALL_GROUP * E else BIG_TILE
+
+
+def _check(name: str, t: torch.Tensor, dtype, ndim: int, device):
+    if t.dtype != dtype:
+        raise TypeError(f"gmm: {name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"gmm: {name} must have {ndim} axes, got "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"gmm: {name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"gmm: {name} must be contiguous")
+
+
+def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
+        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Grouped matmul (see the module docstring): lhs (T, K) sorted by
+    expert, rhs (E, K, N), group_sizes (E,) int32 -> (T, N) in
+    ``out_dtype`` (default lhs.dtype)."""
+    if lhs.device.type == "cpu":
+        return gmm_plain(lhs, rhs, group_sizes, out_dtype=out_dtype)
+    if lhs.device.type != "cuda":
+        raise ValueError(f"gmm: no kernel for device {lhs.device}")
+    dev, dtype = lhs.device, lhs.dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"gmm: float32 or bfloat16 only, got {dtype}")
+    out_dtype = out_dtype or dtype
+    if out_dtype not in (torch.float32, dtype):
+        raise TypeError(f"gmm: out_dtype must be float32 or {dtype}, got "
+                        f"{out_dtype}")
+    _check("lhs", lhs, dtype, 2, dev)
+    _check("rhs", rhs, dtype, 3, dev)
+    _check("group_sizes", group_sizes, torch.int32, 1, dev)
+    (T, K), (E, K2, N) = lhs.shape, rhs.shape
+    if K2 != K:
+        raise ValueError(f"gmm: lhs has K={K} columns, rhs K={K2} rows")
+    if group_sizes.shape[0] != E:
+        raise ValueError(f"gmm: group_sizes must have shape ({E},), got "
+                         f"{tuple(group_sizes.shape)}")
+    if min(T, N, E) <= 0:
+        raise ValueError(f"gmm: empty shapes T={T} N={N} E={E}")
+    bt = row_tile(T, E)
+    if -(-N // 128) > _MAX_COL_TILES or T + bt * (E + 1) > _INT32_MAX:
+        raise ValueError(f"gmm: shapes T={T} K={K} N={N} E={E} exceed the "
+                         f"kernel's grid")
+    lib = _library()
+    out = torch.empty((T, N), dtype=out_dtype, device=dev)
+    err = lib.gmm_launch(
+        dev.index, _DTYPES[dtype], _DTYPES[out_dtype], bt, lhs.data_ptr(),
+        rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), T, K, N, E,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("gmm kernel launch failed: "
+                           + lib.gmm_error_string(err).decode())
+    launch_counts["gmm"] += 1
+    return out
+
+
+__all__ = ["gmm", "gmm_plain", "gmm_reference", "expert_of_row",
+           "tile_expert_map", "row_tile", "build", "launch_counts"]

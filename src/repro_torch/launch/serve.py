@@ -9,6 +9,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --reduced --device cpu --requests 12
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-v0.1-52b --reduced --device cpu
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Top-level model: embeddings + stack + prefill/decode entry points.
 
 The port of the JAX package's ``models/model.py`` for token-only
-decoders (the dense and the Mamba2 families).  Batch conventions:
+decoders (the dense, Mamba2, MoE and hybrid families).  Batch conventions:
   tokens : (B, S)     token ids (int)
 
 Models without RoPE (mamba2) add sinusoidal absolute position embeddings
@@ -36,9 +36,9 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "the model runs its kernels (attention, SSD scan) on a CUDA "
-            "device and none is available; pass device='cpu' to run the "
-            "plain PyTorch versions on the CPU")
+            "the model runs its kernels (attention, SSD scan, grouped "
+            "matmul) on a CUDA device and none is available; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, got {dev}")
     if dev.type == "cuda" and dev.index is None:
@@ -47,7 +47,6 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
 
 
 def _check_family(cfg: ModelConfig):
-    tfm.slot_specs(cfg)             # refuses MoE FFNs
     if cfg.encoder is not None or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: the encoder and the VLM prefix are not ported yet "
@@ -130,9 +129,10 @@ def _input_embeds(params: PyTree, cfg: ModelConfig, batch: dict
 @torch.no_grad()
 def forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
             remat: str = "none", unroll: bool = False) -> torch.Tensor:
-    """Returns logits (B, S, vocab) float32."""
+    """Returns logits (B, S, vocab) float32.  (The MoE auxiliary loss that
+    the stack returns beside them is for ``loss_fn``, item 12.)"""
     x, positions = _input_embeds(params, cfg, batch)
-    x = tfm.stack_forward(params["stack"], cfg, x, positions=positions,
+    x, _aux = tfm.stack_forward(params["stack"], cfg, x, positions=positions,
                           causal=True, remat=remat, unroll=unroll)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     return _unembed(params, cfg, x)

@@ -67,7 +67,9 @@ class Init:
         stddev = 1.0 / math.sqrt(max(fan_in, 1))
         w = torch.nn.init.trunc_normal_(self._empty(shape), 0.0, 1.0, -2.0,
                                         2.0, generator=self.generator)
-        return (w * stddev).to(torch_dtype(dtype))
+        # scaled in place: a full-width MoE expert stack is ~2 G values,
+        # and one float32 temporary of it is enough
+        return w.mul_(stddev).to(torch_dtype(dtype))
 
     def embed(self, shape: tuple[int, ...], dtype) -> torch.Tensor:
         w = self._empty(shape).normal_(generator=self.generator)
@@ -117,7 +119,10 @@ def params_from_reference(tree: PyTree, *,
     ``stack.slot{s}.{norm1,mixer.{wq,wk,wv,wo}.{w,b},q_norm,k_norm,
     norm2,ffn.{up,gate,down}}`` for attention blocks,
     ``stack.slot{s}.{norm1,mixer.{in_proj.w,conv_w,conv_b,A_log,D,
-    dt_bias,norm_scale,out_proj.w}}`` for Mamba2 blocks, ``final_norm``),
+    dt_bias,norm_scale,out_proj.w}}`` for Mamba2 blocks,
+    ``stack.slot{s}.ffn.{router,gate,up,down,shared.{up,gate,down}}`` for
+    MoE FFNs (the router float32 whatever the parameter dtype, the
+    experts (E, d, f) and (E, f, d)), ``final_norm``),
     and so are the layouts: each stack leaf keeps its leading ``n_scan``
     axis, linear weights stay (d_in, d_out) and the conv taps (d_conv,
     channels), which are the layouts the port's layers read, so nothing

@@ -1,21 +1,24 @@
 """Layer-stack composition: pre-norm blocks looped over depth.
 
 The port of the JAX package's ``models/transformer.py`` for the dense
-family (mixer ``attn``, ffn ``dense``) and the Mamba2 family (mixer
-``ssm``, ffn ``none``: a Mamba2 block has no separate FFN).  Parameters
-keep the reference's structure, ``{"slot0": stacked, ...,
-"slot{p-1}": stacked}`` with each leaf stacked over ``n_scan = n_layers
-// p``, and the reference's ``lax.scan`` over depth becomes a Python loop
-over the stack axis.
+family (mixer ``attn``, ffn ``dense``), the Mamba2 family (mixer
+``ssm``, ffn ``none``: a Mamba2 block has no separate FFN), the MoE
+family (ffn ``moe``) and the jamba hybrid (Mamba slots and one attention
+slot per period, dense and MoE FFNs alternating).  Parameters keep the
+reference's structure, ``{"slot0": stacked, ..., "slot{p-1}": stacked}``
+with each leaf stacked over ``n_scan = n_layers // p``, and the
+reference's ``lax.scan`` over depth becomes a Python loop over the stack
+axis.
 
 Decode and prefill thread per-layer caches the same way (attention slots
-carry {"self": {k, v, pos}}, SSM slots {"ssm": {conv, ssm}}); here the
-caches are written in place, layer by layer, through views of the stacked
-cache tensors.
+carry {"self": {k, v, pos}}, SSM slots {"ssm": {conv, ssm}}, side by side
+in one tree for the hybrid); here the caches are written in place, layer
+by layer, through views of the stacked cache tensors.  `stack_forward`
+returns the MoE layers' summed auxiliary loss beside the activations, as
+the reference does.
 
-Not on this slice, and refused with NotImplementedError: MoE FFNs
-(ROADMAP Queue 1 item 10, which also holds the jamba hybrid),
-cross-attention (item 11), and ``remat``/``unroll``, which only matter to
+Not on this slice, and refused with NotImplementedError: cross-attention
+(ROADMAP Queue 1 item 11), and ``remat``/``unroll``, which only matter to
 training (item 12) and to the dry-run's cost analysis (item 15).
 """
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -64,15 +68,11 @@ class SlotSpec:
 
 
 def slot_specs(cfg: ModelConfig, *, cross: bool = False) -> list[SlotSpec]:
-    """The period's slot specs; raises for the kinds this slice does not
-    run."""
+    """The period's slot specs; raises for cross-attention, which this
+    slice does not run."""
     if cross:
         raise _not_ported("cross-attention", "11")
-    specs = [SlotSpec(cfg, s) for s in range(cfg.period)]
-    for spec in specs:
-        if spec.ffn == "moe":
-            raise _not_ported(f"ffn {spec.ffn!r} ({cfg.name})", "10")
-    return specs
+    return [SlotSpec(cfg, s) for s in range(cfg.period)]
 
 
 def _check_modes(*, remat: str = "none", unroll: bool = False):
@@ -103,20 +103,29 @@ def init_block(init: Init, cfg: ModelConfig, spec: SlotSpec) -> dict:
     if spec.ffn == "dense":
         p["norm2"] = init_norm(init, cfg.norm, d, dt)
         p["ffn"] = init_mlp(init, d, cfg.d_ff, dt, gated=cfg.gated_mlp)
+    elif spec.ffn == "moe":
+        p["norm2"] = init_norm(init, cfg.norm, d, dt)
+        p["ffn"] = moe_mod.init_moe(init, cfg)
     return p
 
 
 def _ffn(p: dict, cfg: ModelConfig, spec: SlotSpec,
-         x: torch.Tensor) -> torch.Tensor:
+         x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The block's FFN with its residual; returns (x, the MoE auxiliary
+    loss or None)."""
     if spec.ffn == "none":
-        return x
+        return x, None
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    return x + apply_mlp(p["ffn"], h, gated=cfg.gated_mlp, act=cfg.act)
+    if spec.ffn == "moe":
+        y, aux = moe_mod.moe_forward(p["ffn"], cfg, h)
+        return x + y, aux
+    return x + apply_mlp(p["ffn"], h, gated=cfg.gated_mlp, act=cfg.act), None
 
 
 def apply_block(p: dict, cfg: ModelConfig, spec: SlotSpec, x: torch.Tensor,
-                *, positions: torch.Tensor, causal: bool) -> torch.Tensor:
-    """Full-sequence block."""
+                *, positions: torch.Tensor, causal: bool
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Full-sequence block.  Returns (x, MoE aux or None)."""
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
         mix = attn.attn_forward(p["mixer"], cfg, h, rope_on=spec.rope_on,
@@ -150,17 +159,22 @@ def _n_scan(params: dict) -> int:
 def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                   positions: torch.Tensor | None = None, causal: bool = True,
                   cross: bool = False, remat: str = "none",
-                  unroll: bool = False) -> torch.Tensor:
+                  unroll: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, the MoE layers' summed auxiliary loss, float32)."""
     _check_modes(remat=remat, unroll=unroll)
     B, S, _ = x.shape
     if positions is None:
         positions = attn.default_positions(B, S, x.device)
     specs = slot_specs(cfg, cross=cross)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(_n_scan(params)):
         for spec in specs:
-            x = apply_block(_layer(params[f"slot{spec.slot}"], i), cfg, spec,
-                            x, positions=positions, causal=causal)
-    return x
+            x, aux_l = apply_block(_layer(params[f"slot{spec.slot}"], i), cfg,
+                                   spec, x, positions=positions,
+                                   causal=causal)
+            if aux_l is not None:
+                aux = aux + aux_l
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +210,7 @@ def apply_block_decode(p: dict, cfg: ModelConfig, spec: SlotSpec,
                                   rope_on=spec.rope_on, window=spec.window)
     else:
         mix, _ = ssm_mod.ssm_decode(p["mixer"], cfg, h, cache["ssm"])
-    return _ffn(p, cfg, spec, x_t + mix)
+    return _ffn(p, cfg, spec, x_t + mix)[0]
 
 
 def stack_decode(params: dict, cfg: ModelConfig, x_t: torch.Tensor,
@@ -231,7 +245,7 @@ def apply_block_prefill(p: dict, cfg: ModelConfig, spec: SlotSpec,
         mix, state = ssm_mod.ssm_forward(p["mixer"], cfg, h,
                                          return_state=True)
         ssm_mod.ssm_fill(cache["ssm"], state)
-    return _ffn(p, cfg, spec, x + mix)
+    return _ffn(p, cfg, spec, x + mix)[0]
 
 
 def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,

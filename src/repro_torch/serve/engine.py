@@ -147,7 +147,8 @@ class ServeEngine:
 
 def _splice_row(full: PyTree, row: PyTree, i: int):
     """Copies a one-row cache into row ``i`` of the engine's cache (the
-    batch axis is axis 1, after the layer-stack axis)."""
+    batch axis is axis 1, after the layer-stack axis), whatever the
+    slots hold: KV caches, SSM states, or both side by side (jamba)."""
     for k, v in full.items():
         if isinstance(v, dict):
             _splice_row(v, row[k], i)

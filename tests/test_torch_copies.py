@@ -25,7 +25,7 @@ COPIES = [
     *(f"workload/{m}.py" for m in ("trace", "generators", "replay",
                                    "compare")),
     "models/__init__.py", "models/config.py",
-    "kernels/flash_attention/__init__.py",
+    "kernels/flash_attention/__init__.py", "kernels/moe_gmm/__init__.py",
     *(f"configs/{m}.py" for m in (
         "shapes", "granite_8b", "jamba_v0_1_52b",
         "llama4_maverick_400b_a17b", "llama4_scout_17b_a16e",
@@ -50,8 +50,10 @@ PORT_OWN = {
     "kernels/waterfill/ref.py", "kernels/build.py",
     "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
     "kernels/ssd/__init__.py", "kernels/ssd/ops.py", "kernels/ssd/ref.py",
+    "kernels/moe_gmm/ops.py", "kernels/moe_gmm/ref.py",
     "models/param.py", "models/layers.py", "models/attention.py",
     "models/transformer.py", "models/model.py", "models/ssm.py",
+    "models/moe.py",
     "serve/__init__.py", "serve/engine.py",
     "launch/__init__.py", "launch/serve.py",
 }

@@ -20,6 +20,12 @@ ragged 777, with and without an initial state), in float32 and
 bfloat16, y and the final state against the plain chunked version and
 the sequential oracle at the reference's tolerances (2e-3 and 5e-2).
 
+Grouped matmul: the reference suite's four cases, ragged groups (empty,
+unaligned, a tail) and jamba-v0.1-52b's decode and prefill expert
+products (16 experts, 4096 x 14336), in float32 and bfloat16 and with
+float32 output, against the plain version on the same CUDA tensors at
+the reference's tolerances (1e-4 and 5e-2).
+
 The cases, inputs and checks are chip_smoke.py's own, so the two cannot
 drift apart.
 """
@@ -35,6 +41,7 @@ from repro_torch.core.matchmaker import (
 )
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.kernels.moe_gmm.ops import gmm, gmm_plain
 from repro_torch.kernels.ssd import ssd, ssd_chunked
 from repro_torch.kernels.ssd.ref import ssd_reference
 from repro_torch.kernels.waterfill import launch_counts, waterfill
@@ -42,9 +49,10 @@ from repro_torch.kernels.waterfill.ref import waterfill_reference
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    FLASH_CASES, FLASH_TOL, SSD_CASES, SSD_TOL, attention_inputs,
-    check_fully_masked_rows, check_rolling_window, serving_shapes,
-    ssd_arrays, ssd_inputs, ssd_serving_cases,
+    FLASH_CASES, FLASH_TOL, GMM_CASES, GMM_RAGGED, GMM_TOL, SSD_CASES,
+    SSD_TOL, attention_inputs, check_fully_masked_rows, check_rolling_window,
+    gmm_arrays, gmm_inputs, moe_serving_inputs, moe_serving_shapes,
+    serving_shapes, ssd_arrays, ssd_inputs, ssd_serving_cases,
 )
 
 pytestmark = pytest.mark.cuda
@@ -270,3 +278,61 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ssd(x, dt, A, Bm, Cm, D, chunk=512)
     with pytest.raises(ValueError, match="initial_state"):
         ssd(x, dt, A, Bm, Cm, D, initial_state=st[..., :8])
+
+
+def assert_gmm_matches_plain(lhs, rhs, gs, out_dtype=None):
+    before = launch_counts["gmm"]
+    out = gmm(lhs, rhs, gs, out_dtype=out_dtype)
+    assert launch_counts["gmm"] == before + 1
+    ref = gmm_plain(lhs, rhs, gs, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == (out_dtype or lhs.dtype)
+    assert out.shape == (lhs.shape[0], rhs.shape[2])
+    tol = GMM_TOL[lhs.dtype]
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+    return out
+
+
+@pytest.mark.parametrize("case", GMM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_equals_plain_version(cuda, case, dtype):
+    E, K, N, _bt, sizes, tail = case
+    assert_gmm_matches_plain(*gmm_inputs(0, E, K, N, sizes, tail, dtype,
+                                         cuda))
+
+
+@pytest.mark.parametrize("case", GMM_RAGGED)
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.float32, None), (torch.bfloat16, None),
+    (torch.bfloat16, torch.float32)])
+def test_gmm_kernel_takes_ragged_groups(cuda, case, dtype, out_dtype):
+    E, K, N, sizes, tail = case
+    out = assert_gmm_matches_plain(
+        *gmm_inputs(1, E, K, N, sizes, tail, dtype, cuda), out_dtype)
+    assert not bool(out[sum(sizes):].any())
+
+
+@pytest.mark.parametrize("label,rows,K,N", moe_serving_shapes())
+def test_gmm_kernel_at_jamba_serving_shapes(cuda, label, rows, K, N):
+    lhs, rhs, gs = moe_serving_inputs(rows, K, N, torch.bfloat16, cuda)
+    assert_gmm_matches_plain(lhs, rhs, gs, torch.float32)
+
+
+def test_gmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    lhs, rhs, gs = gmm_inputs(3, 2, 16, 8, [3, 5], 0, torch.float32, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gmm(lhs.half(), rhs.half(), gs)
+    with pytest.raises(TypeError, match="rhs"):
+        gmm(lhs, rhs.bfloat16(), gs)
+    with pytest.raises(TypeError, match="out_dtype"):
+        gmm(lhs, rhs, gs, out_dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="group_sizes"):
+        gmm(lhs, rhs, gs.long())
+    with pytest.raises(ValueError, match="group_sizes"):
+        gmm(lhs, rhs, gs.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm(lhs.T.contiguous().T, rhs, gs)
+    with pytest.raises(ValueError, match="K="):
+        gmm(lhs[:, :8].contiguous(), rhs, gs)
+    with pytest.raises(ValueError, match="shape"):
+        gmm(lhs, rhs, gs[:1].contiguous())

@@ -1,0 +1,148 @@
+"""The port's grouped matmul on CPU tensors against the JAX package's
+Pallas kernel (interpret mode), its oracle and its off-TPU path.
+
+On a CPU tensor the port's `gmm` runs its plain version, one float32
+matmul per group; the same numpy inputs (made by chip_smoke.py's
+`gmm_arrays`, the reference suite's draws) go through
+`gmm_pallas(interpret=True)`, `gmm_reference` and the reference's
+``ops.gmm`` (``lax.ragged_dot``).  Tolerances are the reference suite's
+own (tests/test_kernel_moe_gmm.py): 1e-4 for float32 inputs and 5e-2
+for bfloat16, whose inputs are rounded to bf16 on both sides and whose
+output is rounded to bf16; the port's oracle is held to the same.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _hypothesis_compat import given, settings, st
+
+from repro.kernels.moe_gmm.kernel import gmm_pallas
+from repro.kernels.moe_gmm.kernel import tile_expert_map as ref_tile_map
+from repro.kernels.moe_gmm.ops import gmm as ref_gmm
+from repro.kernels.moe_gmm.ref import expert_of_row as ref_expert_of_row
+from repro.kernels.moe_gmm.ref import gmm_reference as ref_oracle
+from repro_torch.kernels.build import launch_counts
+from repro_torch.kernels.moe_gmm.ops import (
+    gmm, gmm_plain, row_tile, tile_expert_map,
+)
+from repro_torch.kernels.moe_gmm.ref import expert_of_row, gmm_reference
+from test_kernel_moe_gmm import CASES
+from test_torch_cuda import GMM_CASES, GMM_RAGGED, gmm_arrays
+from test_torch_matchmaker import one_torch_thread  # noqa: F401
+
+TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def as_f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def close(a, b, tol):
+    np.testing.assert_allclose(as_f32(a), as_f32(b), atol=tol, rtol=tol)
+
+
+def both(arrays, dtype):
+    """The same arrays as port (torch) and reference (jax) inputs."""
+    lhs, rhs, gs = arrays
+    port = (torch.from_numpy(lhs).to(TORCH[dtype]),
+            torch.from_numpy(rhs).to(TORCH[dtype]), torch.from_numpy(gs))
+    ref = (jnp.asarray(lhs, JAX[dtype]), jnp.asarray(rhs, JAX[dtype]),
+           jnp.asarray(gs))
+    return port, ref
+
+
+def test_cuda_cases_are_the_reference_cases():
+    assert GMM_CASES == CASES
+
+
+@pytest.mark.parametrize("E,K,N,BT,sizes,tail", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_port_matches_pallas_and_oracle(E, K, N, BT, sizes, tail, dtype):
+    (lhs, rhs, gs), (jl, jr, jg) = both(gmm_arrays(0, E, K, N, sizes, tail),
+                                        dtype)
+    out = gmm(lhs, rhs, gs)
+    assert out.dtype == TORCH[dtype] and out.shape == (sum(sizes) + tail, N)
+    pallas = gmm_pallas(jl, jr, jg, block_t=BT, interpret=True)
+    oracle = ref_oracle(jl, jr, jg)
+    close(out, pallas, TOL[dtype])
+    close(out, oracle, TOL[dtype])
+    close(gmm_reference(lhs, rhs, gs), oracle, TOL[dtype])
+    assert not out[sum(sizes):].any()
+
+
+@pytest.mark.parametrize("E,K,N,sizes,tail", GMM_RAGGED + [
+    (4, 16, 24, [0, 0, 0, 9], 0), (1, 8, 8, [5], 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_groups_match_ragged_dot(E, K, N, sizes, tail, dtype):
+    """Unaligned sizes, empty groups and a tail: the reference's off-TPU
+    ``ops.gmm`` (``lax.ragged_dot``), which the Pallas kernel cannot
+    take."""
+    (lhs, rhs, gs), (jl, jr, jg) = both(gmm_arrays(1, E, K, N, sizes, tail),
+                                        dtype)
+    out = gmm(lhs, rhs, gs)
+    close(out, ref_gmm(jl, jr, jg), TOL[dtype])
+    close(out, ref_oracle(jl, jr, jg), TOL[dtype])
+
+
+def test_float32_output_of_bfloat16_inputs():
+    """``out_dtype=float32``: the float32 sums of the bf16 inputs, not
+    rounded to bf16 (the MoE's ``preferred_element_type``)."""
+    E, K, N, sizes, tail = GMM_RAGGED[1]
+    (lhs, rhs, gs), _ = both(gmm_arrays(2, E, K, N, sizes, tail), "bfloat16")
+    out = gmm(lhs, rhs, gs, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    ref = ref_oracle(jnp.asarray(lhs.float().numpy()),
+                     jnp.asarray(rhs.float().numpy()), jnp.asarray(gs))
+    close(out, ref, TOL["float32"])
+    assert not torch.equal(out, out.bfloat16().float())
+
+
+def test_groups_reaching_past_the_rows_are_cut():
+    lhs = torch.ones(5, 3)
+    rhs = torch.stack([torch.full((3, 2), float(e + 1)) for e in range(3)])
+    out = gmm_plain(lhs, rhs, torch.tensor([2, 6, 4], dtype=torch.int32))
+    assert out[:, 0].tolist() == [3.0, 3.0, 6.0, 6.0, 6.0]
+
+
+def test_cpu_tensors_launch_nothing():
+    before = dict(launch_counts)
+    gmm(torch.zeros(4, 8), torch.zeros(2, 8, 8),
+        torch.tensor([2, 2], dtype=torch.int32))
+    assert launch_counts == before
+
+
+@pytest.mark.parametrize("sizes", [[3, 0, 9], [0, 0], [16, 16, 1], [7]])
+def test_expert_of_row_matches_reference(sizes):
+    T = sum(sizes) + 4
+    gs = np.asarray(sizes, np.int32)
+    np.testing.assert_array_equal(
+        expert_of_row(torch.from_numpy(gs), T).numpy(),
+        np.asarray(ref_expert_of_row(jnp.asarray(gs), T)))
+
+
+@settings(max_examples=50, deadline=None)
+@given(sizes=st.lists(st.integers(0, 8), min_size=1, max_size=8),
+       bt=st.sampled_from([2, 4, 8]))
+def test_tile_expert_map_property(sizes, bt):
+    """The reference's property (tests/test_kernel_moe_gmm.py): the map
+    agrees with expert_of_row at every tile start when groups are
+    bt-aligned; and the port's map is the reference's."""
+    sizes_aligned = [s * bt for s in sizes]
+    n_tiles = max(1, (sum(sizes_aligned) + 2 * bt) // bt)
+    gs = np.asarray(sizes_aligned, np.int32)
+    tmap = tile_expert_map(torch.from_numpy(gs), n_tiles, bt).numpy()
+    emap = expert_of_row(torch.from_numpy(gs), n_tiles * bt).numpy()
+    np.testing.assert_array_equal(tmap, emap[::bt])
+    np.testing.assert_array_equal(
+        tmap, np.asarray(ref_tile_map(jnp.asarray(gs), n_tiles, bt)))
+
+
+def test_row_tile_follows_the_mean_group():
+    """jamba's decode tick (8 slots: 16 experts of C = 2 rows) takes the
+    small tile; its prefills (C = 80 and 160) the large one."""
+    assert row_tile(32, 16) == 8
+    assert row_tile(1280, 16) == row_tile(2560, 16) == 64

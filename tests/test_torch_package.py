@@ -32,7 +32,8 @@ def test_every_port_module_imports_without_jax_or_reference():
     mods = port_modules()
     first = ["repro_torch.kernels.waterfill.ops",
              "repro_torch.kernels.flash_attention.ops",
-             "repro_torch.kernels.ssd.ops"]
+             "repro_torch.kernels.ssd.ops",
+             "repro_torch.kernels.moe_gmm.ops"]
     code = (
         "import importlib, json, sys\n"
         f"for m in {json.dumps(first + mods + ['chip_smoke'])}:\n"
@@ -40,12 +41,13 @@ def test_every_port_module_imports_without_jax_or_reference():
         "from repro_torch.kernels.waterfill import ops as wf\n"
         "from repro_torch.kernels.flash_attention import ops as fa\n"
         "from repro_torch.kernels.ssd import ops as so\n"
+        "from repro_torch.kernels.moe_gmm import ops as gm\n"
         "from repro_torch.kernels import build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps({'bad': bad, 'launches': build.launch_counts, "
-        "'built': [wf.build_log, fa.build_log, so.build_log, wf._lib, "
-        "fa._lib, so._lib] != [None] * 6}))\n")
+        "'built': [wf.build_log, fa.build_log, so.build_log, gm.build_log, "
+        "wf._lib, fa._lib, so._lib, gm._lib] != [None] * 8}))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -53,9 +55,10 @@ def test_every_port_module_imports_without_jax_or_reference():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"bad": [], "launches": {"waterfill": 0,
-                                           "flash_attention": 0, "ssd": 0},
+                                           "flash_attention": 0, "ssd": 0,
+                                           "gmm": 0},
                    "built": False}
-    assert len(mods) >= 59
+    assert len(mods) >= 63
 
 
 @pytest.mark.parametrize("path", SOURCES,
