@@ -65,15 +65,21 @@ nothing falls back to the CPU or to a plain version):
  10. serving mamba2 like phase 7 (same slots, requests and lengths); the
      SSD kernel's launches must equal 48 x prefill calls (decode runs the
      plain one-token update), then the decode-tick profile;
- 11. the grouped-matmul kernel against its plain version on the card:
-     the reference suite's four cases in float32 (1e-4) and bfloat16
-     (5e-2), ragged groups (unaligned, empty, a tail; also bfloat16 in,
-     float32 out), then jamba-v0.1-52b's expert products (16 experts,
-     4096 x 14336, gate/up and down) at a prefill of 1024 and of 512
-     tokens and at a decode tick of 8 slots, in float32 and in bfloat16
-     with float32 output, the bfloat16 calls timed beside their bound,
-     the plain version and `torch.bmm` (a yardstick only); then one
-     full-width MoE layer, kernel against plain, in both dtypes;
+ 11. the grouped-matmul kernel against its plain version on the card,
+     each call through the instance `gmm_route` names (the tensor-core
+     instance for bfloat16 whose K and N are multiples of 8, the SIMT one
+     for float32 and the rest): the reference suite's four cases in
+     float32 (1e-4) and bfloat16 (5e-2), ragged groups (unaligned, empty,
+     a tail; also bfloat16 in, float32 out), the tensor-core edge cases
+     (one group holding every row, a short group between long ones, N
+     and K ending inside a tile; two calls bitwise equal), then
+     jamba-v0.1-52b's expert products (16 experts, 4096 x 14336, gate/up
+     and down) at a prefill of 1024 and of 512 tokens and at a decode
+     tick of 8 slots, in float32 and in bfloat16 with float32 output, the
+     bfloat16 calls timed beside their bound, the stream-only probe (the
+     tensor-core ring without its products), the plain version and
+     `torch.bmm` (a yardstick only); then one full-width MoE layer,
+     kernel against plain, in both dtypes;
  12. jamba at full width, depth cut to one period (8 layers: 7 Mamba, 1
      attention, 4 MoE FFNs) in float32: forward with every kernel
      against every plain version, prefill + decode against the forward,
@@ -83,9 +89,12 @@ nothing falls back to the CPU or to a plain version):
      against the plain versions over the positions before the first one
      routed to other experts, then serving like phase 7; every launch
      count must equal `expected_launches` (gmm 3 x 8 x (prefills +
-     ticks), flash 2 x (prefills + ticks), SSD 14 x prefills), then the
+     ticks), flash 2 x (prefills + ticks), SSD 14 x prefills), and every
+     gmm launch must have taken the tensor-core instance; then the
      decode-tick profile;
- 14. a JSON line per kernel, the card line, and the result line.
+ 14. a JSON line per kernel (gmm's with its launches by instance and
+     ptxas' report of the tensor-core instances), the card line, and the
+     result line.
 """
 from __future__ import annotations
 
@@ -93,6 +102,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -172,6 +182,14 @@ GMM_CASES = [
 # sizes, empty groups, a tail (E, K, N, sizes, tail)
 GMM_RAGGED = [(4, 32, 48, [7, 0, 13, 21], 5),
               (5, 136, 200, [0, 65, 1, 0, 9], 31)]
+# cases for the tensor-core instance's edges (E, K, N, sizes, tail): one
+# group holding every row while the mean group is small (a tail too); a
+# group shorter than a row tile between two long ones, N not a multiple of
+# the 128-column tile (its last tile's second 64-column box wholly past
+# N); a K that ends inside a 64-deep stage and an N inside a box
+GMM_TC_CASES = [(16, 128, 256, [0] * 7 + [300] + [0] * 8, 20),
+                (3, 256, 136, [130, 17, 200], 0),
+                (4, 200, 328, [64, 0, 1, 127], 9)]
 # the reference suite's tolerances (atol and rtol), against the plain version
 GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 MOE_ARCH = "jamba-v0.1-52b"
@@ -811,14 +829,31 @@ def gmm_bound(lhs, rhs, group_sizes, out):
     return 1e3 * t_ops, "operations", nbytes, flops
 
 
+def gmm_route(dtype, K, N) -> str:
+    """The gmm instance a call must take: the tensor cores for bfloat16
+    inputs whose rows TMA can stream (K and N multiples of 8; the tensors
+    here are fresh, so 16-byte aligned), the SIMT instance for float32 (no
+    TF32) and for the rest."""
+    tc = dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0
+    return "wgmma" if tc else "simt"
+
+
 def check_gmm(label, gm, lhs, rhs, gs, out_dtype=None, *, timed=False):
     """Kernel vs plain version on the card, at the reference suite's
-    tolerance; with ``timed``, CUDA-event medians of the kernel, the
-    plain version and `torch.bmm` over the (E, C, K) x (E, K, N) layout
-    (a yardstick only; equal groups) beside the bound."""
+    tolerance, through the instance `gmm_route` names; with ``timed``,
+    CUDA-event medians of the kernel, of its stream-only probe (the ring
+    without the products), of the plain version and of `torch.bmm` over
+    the (E, C, K) x (E, K, N) layout (a yardstick only; equal groups)
+    beside the bound, and two calls bitwise equal."""
+    E, K, N = rhs.shape
+    want = gmm_route(lhs.dtype, K, N)
+    before = dict(gm.route_counts)
     out = gm.gmm(lhs, rhs, gs, out_dtype=out_dtype)
+    routed = {k: gm.route_counts[k] - before[k] for k in before}
     ref = gm.gmm_plain(lhs, rhs, gs, out_dtype=torch.float32)
     torch.cuda.synchronize()
+    if routed != {k: int(k == want) for k in routed}:
+        raise AssertionError(f"{label}: routed {routed}, expected {want}")
     tol = GMM_TOL[lhs.dtype]
     if out.dtype != (out_dtype or lhs.dtype) or out.shape != ref.shape:
         raise AssertionError(f"{label}: output {out.dtype} {tuple(out.shape)}")
@@ -828,12 +863,13 @@ def check_gmm(label, gm, lhs, rhs, gs, out_dtype=None, *, timed=False):
     if bool((err > tol + tol * ref.abs()).any()):
         raise AssertionError(f"{label}: kernel differs from the plain "
                              f"version by {float(err.max()):.3g} > {tol}")
-    E, K, N = rhs.shape
-    row = {"gmm_case": label, "dtype": str(lhs.dtype).split(".")[1],
+    row = {"gmm_case": label, "route": want,
+           "dtype": str(lhs.dtype).split(".")[1],
            "out_dtype": str(out.dtype).split(".")[1],
            "shape": [lhs.shape[0], K, N, E], "max_abs_err": float(err.max()),
            "tol": tol}
     if timed:
+        check_gmm_deterministic(label, gm, lhs, rhs, gs, out_dtype)
         C = lhs.shape[0] // E
         batched = lhs.view(E, C, K)
 
@@ -844,6 +880,8 @@ def check_gmm(label, gm, lhs, rhs, gs, out_dtype=None, *, timed=False):
         row.update(
             ms=cuda_ms(lambda: gm.gmm(lhs, rhs, gs, out_dtype=out_dtype),
                        KERNEL_REPS),
+            stream_ms=cuda_ms(lambda: gm.stream_floor(lhs, rhs, gs),
+                              KERNEL_REPS),
             plain_ms=cuda_ms(lambda: gm.gmm_plain(lhs, rhs, gs,
                                                   out_dtype=out_dtype),
                              KERNEL_REPS),
@@ -854,11 +892,63 @@ def check_gmm(label, gm, lhs, rhs, gs, out_dtype=None, *, timed=False):
     return row
 
 
+def check_gmm_deterministic(label, gm, lhs, rhs, gs, out_dtype=None):
+    """Two calls on the same inputs give the same bits (no atomics, a
+    fixed K order)."""
+    a = gm.gmm(lhs, rhs, gs, out_dtype=out_dtype)
+    b = gm.gmm(lhs, rhs, gs, out_dtype=out_dtype)
+    if not bitwise_equal(a.float(), b.float()):
+        raise AssertionError(f"{label}: two calls differ")
+
+
+def ptxas_report(log, name):
+    """Registers, spill bytes and static shared memory of each kernel in
+    nvcc's ``-Xptxas -v`` output whose mangled name holds ``name``."""
+    rows, kernel = [], None
+    for line in (log or "").splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = entry.group(1) if name in entry.group(1) else None
+            if kernel:
+                rows.append({"kernel": kernel})
+            continue
+        if kernel is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            rows[-1]["spill_bytes"] = int(spill[1]) + int(spill[2])
+        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if used:
+            rows[-1].update(registers=int(used[1]), static_smem=int(used[2]))
+    return rows
+
+
+def wgmma_instances(gm):
+    """ptxas' report of each tensor-core instance, with its rows per tile,
+    ring depth, output type and dynamic shared memory."""
+    rows = []
+    for r in ptxas_report(gm.build_log, "gmm_kernel_wgmma"):
+        args = re.search(r"gmm_kernel_wgmmaI(\w+?)Li(\d+)ELi(\d+)ELb(\d)E",
+                         r["kernel"])
+        if args:
+            bm = int(args[2])
+            r = {"rows": bm, "stages": int(args[3]),
+                 "out": "float32" if args[1] == "f" else "bfloat16",
+                 "products": args[4] == "1",
+                 "dynamic_smem": gm.wgmma_smem_bytes(bm),
+                 **{k: v for k, v in r.items() if k != "kernel"}}
+        rows.append(r)
+    return rows
+
+
 def gmm_phase(gm, device):
     """Every case of the reference suite in both dtypes, the ragged cases
-    (also bfloat16 in, float32 out), then jamba's serving products in
-    float32 and in bfloat16 with float32 output (the MoE's call), the
-    bfloat16 calls timed.  Returns the timed rows."""
+    (also bfloat16 in, float32 out), the tensor-core edge cases (bfloat16
+    and float32 out, twice: bitwise equal), then jamba's serving products
+    in float32 and in bfloat16 with float32 output (the MoE's call), the
+    bfloat16 calls timed.  Each call's instance is checked.  Returns the
+    timed rows."""
     for E, K, N, _bt, sizes, tail in GMM_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             check_gmm(f"case{(E, K, N, sizes, tail)}", gm,
@@ -869,6 +959,12 @@ def gmm_phase(gm, device):
             check_gmm(f"ragged{(E, K, N, sizes, tail)}", gm,
                       *gmm_inputs(1, E, K, N, sizes, tail, dtype, device),
                       out_dtype)
+    for E, K, N, sizes, tail in GMM_TC_CASES:
+        inputs = gmm_inputs(2, E, K, N, sizes, tail, torch.bfloat16, device)
+        for out_dtype in (None, torch.float32):
+            label = f"tc{(E, K, N, sizes, tail)}"
+            check_gmm(label, gm, *inputs, out_dtype)
+            check_gmm_deterministic(label, gm, *inputs, out_dtype)
     timed = []
     for label, rows, K, N in moe_serving_shapes():
         for dtype in (torch.float32, torch.bfloat16):
@@ -1272,11 +1368,12 @@ def expected_launches(cfg, engine) -> dict:
 
 
 def serve_phase(cfg, params, launch_counts, *, kernels=("flash_attention",),
-                profile_kernel="flash_attention_kernel"):
+                profile_kernel="flash_attention_kernel", routes=None):
     """The main path: `ServeEngine` at full width.  Every count is set
     to 0 just before the run and read just after; each must equal
     `expected_launches`, and each of ``kernels`` (the path's) must have
-    launched."""
+    launched.  ``routes`` (a kernel's launches by instance) is set to 0
+    and read with them."""
     from repro_torch.models import model as model_lib
     from repro_torch.serve.engine import ServeEngine
     reqs = make_requests(cfg, SERVE["requests"], SERVE["prompt"],
@@ -1288,13 +1385,15 @@ def serve_phase(cfg, params, launch_counts, *, kernels=("flash_attention",),
     timer = TimedModel(model_lib)
     torch.cuda.synchronize()
     with timer.on():
-        for name in launch_counts:
-            launch_counts[name] = 0
+        for counter in (launch_counts, routes or {}):
+            for name in counter:
+                counter[name] = 0
         t0 = time.perf_counter()
         ticks = engine.run_until_drained()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(launch_counts)
+        routed = dict(routes or {})
     expected = expected_launches(cfg, engine)
     if len(engine.done) != len(reqs) or any(
             len(r.output) != SERVE["new"] for r in engine.done.values()):
@@ -1312,7 +1411,7 @@ def serve_phase(cfg, params, launch_counts, *, kernels=("flash_attention",),
            "prompt_tokens": prompt_tokens, "new_tokens": tokens,
            "ticks": ticks, "prefill_calls": engine.prefill_calls,
            "decode_ticks": engine.decode_ticks, "launch_counts": counts,
-           "wall_s": wall,
+           "routes": routed, "wall_s": wall,
            "tokens_per_s": tokens / wall,
            "prefill_ms_per_request": 1e3 * statistics.mean(timer.prefill_s),
            "prefill_ms_max": 1e3 * max(timer.prefill_s),
@@ -1553,7 +1652,12 @@ def main() -> int:
     params = routed_bf16_phase(cfg, dev)
     served = serve_phase(cfg, params, launch_counts,
                          kernels=("flash_attention", "ssd", "gmm"),
-                         profile_kernel="gmm_kernel")
+                         profile_kernel="gmm_kernel",
+                         routes=gm.route_counts)
+    if served["routes"]["wgmma"] != served["launch_counts"]["gmm"]:
+        raise AssertionError(f"serving jamba in bfloat16: gmm routes "
+                             f"{served['routes']}, not every launch on the "
+                             f"tensor cores")
     del params
     torch.cuda.empty_cache()
     decode = gmm_timed[-2]                  # the decode tick's gate/up call
@@ -1566,9 +1670,14 @@ def main() -> int:
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
+        "instances": {"wgmma": "bfloat16 with K, N multiples of 8",
+                      "simt": "float32, and bfloat16 TMA cannot take"},
+        "launches_by_instance": served["routes"],
+        "wgmma_ptxas": wgmma_instances(gm),
         "shapes": [{k: r[k] for k in (
-            "gmm_case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err")} for r in gmm_timed]}
+            "gmm_case", "route", "shape", "ms", "stream_ms", "plain_ms",
+            "bound_ms", "bound_by", "bound_share", "library_ms",
+            "max_abs_err")} for r in gmm_timed]}
     print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
                                   gmm_line]}), flush=True)
     print(card, flush=True)

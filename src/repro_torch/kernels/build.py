@@ -36,13 +36,15 @@ def nvcc() -> str:
 def build_library(source: Path, flags: tuple[str, ...]) -> tuple[Path, str | None]:
     """Compile ``source`` unless this source and these flags were built
     before.  Returns the shared library's path and nvcc's output (ptxas'
-    register and shared-memory report), which is None when the library
-    was already built."""
+    register and shared-memory report), kept beside the library so that
+    a later process reads the same report; None only if that file is
+    gone."""
     src = source.read_bytes()
     tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-{tag}.so"
+    log_file = out.with_suffix(".log")
     if out.exists():
-        return out, None
+        return out, log_file.read_text() if log_file.exists() else None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         tmp_out = Path(tmp) / out.name
@@ -52,5 +54,9 @@ def build_library(source: Path, flags: tuple[str, ...]) -> tuple[Path, str | Non
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name} "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
+        log = proc.stdout + proc.stderr
+        tmp_log = Path(tmp) / log_file.name
+        tmp_log.write_text(log)
+        os.replace(tmp_log, log_file)
         os.replace(tmp_out, out)       # atomic: concurrent builds agree
-    return out, proc.stdout + proc.stderr
+    return out, log

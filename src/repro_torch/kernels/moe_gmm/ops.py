@@ -10,17 +10,26 @@ does off the TPU through ``lax.ragged_dot``.  ``out_dtype`` defaults to
 ``preferred_element_type``.
 
 On a CUDA tensor `gmm` checks dtype, shape, contiguity and device, then
-launches `gmm.cu` on the current stream, or raises; it never reads the
-group sizes on the host, so it does not synchronise.  On a CPU tensor,
-and only there, it runs `gmm_plain`, a loop of one matmul per group.
+launches one of the two instances of `gmm.cu` on the current stream, or
+raises; it never reads the group sizes on the host, so it does not
+synchronise.  `route` picks the instance from dtype, shape and alignment
+alone: the tensor-core instance (``"wgmma"``: TMA ring, wgmma) for
+bfloat16 inputs whose K and N are multiples of 8 and whose tensors are
+16-byte aligned, which is every expert product of the MoE layer in
+bfloat16; the SIMT instance (``"simt"``) for float32 inputs (FP32 FMAs:
+TF32 would miss the 1e-4 tolerance) and for the bfloat16 shapes TMA
+cannot take.  `launch_counts["gmm"]` counts both; `route_counts` counts
+each.  On a CPU tensor, and only there, `gmm` runs `gmm_plain`, a loop of
+one matmul per group.
 
 `tile_expert_map` is the reference kernel's row-tile-to-expert map for
 groups aligned to the row tile (``kernel.py:63``); the CUDA kernel walks
 the general (expert, tile-within-group) pairs of ragged groups itself.
 
 The CUDA source is built at first use by `repro_torch.kernels.build`
-(nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
-headers).
+(nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch headers;
+the tensor-map encoder is looked up through the CUDA runtime, so no
+``-lcuda``).
 """
 from __future__ import annotations
 
@@ -40,8 +49,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows per tile: the prefill-sized tile, and the tile for groups of a few
 #: rows (decode), taken when the mean group T / E is at most SMALL_GROUP
 BIG_TILE, SMALL_TILE, SMALL_GROUP = 64, 8, 16
-_MAX_COL_TILES = 65535          # the grid's y axis, 128 columns each
+#: rows per tile of the tensor-core instance: one 64-row warpgroup, or 2
+#: or 3 sharing each weight stage, or 8 lhs rows a stage for the decode's
+#: groups of a few rows
+TC_TILES = (8, 64, 128, 192)
+_MAX_COL_TILES = 65535          # the SIMT grid's y axis, 128 columns each
 _INT32_MAX = 2 ** 31 - 1
+#: launches by instance since the count was last reset; only the CUDA
+#: branch of `gmm` adds to it, once per launch, beside launch_counts["gmm"]
+route_counts = {"wgmma": 0, "simt": 0}
 _lib: ctypes.CDLL | None = None
 #: nvcc's output (ptxas register and shared-memory report) of the build
 #: this process loaded, or None before the first build.
@@ -101,6 +117,11 @@ def _library() -> ctypes.CDLL:
         lib.gmm_launch.argtypes = [i, i, i, i, vp, vp, vp, vp, i, i, i, i,
                                    vp]
         lib.gmm_launch.restype = i
+        lib.gmm_wgmma_launch.argtypes = [i, i, i, i, vp, vp, vp, vp, i, i,
+                                         i, i, vp]
+        lib.gmm_wgmma_launch.restype = i
+        lib.gmm_wgmma_smem_bytes.argtypes = [i]
+        lib.gmm_wgmma_smem_bytes.restype = i
         lib.gmm_error_string.argtypes = [i]
         lib.gmm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -111,6 +132,34 @@ def row_tile(T: int, E: int) -> int:
     """Rows per tile for ``T`` rows in ``E`` groups: a shape, not a
     group size, so choosing needs nothing from the device."""
     return SMALL_TILE if T <= SMALL_GROUP * E else BIG_TILE
+
+
+def tc_tile(T: int, E: int) -> int:
+    """Rows per tile of the tensor-core instance for ``T`` rows in ``E``
+    groups: the smallest of `TC_TILES` that holds the mean group T / E
+    (a shape: nothing is read from the device), so that a group's rows
+    share one weight stream."""
+    mean = -(-T // E)
+    return next((bm for bm in TC_TILES if mean <= bm), TC_TILES[-1])
+
+
+def route(lhs: torch.Tensor, rhs: torch.Tensor, out: torch.Tensor) -> str:
+    """The instance a CUDA launch takes, from dtype, shape and alignment
+    alone: ``"wgmma"`` where TMA can stream bfloat16 operands (K and N
+    multiples of 8, so every row stride is a multiple of 16 bytes; lhs,
+    rhs and out 16-byte aligned), ``"simt"`` otherwise."""
+    K, N = lhs.shape[1], rhs.shape[2]
+    if (lhs.dtype == rhs.dtype == torch.bfloat16 and K > 0 and K % 8 == 0
+            and N % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (lhs, rhs, out))):
+        return "wgmma"
+    return "simt"
+
+
+def wgmma_smem_bytes(bm: int) -> int:
+    """Dynamic shared memory of one tensor-core block of ``bm``-row tiles
+    (builds the kernel if need be)."""
+    return _library().gmm_wgmma_smem_bytes(bm)
 
 
 def _check(name: str, t: torch.Tensor, dtype, ndim: int, device):
@@ -152,22 +201,59 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
                          f"{tuple(group_sizes.shape)}")
     if min(T, N, E) <= 0:
         raise ValueError(f"gmm: empty shapes T={T} N={N} E={E}")
-    bt = row_tile(T, E)
-    if -(-N // 128) > _MAX_COL_TILES or T + bt * (E + 1) > _INT32_MAX:
-        raise ValueError(f"gmm: shapes T={T} K={K} N={N} E={E} exceed the "
-                         f"kernel's grid")
     lib = _library()
     out = torch.empty((T, N), dtype=out_dtype, device=dev)
-    err = lib.gmm_launch(
-        dev.index, _DTYPES[dtype], _DTYPES[out_dtype], bt, lhs.data_ptr(),
-        rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), T, K, N, E,
-        torch.cuda.current_stream(dev).cuda_stream)
+    instance = route(lhs, rhs, out)
+    bt = tc_tile(T, E) if instance == "wgmma" else row_tile(T, E)
+    col_tiles, row_tiles = -(-N // 128), -(-T // bt) + E + 1
+    if (row_tiles * col_tiles > _INT32_MAX if instance == "wgmma"
+            else col_tiles > _MAX_COL_TILES or row_tiles > _INT32_MAX):
+        raise ValueError(f"gmm: shapes T={T} K={K} N={N} E={E} exceed the "
+                         f"kernel's grid")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if instance == "wgmma":
+        err = lib.gmm_wgmma_launch(
+            dev.index, _DTYPES[out_dtype], 1, bt, lhs.data_ptr(),
+            rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), T, K, N,
+            E, stream)
+    else:
+        err = lib.gmm_launch(
+            dev.index, _DTYPES[dtype], _DTYPES[out_dtype], bt,
+            lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+            out.data_ptr(), T, K, N, E, stream)
     if err != 0:
-        raise RuntimeError("gmm kernel launch failed: "
+        raise RuntimeError(f"gmm kernel launch failed ({instance}): "
                            + lib.gmm_error_string(err).decode())
     launch_counts["gmm"] += 1
+    route_counts[instance] += 1
+    return out
+
+
+def stream_floor(lhs: torch.Tensor, rhs: torch.Tensor,
+                 group_sizes: torch.Tensor) -> torch.Tensor:
+    """Launches the tensor-core instance with its products taken out: the
+    same grid, TMA ring and barriers, the output stored as float32 zeros.
+    Its time is the floor the design's loads put under `gmm`; it is a
+    probe, counted nowhere.  Takes what `route` sends to ``"wgmma"``."""
+    if lhs.device.type != "cuda":
+        raise ValueError("stream_floor: a probe of the CUDA kernel")
+    (T, K), (E, _, N) = lhs.shape, rhs.shape
+    out = torch.empty((T, N), dtype=torch.float32, device=lhs.device)
+    if route(lhs, rhs, out) != "wgmma" or not (
+            lhs.is_contiguous() and rhs.is_contiguous()):
+        raise ValueError("stream_floor: inputs the tensor-core instance "
+                         "does not take")
+    lib = _library()
+    err = lib.gmm_wgmma_launch(
+        lhs.device.index, 0, 0, tc_tile(T, E), lhs.data_ptr(),
+        rhs.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), T, K, N, E,
+        torch.cuda.current_stream(lhs.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("stream-floor probe launch failed: "
+                           + lib.gmm_error_string(err).decode())
     return out
 
 
 __all__ = ["gmm", "gmm_plain", "gmm_reference", "expert_of_row",
-           "tile_expert_map", "row_tile", "build", "launch_counts"]
+           "tile_expert_map", "row_tile", "tc_tile", "route", "stream_floor",
+           "wgmma_smem_bytes", "build", "launch_counts", "route_counts"]

@@ -21,10 +21,14 @@ bfloat16, y and the final state against the plain chunked version and
 the sequential oracle at the reference's tolerances (2e-3 and 5e-2).
 
 Grouped matmul: the reference suite's four cases, ragged groups (empty,
-unaligned, a tail) and jamba-v0.1-52b's decode and prefill expert
-products (16 experts, 4096 x 14336), in float32 and bfloat16 and with
-float32 output, against the plain version on the same CUDA tensors at
-the reference's tolerances (1e-4 and 5e-2).
+unaligned, a tail), the tensor-core edge cases (one group holding every
+row, a short group between long ones, N and K ending inside a tile) and
+jamba-v0.1-52b's decode and prefill expert products (16 experts, 4096 x
+14336), in float32 and bfloat16 and with float32 output, against the
+plain version on the same CUDA tensors at the reference's tolerances
+(1e-4 and 5e-2), each through the instance `gmm_route` names (tensor
+cores for bfloat16 with K and N multiples of 8, SIMT otherwise); two
+tensor-core calls give the same bits.
 
 The cases, inputs and checks are chip_smoke.py's own, so the two cannot
 drift apart.
@@ -41,7 +45,9 @@ from repro_torch.core.matchmaker import (
 )
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_reference
-from repro_torch.kernels.moe_gmm.ops import gmm, gmm_plain
+from repro_torch.kernels.moe_gmm.ops import (
+    gmm, gmm_plain, route_counts, stream_floor,
+)
 from repro_torch.kernels.ssd import ssd, ssd_chunked
 from repro_torch.kernels.ssd.ref import ssd_reference
 from repro_torch.kernels.waterfill import launch_counts, waterfill
@@ -49,9 +55,10 @@ from repro_torch.kernels.waterfill.ref import waterfill_reference
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    FLASH_CASES, FLASH_TOL, GMM_CASES, GMM_RAGGED, GMM_TOL, SSD_CASES,
-    SSD_TOL, attention_inputs, check_fully_masked_rows, check_rolling_window,
-    gmm_arrays, gmm_inputs, moe_serving_inputs, moe_serving_shapes,
+    FLASH_CASES, FLASH_TOL, GMM_CASES, GMM_RAGGED, GMM_TC_CASES, GMM_TOL,
+    SSD_CASES, SSD_TOL, attention_inputs, bitwise_equal,
+    check_fully_masked_rows, check_rolling_window, gmm_arrays, gmm_inputs,
+    gmm_route, moe_serving_inputs, moe_serving_shapes,
     serving_shapes, ssd_arrays, ssd_inputs, ssd_serving_cases,
 )
 
@@ -281,9 +288,12 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 def assert_gmm_matches_plain(lhs, rhs, gs, out_dtype=None):
-    before = launch_counts["gmm"]
+    before, routed = launch_counts["gmm"], dict(route_counts)
     out = gmm(lhs, rhs, gs, out_dtype=out_dtype)
     assert launch_counts["gmm"] == before + 1
+    want = gmm_route(lhs.dtype, lhs.shape[1], rhs.shape[2])
+    assert {k: route_counts[k] - routed[k] for k in routed} == {
+        k: int(k == want) for k in routed}
     ref = gmm_plain(lhs, rhs, gs, out_dtype=torch.float32)
     torch.cuda.synchronize()
     assert out.dtype == (out_dtype or lhs.dtype)
@@ -315,7 +325,57 @@ def test_gmm_kernel_takes_ragged_groups(cuda, case, dtype, out_dtype):
 @pytest.mark.parametrize("label,rows,K,N", moe_serving_shapes())
 def test_gmm_kernel_at_jamba_serving_shapes(cuda, label, rows, K, N):
     lhs, rhs, gs = moe_serving_inputs(rows, K, N, torch.bfloat16, cuda)
+    assert gmm_route(lhs.dtype, K, N) == "wgmma"
     assert_gmm_matches_plain(lhs, rhs, gs, torch.float32)
+
+
+@pytest.mark.parametrize("case", GMM_TC_CASES)
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+def test_gmm_tensor_cores_take_edge_cases(cuda, case, out_dtype):
+    """One group holding every row while the mean group is small, a group
+    shorter than a row tile between two long ones, N not a multiple of the
+    column tile, K and N ending inside a TMA box; bfloat16 and float32
+    output; the tail rows stay zero."""
+    E, K, N, sizes, tail = case
+    out = assert_gmm_matches_plain(
+        *gmm_inputs(2, E, K, N, sizes, tail, torch.bfloat16, cuda), out_dtype)
+    assert not bool(out[sum(sizes):].any())
+
+
+def ragged_inputs(case, device):
+    E, K, N, sizes, tail = case
+    return gmm_inputs(2, E, K, N, sizes, tail, torch.bfloat16, device)
+
+
+def decode_inputs(device):
+    _label, rows, K, N = moe_serving_shapes()[-1]
+    return moe_serving_inputs(rows, K, N, torch.bfloat16, device)
+
+
+@pytest.mark.parametrize("inputs", [
+    lambda dev: ragged_inputs(GMM_RAGGED[1], dev),
+    lambda dev: ragged_inputs(GMM_TC_CASES[0], dev), decode_inputs],
+    ids=["ragged", "one-group", "jamba-decode-down"])
+def test_gmm_tensor_cores_are_deterministic(cuda, inputs):
+    lhs, rhs, gs = inputs(cuda)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        a = gmm(lhs, rhs, gs, out_dtype=out_dtype)
+        b = gmm(lhs, rhs, gs, out_dtype=out_dtype)
+        assert bitwise_equal(a.float(), b.float())
+
+
+def test_gmm_stream_floor_probe_counts_nothing(cuda):
+    """The stream-only probe runs the ring without its products: zeros,
+    and no launch counted on the main path's counts."""
+    E, K, N, sizes, tail = GMM_TC_CASES[1]
+    lhs, rhs, gs = gmm_inputs(2, E, K, N, sizes, tail, torch.bfloat16, cuda)
+    before, routed = dict(launch_counts), dict(route_counts)
+    out = stream_floor(lhs, rhs, gs)
+    torch.cuda.synchronize()
+    assert not bool(out.any())
+    assert launch_counts == before and route_counts == routed
+    with pytest.raises(ValueError, match="tensor-core"):
+        stream_floor(lhs.float(), rhs.float(), gs)
 
 
 def test_gmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):

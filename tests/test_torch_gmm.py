@@ -9,6 +9,13 @@ matmul per group; the same numpy inputs (made by chip_smoke.py's
 own (tests/test_kernel_moe_gmm.py): 1e-4 for float32 inputs and 5e-2
 for bfloat16, whose inputs are rounded to bf16 on both sides and whose
 output is rounded to bf16; the port's oracle is held to the same.
+
+Which instance a CUDA launch would take is a pure function of dtype,
+shape and alignment (`route`), so it is checked here on CPU tensors:
+every bfloat16 case whose K and N are multiples of 8, and each of
+jamba's bfloat16 expert products, goes to the tensor cores; float32
+calls, bfloat16 with K = 100 and misaligned tensors go to the SIMT
+instance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,11 +30,13 @@ from repro.kernels.moe_gmm.ref import expert_of_row as ref_expert_of_row
 from repro.kernels.moe_gmm.ref import gmm_reference as ref_oracle
 from repro_torch.kernels.build import launch_counts
 from repro_torch.kernels.moe_gmm.ops import (
-    gmm, gmm_plain, row_tile, tile_expert_map,
+    gmm, gmm_plain, route, route_counts, row_tile, tc_tile, tile_expert_map,
 )
 from repro_torch.kernels.moe_gmm.ref import expert_of_row, gmm_reference
 from test_kernel_moe_gmm import CASES
-from test_torch_cuda import GMM_CASES, GMM_RAGGED, gmm_arrays
+from test_torch_cuda import (
+    GMM_CASES, GMM_RAGGED, GMM_TC_CASES, gmm_arrays, moe_serving_shapes,
+)
 from test_torch_matchmaker import one_torch_thread  # noqa: F401
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -74,8 +83,11 @@ def test_port_matches_pallas_and_oracle(E, K, N, BT, sizes, tail, dtype):
     assert not out[sum(sizes):].any()
 
 
-@pytest.mark.parametrize("E,K,N,sizes,tail", GMM_RAGGED + [
-    (4, 16, 24, [0, 0, 0, 9], 0), (1, 8, 8, [5], 3)])
+EXTRA_RAGGED = [(4, 16, 24, [0, 0, 0, 9], 0), (1, 8, 8, [5], 3)]
+
+
+@pytest.mark.parametrize("E,K,N,sizes,tail",
+                         GMM_RAGGED + EXTRA_RAGGED + GMM_TC_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ragged_groups_match_ragged_dot(E, K, N, sizes, tail, dtype):
     """Unaligned sizes, empty groups and a tail: the reference's off-TPU
@@ -109,10 +121,13 @@ def test_groups_reaching_past_the_rows_are_cut():
 
 
 def test_cpu_tensors_launch_nothing():
-    before = dict(launch_counts)
+    before, routed = dict(launch_counts), dict(route_counts)
     gmm(torch.zeros(4, 8), torch.zeros(2, 8, 8),
         torch.tensor([2, 2], dtype=torch.int32))
-    assert launch_counts == before
+    gmm(torch.zeros(4, 8, dtype=torch.bfloat16),
+        torch.zeros(2, 8, 8, dtype=torch.bfloat16),
+        torch.tensor([2, 2], dtype=torch.int32))
+    assert launch_counts == before and route_counts == routed
 
 
 @pytest.mark.parametrize("sizes", [[3, 0, 9], [0, 0], [16, 16, 1], [7]])
@@ -146,3 +161,68 @@ def test_row_tile_follows_the_mean_group():
     small tile; its prefills (C = 80 and 160) the large one."""
     assert row_tile(32, 16) == 8
     assert row_tile(1280, 16) == row_tile(2560, 16) == 64
+
+
+def shaped(T, K, E, N, dtype, out_dtype=torch.float32):
+    """lhs, rhs and out of these shapes, as views of one element each (no
+    memory: `route` reads dtype, shape and address only)."""
+    one = torch.zeros(1, dtype=dtype)
+    return (one.expand(T, K), one.expand(E, K, N),
+            torch.zeros(1, dtype=out_dtype).expand(T, N))
+
+
+@pytest.mark.parametrize("E,K,N,BT,sizes,tail", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_of_the_reference_cases(E, K, N, BT, sizes, tail, dtype):
+    """bfloat16 goes to the tensor cores except at K = 100 (rows of 200
+    bytes, which TMA cannot stride); float32 always to the SIMT
+    instance."""
+    (lhs, rhs, _), _ = both(gmm_arrays(0, E, K, N, sizes, tail), dtype)
+    out = torch.empty(lhs.shape[0], N)
+    tc = dtype == "bfloat16" and K != 100
+    assert route(lhs, rhs, out) == ("wgmma" if tc else "simt")
+
+
+@pytest.mark.parametrize("E,K,N,sizes,tail",
+                         GMM_RAGGED + EXTRA_RAGGED + GMM_TC_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_of_the_ragged_and_edge_cases(E, K, N, sizes, tail, dtype):
+    """Every ragged and edge case has K and N multiples of 8: bfloat16
+    takes the tensor cores, float32 the SIMT instance."""
+    (lhs, rhs, _), _ = both(gmm_arrays(1, E, K, N, sizes, tail), dtype)
+    out = torch.empty(lhs.shape[0], N, dtype=torch.bfloat16)
+    assert route(lhs, rhs, out) == ("wgmma" if dtype == "bfloat16"
+                                    else "simt")
+
+
+@pytest.mark.parametrize("label,rows,K,N", moe_serving_shapes())
+def test_jamba_expert_products_take_the_tensor_cores(label, rows, K, N):
+    """The MoE layer's calls at jamba's serving shapes: bfloat16 in,
+    float32 out on the tensor cores; the float32 model's on the SIMT
+    instance."""
+    assert route(*shaped(rows, K, 16, N, torch.bfloat16)) == "wgmma"
+    assert route(*shaped(rows, K, 16, N, torch.float32)) == "simt"
+
+
+def test_route_needs_tma_strides_and_alignment():
+    """K or N not a multiple of 8, or a tensor off a 16-byte boundary,
+    keeps bfloat16 on the SIMT instance."""
+    assert route(*shaped(64, 100, 2, 64, torch.bfloat16)) == "simt"
+    assert route(*shaped(64, 64, 2, 60, torch.bfloat16)) == "simt"
+    lhs, rhs, out = shaped(64, 64, 2, 64, torch.bfloat16)
+    off = torch.zeros(64 * 64 + 1, dtype=torch.bfloat16)[1:].view(64, 64)
+    assert route(off, rhs, out) == "simt"
+    assert route(lhs, rhs, torch.zeros(64 * 64 + 1)[1:].view(64, 64)) == \
+        "simt"
+    assert route(lhs, rhs, out) == "wgmma"
+
+
+def test_tensor_core_tile_holds_the_mean_group():
+    """jamba's decode tick (16 groups of C = 2) takes 8-row tiles, its
+    prefills of 512 and 1024 tokens (C = 80 and 160) 128 and 192 rows:
+    one block a group, so each weight tile is read once."""
+    assert tc_tile(32, 16) == 8
+    assert tc_tile(1280, 16) == 128
+    assert tc_tile(2560, 16) == 192
+    assert tc_tile(16 * 30, 16) == 64
+    assert tc_tile(100_000, 4) == 192
