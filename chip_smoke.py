@@ -29,12 +29,16 @@ nothing falls back to the CPU or to a plain version):
      fair-share day the same way.  The kernel's launch count is read
      from each run;
   5. the flash-attention kernel against its plain PyTorch version
-     (float32) on the card: the reference suite's eight cases in float32
-     and bfloat16, fully masked rows, the rolling-window permutation, and
-     qwen2-1.5b's serving shapes (prefill B=1, Sq=Skv=512 and 2048;
-     decode B=8, Sq=1 against the engine's 2048-slot cache) in float32
-     and in bfloat16, the bfloat16 calls timed beside their bound, the
-     plain version and SDPA (a yardstick only);
+     (float32) on the card, each call through the instance `flash_route`
+     names (the decode split for at most 32 query rows per kv head, the
+     tensor cores for bfloat16 with Dh 64 or 128, SIMT for the rest): the
+     reference suite's eight cases in float32 and bfloat16, fully masked
+     rows, the rolling-window permutation, the tensor-core edge cases
+     (two calls bitwise equal), and qwen2-1.5b's serving shapes (prefill
+     B=1, Sq=Skv=512 and 2048; decode B=8, Sq=1 against the engine's
+     2048-slot cache) in float32 and in bfloat16, the bfloat16 calls
+     timed (CUDA events, and the kernels' device time from the profiler)
+     beside their bound, the plain version and SDPA (a yardstick only);
   6. qwen2-1.5b at full width (28 layers, random weights from a seeded
      generator): forward logits with the kernel against the same model
      with attention forced through the plain version, in float32 and in
@@ -45,7 +49,9 @@ nothing falls back to the CPU or to a plain version):
   7. serving qwen2: `ServeEngine` in bfloat16 with 8 slots and a
      2048-token cache, 16 requests of 64-1024 prompt tokens and 32 new
      tokens each; every request must finish, and the flash kernel's
-     launches must equal 28 x (prefill calls + decode ticks).  Then
+     launches must equal 28 x (prefill calls + decode ticks): 28 x
+     prefill calls on the tensor-core instance, 28 x ticks on the split
+     (`expected_flash_routes`).  Then
      tokens/s, prefill ms, decode ms per tick, and a `torch.profiler`
      pass over decode ticks (device busy and idle share; the kernel's,
      GEMM and unembedding device time; launches and synchronisations per
@@ -89,12 +95,13 @@ nothing falls back to the CPU or to a plain version):
      against the plain versions over the positions before the first one
      routed to other experts, then serving like phase 7; every launch
      count must equal `expected_launches` (gmm 3 x 8 x (prefills +
-     ticks), flash 2 x (prefills + ticks), SSD 14 x prefills), and every
-     gmm launch must have taken the tensor-core instance; then the
+     ticks), flash 2 x (prefills + ticks), SSD 14 x prefills), every
+     gmm launch must have taken the tensor-core instance, and flash's
+     prefills the tensor-core instance and its ticks the split; then the
      decode-tick profile;
- 14. a JSON line per kernel (gmm's with its launches by instance and
-     ptxas' report of the tensor-core instances), the card line, and the
-     result line.
+ 14. a JSON line per kernel (flash's and gmm's with their launches by
+     instance and ptxas' report of their instances), the card line, and
+     the result line.
 """
 from __future__ import annotations
 
@@ -141,6 +148,20 @@ FLASH_CASES = [
 ]
 # the reference suite's tolerances, against the plain version in float32
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# edge cases of the tensor-core instance (bfloat16): B, Sq, Skv, Hq, Hkv,
+# Dh, causal, window, softcap, and whether the last batch row's cache is
+# empty.  Sq and Skv ending inside a tile, Sq > Skv, G = 6 (qwen2: 10
+# positions and 4 idle rows a warpgroup) and G = 3, a window, a softcap,
+# no causal mask, an empty batch row; the blocks of one consumer
+# warpgroup (fewer than 132 blocks of two) and, for Sq = 1000, of two
+FLASH_WGMMA_CASES = [
+    (1, 300, 100, 4, 1, 64, True, None, None, False),
+    (1, 77, 333, 12, 2, 128, True, None, None, False),
+    (2, 130, 257, 6, 2, 64, True, 40, None, False),
+    (1, 200, 200, 12, 2, 128, False, None, 20.0, False),
+    (2, 100, 100, 12, 2, 128, True, None, None, True),
+    (2, 1000, 1000, 12, 2, 128, True, None, None, False),
+]
 ARCH = "qwen2-1.5b"
 # the serving run: slots, cache capacity, requests, prompt lengths, and
 # new tokens per request
@@ -454,11 +475,12 @@ def run_e2e(label, trace, mods, **kw):
 # ---------------------------------------------------------------------------
 
 def attention_inputs(seed, B, Sq, Skv, Hq, Hkv, Dh, dtype, device, *,
-                     lengths=None):
+                     lengths=None, dense=False):
     """The reference suite's inputs (normal q/k/v, queries at the last Sq
-    positions, every 7th cache slot empty), or, with ``lengths``, a
-    serving cache: row b holds positions 0..lengths[b]-1 and is empty
-    (-1) after them, and its query sits at position lengths[b]."""
+    positions, every 7th cache slot empty; with ``dense`` none empty, as
+    in a prompt's prefill), or, with ``lengths``, a serving cache: row b
+    holds positions 0..lengths[b]-1 and is empty (-1) after them, and its
+    query sits at position lengths[b]."""
     rng = np.random.default_rng(seed)
     q, k, v = (torch.tensor(rng.standard_normal(shape), dtype=dtype,
                             device=device)
@@ -469,7 +491,8 @@ def attention_inputs(seed, B, Sq, Skv, Hq, Hkv, Dh, dtype, device, *,
     if lengths is None:
         qp = torch.arange(Skv - Sq, Skv, dtype=torch.int32,
                           device=device).expand(B, Sq).contiguous()
-        kp[:, ::7] = -1
+        if not dense:
+            kp[:, ::7] = -1
     else:
         ln = torch.tensor(lengths, dtype=torch.int32, device=device)
         kp[kp >= ln[:, None]] = -1
@@ -498,14 +521,53 @@ def flash_bound(q, k, v, q_pos, kv_pos, mask):
     return 1e3 * t_ops, "operations", nbytes, flops
 
 
-def check_flash(label, fa, q, k, v, qp, kp, *, timed=False, **kw):
+def flash_route(dtype, Sq, Hq, Hkv, Dh) -> str:
+    """The flash instance a call must take: the decode split for at most
+    32 query rows per kv head (Sq * G), the tensor cores for bfloat16 with
+    Dh 64 or 128 (the tensors here are fresh, so 16-byte aligned, and
+    short of the 262,144-key limit), the SIMT instance for the rest
+    (float32 prefill: no TF32; Dh 32)."""
+    if Sq * (Hq // Hkv) <= 32:
+        return "split"
+    if dtype == torch.bfloat16 and Dh in (64, 128):
+        return "wgmma"
+    return "simt"
+
+
+def device_ms(fn, reps: int, match: str | None = None) -> float:
+    """Device time of one call of ``fn``: the kernels' own time summed by
+    `torch.profiler` over ``reps`` calls (after one warm call), without
+    the host's launch cost that a CUDA-event bracket of a small call
+    measures; ``match`` keeps only kernels whose name holds it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (match is None or match in e.key)) / reps / 1e3
+
+
+def check_flash(label, fa, q, k, v, qp, kp, *, timed=False,
+                causal_library=False, **kw):
     """Kernel vs plain version (float32) on the card, at the reference
-    suite's tolerance; with ``timed``, CUDA-event medians of the kernel,
-    the plain version and SDPA beside the bound."""
+    suite's tolerance, through the instance `flash_route` names; with
+    ``timed``, CUDA-event medians of the kernel, the plain version and
+    SDPA (a yardstick only; with ``causal_library`` its own causal mask
+    in place of the positions' boolean mask, the same function where
+    q_pos = kv_pos = 0..S-1) beside the bound, the kernel's and SDPA's
+    device time from the profiler, and two calls bitwise equal."""
     from repro_torch.kernels.flash_attention.ref import (
         attention_mask, attention_reference,
     )
+    want = flash_route(q.dtype, q.shape[1], q.shape[2], k.shape[2],
+                       q.shape[3])
+    before = dict(fa.route_counts)
     out = fa.flash_attention(q, k, v, qp, kp, **kw)
+    routed = {n: fa.route_counts[n] - before[n] for n in before}
 
     def plain():
         return attention_reference(q.float(), k.float(), v.float(), qp, kp,
@@ -513,6 +575,8 @@ def check_flash(label, fa, q, k, v, qp, kp, *, timed=False, **kw):
 
     ref = plain()
     torch.cuda.synchronize()
+    if routed != {n: int(n == want) for n in routed}:
+        raise AssertionError(f"{label}: routed {routed}, expected {want}")
     tol = FLASH_TOL[q.dtype]
     if out.dtype != q.dtype or out.shape != q.shape:
         raise AssertionError(f"{label}: output {out.dtype} {tuple(out.shape)}")
@@ -522,10 +586,12 @@ def check_flash(label, fa, q, k, v, qp, kp, *, timed=False, **kw):
     if bool((err > tol + tol * ref.abs()).any()):
         raise AssertionError(f"{label}: kernel differs from the plain "
                              f"version by {float(err.max()):.3g} > {tol}")
-    row = {"flash_case": label, "dtype": str(q.dtype).split(".")[1],
+    row = {"flash_case": label, "instance": want,
+           "dtype": str(q.dtype).split(".")[1],
            "shape": [*q.shape, k.shape[1], k.shape[2]],
            "max_abs_err": float(err.max()), "tol": tol}
     if timed:
+        check_flash_deterministic(label, fa, q, k, v, qp, kp, **kw)
         mask = attention_mask(qp, kp, causal=kw.get("causal", True),
                               window=kw.get("window")).expand(
             q.shape[0], q.shape[1], k.shape[1])
@@ -533,19 +599,37 @@ def check_flash(label, fa, q, k, v, qp, kp, *, timed=False, **kw):
         sdpa_mask = mask[:, None].contiguous()
 
         def library():
+            if causal_library:
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True)
 
+        def kernel():
+            return fa.flash_attention(q, k, v, qp, kp, **kw)
+
         bound_ms, bound_by, nbytes, flops = flash_bound(q, k, v, qp, kp, mask)
         row.update(
-            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, qp, kp, **kw),
-                       KERNEL_REPS),
+            ms=cuda_ms(kernel, KERNEL_REPS),
             plain_ms=cuda_ms(plain, KERNEL_REPS),
             library_ms=cuda_ms(library, KERNEL_REPS),
+            device_ms=device_ms(kernel, KERNEL_REPS,
+                                match="flash_attention_kernel"),
+            library_device_ms=device_ms(library, KERNEL_REPS),
             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
     print(json.dumps(row), flush=True)
     return row
+
+
+def check_flash_deterministic(label, fa, q, k, v, qp, kp, **kw):
+    """Two calls on the same inputs give the same bits (the split's parts
+    merge in a fixed order; no atomics)."""
+    a = fa.flash_attention(q, k, v, qp, kp, **kw)
+    b = fa.flash_attention(q, k, v, qp, kp, **kw)
+    if not bitwise_equal(a.float(), b.float()):
+        raise AssertionError(f"{label}: two calls differ")
 
 
 def check_fully_masked_rows(flash_attention, device):
@@ -586,9 +670,23 @@ def serving_shapes():
          SERVE["max_seq"], lengths.tolist())]
 
 
+def flash_wgmma_inputs(case, device):
+    """The inputs of a `FLASH_WGMMA_CASES` case in bfloat16; ``empty_row``
+    empties one batch row's cache."""
+    B, Sq, Skv, Hq, Hkv, Dh, causal, window, softcap, empty_row = case
+    q, k, v, qp, kp = attention_inputs(7, B, Sq, Skv, Hq, Hkv, Dh,
+                                       torch.bfloat16, device)
+    if empty_row:
+        kp[-1] = -1
+    return (q, k, v, qp, kp), dict(causal=causal, window=window,
+                                   softcap=softcap)
+
+
 def flash_phase(fa, device):
     """Every case of the reference suite in both dtypes, the two special
-    cases, then the serving shapes in float32 and in bfloat16 (timed)."""
+    cases, the tensor-core instance's edge cases (each also twice, bitwise
+    equal), then the serving shapes in float32 and in bfloat16 (timed).
+    Each call's instance is checked."""
     for case in FLASH_CASES:
         B, Sq, Skv, Hq, Hkv, Dh, causal, window, softcap = case
         for dtype in (torch.float32, torch.bfloat16):
@@ -600,6 +698,10 @@ def flash_phase(fa, device):
     check_rolling_window(fa.flash_attention, device)
     print(json.dumps({"flash_case": "fully-masked-rows+rolling-window",
                       "ok": True}), flush=True)
+    for case in FLASH_WGMMA_CASES:
+        inputs, kw = flash_wgmma_inputs(case, device)
+        check_flash(f"wgmma{case}", fa, *inputs, **kw)
+        check_flash_deterministic(f"wgmma{case}", fa, *inputs, **kw)
 
     rows = []
     for label, seed, B, Sq, Skv, lengths in serving_shapes():
@@ -609,6 +711,13 @@ def flash_phase(fa, device):
             row = check_flash(label, fa, q, k, v, qp, kp,
                               timed=dtype == torch.bfloat16)
         rows.append(row)
+    # a prompt's prefill has no empty slot: the tiles below the diagonal
+    # need no mask, and SDPA's own causal mask computes the same function
+    for label, seed, B, Sq, Skv, _ in serving_shapes()[:2]:
+        q, k, v, qp, kp = attention_inputs(seed, B, Sq, Skv, 12, 2, 128,
+                                           torch.bfloat16, device, dense=True)
+        rows.insert(-1, check_flash(f"{label}-dense", fa, q, k, v, qp, kp,
+                                    timed=True, causal_library=True))
     return rows
 
 
@@ -938,6 +1047,32 @@ def wgmma_instances(gm):
                  "products": args[4] == "1",
                  "dynamic_smem": gm.wgmma_smem_bytes(bm),
                  **{k: v for k, v in r.items() if k != "kernel"}}
+        rows.append(r)
+    return rows
+
+
+def flash_instances(fa):
+    """ptxas' report of each split, merge and tensor-core instance of the
+    flash kernel, with its dtype, head dim, consumer warpgroups and
+    dynamic shared memory (the tensor-core instance's registers are those
+    at launch; its consumers raise theirs to 232 with setmaxnreg when
+    there are two)."""
+    rows = []
+    for r in ptxas_report(fa.build_log, "flash_attention_kernel_"):
+        name = r.pop("kernel")
+        wg = re.search(r"kernel_wgmmaILi(\d+)ELi(\d)E", name)
+        sm = re.search(r"kernel_(split|merge)I(f|13__nv_bfloat16)Li(\d+)E",
+                       name)
+        if wg:
+            dh, w = int(wg[1]), int(wg[2])
+            r = {"instance": "wgmma", "dtype": "bfloat16", "dh": dh,
+                 "warpgroups": w, "dynamic_smem": fa.wgmma_smem_bytes(dh, w),
+                 **r}
+        elif sm:
+            r = {"instance": sm[1], "dh": int(sm[3]),
+                 "dtype": "float32" if sm[2] == "f" else "bfloat16", **r}
+        else:
+            r = {"kernel": name, **r}
         rows.append(r)
     return rows
 
@@ -1367,13 +1502,24 @@ def expected_launches(cfg, engine) -> dict:
             "ssd": ssm * engine.prefill_calls, "gmm": 3 * moe * calls}
 
 
+def expected_flash_routes(cfg, engine) -> dict:
+    """The flash instances a bfloat16 serving run must take: every prefill
+    call (at least 64 prompt tokens, so more than 32 rows per kv head) on
+    the tensor cores, every decode tick (one token a slot) on the split."""
+    mixers = [cfg.mixer_kind(s) for s in range(cfg.period)]
+    attn = cfg.n_scan * mixers.count("attn")
+    return {"wgmma": attn * engine.prefill_calls,
+            "split": attn * engine.decode_ticks, "simt": 0}
+
+
 def serve_phase(cfg, params, launch_counts, *, kernels=("flash_attention",),
                 profile_kernel="flash_attention_kernel", routes=None):
     """The main path: `ServeEngine` at full width.  Every count is set
     to 0 just before the run and read just after; each must equal
     `expected_launches`, and each of ``kernels`` (the path's) must have
-    launched.  ``routes`` (a kernel's launches by instance) is set to 0
-    and read with them."""
+    launched.  ``routes`` (kernel name: its launches by instance) are set
+    to 0 and read with them; flash's must equal
+    `expected_flash_routes`."""
     from repro_torch.models import model as model_lib
     from repro_torch.serve.engine import ServeEngine
     reqs = make_requests(cfg, SERVE["requests"], SERVE["prompt"],
@@ -1385,7 +1531,7 @@ def serve_phase(cfg, params, launch_counts, *, kernels=("flash_attention",),
     timer = TimedModel(model_lib)
     torch.cuda.synchronize()
     with timer.on():
-        for counter in (launch_counts, routes or {}):
+        for counter in (launch_counts, *(routes or {}).values()):
             for name in counter:
                 counter[name] = 0
         t0 = time.perf_counter()
@@ -1393,7 +1539,7 @@ def serve_phase(cfg, params, launch_counts, *, kernels=("flash_attention",),
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(launch_counts)
-        routed = dict(routes or {})
+        routed = {k: dict(c) for k, c in (routes or {}).items()}
     expected = expected_launches(cfg, engine)
     if len(engine.done) != len(reqs) or any(
             len(r.output) != SERVE["new"] for r in engine.done.values()):
@@ -1404,6 +1550,11 @@ def serve_phase(cfg, params, launch_counts, *, kernels=("flash_attention",),
             f"serving {cfg.name}: launches {counts}, expected {expected} "
             f"({engine.prefill_calls} prefills, {engine.decode_ticks} "
             f"decode ticks), each of {kernels} at least once")
+    if "flash_attention" in routed and routed["flash_attention"] != (
+            want := expected_flash_routes(cfg, engine)):
+        raise AssertionError(
+            f"serving {cfg.name}: flash routes {routed['flash_attention']}, "
+            f"expected {want}")
     tokens = sum(len(r.output) for r in engine.done.values())
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     row = {"serve": cfg.name, "slots": SERVE["slots"],
@@ -1580,7 +1731,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phase 7: serving qwen2, its main path, then the spot reclaim
-    served = serve_phase(cfg, params, launch_counts)
+    served = serve_phase(cfg, params, launch_counts,
+                         routes={"flash_attention": fa.route_counts})
     reclaim_phase(cfg, params)
     del params
     torch.cuda.empty_cache()
@@ -1595,9 +1747,20 @@ def main() -> int:
         "ms": decode["ms"], "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"], "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
+        "device_ms": decode["device_ms"],
+        "library_device_ms": decode["library_device_ms"],
+        "instances": {
+            "split": "at most 32 query rows per kv head (decode): the "
+                     "cache split across blocks, parts merged in order",
+            "wgmma": "bfloat16 prefill, Dh 64 or 128: TMA ring, wgmma",
+            "simt": "float32 prefill, and Dh 32"},
+        "launches_by_instance": served["routes"]["flash_attention"],
+        "ptxas": flash_instances(fa),
         "shapes": [{k: r[k] for k in (
-            "flash_case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err")} for r in shapes]}
+            "flash_case", "instance", "shape", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "bound_share", "device_bound_share",
+            "library_ms", "library_device_ms", "max_abs_err")}
+            for r in shapes]}
 
     # phase 8: the SSD scan against its plain version and the oracle,
     # timed at mamba2's serving shapes
@@ -1653,11 +1816,14 @@ def main() -> int:
     served = serve_phase(cfg, params, launch_counts,
                          kernels=("flash_attention", "ssd", "gmm"),
                          profile_kernel="gmm_kernel",
-                         routes=gm.route_counts)
-    if served["routes"]["wgmma"] != served["launch_counts"]["gmm"]:
+                         routes={"gmm": gm.route_counts,
+                                 "flash_attention": fa.route_counts})
+    if served["routes"]["gmm"]["wgmma"] != served["launch_counts"]["gmm"]:
         raise AssertionError(f"serving jamba in bfloat16: gmm routes "
-                             f"{served['routes']}, not every launch on the "
-                             f"tensor cores")
+                             f"{served['routes']['gmm']}, not every launch "
+                             f"on the tensor cores")
+    flash_line["launches_by_instance_jamba"] = served["routes"][
+        "flash_attention"]
     del params
     torch.cuda.empty_cache()
     decode = gmm_timed[-2]                  # the decode tick's gate/up call
@@ -1672,7 +1838,7 @@ def main() -> int:
         "library_ms": decode["library_ms"],
         "instances": {"wgmma": "bfloat16 with K, N multiples of 8",
                       "simt": "float32, and bfloat16 TMA cannot take"},
-        "launches_by_instance": served["routes"],
+        "launches_by_instance": served["routes"]["gmm"],
         "wgmma_ptxas": wgmma_instances(gm),
         "shapes": [{k: r[k] for k in (
             "gmm_case", "route", "shape", "ms", "stream_ms", "plain_ms",

@@ -15,8 +15,11 @@ the matchmaker's device is a GPU, the plain PyTorch version when the
 caller asked for ``device="cpu"``.  There is no silent fallback: with no
 GPU, the default device raises.
 
-dtype: ``float64`` (default) is bit-identical to the NumPy and JAX
-backends.  ``float32`` is exact only while resource quantities and the
+dtype: ``float64`` (default) is bit-identical to the NumPy backend.
+Against the JAX backend it is bitwise on integer-valued problems and
+within atol 1e-7 on fractional ones, because XLA:CPU contracts
+``free - want * take`` into a fused multiply-add under jit.  ``float32``
+is exact only while resource quantities and the
 per-cohort fit sums stay integer-valued below 2**24, as in the JAX
 package.
 

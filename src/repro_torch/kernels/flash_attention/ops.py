@@ -4,8 +4,20 @@ PyTorch version for CPU tensors.
 `flash_attention` keeps the JAX package's signature and layouts
 (q (B, Sq, Hq, Dh), k/v (B, Skv, Hkv, Dh), int32 positions (B, S)).  On
 a CUDA tensor it checks dtype, shape, contiguity, alignment and device,
-then launches `flash_attention.cu` on the current stream, or raises; on
-a CPU tensor, and only there, it runs `ref.attention_reference`.
+then launches one of the three instances of `flash_attention.cu` on the
+current stream, or raises; on a CPU tensor, and only there, it runs
+`ref.attention_reference`.
+
+`route` picks the instance from dtype, shape and alignment alone: the
+decode instance (``"split"``: the cache split across blocks, the parts
+merged by a second kernel in the same call) for at most 32 query rows
+per kv head (Sq * G <= 32: every decode tick); the tensor-core prefill
+instance (``"wgmma"``: TMA ring, wgmma for Q K^T and P V) for the rest in
+bfloat16 with Dh 64 or 128 and 16-byte aligned q, k and v; the SIMT
+instance (``"simt"``) for everything else: float32 prefill (FP32 FMAs;
+TF32 would miss the 2e-5 tolerance) and Dh = 32.  `split_plan` sizes the
+decode split from shapes.  `launch_counts["flash_attention"]` counts
+every call; `route_counts` counts each instance.
 
 The CUDA source is built at first use by `repro_torch.kernels.build`
 (nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
@@ -15,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -28,9 +41,23 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INSTANCES = {"simt": 0, "split": 1, "wgmma": 2}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GROUP = 32                 # query heads per kv head (rows per block)
 _MAX_GRID_YZ = 65535
+#: query rows per kv head (Sq * G) up to which a call takes the decode
+#: instance; its blocks hold 8 warps of 4 rows, each warp taking slices of
+#: SPLIT_SLICE keys (one a lane)
+SPLIT_ROWS, SPLIT_WARPS, SPLIT_WARP_ROWS, SPLIT_SLICE = 32, 8, 4, 32
+#: blocks the decode split aims for: two for each of the H100's 132 SMs
+SPLIT_TARGET_BLOCKS = 2 * 132
+#: keys per KV tile of the tensor-core instance, and the most tiles its
+#: live-tile marks hold (Skv up to 262,144)
+WGMMA_TILE, WGMMA_MAX_TILES = 128, 2048
+#: launches by instance since the count was last reset; only the CUDA
+#: branch of `flash_attention` adds to it, once per call, beside
+#: launch_counts["flash_attention"]
+route_counts = {"wgmma": 0, "split": 0, "simt": 0}
 _lib: ctypes.CDLL | None = None
 #: the opt-in dynamic shared-memory limit of each device set up so far
 _max_smem: dict[int, int] = {}
@@ -55,10 +82,13 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_launch.argtypes = [
-            i, i, i, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, f, f, vp]
+            i, i, i, i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, f,
+            f, i, i, vp]
         lib.flash_attention_launch.restype = i
         lib.flash_attention_smem.argtypes = [i, i, i]
         lib.flash_attention_smem.restype = i
+        lib.flash_attention_wgmma_smem.argtypes = [i, i]
+        lib.flash_attention_wgmma_smem.restype = i
         lib.flash_attention_init.argtypes = [i]
         lib.flash_attention_init.restype = i
         lib.flash_attention_error_string.argtypes = [i]
@@ -78,6 +108,57 @@ def _device_smem(lib: ctypes.CDLL, index: int) -> int:
                                .decode())
         _max_smem[index] = got
     return _max_smem[index]
+
+
+class SplitPlan(NamedTuple):
+    """How the decode instance cuts the cache: ``n_splits`` ranges of
+    ``keys_per_split`` slots (the last one shorter), one block each; the
+    block's ``warps`` warps a row group take every ``warps``-th slice of
+    `SPLIT_SLICE` keys of its range, and the block writes one part per
+    query row."""
+    n_splits: int
+    keys_per_split: int
+    warps: int
+
+
+def split_plan(B: int, Sq: int, Skv: int, Hkv: int, G: int) -> SplitPlan:
+    """The decode split for these shapes, from shapes alone: splits of a
+    whole number of the block's KV tiles (a slice a warp), at least one,
+    none empty, and enough of them that B * Hkv * n_splits reaches
+    `SPLIT_TARGET_BLOCKS` (or one tile each)."""
+    rows = Sq * G
+    if not 0 < rows <= SPLIT_ROWS:
+        raise ValueError(f"split_plan: {rows} query rows per kv head, the "
+                         f"decode instance takes 1 to {SPLIT_ROWS}")
+    warps = SPLIT_WARPS // -(-rows // SPLIT_WARP_ROWS)
+    tile = SPLIT_SLICE * warps
+    n_tiles = -(-Skv // tile)
+    want = -(-SPLIT_TARGET_BLOCKS // (B * Hkv))
+    per = max(1, n_tiles // want)
+    return SplitPlan(-(-n_tiles // per), per * tile, warps)
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The instance a CUDA launch takes, from dtype, shape and alignment
+    alone: ``"split"`` for at most 32 query rows per kv head (decode),
+    ``"wgmma"`` for bfloat16 with Dh 64 or 128, 16-byte aligned q, k and
+    v and at most `WGMMA_MAX_TILES` KV tiles, ``"simt"`` otherwise."""
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if Hkv > 0 and Hq % Hkv == 0 and 0 < Sq * (Hq // Hkv) <= SPLIT_ROWS:
+        return "split"
+    if (q.dtype == k.dtype == v.dtype == torch.bfloat16 and Dh in (64, 128)
+            and -(-Skv // WGMMA_TILE) <= WGMMA_MAX_TILES
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return "wgmma"
+    return "simt"
+
+
+def wgmma_smem_bytes(dh: int, warpgroups: int) -> int:
+    """Dynamic shared memory of one tensor-core block with ``warpgroups``
+    consumer warpgroups (1 or 2) at head dim ``dh`` (builds the kernel if
+    need be)."""
+    return _library().flash_attention_wgmma_smem(dh, warpgroups)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device):
@@ -146,25 +227,42 @@ def flash_attention(
     _check("q_pos", q_pos, torch.int32, (B, Sq), dev)
     _check("kv_pos", kv_pos, torch.int32, (B, Skv), dev)
     lib = _library()
-    need = lib.flash_attention_smem(Dh, Hq // Hkv, Sq)
+    instance = route(q, k, v)
+    need = (wgmma_smem_bytes(Dh, 2) if instance == "wgmma"
+            else lib.flash_attention_smem(Dh, Hq // Hkv, Sq)
+            if instance == "simt" else 0)
     if need > _device_smem(lib, dev.index):
         raise ValueError(f"flash_attention: needs {need} B of shared "
                          f"memory, the device allows "
                          f"{_max_smem[dev.index]}")
     out = torch.empty_like(q)
+    n_splits = keys_per_split = 0
+    ws = None
+    if instance == "split":
+        # each part's (acc, m, l) for its rows; made per call (nothing
+        # outlives the call), from the graph's pool under a CUDA graph
+        plan = split_plan(B, Sq, Skv, Hkv, Hq // Hkv)
+        n_splits, keys_per_split = plan.n_splits, plan.keys_per_split
+        ws = torch.empty(B * Hkv * n_splits * Sq * (Hq // Hkv) * (Dh + 2),
+                         dtype=torch.float32, device=dev)
     if scale is None:
         scale = 1.0 / (Dh ** 0.5)
     err = lib.flash_attention_launch(
-        dev.index, _DTYPES[dt], Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        q_pos.data_ptr(), kv_pos.data_ptr(), out.data_ptr(), B, Sq, Skv, Hq,
-        Hkv, int(causal), window or 0, float(scale), float(softcap or 0.0),
+        dev.index, _INSTANCES[instance], _DTYPES[dt], Dh, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+        out.data_ptr(), None if ws is None else ws.data_ptr(), B, Sq, Skv,
+        Hq, Hkv, int(causal), window or 0, float(scale),
+        float(softcap or 0.0), n_splits, keys_per_split,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError("flash_attention kernel launch failed: "
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"({instance}): "
                            + lib.flash_attention_error_string(err).decode())
     launch_counts["flash_attention"] += 1
+    route_counts[instance] += 1
     return out
 
 
 __all__ = ["flash_attention", "attention_reference", "NEG_INF", "build",
-           "launch_counts"]
+           "launch_counts", "route", "route_counts", "split_plan",
+           "SplitPlan", "wgmma_smem_bytes"]

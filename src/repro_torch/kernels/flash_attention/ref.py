@@ -75,4 +75,52 @@ def attention_reference(
     return out.reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
-__all__ = ["NEG_INF", "attention_mask", "attention_reference"]
+def attention_split_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    *,
+    keys_per_split: int,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """The decode instance's two passes in plain torch, for the tests:
+    each range of ``keys_per_split`` cache slots gives a part (m floored
+    at NEG_INF/2, l, acc) of each query row, and the parts are merged in
+    order: m = max m_s, weights exp(m_s - m), out = sum w acc_s / max(sum
+    w l_s, 1e-30).  A part with no valid key has l = 0 and acc = 0."""
+    B, Sq, Hq, Dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (Dh ** 0.5)
+    qf = q.float().reshape(B, Sq, Hkv, G, Dh)
+    mask = attention_mask(q_pos, kv_pos, causal=causal,
+                          window=window)[:, None, None]
+    parts = []
+    for s0 in range(0, Skv, keys_per_split):
+        ks = slice(s0, min(Skv, s0 + keys_per_split))
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qf,
+                              k[:, ks].float()) * scale
+        if softcap is not None:
+            logits = softcap * torch.tanh(logits / softcap)
+        mk = mask[..., ks]
+        logits = torch.where(mk, logits, NEG_INF)
+        m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=NEG_INF / 2)
+        p = torch.where(mk, torch.exp(logits - m), 0.0)
+        acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v[:, ks].float())
+        parts.append((m, p.sum(dim=-1, keepdim=True), acc))
+    m = torch.clamp(torch.stack([m for m, _, _ in parts]).amax(0),
+                    min=NEG_INF / 2)
+    l = sum(torch.exp(ms - m) * ls for ms, ls, _ in parts)
+    acc = sum(torch.exp(ms - m) * a for ms, _, a in parts)
+    out = acc / torch.clamp(l, min=1e-30)                 # (B, Hkv, G, Sq, Dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+__all__ = ["NEG_INF", "attention_mask", "attention_reference",
+           "attention_split_reference"]

@@ -46,7 +46,10 @@
 // is exact in any order.  Every rounding step uses an explicit
 // round-to-nearest intrinsic (IEEE divide, no fused multiply-subtract;
 // the file is also built with --fmad=false), so float64 results are
-// bit-identical to the plain version and to the JAX reference.
+// bit-identical to the plain version and to the NumPy backend.  Against
+// the JAX backend they are bitwise on integer-valued problems and within
+// atol 1e-7 on fractional ones: XLA:CPU contracts free - want * take into
+// one fused multiply-add under jit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -10,9 +10,13 @@ version on the same CUDA tensors (takes equal, free_after bit for bit),
 then holds the matchmaker's plan against the NumPy backend's.
 
 Flash attention: the reference suite's eight cases, the fully masked
-rows and the rolling-window permutation, and qwen2-1.5b's serving shapes,
-each against the plain version in float32 on the same CUDA tensors, at
-the reference's tolerances (2e-5 for float32 inputs, 2e-2 for bfloat16).
+rows and the rolling-window permutation, qwen2-1.5b's serving shapes and
+the tensor-core instance's edge cases, each against the plain version in
+float32 on the same CUDA tensors, at the reference's tolerances (2e-5 for
+float32 inputs, 2e-2 for bfloat16), each through the instance
+`flash_route` names (the decode split for at most 32 query rows per kv
+head, the tensor cores for bfloat16 with Dh 64 or 128, SIMT otherwise);
+two calls of each instance give the same bits.
 
 SSD: the reference suite's four cases and mamba2-1.3b's serving shapes
 (B = 1, 64 heads of 64, d_state 128, chunk 256, S = 512, 1024 and a
@@ -44,6 +48,9 @@ from repro_torch.core.matchmaker import (
     MatchProblem, NumpyMatchmaker, TorchMatchmaker,
 )
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    route_counts as flash_routes,
+)
 from repro_torch.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.moe_gmm.ops import (
     gmm, gmm_plain, route_counts, stream_floor,
@@ -55,11 +62,12 @@ from repro_torch.kernels.waterfill.ref import waterfill_reference
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    FLASH_CASES, FLASH_TOL, GMM_CASES, GMM_RAGGED, GMM_TC_CASES, GMM_TOL,
-    SSD_CASES, SSD_TOL, attention_inputs, bitwise_equal,
-    check_fully_masked_rows, check_rolling_window, gmm_arrays, gmm_inputs,
-    gmm_route, moe_serving_inputs, moe_serving_shapes,
-    serving_shapes, ssd_arrays, ssd_inputs, ssd_serving_cases,
+    FLASH_CASES, FLASH_TOL, FLASH_WGMMA_CASES, GMM_CASES, GMM_RAGGED,
+    GMM_TC_CASES, GMM_TOL, SSD_CASES, SSD_TOL, attention_inputs,
+    bitwise_equal, check_fully_masked_rows, check_rolling_window,
+    flash_route, flash_wgmma_inputs, gmm_arrays, gmm_inputs, gmm_route,
+    moe_serving_inputs, moe_serving_shapes, serving_shapes, ssd_arrays,
+    ssd_inputs, ssd_serving_cases,
 )
 
 pytestmark = pytest.mark.cuda
@@ -165,9 +173,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 def assert_kernel_matches_plain(q, k, v, qp, kp, **kw):
-    before = launch_counts["flash_attention"]
+    before, routed = launch_counts["flash_attention"], dict(flash_routes)
     out = flash_attention(q, k, v, qp, kp, **kw)
     assert launch_counts["flash_attention"] == before + 1
+    want = flash_route(q.dtype, q.shape[1], q.shape[2], k.shape[2],
+                       q.shape[3])
+    assert {n: flash_routes[n] - routed[n] for n in routed} == {
+        n: int(n == want) for n in routed}
     ref = attention_reference(q.float(), k.float(), v.float(), qp, kp, **kw)
     torch.cuda.synchronize()
     assert out.dtype == q.dtype and out.shape == q.shape
@@ -217,6 +229,59 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(q[..., :16].contiguous(), k[..., :16].contiguous(),
                         v[..., :16].contiguous(), qp, kp)
+
+
+@pytest.mark.parametrize("case", FLASH_WGMMA_CASES)
+def test_flash_tensor_cores_take_edge_cases(cuda, case):
+    """Sq and Skv ending inside a tile, Sq > Skv, G = 6 and G = 3, a
+    window, a softcap, no causal mask, a batch row whose cache is empty,
+    one and two consumer warpgroups a block."""
+    inputs, kw = flash_wgmma_inputs(case, cuda)
+    out = assert_kernel_matches_plain(*inputs, **kw)
+    if case[-1]:                    # the empty row attends nothing: zeros
+        assert not bool(out[-1].any())
+
+
+def flash_instance_inputs(instance, device):
+    """A call of each instance: qwen2's decode tick (split), its 512-token
+    prefill in bfloat16 (wgmma) and in float32 (simt)."""
+    label, seed, B, Sq, Skv, lengths = serving_shapes()[
+        2 if instance == "split" else 0]
+    dtype = torch.float32 if instance == "simt" else torch.bfloat16
+    return attention_inputs(seed, B, Sq, Skv, 12, 2, 128, dtype, device,
+                            lengths=lengths)
+
+
+@pytest.mark.parametrize("instance", ["split", "wgmma", "simt"])
+def test_flash_instances_are_deterministic(cuda, instance):
+    """Two calls give the same bits: the split's parts merge in a fixed
+    order, and no instance uses atomics."""
+    q, k, v, qp, kp = flash_instance_inputs(instance, cuda)
+    before = dict(flash_routes)
+    a = flash_attention(q, k, v, qp, kp)
+    b = flash_attention(q, k, v, qp, kp)
+    assert flash_routes[instance] == before[instance] + 2
+    assert bitwise_equal(a.float(), b.float())
+
+
+def test_flash_wrapper_refuses_what_no_instance_takes(cuda):
+    q, k, v, qp, kp = attention_inputs(4, 1, 64, 64, 12, 2, 64,
+                                       torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous(), qp, kp)
+    with pytest.raises(ValueError, match="at most 32 per group"):
+        flash_attention(torch.cat([q] * 3, dim=2), k[:, :, :1].contiguous(),
+                        v[:, :, :1].contiguous(), qp, kp)
+    flat = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)
+    shifted = flat[1:1 + q.numel()].view(q.shape)       # 2 bytes off
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(shifted, k, v, qp, kp)
+    with pytest.raises(ValueError, match="kv_pos"):
+        flash_attention(q, k, v, qp, kp[:, :8].contiguous())
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, qp, kp, window=0)
 
 
 def assert_ssd_matches_plain(case, seed, dtype, device):

@@ -7,6 +7,12 @@ same numpy inputs go through `flash_attention_pallas(interpret=True)` and
 (tests/test_kernel_flash_attention.py): 2e-5 for float32 inputs, 2e-2
 for bfloat16, whose output is rounded to bf16 (an ulp of 2^-8 relative)
 on both sides.
+
+The CUDA wrapper's choices that need no card are held here too: `route`
+(which of the three instances a call takes) against chip_smoke's own
+statement of it, `split_plan` (how the decode instance cuts the cache),
+and the decode instance's two passes, written out in plain torch
+(`attention_split_reference`), against the Pallas kernel and the oracle.
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -18,10 +24,16 @@ from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.build import launch_counts
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_mask
+from repro_torch.kernels.flash_attention.ops import (
+    SPLIT_SLICE, SPLIT_TARGET_BLOCKS, route, split_plan,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_mask, attention_split_reference,
+)
 from test_kernel_flash_attention import CASES
 from test_torch_cuda import (
-    FLASH_CASES, check_fully_masked_rows, check_rolling_window,
+    FLASH_CASES, FLASH_WGMMA_CASES, check_fully_masked_rows,
+    check_rolling_window, flash_route,
 )
 from test_torch_matchmaker import one_torch_thread  # noqa: F401
 
@@ -101,3 +113,171 @@ def test_other_devices_are_refused():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         flash_attention(q, q, q, torch.zeros((1, 1), dtype=torch.int32),
                         torch.zeros((1, 1), dtype=torch.int32))
+
+
+# (label, B, Sq, Skv, Hq, Hkv, Dh): qwen2-1.5b's and jamba-v0.1-52b's
+# attention at the serving run's shapes (8 slots, a 2048-slot cache,
+# prompts of 64 to 1024 tokens)
+SERVING = [(f"{arch}-{kind}", B, Sq, Skv, Hq, Hkv, 128)
+           for arch, Hq, Hkv in (("qwen2", 12, 2), ("jamba", 32, 8))
+           for kind, B, Sq, Skv in (("prefill-64", 1, 64, 64),
+                                    ("prefill-1024", 1, 1024, 1024),
+                                    ("prefill-2048", 1, 2048, 2048),
+                                    ("decode", 8, 1, 2048))]
+
+
+def empty(shape, dtype):
+    return torch.empty(shape, dtype=getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,Dh,causal,window,softcap", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_of_the_reference_cases(B, Sq, Skv, Hq, Hkv, Dh, causal,
+                                      window, softcap, dtype):
+    q = empty((B, Sq, Hq, Dh), dtype)
+    k, v = empty((B, Skv, Hkv, Dh), dtype), empty((B, Skv, Hkv, Dh), dtype)
+    got = route(q, k, v)
+    assert got == flash_route(q.dtype, Sq, Hq, Hkv, Dh)
+    if Sq * (Hq // Hkv) <= 32:
+        assert got == "split"
+    elif dtype == "bfloat16" and Dh in (64, 128):
+        assert got == "wgmma"
+    else:
+        assert got == "simt"
+
+
+@pytest.mark.parametrize("label,B,Sq,Skv,Hq,Hkv,Dh", SERVING)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_of_the_serving_shapes(label, B, Sq, Skv, Hq, Hkv, Dh, dtype):
+    """Every decode tick takes the split; every prefill the tensor cores in
+    bfloat16 and the SIMT instance in float32."""
+    q = empty((B, Sq, Hq, Dh), dtype)
+    k, v = empty((B, Skv, Hkv, Dh), dtype), empty((B, Skv, Hkv, Dh), dtype)
+    want = ("split" if label.endswith("decode")
+            else "wgmma" if dtype == "bfloat16" else "simt")
+    assert route(q, k, v) == want == flash_route(q.dtype, Sq, Hq, Hkv, Dh)
+
+
+def test_route_of_the_wgmma_edge_cases():
+    for B, Sq, Skv, Hq, Hkv, Dh, *_ in FLASH_WGMMA_CASES:
+        q = empty((B, Sq, Hq, Dh), "bfloat16")
+        k = v = empty((B, Skv, Hkv, Dh), "bfloat16")
+        assert route(q, k, v) == "wgmma"
+
+
+def test_route_sends_a_misaligned_view_to_simt():
+    """TMA needs 16-byte aligned tensors: a view 2 bytes into its storage
+    goes to the SIMT instance (whose wrapper then refuses it on the card,
+    as before)."""
+    q = empty((1, 129 * 64 * 12 + 1), "bfloat16")[:, 1:].view(1, 129, 12, 64)
+    k = v = empty((1, 129, 2, 64), "bfloat16")
+    assert q.data_ptr() % 16 == 2
+    assert route(q, k, v) == "simt"
+    assert route(q.clone(), k, v) == "wgmma"
+    # the decode split reads with 16-byte loads too, but its choice is
+    # the shape's: the wrapper's alignment check refuses the view
+    assert route(q[:, :1], k, v) == "split"
+
+
+def test_route_caps_the_tensor_cores_keys():
+    q = empty((1, 64, 12, 128), "bfloat16")
+    k = v = empty((1, 1, 2, 128), "bfloat16").expand(1, 2048 * 128 + 1, 2,
+                                                     128)
+    assert route(q, k, v) == "simt"
+    assert route(q, k[:, :2048 * 128], v[:, :2048 * 128]) == "wgmma"
+
+
+PLANS = [(B, Sq, Skv, Hkv, G) for B, Sq, Skv, Hkv, G in (
+    (8, 1, 2048, 2, 6), (8, 1, 2048, 8, 4), (1, 1, 256, 4, 2),
+    (1, 1, 100_000, 1, 32), (64, 1, 2048, 8, 4), (300, 1, 64, 8, 1),
+    (1, 4, 37, 2, 8), (2, 2, 33, 1, 16), (1, 1, 1, 1, 1), (4, 3, 999, 3, 5))]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hkv,G", PLANS)
+def test_split_plan_covers_every_slot_once(B, Sq, Skv, Hkv, G):
+    plan = split_plan(B, Sq, Skv, Hkv, G)
+    rows = Sq * G
+    warps = 8 // -(-rows // 4)
+    tile = SPLIT_SLICE * warps
+    assert plan.warps == warps
+    assert plan.keys_per_split % tile == 0 and plan.keys_per_split >= tile
+    starts = range(0, Skv, plan.keys_per_split)
+    assert len(starts) == plan.n_splits
+    ranges = [(s, min(Skv, s + plan.keys_per_split)) for s in starts]
+    assert all(e > s for s, e in ranges)                  # none empty
+    covered = [j for s, e in ranges for j in range(s, e)]
+    assert covered == list(range(Skv))                    # each slot once
+    # enough blocks, unless every split is already one tile
+    n_tiles = -(-Skv // tile)
+    assert (B * Hkv * plan.n_splits >= SPLIT_TARGET_BLOCKS
+            or plan.n_splits == n_tiles)
+
+
+def test_split_plan_refuses_prefill_rows():
+    with pytest.raises(ValueError, match="decode instance"):
+        split_plan(1, 6, 128, 2, 6)
+
+
+def split_sizes(Sq, Skv, Hq, Hkv):
+    """The decode instance's split of these shapes where it takes them;
+    else some other cuts, the parts' merge being the point."""
+    if Sq * (Hq // Hkv) <= 32:
+        return [split_plan(1, Sq, Skv, Hkv, Hq // Hkv).keys_per_split, 32]
+    return [64, 100]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,Dh,causal,window,softcap", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_and_merge_matches_pallas_and_oracle(
+        rng, B, Sq, Skv, Hq, Hkv, Dh, causal, window, softcap, dtype):
+    q, k, v, qp, kp = inputs(rng, B, Sq, Skv, Hq, Hkv, Dh, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    jx = [jnp.asarray(a) for a in (q, k, v, qp, kp)]
+    pallas = flash_attention_pallas(*jx, interpret=True, **kw)
+    oracle = attention_reference(*jx, **kw)
+    tol = TOL[dtype]
+    for keys in split_sizes(Sq, Skv, Hq, Hkv):
+        out = attention_split_reference(*map(to_torch, (q, k, v, qp, kp)),
+                                        keys_per_split=keys, **kw)
+        assert out.dtype == to_torch(q).dtype and out.shape == q.shape
+        for ref in (pallas, oracle):
+            np.testing.assert_allclose(as_f32(out), as_f32(ref), atol=tol,
+                                       rtol=tol)
+
+
+def test_split_and_merge_of_fully_masked_rows_and_splits(rng):
+    """A split with no valid key (the empty end of a cache) adds nothing;
+    a row with no valid key anywhere gives 0, not NaN."""
+    q, k, v, qp, kp = map(to_torch, inputs(rng, 2, 1, 256, 8, 2, 64,
+                                           "float32"))
+    kp[0, 40:] = -1                 # row 0: splits past slot 40 are empty
+    kp[1] = -1                      # row 1: nothing to attend
+    out = attention_split_reference(q, k, v, qp, kp, keys_per_split=32)
+    ref = flash_attention(q, k, v, qp, kp)
+    assert not bool(out.isnan().any())
+    assert float(out[1].abs().max()) == 0.0
+    torch.testing.assert_close(out, ref, atol=2e-5, rtol=2e-5)
+    jx = [jnp.asarray(a.numpy()) for a in (q, k, v, qp, kp)]
+    np.testing.assert_allclose(
+        as_f32(out), as_f32(flash_attention_pallas(*jx, interpret=True)),
+        atol=2e-5, rtol=2e-5)
+
+
+def test_split_and_merge_of_a_permuted_rolling_window(rng):
+    """A windowed decode over a rolling cache, its slots in any order, in
+    splits that cut the window: the same output as the ordered cache."""
+    C, W = 256, 96
+    q, k, v, _, _ = map(to_torch, inputs(rng, 1, 1, C, 4, 2, 32,
+                                         "float32"))
+    qp = torch.tensor([[1000 + C]], dtype=torch.int32)
+    kp = torch.arange(1000, 1000 + C, dtype=torch.int32)[None]
+    perm = torch.as_tensor(np.random.default_rng(3).permutation(C))
+    kw = dict(causal=True, window=W)
+    ordered = attention_split_reference(q, k, v, qp, kp, keys_per_split=64,
+                                        **kw)
+    permuted = attention_split_reference(
+        q, k[:, perm].contiguous(), v[:, perm].contiguous(), qp,
+        kp[:, perm].contiguous(), keys_per_split=64, **kw)
+    torch.testing.assert_close(permuted, ordered, atol=1e-6, rtol=1e-6)
+    torch.testing.assert_close(ordered, flash_attention(q, k, v, qp, kp, **kw),
+                               atol=2e-5, rtol=2e-5)
