@@ -55,22 +55,34 @@ nothing falls back to the CPU or to a plain version):
      tokens/s, prefill ms, decode ms per tick, and a `torch.profiler`
      pass over decode ticks (device busy and idle share; the kernel's,
      GEMM and unembedding device time; launches and synchronisations per
-     tick); then the spot reclaim of examples/spot_serving.py at full
-     width;
+     tick), and a profiled 1024-token prefill (its wall beside the
+     device's busy time and the port's kernels' share); then the spot
+     reclaim of examples/spot_serving.py at full width;
   8. the SSD kernel against its plain chunked version and the sequential
-     oracle on the card, y and the final state: the reference suite's
-     four cases in float32 (2e-3) and bfloat16 (5e-2), then mamba2-1.3b's
-     serving shapes (B=1, 64 heads of 64, d_state 128, one group, chunk
-     256; S = 512, 1024 and a ragged 777, with and without an initial
-     state) in both dtypes, the bfloat16 calls at S = 512 and 1024 timed
-     beside their bound and the plain version (no single PyTorch call
-     computes the scan, so there is no library yardstick);
+     oracle on the card, y and the final state, each call through the
+     instance `ssd_route` names (the tensor-core passes for bfloat16 with
+     P and N 64 or 128 and a chunk that is a multiple of 64, SIMT for the
+     rest): the reference suite's four cases in float32 (2e-3) and
+     bfloat16 (5e-2), the tensor-core edge cases (`SSD_TC_CASES`: S = 1,
+     63, 65, 200 and 777, one chunk and several, 2 and 4 heads a group, N
+     and P 64 and 128, with and without an initial state, strided views;
+     each twice, bitwise equal), then mamba2-1.3b's serving shapes (B=1,
+     64 heads of 64, d_state 128, one group, chunk 256; S = 512, 1024
+     and a ragged 777, with and without an initial state) in both dtypes;
+     then mamba2's and jamba's (128 heads of 64, d_state 64) bfloat16
+     prefill at S = 512 and 1024 timed (CUDA events, and the passes'
+     device time from the profiler) on the tensor cores and on the SIMT
+     instance, beside their bound and the plain version (no single
+     PyTorch call computes the scan, so there is no library yardstick);
   9. mamba2-1.3b at full width (48 layers, random weights from a seeded
      generator): the gates of phase 6 with the SSD scan forced through
-     its plain version in place of attention;
+     its plain version in place of attention; the float32 engine's scans
+     all on the SIMT instance;
  10. serving mamba2 like phase 7 (same slots, requests and lengths); the
      SSD kernel's launches must equal 48 x prefill calls (decode runs the
-     plain one-token update), then the decode-tick profile;
+     plain one-token update), every one on the tensor-core instance
+     (`expected_ssd_routes`), then the decode-tick and prefill
+     profiles;
  11. the grouped-matmul kernel against its plain version on the card,
      each call through the instance `gmm_route` names (the tensor-core
      instance for bfloat16 whose K and N are multiples of 8, the SIMT one
@@ -96,12 +108,13 @@ nothing falls back to the CPU or to a plain version):
      routed to other experts, then serving like phase 7; every launch
      count must equal `expected_launches` (gmm 3 x 8 x (prefills +
      ticks), flash 2 x (prefills + ticks), SSD 14 x prefills), every
-     gmm launch must have taken the tensor-core instance, and flash's
-     prefills the tensor-core instance and its ticks the split; then the
-     decode-tick profile;
- 14. a JSON line per kernel (flash's and gmm's with their launches by
-     instance and ptxas' report of their instances), the card line, and
-     the result line.
+     gmm launch must have taken the tensor-core instance, flash's
+     prefills the tensor-core instance and its ticks the split, and every
+     SSD launch the tensor-core instance; then the decode-tick and
+     prefill profiles;
+ 14. a JSON line per kernel (flash's, the SSD's and gmm's with their
+     launches by instance and ptxas' report of their instances), the card
+     line, and the result line.
 """
 from __future__ import annotations
 
@@ -190,6 +203,24 @@ SSD_ARCH = "mamba2-1.3b"
 SSD_SERVING = dict(B=1, H=64, P=64, G=1, N=128, chunk=256,
                    S=(512, 1024, 777))
 SSD_TIMED = (512, 1024)
+# jamba-v0.1-52b's scan at its serving prefill (d_inner 8192: 128 heads of
+# 64, d_state 64), timed at SSD_TIMED lengths beside mamba2's
+SSD_JAMBA = dict(B=1, H=128, P=64, G=1, N=64, chunk=256)
+# edge cases of the tensor-core instance (bfloat16): B, S, H, P, G, N,
+# chunk, init, and whether x, B and C are views of one fused projection.
+# One step; under one 64-row tile; one chunk past one tile (65 = 64 + 1
+# with chunk 64: a one-row second chunk); a ragged last chunk of 9 rows
+# (777); one chunk of 200 (a ragged fourth tile); several chunks with B =
+# 2; 4 and 2 heads a group; N and P 64 and 128; with and without an
+# initial state
+SSD_TC_CASES = [
+    (1, 1, 4, 64, 1, 64, 256, False, False),
+    (2, 63, 8, 128, 2, 128, 256, True, True),
+    (1, 65, 8, 64, 2, 128, 64, True, False),
+    (1, 777, 8, 128, 4, 64, 256, False, True),
+    (1, 200, 2, 128, 1, 128, 256, True, False),
+    (2, 300, 4, 64, 1, 64, 128, True, True),
+]
 
 # the cases of tests/test_kernel_moe_gmm.py: E, K, N, BT, group sizes (BT
 # aligned), tail padding rows
@@ -754,6 +785,34 @@ def ssd_inputs(seed, B, S, H, P, G, N, init, dtype, device):
             t(st))
 
 
+def ssd_route(dtype, P, N, chunk) -> str:
+    """The SSD instance a call must take (`ops.route` for fresh or
+    fused-projection tensors, which are 16-byte aligned with strides a
+    multiple of 8 elements): the tensor cores for bfloat16 with P and N 64
+    or 128 and a chunk that is a multiple of 64, the SIMT instance for the
+    rest (float32: no TF32 or bf16 operands; the small shapes)."""
+    if (dtype == torch.bfloat16 and P in (64, 128) and N in (64, 128)
+            and chunk % 64 == 0):
+        return "mma"
+    return "simt"
+
+
+def ssd_tc_inputs(case, device):
+    """The inputs of an `SSD_TC_CASES` case in bfloat16; with ``strided``
+    x, B and C are views of one fused projection, as the model makes
+    them."""
+    B, S, H, P, G, N, chunk, init, strided = case
+    x, dt, A, Bm, Cm, D, st = ssd_inputs(6, B, S, H, P, G, N, init,
+                                         torch.bfloat16, device)
+    if strided:
+        fused = torch.cat([x.flatten(2), Bm.flatten(2), Cm.flatten(2)],
+                          dim=-1)
+        xv, bv, cv = torch.split(fused, [H * P, G * N, G * N], dim=-1)
+        x, Bm, Cm = (xv.unflatten(-1, (H, P)), bv.unflatten(-1, (G, N)),
+                     cv.unflatten(-1, (G, N)))
+    return x, dt, A, Bm, Cm, D, st
+
+
 def ssd_serving_cases():
     """mamba2-1.3b's scan at the serving prefill's shapes: label, seed and
     the case tuple, with and without an initial state."""
@@ -796,16 +855,22 @@ def ssd_bound(x, dt, Bm, Cm, init, chunk):
     return 1e3 * t_ops, "operations", nbytes, flops
 
 
-def check_ssd(label, so, case, seed, dtype, device, *, timed=False):
+def check_ssd(label, so, case, seed, dtype, device, *, timed=False,
+              inputs=None):
     """Kernel vs the plain version and vs the sequential oracle on the
-    card, y and the final state at the reference suite's tolerance; with
-    ``timed``, CUDA-event medians of the kernel and the plain version
-    beside the bound."""
+    card, y and the final state at the reference suite's tolerance,
+    through the instance `ssd_route` names; with ``timed``, two calls
+    bitwise equal, CUDA-event medians of the kernel, of the SIMT instance
+    on the same call and of the plain version, the kernels' device time
+    from the profiler (summed over the passes), beside the bound."""
     from repro_torch.kernels.ssd.ref import ssd_reference
-    B, S, H, P, G, N, chunk, init = case
-    x, dt, A, Bm, Cm, D, st = ssd_inputs(seed, B, S, H, P, G, N, init,
-                                         dtype, device)
+    B, S, H, P, G, N, chunk, init = case[:8]
+    x, dt, A, Bm, Cm, D, st = inputs or ssd_inputs(seed, B, S, H, P, G, N,
+                                                   init, dtype, device)
+    instance = ssd_route(dtype, P, N, chunk)
+    before = dict(so.route_counts)
     y, fin = so.ssd(x, dt, A, Bm, Cm, D, chunk=chunk, initial_state=st)
+    routed = {n: so.route_counts[n] - before[n] for n in before}
 
     def plain():
         return so.ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
@@ -814,6 +879,9 @@ def check_ssd(label, so, case, seed, dtype, device, *, timed=False):
     refs = {"plain": plain(),
             "oracle": ssd_reference(x, dt, A, Bm, Cm, D, initial_state=st)}
     torch.cuda.synchronize()
+    if routed != {n: int(n == instance) for n in routed}:
+        raise AssertionError(f"{label}: routed {routed}, expected "
+                             f"{instance}")
     tol = SSD_TOL[dtype]
     if y.dtype != dtype or y.shape != x.shape or fin.shape != (B, H, P, N):
         raise AssertionError(f"{label}: output {y.dtype} {tuple(y.shape)}, "
@@ -829,40 +897,108 @@ def check_ssd(label, so, case, seed, dtype, device, *, timed=False):
                     f"{label}: kernel {what} differs from the {name} version "
                     f"by {float(err.max()):.3g} > {tol}")
             errs[f"{what}_vs_{name}"] = float(err.max())
-    row = {"ssd_case": label, "dtype": str(dtype).split(".")[1],
-           "shape": list(case), "max_abs_err": errs["y_vs_plain"],
-           "errs": errs, "tol": tol}
+    row = {"ssd_case": label, "instance": instance,
+           "dtype": str(dtype).split(".")[1], "shape": list(case),
+           "max_abs_err": errs["y_vs_plain"], "errs": errs, "tol": tol}
     if timed:
+        check_ssd_deterministic(label, so, x, dt, A, Bm, Cm, D, chunk, st)
         bound_ms, bound_by, nbytes, flops = ssd_bound(x, dt, Bm, Cm, st,
                                                       chunk)
+
+        def kernel():
+            return so.ssd(x, dt, A, Bm, Cm, D, chunk=chunk,
+                          initial_state=st)
+
+        def simt():
+            return so._ssd_instance("simt", x, dt, A, Bm, Cm, D,
+                                    chunk=chunk, initial_state=st)
+
         row.update(
-            ms=cuda_ms(lambda: so.ssd(x, dt, A, Bm, Cm, D, chunk=chunk,
-                                      initial_state=st), KERNEL_REPS),
+            ms=cuda_ms(kernel, KERNEL_REPS),
+            device_ms=device_ms(kernel, KERNEL_REPS, match="ssd_"),
+            simt_ms=cuda_ms(simt, KERNEL_REPS),
+            simt_device_ms=device_ms(simt, KERNEL_REPS, match="ssd_"),
             plain_ms=cuda_ms(plain, KERNEL_REPS), library_ms=None,
             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
     print(json.dumps(row), flush=True)
     return row
 
 
+def check_ssd_deterministic(label, so, x, dt, A, Bm, Cm, D, chunk, st):
+    """Two calls on the same inputs give the same bits (no atomics; the
+    passes' sums run in a fixed order)."""
+    a = so.ssd(x, dt, A, Bm, Cm, D, chunk=chunk, initial_state=st)
+    b = so.ssd(x, dt, A, Bm, Cm, D, chunk=chunk, initial_state=st)
+    if not all(bitwise_equal(u.float(), v.float()) for u, v in zip(a, b)):
+        raise AssertionError(f"{label}: two calls differ")
+
+
+def ssd_timed_cases():
+    """The bfloat16 calls timed: mamba2's and jamba's serving prefill at
+    SSD_TIMED lengths, without an initial state (label, seed, case)."""
+    m, j = SSD_SERVING, SSD_JAMBA
+    return [(f"{arch}-S{S}", 40 + S,
+             (c["B"], S, c["H"], c["P"], c["G"], c["N"], c["chunk"], False))
+            for arch, c in (("mamba2", m), ("jamba", j)) for S in SSD_TIMED]
+
+
 def ssd_phase(so, device):
-    """Every case of the reference suite in both dtypes, then mamba2's
-    serving shapes in both dtypes; the bfloat16 serving calls without an
-    initial state at SSD_TIMED lengths are timed.  Returns the timed
-    rows, then every serving row."""
+    """Every case of the reference suite in both dtypes, the tensor-core
+    instance's edge cases (each also twice, bitwise equal), mamba2's
+    serving shapes in both dtypes, then the timed bfloat16 calls (mamba2
+    and jamba at SSD_TIMED lengths, each on both instances).  Each
+    call's instance is checked.  Returns the timed rows, then every
+    row."""
+    rows = []
     for case in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            check_ssd(f"case{case}", so, case, 0, dtype, device)
-    timed, rows = [], []
+            rows.append(check_ssd(f"case{case}", so, case, 0, dtype, device))
+    for case in SSD_TC_CASES:
+        inputs = ssd_tc_inputs(case, device)
+        rows.append(check_ssd(f"tc{case}", so, case, 6, torch.bfloat16,
+                              device, inputs=inputs))
+        check_ssd_deterministic(f"tc{case}", so, *inputs[:6], case[6],
+                                inputs[6])
     for label, seed, case in ssd_serving_cases():
         for dtype in (torch.float32, torch.bfloat16):
-            t = (dtype == torch.bfloat16 and not case[-1]
-                 and case[1] in SSD_TIMED)
-            row = check_ssd(label, so, case, seed, dtype, device, timed=t)
-            rows.append(row)
-            if t:
-                timed.append(row)
-    return timed, rows
+            rows.append(check_ssd(label, so, case, seed, dtype, device))
+    timed = [check_ssd(label, so, case, seed, torch.bfloat16, device,
+                       timed=True)
+             for label, seed, case in ssd_timed_cases()]
+    torch.cuda.empty_cache()
+    return timed, rows + timed
+
+
+def ssd_instances(so):
+    """ptxas' report of each SSD kernel: the SIMT instance by dtype and
+    head dim, the tensor-core instance's four kernels (the scores by
+    d_state, the outputs by head dim and d_state, with their dynamic
+    shared memory)."""
+    rows = []
+    for r in ptxas_report(so.build_log, "ssd_"):
+        name = r.pop("kernel")
+        simt = re.search(r"ssd_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
+        outputs = re.search(r"ssd_mma_outputsILi(\d+)ELi(\d+)E", name)
+        scores = re.search(r"ssd_mma_scoresILi(\d+)E", name)
+        other = re.search(r"(ssd_mma_states|ssd_mma_pass)", name)
+        if simt:
+            r = {"instance": "simt", "P": int(simt[2]),
+                 "dtype": "float32" if simt[1] == "f" else "bfloat16", **r}
+        elif outputs:
+            P, N = int(outputs[1]), int(outputs[2])
+            r = {"instance": "mma", "pass": "ssd_mma_outputs", "P": P,
+                 "N": N, "dynamic_smem": so.mma_smem_bytes(P, N), **r}
+        elif scores:
+            r = {"instance": "mma", "pass": "ssd_mma_scores",
+                 "N": int(scores[1]), **r}
+        elif other:
+            r = {"instance": "mma", "pass": other[1], **r}
+        else:
+            r = {"kernel": name, **r}
+        rows.append(r)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1027,9 +1163,11 @@ def ptxas_report(log, name):
                           r"loads", line)
         if spill:
             rows[-1]["spill_bytes"] = int(spill[1]) + int(spill[2])
-        used = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        used = re.search(r"Used (\d+) registers", line)
         if used:
-            rows[-1].update(registers=int(used[1]), static_smem=int(used[2]))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1].update(registers=int(used[1]),
+                            static_smem=int(smem[1]) if smem else 0)
     return rows
 
 
@@ -1362,10 +1500,14 @@ def outputs(engine) -> dict:
     return {i: r.output for i, r in engine.done.items()}
 
 
-def engine_equal_phase(cfg, params, *, plain=plain_attention, n=12, new=8):
+def engine_equal_phase(cfg, params, *, plain=plain_attention, n=12, new=8,
+                       ssd_routes=None):
     """The float32 engine, with the serving run's slots, cache and prompt
     lengths but fewer requests and tokens, gives the same greedy tokens
-    with the kernel as with the model forced through the plain version."""
+    with the kernel as with the model forced through the plain version.
+    With ``ssd_routes`` (the SSD's launches by instance) the kernel run's
+    scans must all have taken `expected_ssd_routes`' instance (SIMT in
+    float32)."""
     from repro_torch.serve.engine import ServeEngine
     runs = []
     for use_plain in (False, True):
@@ -1373,9 +1515,15 @@ def engine_equal_phase(cfg, params, *, plain=plain_attention, n=12, new=8):
                           max_seq=SERVE["max_seq"])
         for r in make_requests(cfg, n, SERVE["prompt"], new, seed=21):
             eng.submit(r)
+        before = dict(ssd_routes or {})
         with plain() if use_plain else contextlib.nullcontext():
             eng.run_until_drained()
         runs.append(outputs(eng))
+        if ssd_routes is not None and not use_plain:
+            moved = {k: ssd_routes[k] - before[k] for k in before}
+            if moved != (want := expected_ssd_routes(cfg, eng)):
+                raise AssertionError(f"{cfg.name} float32 engine: SSD "
+                                     f"routes {moved}, expected {want}")
     if runs[0] != runs[1] or len(runs[0]) != n:
         raise AssertionError(f"{cfg.name} float32 engine: greedy tokens "
                              f"differ between the kernel and the plain "
@@ -1486,6 +1634,47 @@ def profile_ticks(cfg, params, engine, ticks=4,
     return row
 
 
+def prefill_profile(cfg, params, S=1024, reps=3):
+    """An S-token prefill of one request: its wall time (host clock
+    ending in a synchronise, median of ``reps`` after a warm one,
+    unprofiled) beside the device's busy time in one more run under
+    `torch.profiler` (every kernel's, one stream) and the port's kernels'
+    share of it, to tell a host-bound prefill from a device-bound one."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as model_lib
+    device = torch.device("cuda", torch.cuda.current_device())
+    toks = torch.tensor(np.random.default_rng(S).integers(
+        0, cfg.vocab_size, (1, S)), device=device)
+
+    def run():
+        cache = model_lib.init_cache(cfg, 1, S + 16, device=device)
+        model_lib.prefill(params, cfg, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+
+    run()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    row = {"tokens": S, "wall_ms": 1e3 * wall, "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / (1e3 * wall),
+           "kernels": sum(e.count for e in kernels),
+           "port_kernels_ms": {
+               name: sum(e.self_device_time_total for e in kernels
+                         if prefix in e.key) / 1e3
+               for name, prefix in (("flash_attention", "flash_attention_"),
+                                    ("ssd", "ssd_"), ("gmm", "gmm_"))}}
+    print(json.dumps({"prefill_profile": cfg.name, **row}), flush=True)
+    return row
+
+
 def expected_launches(cfg, engine) -> dict:
     """The launches a serving run must count, by kernel: flash attention
     once per attention layer and model call, the SSD scan once per Mamba
@@ -1512,14 +1701,29 @@ def expected_flash_routes(cfg, engine) -> dict:
             "split": attn * engine.decode_ticks, "simt": 0}
 
 
+def expected_ssd_routes(cfg, engine) -> dict:
+    """The SSD instances a serving run must take: every prefill call's
+    scan (once per Mamba layer) on the instance `ssd_route` names for the
+    config's activation dtype, head dim, d_state and chunk: the tensor
+    cores in bfloat16, the SIMT instance in float32."""
+    mixers = [cfg.mixer_kind(s) for s in range(cfg.period)]
+    ssm = cfg.n_scan * mixers.count("ssm")
+    s = cfg.ssm
+    dtype = getattr(torch, cfg.activation_dtype)
+    want = ssd_route(dtype, s.head_dim, s.d_state, s.chunk)
+    return {n: ssm * engine.prefill_calls * (n == want)
+            for n in ("mma", "simt")}
+
+
 def serve_phase(cfg, params, launch_counts, *, kernels=("flash_attention",),
                 profile_kernel="flash_attention_kernel", routes=None):
     """The main path: `ServeEngine` at full width.  Every count is set
     to 0 just before the run and read just after; each must equal
     `expected_launches`, and each of ``kernels`` (the path's) must have
     launched.  ``routes`` (kernel name: its launches by instance) are set
-    to 0 and read with them; flash's must equal
-    `expected_flash_routes`."""
+    to 0 and read with them; flash's must equal `expected_flash_routes`
+    and the SSD's `expected_ssd_routes`.  Then `profile_ticks` and
+    `prefill_profile`, off the main path."""
     from repro_torch.models import model as model_lib
     from repro_torch.serve.engine import ServeEngine
     reqs = make_requests(cfg, SERVE["requests"], SERVE["prompt"],
@@ -1555,6 +1759,11 @@ def serve_phase(cfg, params, launch_counts, *, kernels=("flash_attention",),
         raise AssertionError(
             f"serving {cfg.name}: flash routes {routed['flash_attention']}, "
             f"expected {want}")
+    if "ssd" in routed and routed["ssd"] != (
+            want := expected_ssd_routes(cfg, engine)):
+        raise AssertionError(
+            f"serving {cfg.name}: SSD routes {routed['ssd']}, expected "
+            f"{want}")
     tokens = sum(len(r.output) for r in engine.done.values())
     prompt_tokens = sum(len(r.prompt) for r in reqs)
     row = {"serve": cfg.name, "slots": SERVE["slots"],
@@ -1588,6 +1797,7 @@ def serve_phase(cfg, params, launch_counts, *, kernels=("flash_attention",),
         "unembed": prof["unembed_ms_per_tick"] / row["decode_ms_per_tick"],
         "device_busy": prof["device_busy_ms_per_tick"]
         / row["decode_ms_per_tick"]}}), flush=True)
+    row["prefill_profile"] = prefill_profile(cfg, params)
     return row
 
 
@@ -1763,22 +1973,25 @@ def main() -> int:
             for r in shapes]}
 
     # phase 8: the SSD scan against its plain version and the oracle,
-    # timed at mamba2's serving shapes
+    # timed at mamba2's and jamba's serving shapes on both instances
     ssd_timed, ssd_rows = ssd_phase(so, dev)
 
     # phase 9: mamba2-1.3b at full width
     cfg = get_config(SSD_ARCH)
     f32_cfg, f32_params, params = model_phase(cfg, dev, plain=plain_ssd,
                                               what="SSD scan")
-    engine_equal_phase(f32_cfg, f32_params, plain=plain_ssd)
+    engine_equal_phase(f32_cfg, f32_params, plain=plain_ssd,
+                       ssd_routes=so.route_counts)
     del f32_params
     torch.cuda.empty_cache()
 
     # phase 10: serving mamba2, its main path: the scan runs once per
-    # layer and prefill, and decode runs the plain one-token update
+    # layer and prefill, every one on the tensor cores, and decode runs
+    # the plain one-token update
     served = serve_phase(cfg, params, launch_counts, kernels=("ssd",),
-                         profile_kernel=None)
-    longest = ssd_timed[-1]
+                         profile_kernel=None,
+                         routes={"ssd": so.route_counts})
+    longest = ssd_timed[SSD_TIMED.index(max(SSD_TIMED))]   # mamba2, 1024
     ssd_line = {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/ssd.cu",
@@ -1788,9 +2001,19 @@ def main() -> int:
         "ms": longest["ms"], "plain_ms": longest["plain_ms"],
         "bound_ms": longest["bound_ms"], "bound_by": longest["bound_by"],
         "library_ms": None,
+        "device_ms": longest["device_ms"],
+        "instances": {
+            "mma": "bfloat16, P and N 64 or 128, chunk a multiple of 64: "
+                   "chunk states, state passing, scores once per group, "
+                   "chunk outputs on mma.sync",
+            "simt": "float32, and the shapes mma does not take"},
+        "launches_by_instance": served["routes"]["ssd"],
+        "ptxas": ssd_instances(so),
         "shapes": [{k: r[k] for k in (
-            "ssd_case", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err")} for r in ssd_timed]}
+            "ssd_case", "instance", "shape", "ms", "device_ms", "simt_ms",
+            "simt_device_ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_share", "device_bound_share", "library_ms",
+            "max_abs_err")} for r in ssd_timed]}
     del params
     torch.cuda.empty_cache()
 
@@ -1805,7 +2028,8 @@ def main() -> int:
     f32_cfg, f32_params, _ = model_phase(
         dataclasses.replace(cfg, n_layers=MOE_F32_LAYERS), dev,
         plain=plain_kernels, what="kernels", bf16=False)
-    engine_equal_phase(f32_cfg, f32_params, plain=plain_kernels)
+    engine_equal_phase(f32_cfg, f32_params, plain=plain_kernels,
+                       ssd_routes=so.route_counts)
     del f32_params
     torch.cuda.empty_cache()
 
@@ -1817,13 +2041,15 @@ def main() -> int:
                          kernels=("flash_attention", "ssd", "gmm"),
                          profile_kernel="gmm_kernel",
                          routes={"gmm": gm.route_counts,
-                                 "flash_attention": fa.route_counts})
+                                 "flash_attention": fa.route_counts,
+                                 "ssd": so.route_counts})
     if served["routes"]["gmm"]["wgmma"] != served["launch_counts"]["gmm"]:
         raise AssertionError(f"serving jamba in bfloat16: gmm routes "
                              f"{served['routes']['gmm']}, not every launch "
                              f"on the tensor cores")
     flash_line["launches_by_instance_jamba"] = served["routes"][
         "flash_attention"]
+    ssd_line["launches_by_instance_jamba"] = served["routes"]["ssd"]
     del params
     torch.cuda.empty_cache()
     decode = gmm_timed[-2]                  # the decode tick's gate/up call

@@ -15,11 +15,24 @@ Block decomposition over chunks of length Q (Dao & Gu, arXiv:2405.21060
       Y_inter[i] = exp(cumA_i) * (C_i @ state_{c-1})
 
 `ssd` keeps the JAX signature and layouts.  On a CUDA tensor it checks
-dtype, shape, strides and device, then launches `ssd.cu` on the current
-stream, or raises; on a CPU tensor, and only there, it runs
-`ssd_chunked`, the plain version, which mirrors ``ssd_chunked_jnp``.
-`ssd_decode_step`, the one-token update, is plain PyTorch on every
-device, as the JAX package computes it outside any kernel.
+dtype, shape, strides and device, then launches one of the two instances
+of `ssd.cu` on the current stream, or raises; on a CPU tensor, and only
+there, it runs `ssd_chunked`, the plain version, which mirrors
+``ssd_chunked_jnp``.  `ssd_decode_step`, the one-token update, is plain
+PyTorch on every device, as the JAX package computes it outside any
+kernel.
+
+`route` picks the instance from dtype, shape and alignment alone: the
+tensor-core instance (``"mma"``: chunk-parallel passes on ``mma.sync``,
+the scores C B^T formed once per group, whose plain-PyTorch mirror is
+`ref.ssd_passes`) for
+bfloat16 with head dim and d_state 64 or 128, a chunk that is a multiple
+of 64, and x, B and C 16-byte aligned with strides a multiple of 8
+elements; the SIMT instance (``"simt"``: one block a head, scalar FP32
+FMAs) for the rest: float32 (TF32 or bf16 operands would not keep its
+2e-3 gate) and the small shapes.  `launch_counts["ssd"]` counts every
+call, whatever the number of passes; `route_counts` counts each
+instance.
 
 The CUDA source is built at first use by `repro_torch.kernels.build`
 (nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
@@ -45,6 +58,14 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_STATE = 128                # d_state, a multiple of 16
 _MAX_CHUNK = 256
 _MAX_GRID_Y = 65535
+#: head dims and d_states the tensor-core instance takes; its tiles are
+#: MMA_TILE rows (query, key, step or head-dim rows)
+MMA_HEAD_DIMS = MMA_STATES = (64, 128)
+MMA_TILE = 64
+#: launches by instance since the count was last reset; only the CUDA
+#: branch adds to it, once per call (all four kernels of "mma" are one),
+#: beside launch_counts["ssd"]
+route_counts = {"mma": 0, "simt": 0}
 _lib: ctypes.CDLL | None = None
 #: the opt-in dynamic shared-memory limit of each device set up so far
 _max_smem: dict[int, int] = {}
@@ -178,6 +199,12 @@ def _library() -> ctypes.CDLL:
             i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
             ll, ll, ll, ll, ll, ll, ll, ll, ll, vp]
         lib.ssd_launch.restype = i
+        lib.ssd_mma_launch.argtypes = [
+            i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i,
+            i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, ll, vp]
+        lib.ssd_mma_launch.restype = i
+        lib.ssd_mma_smem.argtypes = [i, i]
+        lib.ssd_mma_smem.restype = i
         lib.ssd_smem.argtypes = [i, i]
         lib.ssd_smem.restype = i
         lib.ssd_init.argtypes = [i]
@@ -219,23 +246,37 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device, *,
         raise ValueError(f"ssd: {name} must be contiguous")
 
 
-def ssd(
-    x: torch.Tensor,
-    dt: torch.Tensor,
-    A: torch.Tensor,
-    Bm: torch.Tensor,
-    Cm: torch.Tensor,
-    D: torch.Tensor,
-    *,
-    chunk: int = 256,
-    initial_state: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD (see the module docstring): y (B,S,H,P) in x's dtype
-    and the final state (B,H,P,N) in float32.  x, Bm and Cm may be views
-    whose last axis is contiguous (as `_split_xbc` makes them)."""
-    if x.device.type == "cpu":
-        return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
-                           initial_state=initial_state)
+def route(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+          chunk: int) -> str:
+    """The instance a CUDA launch takes, from dtype, shape and alignment
+    alone: ``"mma"`` for bfloat16 x, B and C with head dim and d_state in
+    `MMA_HEAD_DIMS` / `MMA_STATES`, a chunk that is a multiple of
+    `MMA_TILE`, each of x, B and C 16-byte aligned with its batch, step
+    and head (group) strides a multiple of 8 elements, and the grid's
+    B * H and chunk count at most 65,535; ``"simt"`` otherwise."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    n_chunks = -(-S // min(chunk, S)) if chunk > 0 and S > 0 else 0
+    if (x.dtype == Bm.dtype == Cm.dtype == torch.bfloat16
+            and P in MMA_HEAD_DIMS and N in MMA_STATES
+            and chunk > 0 and chunk % MMA_TILE == 0
+            and Bsz * H <= _MAX_GRID_Y and n_chunks <= _MAX_GRID_Y
+            and all(t.data_ptr() % 16 == 0
+                    and all(st % 8 == 0 for st in t.stride()[:3])
+                    for t in (x, Bm, Cm))):
+        return "mma"
+    return "simt"
+
+
+def mma_smem_bytes(P: int, N: int) -> int:
+    """The most dynamic shared memory a block of the tensor-core instance
+    needs at head dim P and d_state N (builds the kernel if need be)."""
+    return _library().ssd_mma_smem(P, N)
+
+
+def _checked(x, dt, A, Bm, Cm, D, chunk, initial_state):
+    """Raises on what neither instance takes (dtype, shape, strides,
+    device, sizes); returns B, S, H, P, G, N."""
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for device {x.device}")
     Bsz, S, H, P = x.shape
@@ -269,26 +310,107 @@ def ssd(
     if initial_state is not None:
         _check("initial_state", initial_state, torch.float32,
                (Bsz, H, P, N), dev)
+    return Bsz, S, H, P, G, N
+
+
+def _ssd_instance(
+    instance: str,
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    chunk: int = 256,
+    initial_state: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`ssd` on CUDA tensors through ``instance`` (``"mma"`` or
+    ``"simt"``) rather than the one `route` picks, to time and test one
+    instance against the other (the port itself calls `ssd`): the SIMT
+    instance takes every call `ssd` takes, the tensor-core one only what
+    `route` sends it.  Counted like `ssd`'s launches."""
+    dims = _checked(x, dt, A, Bm, Cm, D, chunk, initial_state)
+    if instance not in route_counts:
+        raise ValueError(f"ssd: no instance {instance!r}")
+    if instance == "mma" and route(x, Bm, Cm, chunk) != "mma":
+        raise ValueError("ssd: the mma instance does not take this call")
+    return _launch(instance, dims, x, dt, A, Bm, Cm, D, chunk,
+                   initial_state)
+
+
+def _launch(instance, dims, x, dt, A, Bm, Cm, D, chunk, initial_state):
+    Bsz, S, H, P, G, N = dims
+    dev, dtype = x.device, x.dtype
     lib = _library()
-    need = lib.ssd_smem(P, N)
+    need = (lib.ssd_mma_smem(P, N) if instance == "mma"
+            else lib.ssd_smem(P, N))
     if need > _device_smem(lib, dev.index):
         raise ValueError(f"ssd: needs {need} B of shared memory, the device "
                          f"allows {_max_smem[dev.index]}")
+    Q = min(chunk, S)
     y = torch.empty((Bsz, S, H, P), dtype=dtype, device=dev)
     final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=dev)
-    err = lib.ssd_launch(
-        dev.index, _DTYPES[dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-        Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(),
-        None if initial_state is None else initial_state.data_ptr(),
-        y.data_ptr(), final.data_ptr(), Bsz, S, H, P, G, N, min(chunk, S),
-        *x.stride()[:3], *Bm.stride()[:3], *Cm.stride()[:3],
-        torch.cuda.current_stream(dev).cuda_stream)
+    init = None if initial_state is None else initial_state.data_ptr()
+    strides = (*x.stride()[:3], *Bm.stride()[:3], *Cm.stride()[:3])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if instance == "mma":
+        # one workspace, made per call (nothing outlives the call; under a
+        # CUDA graph, from the graph's pool): the chunk states (float32),
+        # the entering states (bf16 hi and lo: as many bytes), the scores
+        # of each pair of 64-row tiles kt <= qt of a chunk and group
+        # (float32) and cumA of each chunk (float32, Q padded to whole
+        # tiles)
+        n_chunks, n_tiles = -(-S // Q), -(-Q // MMA_TILE)
+        states = Bsz * n_chunks * H * P * N
+        scores = (Bsz * n_chunks * G * n_tiles * (n_tiles + 1) // 2
+                  * MMA_TILE ** 2)
+        ws = torch.empty(2 * states + scores
+                         + Bsz * H * n_chunks * n_tiles * MMA_TILE,
+                         dtype=torch.float32, device=dev)
+        base = ws.data_ptr()
+        err = lib.ssd_mma_launch(
+            dev.index, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(), init, y.data_ptr(),
+            final.data_ptr(), base + 4 * (2 * states + scores), base,
+            base + 4 * states, base + 8 * states, Bsz, S, H, P, G, N, Q,
+            *strides, stream)
+    else:
+        err = lib.ssd_launch(
+            dev.index, _DTYPES[dtype], x.data_ptr(), dt.data_ptr(),
+            A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), D.data_ptr(), init,
+            y.data_ptr(), final.data_ptr(), Bsz, S, H, P, G, N, Q, *strides,
+            stream)
     if err != 0:
-        raise RuntimeError("ssd kernel launch failed: "
+        raise RuntimeError(f"ssd kernel launch failed ({instance}): "
                            + lib.ssd_error_string(err).decode())
     launch_counts["ssd"] += 1
+    route_counts[instance] += 1
     return y, final
 
 
+def ssd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    A: torch.Tensor,
+    Bm: torch.Tensor,
+    Cm: torch.Tensor,
+    D: torch.Tensor,
+    *,
+    chunk: int = 256,
+    initial_state: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (see the module docstring): y (B,S,H,P) in x's dtype
+    and the final state (B,H,P,N) in float32.  x, Bm and Cm may be views
+    whose last axis is contiguous (as `_split_xbc` makes them)."""
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
+                           initial_state=initial_state)
+    dims = _checked(x, dt, A, Bm, Cm, D, chunk, initial_state)
+    return _launch(route(x, Bm, Cm, chunk), dims, x, dt, A, Bm, Cm, D,
+                   chunk, initial_state)
+
+
 __all__ = ["ssd", "ssd_chunked", "ssd_decode_step", "ssd_reference",
-           "build", "launch_counts"]
+           "route", "route_counts", "mma_smem_bytes", "build",
+           "launch_counts"]

@@ -50,6 +50,7 @@ PORT_OWN = {
     "kernels/waterfill/ref.py", "kernels/build.py",
     "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
     "kernels/ssd/__init__.py", "kernels/ssd/ops.py", "kernels/ssd/ref.py",
+    "kernels/ssd/study.py",
     "kernels/moe_gmm/ops.py", "kernels/moe_gmm/ref.py",
     "models/param.py", "models/layers.py", "models/attention.py",
     "models/transformer.py", "models/model.py", "models/ssm.py",

@@ -18,11 +18,16 @@ float32 inputs, 2e-2 for bfloat16), each through the instance
 head, the tensor cores for bfloat16 with Dh 64 or 128, SIMT otherwise);
 two calls of each instance give the same bits.
 
-SSD: the reference suite's four cases and mamba2-1.3b's serving shapes
+SSD: the reference suite's four cases, mamba2-1.3b's serving shapes
 (B = 1, 64 heads of 64, d_state 128, chunk 256, S = 512, 1024 and a
 ragged 777, with and without an initial state), in float32 and
-bfloat16, y and the final state against the plain chunked version and
-the sequential oracle at the reference's tolerances (2e-3 and 5e-2).
+bfloat16, the tensor-core instance's edge cases and mamba2's and
+jamba's timed bfloat16 shapes, y and the final state against the plain
+chunked version and the sequential oracle at the reference's tolerances
+(2e-3 and 5e-2), each call through the instance `ssd_route` names (the
+tensor-core passes for bfloat16 with P and N 64 or 128 and a chunk that
+is a multiple of 64, SIMT otherwise); two calls of each instance give
+the same bits.
 
 Grouped matmul: the reference suite's four cases, ragged groups (empty,
 unaligned, a tail), the tensor-core edge cases (one group holding every
@@ -56,6 +61,8 @@ from repro_torch.kernels.moe_gmm.ops import (
     gmm, gmm_plain, route_counts, stream_floor,
 )
 from repro_torch.kernels.ssd import ssd, ssd_chunked
+from repro_torch.kernels.ssd.ops import route_counts as ssd_routes
+from repro_torch.kernels.ssd.ops import _ssd_instance
 from repro_torch.kernels.ssd.ref import ssd_reference
 from repro_torch.kernels.waterfill import launch_counts, waterfill
 from repro_torch.kernels.waterfill.ref import waterfill_reference
@@ -63,11 +70,12 @@ from repro_torch.kernels.waterfill.ref import waterfill_reference
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
     FLASH_CASES, FLASH_TOL, FLASH_WGMMA_CASES, GMM_CASES, GMM_RAGGED,
-    GMM_TC_CASES, GMM_TOL, SSD_CASES, SSD_TOL, attention_inputs,
-    bitwise_equal, check_fully_masked_rows, check_rolling_window,
-    flash_route, flash_wgmma_inputs, gmm_arrays, gmm_inputs, gmm_route,
-    moe_serving_inputs, moe_serving_shapes, serving_shapes, ssd_arrays,
-    ssd_inputs, ssd_serving_cases,
+    GMM_TC_CASES, GMM_TOL, SSD_CASES, SSD_TC_CASES, SSD_TOL,
+    attention_inputs, bitwise_equal, check_fully_masked_rows,
+    check_rolling_window, flash_route, flash_wgmma_inputs, gmm_arrays,
+    gmm_inputs, gmm_route, moe_serving_inputs, moe_serving_shapes,
+    serving_shapes, ssd_arrays, ssd_inputs, ssd_route, ssd_serving_cases,
+    ssd_tc_inputs, ssd_timed_cases,
 )
 
 pytestmark = pytest.mark.cuda
@@ -284,13 +292,16 @@ def test_flash_wrapper_refuses_what_no_instance_takes(cuda):
         flash_attention(q, k, v, qp, kp, window=0)
 
 
-def assert_ssd_matches_plain(case, seed, dtype, device):
-    B, S, H, P, G, N, chunk, init = case
-    x, dt, A, Bm, Cm, D, st = ssd_inputs(seed, B, S, H, P, G, N, init,
-                                         dtype, device)
-    before = launch_counts["ssd"]
+def assert_ssd_matches_plain(case, seed, dtype, device, inputs=None):
+    B, S, H, P, G, N, chunk, init = case[:8]
+    x, dt, A, Bm, Cm, D, st = inputs or ssd_inputs(seed, B, S, H, P, G, N,
+                                                   init, dtype, device)
+    want = ssd_route(dtype, P, N, chunk)
+    before, routed = launch_counts["ssd"], dict(ssd_routes)
     y, fin = ssd(x, dt, A, Bm, Cm, D, chunk=chunk, initial_state=st)
     assert launch_counts["ssd"] == before + 1
+    assert {k: ssd_routes[k] - routed[k] for k in routed} == {
+        k: int(k == want) for k in routed}
     plain = ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk, initial_state=st)
     oracle = ssd_reference(x, dt, A, Bm, Cm, D, initial_state=st)
     torch.cuda.synchronize()
@@ -300,6 +311,7 @@ def assert_ssd_matches_plain(case, seed, dtype, device):
     for yr, fr in (plain, oracle):
         torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
         torch.testing.assert_close(fin, fr, atol=tol, rtol=tol)
+    return y, fin
 
 
 @pytest.mark.parametrize("case", SSD_CASES)
@@ -326,6 +338,65 @@ def test_ssd_kernel_reads_views_through_their_strides(cuda):
                  cv.unflatten(-1, (G, N)), D, chunk=32)
     y_c, fin_c = ssd(x, dt, A, Bm, Cm, D, chunk=32)
     assert torch.equal(y, y_c) and torch.equal(fin, fin_c)
+
+
+@pytest.mark.parametrize("case", SSD_TC_CASES)
+def test_ssd_tensor_cores_take_edge_cases(cuda, case):
+    """S = 1, 63, 65, 200 and 777 (a tile, a chunk ending inside a tile),
+    one chunk and several, 2 and 4 heads a group, N and P 64 and 128,
+    with and without an initial state, strided views of one projection."""
+    assert_ssd_matches_plain(case, 6, torch.bfloat16, cuda,
+                             inputs=ssd_tc_inputs(case, cuda))
+
+
+@pytest.mark.parametrize("label,seed,case", ssd_timed_cases())
+def test_ssd_kernel_at_the_timed_shapes(cuda, label, seed, case):
+    """mamba2's and jamba's bfloat16 prefill at S = 512 and 1024."""
+    assert_ssd_matches_plain(case, seed, torch.bfloat16, cuda)
+
+
+@pytest.mark.parametrize("instance", ["mma", "simt"])
+def test_ssd_instances_are_deterministic(cuda, instance):
+    """Two calls give the same bits: no atomics, and each pass sums in a
+    fixed order.  mamba2's 1024-token prefill with an initial state."""
+    x, dt, A, Bm, Cm, D, st = ssd_inputs(11, 1, 1024, 64, 64, 1, 128, True,
+                                         torch.bfloat16, cuda)
+    a = _ssd_instance(instance, x, dt, A, Bm, Cm, D, initial_state=st)
+    b = _ssd_instance(instance, x, dt, A, Bm, Cm, D, initial_state=st)
+    assert all(bitwise_equal(u.float(), v.float()) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_route_counts_move_by_one_per_call(cuda, dtype):
+    """Each call adds one launch, on the instance `ssd_route` predicts,
+    whatever the number of passes."""
+    x, dt, A, Bm, Cm, D, st = ssd_inputs(12, 1, 300, 4, 64, 1, 64, True,
+                                         dtype, cuda)
+    want = ssd_route(dtype, 64, 64, 256)
+    for n in range(1, 4):
+        before, routed = launch_counts["ssd"], dict(ssd_routes)
+        ssd(x, dt, A, Bm, Cm, D, initial_state=st)
+        assert launch_counts["ssd"] == before + 1
+        assert ssd_routes[want] == routed[want] + 1
+        assert sum(ssd_routes.values()) == sum(routed.values()) + 1
+
+
+def test_ssd_wrapper_refuses_what_no_instance_takes(cuda):
+    x, dt, A, Bm, Cm, D, st = ssd_inputs(13, 1, 64, 2, 64, 1, 64, True,
+                                         torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd(torch.cat([x, x[..., :32]], dim=-1), dt, A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd(x, dt, A, torch.cat([Bm] * 4, dim=-1),
+            torch.cat([Cm] * 4, dim=-1), D)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd(x, dt, A, Bm, Cm, D, chunk=320)
+    with pytest.raises(ValueError, match="does not take"):
+        _ssd_instance("mma", x.float(), dt, A, Bm.float(), Cm.float(), D)
+    with pytest.raises(ValueError, match="does not take"):
+        _ssd_instance("mma", x, dt, A, Bm, Cm, D, chunk=100)
+    with pytest.raises(ValueError, match="no instance"):
+        _ssd_instance("wgmma", x, dt, A, Bm, Cm, D)
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):

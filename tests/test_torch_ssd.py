@@ -10,6 +10,17 @@ bfloat16, whose x, B and C are rounded to bf16 on both sides and whose
 y is rounded to bf16.  The two oracles and the two one-token updates
 compute the same float32 sums in nearly the same order, so they are held
 to 1e-5 and 1e-6.
+
+The tensor-core instance's three passes run here as their plain mirror,
+`ref.ssd_passes` (64-row tiles, and in bfloat16 the kernel's roundings:
+w x and the scores to bf16, the entering state to bf16 hi + lo), held
+against Pallas and the oracle at the same tolerances, on the reference
+cases and on ragged ones (a last chunk of 9 rows; a prompt shorter than
+one tile).  Its entering states are the chunked version's within 1e-5:
+the same float32 sums, chunk by chunk.  The design study's chunked scan
+(`study.rounded_scan`) is the oracle without roundings and the mirror
+with the kernel's.  `ops.route` is held against chip_smoke.py's
+`ssd_route` on every reference, serving and edge shape.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,15 +32,35 @@ from repro.kernels.ssd.ops import ssd_decode_step as ref_decode_step
 from repro.kernels.ssd.ref import ssd_reference as ref_oracle
 from repro_torch.kernels.build import launch_counts
 from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_decode_step
-from repro_torch.kernels.ssd.ref import ssd_reference
+from repro_torch.kernels.ssd import study
+from repro_torch.kernels.ssd.ops import route, route_counts
+from repro_torch.kernels.ssd.ref import ssd_passes, ssd_reference
 from test_kernel_ssd import CASES
-from test_torch_cuda import SSD_CASES, ssd_arrays, ssd_inputs
+from test_torch_cuda import (
+    SSD_CASES, SSD_TC_CASES, ssd_arrays, ssd_inputs, ssd_route,
+    ssd_serving_cases, ssd_timed_cases,
+)
 from test_torch_matchmaker import one_torch_thread  # noqa: F401
 
 TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 ORACLE_TOL = 1e-5
 STEP_TOL = 1e-6
 CPU = torch.device("cpu")
+# ragged cases for the passes (B, S, H, P, G, N, chunk, init): a last
+# chunk of 9 rows (777 = 3 x 256 + 9), and a prompt shorter than one
+# 64-row tile
+RAGGED_CASES = [(1, 777, 2, 64, 1, 64, 256, True),
+                (2, 40, 2, 64, 1, 128, 256, False)]
+# shapes `route` sends elsewhere than a tensor-core call: head dims and
+# d_states the instance does not take, a chunk that is not a multiple of
+# 64 (B, S, H, P, G, N, chunk, init)
+# shapes of the design study's scan (S a multiple of the chunk; B, S, H,
+# P, G, N, chunk)
+STUDY_CASES = [(1, 256, 4, 64, 1, 64, 64), (2, 128, 4, 32, 2, 32, 32)]
+ROUTE_EDGE_CASES = [(1, 128, 4, 32, 1, 64, 256, False),
+                    (1, 128, 4, 64, 1, 32, 256, False),
+                    (1, 128, 4, 64, 1, 64, 96, False),
+                    (1, 128, 4, 128, 2, 128, 32, True)]
 
 
 def jax_inputs(arrays, dtype):
@@ -151,3 +182,147 @@ def test_other_devices_are_refused():
     h = torch.zeros((2,), device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ssd(x, torch.zeros((1, 4, 2), device="meta"), h, bc, bc, h)
+
+
+def test_cpu_branch_counts_no_instance():
+    x, dt, A, Bm, Cm, D, _ = ssd_inputs(0, 1, 64, 2, 64, 1, 64, False,
+                                        torch.bfloat16, CPU)
+    before = dict(route_counts)
+    ssd(x, dt, A, Bm, Cm, D)
+    assert route_counts == before
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,init", CASES + RAGGED_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_passes_match_pallas_and_oracle(B, S, H, P, G, N, chunk, init,
+                                        dtype):
+    """The three passes' mirror, with the kernel's bf16 roundings, against
+    the Pallas kernel and the oracle at the reference suite's tolerance."""
+    tdt = getattr(torch, dtype)
+    x, dt, A, Bm, Cm, D, st = ssd_inputs(0, B, S, H, P, G, N, init, tdt, CPU)
+    y, fin, entering = ssd_passes(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                  initial_state=st)
+    assert y.dtype == tdt and y.shape == (B, S, H, P)
+    assert fin.dtype == torch.float32 and fin.shape == (B, H, P, N)
+    assert entering.shape == (B, -(-S // min(chunk, S)), H, P, N)
+    jx = jax_inputs(ssd_arrays(0, B, S, H, P, G, N, init), dtype)
+    pallas = ssd_pallas(*jx[:6], chunk=chunk, initial_state=jx[6],
+                        interpret=True)
+    oracle = ref_oracle(*jx[:6], initial_state=jx[6])
+    for yr, fr in (pallas, oracle):
+        close(y, yr, TOL[dtype])
+        close(fin, fr, TOL[dtype])
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,init", CASES + RAGGED_CASES)
+def test_passes_entering_states_are_the_chunked_ones(B, S, H, P, G, N,
+                                                     chunk, init):
+    """Pass 2's entering states (and the final state) are the chunked
+    version's `prev_states`: the state entering chunk c is the chunked
+    scan's final state over the first c chunks, the same float32
+    recurrence."""
+    x, dt, A, Bm, Cm, D, st = ssd_inputs(3, B, S, H, P, G, N, init,
+                                         torch.float32, CPU)
+    _, fin, entering = ssd_passes(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                  initial_state=st)
+    Q = min(chunk, S)
+    first = torch.zeros_like(entering[:, 0]) if st is None else st
+    close(entering[:, 0], first, 0.0)
+    for c in range(1, entering.shape[1]):
+        steps = slice(0, c * Q)
+        _, prev = ssd_chunked(x[:, steps], dt[:, steps], A, Bm[:, steps],
+                              Cm[:, steps], D, chunk=chunk, initial_state=st)
+        close(entering[:, c], prev, ORACLE_TOL)
+    close(fin, ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
+                           initial_state=st)[1], ORACLE_TOL)
+
+
+def test_passes_never_exponentiate_masked_pairs():
+    """A decay steep enough that exp(cumA_i - cumA_j) overflows for
+    j > i: masked pairs are set to 0, never multiplied by their decay, so
+    y stays finite."""
+    x, dt, A, Bm, Cm, D, _ = ssd_inputs(4, 1, 128, 2, 64, 1, 64, False,
+                                        torch.float32, CPU)
+    A = torch.full_like(A, -30.0)
+    dt = torch.full_like(dt, 1.0)
+    y, fin, _ = ssd_passes(x, dt, A, Bm, Cm, D, chunk=128)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(fin).all())
+    close(y, ssd_reference(x, dt, A, Bm, Cm, D)[0], TOL["float32"])
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", STUDY_CASES)
+def test_study_scan_without_roundings_is_the_oracle(B, S, H, P, G, N, chunk):
+    """The design study's chunked scan with no bf16 rounding is the
+    float32 scan: the oracle within its float32 tolerance."""
+    x, dt, A, Bm, Cm, D, st = study.inputs(5, B, S, H, P, G, N, True, CPU,
+                                           dtype=torch.float32)
+    y, fin = study.rounded_scan(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                initial_state=st, round_wx=False,
+                                round_scores=False, state_parts=0)
+    yr, fr = ssd_reference(x, dt, A, Bm, Cm, D, initial_state=st)
+    close(y, yr, ORACLE_TOL)
+    close(fin, fr, ORACLE_TOL)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", STUDY_CASES)
+def test_study_scan_with_the_kernels_roundings_is_the_mirror(B, S, H, P, G,
+                                                             N, chunk):
+    """With the kernel's roundings (w x and the scores to bf16, the
+    entering state to bf16 hi + lo) the study's scan on bf16 values is
+    `ssd_passes` on the bf16 inputs: the same state, and y but for its
+    rounding to bf16."""
+    x, dt, A, Bm, Cm, D, st = study.inputs(5, B, S, H, P, G, N, True, CPU)
+    y, fin = study.rounded_scan(x.float(), dt, A, Bm.float(), Cm.float(), D,
+                                chunk=chunk, initial_state=st,
+                                round_wx=True, round_scores=True,
+                                state_parts=2)
+    yp, fp, _ = ssd_passes(x, dt, A, Bm, Cm, D, chunk=chunk,
+                           initial_state=st)
+    close(fin, fp, ORACLE_TOL)
+    close(y, yp, TOL["bfloat16"])
+
+
+def route_shapes():
+    """Every reference, serving, timed and edge shape, with a label."""
+    cases = [(f"ref{c}", c) for c in CASES]
+    cases += [(label, c) for label, _, c in ssd_serving_cases()]
+    cases += [(label, c) for label, _, c in ssd_timed_cases()]
+    cases += [(f"tc{c}", c) for c in SSD_TC_CASES]
+    cases += [(f"edge{c}", c) for c in ROUTE_EDGE_CASES]
+    return cases
+
+
+@pytest.mark.parametrize("label,case", route_shapes())
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_is_chip_smokes(label, case, dtype):
+    """`ops.route` picks the instance chip_smoke.py's `ssd_route` names,
+    on fresh tensors and on the tensor-core edge cases' fused views."""
+    B, S, H, P, G, N, chunk = case[:7]
+    if len(case) == 9 and case[8]:  # x, B and C as views of one projection
+        fused = torch.empty((B, S, H * P + 2 * G * N), dtype=dtype)
+        x = fused[..., :H * P].unflatten(-1, (H, P))
+        Bm = fused[..., H * P:H * P + G * N].unflatten(-1, (G, N))
+        Cm = fused[..., H * P + G * N:].unflatten(-1, (G, N))
+    else:
+        x = torch.empty((B, S, H, P), dtype=dtype)
+        Bm = torch.empty((B, S, G, N), dtype=dtype)
+        Cm = torch.empty((B, S, G, N), dtype=dtype)
+    assert route(x, Bm, Cm, chunk) == ssd_route(dtype, P, N, chunk), label
+
+
+def test_route_sends_misaligned_views_to_simt():
+    """A view 2 bytes off a 16-byte boundary, or whose rows are not a
+    multiple of 8 elements apart, takes the SIMT instance."""
+    B, S, H, P, G, N = 1, 64, 2, 64, 1, 64
+    bf = torch.bfloat16
+    x = torch.empty((B, S, H, P), dtype=bf)
+    Bm = torch.empty((B, S, G, N), dtype=bf)
+    assert route(x, Bm, Bm, 256) == "mma"
+    flat = torch.empty(x.numel() + 8, dtype=bf)
+    shifted = flat[1:1 + x.numel()].view(x.shape)
+    assert route(shifted, Bm, Bm, 256) == "simt"
+    wide = torch.empty((B, S, H * P + 4), dtype=bf)     # rows 132 apart
+    assert route(wide[..., :H * P].unflatten(-1, (H, P)), Bm, Bm,
+                 256) == "simt"
+    assert route(x, Bm, Bm, 256 - 64) == "mma"
+    assert route(x, Bm, Bm, 100) == "simt"
