@@ -4,9 +4,13 @@ Run from the repository root on a machine with the card:
 
     python3 chip_smoke.py
 
-It imports nothing of JAX and nothing of the JAX package.  Phases, in
-order; any failure raises and exits non-zero (nothing is caught, and
-nothing falls back to the CPU or to a plain version):
+It imports nothing of JAX and nothing of the JAX package.  Phases, run
+in the order 1, 2, 5-13, 3, 4, 14 (the water-fill's last: once its
+tier-1m case has run, `torch.profiler` reads no device events in the
+same process -- `repro_torch.kernels.waterfill.study` finds where -- so
+every phase that reads the profiler runs first); any failure raises and
+exits non-zero (nothing is caught, and nothing falls back to the CPU or
+to a plain version):
 
   1. the card: name and power limit as nvidia-smi reports them;
   2. build every kernel from the checkout's CUDA sources, one nvcc per
@@ -14,20 +18,40 @@ nothing falls back to the CPU or to a plain version):
      grouped matmul), with ptxas' register and shared-memory report;
   3. the water-fill kernel against its plain PyTorch version on the card,
      on the matchmaking tiers (10k/100k/1m jobs), a fractional-request
-     problem, a finite budget with an `active` mask, a drained pool,
-     worker counts 129/1000/1500/6000 (one and several lanes per thread,
-     free carry in shared and in device memory) and float32: takes equal
-     and free_after bitwise; the matchmaker's plan against the NumPy
-     backend's: takes equal, free_after within 1e-7.  Kernel time is the
-     median of CUDA-event timings, printed beside its bytes/operations
-     bound and beside the time of the step-floor probe (the kernel's
-     scan-and-barrier skeleton alone, one step per cohort it works on);
+     problem, a finite budget with an `active` mask, a drained pool, a
+     worker whose memory lies a rounding below zero (the JAX package's
+     drain guard skips its claims), worker counts 129/1000/1500/6000/
+     8000 (one to sixteen lanes a thread, part of the carry in shared
+     memory) and float32, each on every instance the call can take --
+     "staged" and PR 11's "rounds" -- with takes equal and free_after
+     bitwise; the matchmaker's plan against the NumPy backend's: takes
+     equal, free_after within 1e-7.  The routed solve (the launch
+     `match()` makes) and PR 11's instance timed by CUDA events (median
+     of 20) and by device time (`queued_ms`), beside the staged instance
+     dividing every lane, the divide probe (no divide at all), the
+     bytes/operations bound and the step-floor probe (the
+     scan-and-barrier skeleton alone, one step per cohort it works on).  Then K = 1, 2, 8 cycles
+     (`waterfill_cycles`: one launch, deltas with arrivals, returned
+     capacity and budgets) and N = 1, 8 candidates (`waterfill_preview`:
+     one launch, with and without demands) on the 10k tier and the
+     fractional problem, each against its plain loop bitwise, and
+     `match_cycles`/`preview_many` against `sequential_match_cycles`/
+     `sequential_preview_many` on the NumPy backend; K = 8 timed against
+     8 `match` calls, a preview session hit against a miss;
   4. end to end: `run_policy` over the 10k-job diurnal day on the
      standard 3-provider federation with ``[provision] matchmaker=torch``
      against the same run on the NumPy backend (equal jobs, pods, cost
      and Fig 2/3 series, every job completed), then a 2k-job 3-schedd
-     fair-share day the same way.  The kernel's launch count is read
-     from each run;
+     fair-share day the same way, then the 10k day at ``negotiation_batch
+     =8`` at the live-fusion cadence (negotiate every 20 s inside a 60 s
+     tick and metrics grid: the standard grid leaves no window to fuse
+     in), where fused batches must occur and each must be one "cycles"
+     launch, and the same day at batch 1 (its launches, and whether the
+     blocks are equal: not a gate).  The kernel's launches in all, by
+     entry point and by instance, are read from each run; then the
+     largest problem of the 10k day is timed and `match()` broken down
+     on the host clock (prep, copy in, kernel and wait, copy out and
+     scatter);
   5. the flash-attention kernel against its plain PyTorch version
      (float32) on the card, each call through the instance `flash_route`
      names (the decode split for at most 32 query rows per kv head, the
@@ -112,9 +136,10 @@ nothing falls back to the CPU or to a plain version):
      prefills the tensor-core instance and its ticks the split, and every
      SSD launch the tensor-core instance; then the decode-tick and
      prefill profiles;
- 14. a JSON line per kernel (flash's, the SSD's and gmm's with their
-     launches by instance and ptxas' report of their instances), the card
-     line, and the result line.
+ 14. a JSON line per kernel (the water-fill's with its launches by
+     instance and by entry point and the host breakdown; flash's, the
+     SSD's and gmm's with their launches by instance and ptxas' report of
+     their instances), the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -122,6 +147,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -134,6 +160,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 R = 6
+CHUNK = 64                     # cohorts per drain-guard chunk
 TIERS = {
     "10k": dict(jobs=10_000, C=512, W=128),
     "100k": dict(jobs=100_000, C=4_096, W=512),
@@ -146,6 +173,10 @@ FP64_OPS_PER_S = 34e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12        # dense tensor-core rate
 KERNEL_REPS = 20
+# negotiate every 20 s inside a 60 s tick and metrics grid: windows in
+# which a staged cycle may wait for the next (tests/test_live_fusion.py)
+FUSION_CADENCE = {"tick_s": 60.0, "negotiate_interval_s": 20.0,
+                  "metrics_interval_s": 60.0}
 
 # the cases of tests/test_kernel_flash_attention.py: B, Sq, Skv, Hq, Hkv,
 # Dh, causal, window, softcap
@@ -321,6 +352,30 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def queued_ms(fn, reps: int = KERNEL_REPS) -> float:
+    """Device time of one call of ``fn`` by CUDA events, without the
+    host's cost: ``reps`` calls are queued behind a GPU sleep long enough
+    for the host to enqueue them all, so the events bracket only the
+    device's work (the gaps between launches included).  ``fn`` must not
+    synchronise.  No profiler session: once the water-fill phase's
+    tier-1m case has run, the profiler reads no device events."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    torch.cuda._sleep(int(2e9 * (2 * reps * host_s + 1e-3)))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     view = torch.int64 if a.dtype == torch.float64 else torch.int32
     return a.shape == b.shape and torch.equal(
@@ -333,9 +388,11 @@ def kernel_bound(C: int, W: int, args, takes, ran):
     demand for the real cohorts of the chunks that ran, the request row
     and u8 compat row of those among them that could take anything
     (d = min(demand, left) > 0: cohorts masked out, padding and cohorts
-    after the budget ran out take nothing), and the real C x W i32 takes
-    out.  Padding and the host-derived safe, big and chunk_min arrays are
-    left out.  Against that, the live cohorts' per-lane arithmetic (R
+    after the budget ran out take nothing), and out the i32 takes rows
+    of the real cohorts of the chunks that ran (what the solve `match()`
+    launches writes), the C i32 totals and the ran flags.  Padding and
+    the host-derived safe, big, 1/safe and chunk_min arrays are left
+    out.  Against that, the live cohorts' per-lane arithmetic (R
     divides, adds and multiply-subtracts, the min/floor/clip chain, one
     scan add: about 4R + 8 operations) over the vector rate.  Returns
     (bound ms, what bounds it, bytes, operations, live cohorts)."""
@@ -350,23 +407,72 @@ def kernel_bound(C: int, W: int, args, takes, ran):
     nbytes = (2 * W * r * item                       # free in + out
               + n_real * item                        # demand
               + n_live * (r * item + W)              # want, u8 compat
-              + C * W * 4)                           # i32 takes out
+              + n_real * W * 4 + C * 4 + nch)        # takes, totals, ran
     ops = n_live * W * (4 * r + 8)
+    bound_ms, bound_by = bytes_ops_bound(nbytes, ops, item)
+    return bound_ms, bound_by, nbytes, ops, n_live
+
+
+def guard_problem(MatchProblem):
+    """One cohort asking 1 cpu and no memory, one worker with 4 cpus and a
+    memory a rounding below zero (what fractional claims leave behind):
+    the JAX package's drain guard retires the worker and claims nothing,
+    the NumPy backend claims 3 (tests/test_torch_matchmaker.py)."""
+    req = np.zeros((1, R))
+    req[0, 0] = 1.0
+    free = np.zeros((1, R))
+    free[0, 0] = 4.0
+    free[0, 2] = -1.1102230246251565e-15
+    return MatchProblem(
+        keys=[(0, 0)], requests=req, demand=np.array([3], dtype=np.int64),
+        order=np.array([0], dtype=np.int64), free=free, capacity=free.copy(),
+        compat=np.ones((1, 1), dtype=bool))
+
+
+def bytes_ops_bound(nbytes: int, nops: int, item: int):
+    """(bound ms, what bounds it) for this many bytes moved and vector
+    operations done in the element type of size ``item``."""
     rate = FP64_OPS_PER_S if item == 8 else FP32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / rate
     if t_bytes >= t_ops:
-        return 1e3 * t_bytes, "bytes", nbytes, ops, n_live
-    return 1e3 * t_ops, "operations", nbytes, ops, n_live
+        return 1e3 * t_bytes, "bytes"
+    return 1e3 * t_ops, "operations"
+
+
+def fused_bound(C: int, W: int, item: int, *, frees: int, demands: int,
+                live_rows: int, live_steps: int, outputs: int):
+    """The least time for a cycles or candidates launch, counted as
+    `kernel_bound` counts one cycle: the real W x R free values of each
+    of ``frees`` matrices read (the start, and each cycle's returned
+    capacity where it adds any, or each candidate's), ``demands`` real
+    C-long demand vectors (the start and each cycle's arrivals, or each
+    candidate's), the request row and u8 compat row of the
+    ``live_rows`` cohorts that were live in some cycle or candidate, and
+    ``outputs`` bytes written; padding and the host-derived safe, big and
+    1/safe arrays are left out.  Against that, ``live_steps`` cohort
+    steps (summed over cycles or candidates) at 4R + 8 operations a real
+    worker lane.  Returns (bound ms, what bounds it)."""
+    nbytes = (frees * W * R * item + demands * C * item
+              + live_rows * (R * item + W) + outputs)
+    return bytes_ops_bound(nbytes, live_steps * W * (4 * R + 8), item)
 
 
 def check_case(label, p, mm, ref_mm, ops, waterfill_reference, *,
                budget=None, active=None, plain_reps=1):
-    """Kernel vs plain version on the card (takes exact, free bitwise),
-    then the matchmaker's plan vs the NumPy backend's; returns timings."""
+    """Each instance the call can take against the plain version on the
+    card (takes exact, free bitwise), then the matchmaker's plan against
+    the NumPy backend's; times (CUDA events around each call, and device
+    time by `queued_ms`) the routed solve, the launch `match()` makes,
+    PR 11's "rounds" instance (its device time includes its memset and,
+    in this wrapper, the small kernels that give its outputs the staged
+    instance's layout), the staged instance dividing every lane and the
+    divide probe, the plain version and match(); returns the row."""
     args, _order = mm.kernel_inputs(p, budget=budget, active=active)
     nch, chunk, r = args["want"].shape
     Wp = args["crow"].shape[2]
-    takes_k, free_k, ran = ops.waterfill(**args)
+    dt, dev = args["freeT"].dtype, args["freeT"].device
+    route = ops.route(args["freeT"], args["want"], args["safe"],
+                      args["big"], args["crow"], args["inv"])
 
     def plain():
         return waterfill_reference(
@@ -374,15 +480,28 @@ def check_case(label, p, mm, ref_mm, ops, waterfill_reference, *,
             args["demand"].reshape(nch * chunk),
             args["crow"].reshape(nch * chunk, Wp), budget=args["left"])
 
+    def instance(name, fit=ops.FIT):
+        return lambda: ops._waterfill_instance(name, **args, fit=fit)
+
+    def solve():
+        return ops.waterfill_solve(**args)
+
     takes_p, free_p = plain()
-    torch.cuda.synchronize()
-    if not torch.equal(takes_k.reshape(nch * chunk, Wp), takes_p):
-        bad = (takes_k.reshape(nch * chunk, Wp) != takes_p).sum().item()
-        raise AssertionError(f"{label}: kernel takes differ from the plain "
-                             f"version in {bad} cells")
-    if not bitwise_equal(free_k, free_p.T):
-        raise AssertionError(f"{label}: kernel free_after is not bitwise "
-                             f"equal to the plain version's")
+    runs = [("rounds", ops.FIT)]
+    if route == "staged":
+        runs = [("staged", ops.FIT), ("staged", "divide")] + runs
+    for name, fit in runs:
+        out = instance(name, fit)()
+        takes_k, free_k = ops.dense_takes(out)[0], out.free[0]
+        torch.cuda.synchronize()
+        if not torch.equal(takes_k.reshape(nch * chunk, Wp), takes_p):
+            bad = (takes_k.reshape(nch * chunk, Wp) != takes_p).sum().item()
+            raise AssertionError(f"{label}: {name}/{fit} takes differ from "
+                                 f"the plain version in {bad} cells")
+        if not bitwise_equal(free_k, free_p.T):
+            raise AssertionError(f"{label}: {name}/{fit} free_after is not "
+                                 f"bitwise equal to the plain version's")
+    takes_k, free_k, ran = ops.waterfill(**args)
     max_abs_err = float((free_k - free_p.T).abs().max().item())
 
     kw = {"budget": budget, "active": active}
@@ -395,45 +514,295 @@ def check_case(label, p, mm, ref_mm, ops, waterfill_reference, *,
         raise AssertionError(f"{label}: matchmaker free_after differs from "
                              f"the numpy backend's beyond 1e-7")
 
-    ms = cuda_ms(lambda: ops.waterfill(**args), KERNEL_REPS)
-    plain_ms = cuda_ms(plain, plain_reps)
+    row = {"case": label, "C": p.n_cohorts, "W": p.n_workers, "nch": nch,
+           "Wp": Wp, "dtype": mm.dtype, "route": route,
+           "ran_chunks": int(ran.sum().item()), "claimed": plan.claimed}
+    row["ms"] = cuda_ms(solve, KERNEL_REPS)
+    row["device_ms"] = queued_ms(solve)
+    row["rounds_ms"] = cuda_ms(instance("rounds"), KERNEL_REPS)
+    row["rounds_device_ms"] = queued_ms(instance("rounds"))
+    if route == "staged":
+        row["divide_ms"] = cuda_ms(instance("staged", "divide"), KERNEL_REPS)
+        row["divide_device_ms"] = queued_ms(instance("staged", "divide"))
+        row["probe_device_ms"] = queued_ms(lambda: ops.divide_probe(**args))
+        row["divide_share"] = (1 - row["probe_device_ms"]
+                               / max(row["divide_device_ms"], 1e-9))
+    row["plain_ms"] = cuda_ms(plain, plain_reps)
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
         mm.match(p, **kw)
         walls.append(time.perf_counter() - t0)
+    row["match_wall_ms"] = 1e3 * statistics.median(walls)
     bound_ms, bound_by, nbytes, nops, n_live = kernel_bound(
         p.n_cohorts, p.n_workers, args, takes_k, ran)
-    # the floor of the serial chain: the kernel's scan-and-barrier skeleton
-    # alone, one step per live cohort and lane round, at its block size
-    threads = min(Wp, 1024)
-    steps = n_live * -(-Wp // threads)
-    dt, dev = args["freeT"].dtype, args["freeT"].device
-    floor_ms = cuda_ms(lambda: ops.step_floor(steps, threads, dt, dev),
-                       KERNEL_REPS)
-    empty_ms = cuda_ms(lambda: ops.step_floor(0, threads, dt, dev),
-                       KERNEL_REPS)
-    row = {"case": label, "C": p.n_cohorts, "W": p.n_workers,
-           "nch": nch, "Wp": Wp, "dtype": mm.dtype,
-           "ran_chunks": int(ran.sum().item()), "claimed": plan.claimed,
-           "ms": ms, "plain_ms": plain_ms,
-           "match_wall_ms": 1e3 * statistics.median(walls),
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-           "ops": nops, "steps": steps, "threads": threads,
-           "step_floor_ms": floor_ms, "empty_launch_ms": empty_ms,
-           "max_abs_err": max_abs_err}
+    # the floor of the serial chain: the cohort step's scan-and-barrier
+    # skeleton alone, one step per live cohort (and, for rounds, per lane
+    # round), at the instance's block size
+    if route == "staged":
+        threads, steps = ops.staged_plan(dt, Wp).threads, n_live
+    else:
+        threads = min(Wp, 1024)
+        steps = n_live * -(-Wp // threads)
+    row.update(bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=nops,
+               steps=steps, threads=threads, max_abs_err=max_abs_err)
+    row["step_floor_ms"] = cuda_ms(
+        lambda: ops.step_floor(steps, threads, dt, dev), KERNEL_REPS)
+    row["empty_launch_ms"] = cuda_ms(
+        lambda: ops.step_floor(0, threads, dt, dev), KERNEL_REPS)
     print(json.dumps(row), flush=True)
     return row
 
 
-class LargestProblem:
-    """Wraps a built Simulation's matchmaker so that, for the timing
-    phase, a copy of the largest problem it was asked to solve is kept."""
+def fused_deltas(rng, p, K):
+    """K staged deltas: arrivals on every cohort, capacity returned on odd
+    cycles, a claim budget on every third."""
+    from repro_torch.core.matchmaker.base import CycleDelta
+    C, W = p.compat.shape
+    deltas = []
+    for k in range(K):
+        free_add = None
+        if k % 2:
+            free_add = np.zeros((W, R))
+            free_add[:, 0] = rng.integers(0, 5, W)
+            free_add[:, 2] = rng.integers(0, 9, W)
+        deltas.append(CycleDelta(
+            arrivals=rng.integers(0, 30, C).astype(np.int64),
+            free_add=free_add,
+            budget=None if k % 3 else int(rng.integers(50, 400))))
+    return deltas
+
+
+def plans_equal(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(x.takes, y.takes)
+        and np.array_equal(x.free_after.view(np.int64),
+                           y.free_after.view(np.int64))
+        for x, y in zip(a, b))
+
+
+def cycles_bound(p, a, out):
+    """`fused_bound` of a `waterfill_cycles` launch: per cycle, the live
+    cohorts are the real ones of the chunks that ran whose live demand
+    and the claim budget left before them were positive (the live demand
+    replayed from the arrivals and the launch's totals)."""
+    C, W = p.compat.shape
+    K, nch = out.ran.shape
+    item = a["freeT"].element_size()
+    rows = torch.arange(nch * CHUNK, device=out.totals.device)
+    dem = a["demand"].reshape(-1).clone()
+    live_any = torch.zeros_like(rows, dtype=torch.bool)
+    steps = ran_rows = 0
+    for k in range(K):
+        dem += a["arrivals"][k].reshape(-1)
+        real = out.ran[k][:, None].expand(nch, CHUNK).reshape(-1) & (rows < C)
+        taken = out.totals[k].reshape(-1).to(dem.dtype)
+        left = a["budgets"][k] - (taken.cumsum(0) - taken)
+        live = real & (dem > 0) & (left > 0)
+        steps += int(live.sum())
+        ran_rows += int(real.sum())
+        live_any |= live
+        dem -= taken
+    outputs = (K * W * R * item                  # free after each cycle
+               + K * C * 4 + K * nch             # totals, ran
+               + ran_rows * W * 4)               # the ran chunks' takes
+    return fused_bound(C, W, item, frees=1 + int(a["add_free"].sum()),
+                       demands=1 + K, live_rows=int(live_any.sum()),
+                       live_steps=steps, outputs=outputs)
+
+
+def preview_bound(p, a, ops):
+    """`fused_bound` of a `waterfill_preview` launch: each candidate's
+    live cohorts are the real ones with positive demand in the chunks its
+    drain guard runs, read from a one-cycle solve of that candidate (the
+    same guard on the same free and demand, no budget)."""
+    C, W = p.compat.shape
+    N = a["frees"].shape[0]
+    nch = a["want"].shape[0]
+    item = a["frees"].element_size()
+    rows = torch.arange(nch * CHUNK, device=a["frees"].device)
+    live_any = torch.zeros_like(rows, dtype=torch.bool)
+    steps = 0
+    for i in range(N):
+        d = a["demands"][i]
+        cmin = torch.where((d > 0)[..., None], a["want"],
+                           math.inf).amin(dim=1)
+        ran = ops.waterfill_solve(
+            a["frees"][i], math.inf, a["want"], a["safe"], a["big"], d,
+            a["crow"], cmin, a["inv"]).ran[0]
+        live = (ran[:, None].expand(nch, CHUNK).reshape(-1) & (rows < C)
+                & (d.reshape(-1) > 0))
+        steps += int(live.sum())
+        live_any |= live
+    return fused_bound(C, W, item, frees=N, demands=N,
+                       live_rows=int(live_any.sum()), live_steps=steps,
+                       outputs=N * C * 4)
+
+
+def check_cycles(label, p, K, seed, mm, ref_mm, ops, refs):
+    """`waterfill_cycles` (one launch) against its plain loop on the card
+    (takes, each cycle's free bitwise, totals), `match_cycles` against
+    `sequential_match_cycles` on the NumPy backend (bitwise); K = 8 timed
+    against 8 `match` calls."""
+    waterfill_cycles_reference, sequential_match_cycles = refs
+    p = dataclasses.replace(p, demand=np.zeros_like(p.demand))
+    deltas = fused_deltas(np.random.default_rng(seed), p, K)
+    a, _order = mm.cycles_inputs(p, deltas)
+    nch, chunk, r = a["want"].shape
+    Wp = a["crow"].shape[2]
+    out = ops.waterfill_cycles(**a)
+    takes_p, free_p, tot_p = waterfill_cycles_reference(
+        a["freeT"].T, a["want"].reshape(-1, r), a["demand"].reshape(-1),
+        a["arrivals"].reshape(K, -1), a["free_add"].transpose(1, 2),
+        a["add_free"], a["budgets"], a["crow"].reshape(-1, Wp))
+    torch.cuda.synchronize()
+    if not (torch.equal(ops.dense_takes(out).reshape(K, -1, Wp), takes_p)
+            and bitwise_equal(out.free, free_p.transpose(1, 2))
+            and torch.equal(out.totals.reshape(K, -1), tot_p)):
+        raise AssertionError(f"cycles {label} K={K}: the kernel differs "
+                             f"from the plain loop")
+    fused = mm.match_cycles(p, deltas)
+    if not plans_equal(fused, sequential_match_cycles(ref_mm, p, deltas)):
+        raise AssertionError(f"cycles {label} K={K}: match_cycles differs "
+                             f"from sequential_match_cycles on numpy")
+    row = {"cycles_case": label, "K": K, "Wp": Wp, "nch": nch,
+           "claimed": [x.claimed for x in fused],
+           "ran_chunks": int(out.ran.sum().item())}
+    if K == 8:
+        row["device_ms"] = queued_ms(lambda: ops.waterfill_cycles(**a))
+        row["bound_ms"], row["bound_by"] = cycles_bound(p, a, out)
+        row["plain_ms"] = cuda_ms(lambda: waterfill_cycles_reference(
+            a["freeT"].T, a["want"].reshape(-1, r), a["demand"].reshape(-1),
+            a["arrivals"].reshape(K, -1), a["free_add"].transpose(1, 2),
+            a["add_free"], a["budgets"], a["crow"].reshape(-1, Wp)), 1)
+        fused_w, seq_w = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            mm.match_cycles(p, deltas)
+            t1 = time.perf_counter()
+            sequential_match_cycles(mm, p, deltas)
+            t2 = time.perf_counter()
+            fused_w.append(t1 - t0)
+            seq_w.append(t2 - t1)
+        row["match_cycles_wall_ms"] = 1e3 * statistics.median(fused_w)
+        row["eight_match_wall_ms"] = 1e3 * statistics.median(seq_w)
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def check_preview(label, p, N, with_demands, seed, mm, ref_mm, ops, refs):
+    """`waterfill_preview` (one launch, a block a candidate) against its
+    plain loop on the card, `preview_many` against
+    `sequential_preview_many` on the NumPy backend; a session hit timed
+    against a miss."""
+    waterfill_preview_reference, sequential_preview_many = refs
+    rng = np.random.default_rng(seed)
+    frees = [p.free * s for s in rng.choice([0.0, 0.5, 1.0, 2.0], size=N)]
+    demands = None
+    if with_demands:
+        demands = [rng.integers(0, 40, p.n_cohorts).astype(np.int64)
+                   for _ in range(N)]
+    a, _order = mm.preview_inputs(p, frees, demands)
+    nch, chunk, r = a["want"].shape
+    Wp = a["crow"].shape[2]
+    out = ops.waterfill_preview(**a)
+    want = waterfill_preview_reference(
+        a["frees"].transpose(1, 2), a["demands"].reshape(N, -1),
+        a["want"].reshape(-1, r), a["crow"].reshape(-1, Wp))
+    torch.cuda.synchronize()
+    if not torch.equal(out.totals.reshape(N, -1), want):
+        raise AssertionError(f"preview {label} N={N}: the kernel differs "
+                             f"from the plain loop")
+    got = mm.preview_many(p, frees, demands, session=("smoke", label))
+    ref = sequential_preview_many(ref_mm, p, frees, demands)
+    if not all(np.array_equal(g, w) for g, w in zip(got, ref)):
+        raise AssertionError(f"preview {label} N={N}: preview_many differs "
+                             f"from sequential_preview_many on numpy")
+    hit, miss = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        mm.preview_many(p, frees, demands, session=("smoke", label))
+        t1 = time.perf_counter()
+        mm.preview_many(p, frees, demands)
+        t2 = time.perf_counter()
+        hit.append(t1 - t0)
+        miss.append(t2 - t1)
+    bound_ms, bound_by = preview_bound(p, a, ops)
+    row = {"preview_case": label, "N": N, "demands": with_demands,
+           "Wp": Wp, "nch": nch,
+           "device_ms": queued_ms(lambda: ops.waterfill_preview(**a)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "plain_ms": cuda_ms(lambda: waterfill_preview_reference(
+               a["frees"].transpose(1, 2), a["demands"].reshape(N, -1),
+               a["want"].reshape(-1, r), a["crow"].reshape(-1, Wp)), 1),
+           "hit_wall_ms": 1e3 * statistics.median(hit),
+           "miss_wall_ms": 1e3 * statistics.median(miss)}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def per_array_feed(arrays, device) -> dict:
+    """The feed `TorchMatchmaker` had before its one pinned buffer: one
+    pageable host-to-device copy per array.  A measurement aid for
+    `match_breakdown`; the port never calls it."""
+    return {name: torch.as_tensor(a, dtype=dt).to(device)
+            for name, a, dt in arrays}
+
+
+def match_breakdown(mm, ops, p, kw, reps=20):
+    """Host-clock breakdown of `match()`, phase by phase as it runs them:
+    prep (padding, order, minima, reciprocals), copy in (synchronised
+    here to be timed), kernel and wait (the launch and the copy of free,
+    totals and ran, which waits for it), copy out and scatter (the ran
+    chunks' takes rows and the plan), and the same call's wall
+    unsynchronised.  For the matchmaker's feed (``one_copy``: one pinned
+    buffer, one copy) and for one pageable copy per array
+    (``per_array``), in turns; medians of ``reps``."""
+    C, W = p.compat.shape
+    budget = kw.get("budget")
+    feeds = {"one_copy": mm._feed.ship,
+             "per_array": lambda arrays: per_array_feed(arrays, mm.device)}
+    names = ("prep", "copy_in", "kernel_and_wait", "copy_out_and_scatter")
+
+    def match(feed, sync: bool) -> list:
+        t = [time.perf_counter()]
+        arrays, order = mm._match_arrays(p, kw.get("active"))
+        t.append(time.perf_counter())
+        args = feed(arrays)
+        if sync:
+            torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        args["left"] = math.inf if budget is None else float(budget)
+        out = ops.waterfill_solve(**args).to_host()
+        t.append(time.perf_counter())
+        mm._plans(out, order, C, W)
+        t.append(time.perf_counter())
+        return [1e3 * (b - a) for a, b in zip(t, t[1:])]
+
+    phases = {f: {k: [] for k in names + ("match_wall",)} for f in feeds}
+    for _ in range(reps):
+        for f, feed in feeds.items():
+            for key, ms in zip(names, match(feed, True)):
+                phases[f][key].append(ms)
+            phases[f]["match_wall"].append(sum(match(feed, False)))
+    row = {"match_breakdown_ms": {
+        f: {k: statistics.median(v) for k, v in ph.items()}
+        for f, ph in phases.items()}}
+    print(json.dumps(row), flush=True)
+    return row["match_breakdown_ms"]
+
+
+class Recorder:
+    """Wraps a built Simulation: keeps it (its collector's counters are
+    read after the run) and a copy of the largest problem its matchmaker
+    was asked to solve (the timing phase solves it again)."""
 
     def __init__(self):
         self.largest: tuple | None = None
+        self.sim = None
 
     def wrap(self, sim):
+        self.sim = sim
         mm = sim.collector.matchmaker
         inner = mm.match
 
@@ -447,13 +816,17 @@ class LargestProblem:
         return sim
 
 
-def policy(PolicySpec, standard_policy, matchmaker: str, recorder=None):
+def policy(PolicySpec, standard_policy, matchmaker: str, recorder=None, *,
+           batch: int = 1, cadence: dict | None = None):
     base = standard_policy("fill-first")
-    ini = base.ini.replace("[provision]\n",
-                           f"[provision]\nmatchmaker={matchmaker}\n", 1)
+    extra = f"matchmaker={matchmaker}\n"
+    if batch > 1:
+        extra += f"negotiation_batch={batch}\n"
+    ini = base.ini.replace("[provision]\n", "[provision]\n" + extra, 1)
     fields = {f.name: getattr(base, f.name)
               for f in dataclasses.fields(PolicySpec)}
     fields["ini"] = ini
+    fields.update(cadence or {})
 
     class Spec(PolicySpec):
         def build(self, **kw):
@@ -468,19 +841,26 @@ def comparable(block: dict) -> dict:
     return {k: v for k, v in block.items() if k not in ("wall_s", "phases")}
 
 
-def run_e2e(label, trace, mods, **kw):
-    """The port's run_policy on the card vs on the NumPy backend."""
+def run_e2e(label, trace, mods, *, batch=1, cadence=None, **kw):
+    """The port's run_policy on the card vs on the NumPy backend; returns
+    the row (walls, the water-fill's launches in all, by entry point and
+    by instance, the fused batches and fallbacks), the torch run's block
+    and the largest problem it solved."""
     PolicySpec, standard_policy, run_policy, ops = mods
-    rec = LargestProblem()
+    rec = Recorder()
     ops.launch_counts["waterfill"] = 0
+    for counts in (ops.kind_counts, ops.route_counts):
+        for key in counts:
+            counts[key] = 0
     t0 = time.perf_counter()
     out_t = run_policy(trace, policy(PolicySpec, standard_policy, "torch",
-                                     rec), **kw)
+                                     rec, batch=batch, cadence=cadence), **kw)
     wall_t = time.perf_counter() - t0
     launches = ops.launch_counts["waterfill"]
+    kinds, routes = dict(ops.kind_counts), dict(ops.route_counts)
     t0 = time.perf_counter()
-    out_n = run_policy(trace, policy(PolicySpec, standard_policy, "numpy"),
-                       **kw)
+    out_n = run_policy(trace, policy(PolicySpec, standard_policy, "numpy",
+                                     batch=batch, cadence=cadence), **kw)
     wall_n = time.perf_counter() - t0
     for key in ("jobs", "pods_submitted", "cost_total", "series"):
         if out_t[key] != out_n[key]:
@@ -493,12 +873,169 @@ def run_e2e(label, trace, mods, **kw):
                              f"{len(trace)} jobs completed")
     if launches == 0:
         raise AssertionError(f"{label}: the water-fill kernel never ran")
-    print(json.dumps({"e2e": label, "jobs": len(trace),
-                      "pods_submitted": out_t["pods_submitted"],
-                      "cost_total": out_t["cost_total"],
-                      "torch_wall_s": wall_t, "numpy_wall_s": wall_n,
-                      "waterfill_launches": launches}), flush=True)
-    return launches, rec.largest
+    col = rec.sim.collector
+    row = {"e2e": label, "jobs": len(trace), "negotiation_batch": batch,
+           "cadence": cadence, "pods_submitted": out_t["pods_submitted"],
+           "cost_total": out_t["cost_total"], "torch_wall_s": wall_t,
+           "numpy_wall_s": wall_n, "waterfill_launches": launches,
+           "launches_by_kind": kinds, "launches_by_instance": routes,
+           "fused_batches": col.fused_batches,
+           "fused_cycles": col.fused_cycles,
+           "fallbacks": {k[0]: int(c.value) for k, c in
+                         col._c_fallbacks.children.items()}}
+    print(json.dumps(row), flush=True)
+    return row, out_t, rec.largest
+
+
+def waterfill_phase(mods, MatchProblem, TorchMatchmaker, NumpyMatchmaker,
+                    refs, after=None):
+    """Phases 3 and 4: the water-fill's cases on both instances, its K
+    cycles and N candidates, the four days, then the largest problem of
+    the 10k day timed and broken down.  ``after(row)`` runs after each
+    piece (`repro_torch.kernels.waterfill.study` probes the profiler
+    there).  Returns the kernels-line row."""
+    PolicySpec, standard_policy, run_policy, ops, diurnal_day = mods
+    (waterfill_reference, waterfill_cycles_reference,
+     waterfill_preview_reference, sequential_match_cycles,
+     sequential_preview_many) = refs
+    mm, ref_mm = TorchMatchmaker(), NumpyMatchmaker()
+    check = dict(mm=mm, ref_mm=ref_mm, ops=ops,
+                 waterfill_reference=waterfill_reference)
+    rows = []
+
+    def add(row):
+        rows.append(row)
+        if after is not None:
+            after(row)
+        return row
+
+    for tier, spec in TIERS.items():
+        add(check_case(f"tier-{tier}", build_problem(MatchProblem, **spec),
+                       **check))
+    frac = fractional_problem(MatchProblem, 300, 200, 5)
+    add(check_case("fractional", frac, **check))
+    p = build_problem(MatchProblem, jobs=10_000, C=512, W=128, seed=3)
+    active = np.random.default_rng(3).random(512) < 0.6
+    add(check_case("budget+active", p, budget=3_000, active=active,
+                   **check))
+    drain = fractional_problem(MatchProblem, 600, 4, 17)
+    drain.requests[300:, 0] = 0.0           # zero-cpu cohorts, late chunks
+    add(check_case("drained-pool", drain, **check))
+    add(check_case("guard-negative-free", guard_problem(MatchProblem),
+                   **check))
+    for W in (129, 1000, 1500, 6000, 8000):
+        add(check_case(f"W={W}", build_problem(
+            MatchProblem, jobs=20_000, C=512, W=W, seed=W), **check))
+    add(check_case(
+        "float32-10k", build_problem(MatchProblem, **TIERS["10k"]),
+        mm=TorchMatchmaker(dtype="float32"), ref_mm=ref_mm, ops=ops,
+        waterfill_reference=waterfill_reference))
+
+    # K cycles and N candidates, each one launch
+    cyc_refs = (waterfill_cycles_reference, sequential_match_cycles)
+    pre_refs = (waterfill_preview_reference, sequential_preview_many)
+    tier10k = build_problem(MatchProblem, **TIERS["10k"])
+    for label, prob in (("tier-10k", tier10k), ("fractional", frac)):
+        for K in (1, 2, 8):
+            add(check_cycles(label, prob, K, 40 + K, mm, ref_mm, ops,
+                             cyc_refs))
+        for N in (1, 8):
+            for with_demands in (False, True):
+                add(check_preview(label, prob, N, with_demands, 50 + N,
+                                  mm, ref_mm, ops, pre_refs))
+
+    # phase 4: end to end through run_policy, the main path first: every
+    # count is 0 just before it and read just after
+    e2e = (PolicySpec, standard_policy, run_policy, ops)
+    day, _block, largest = run_e2e("diurnal-10k",
+                                     diurnal_day(10_000, seed=7), e2e)
+    add(day)
+    add(run_e2e("diurnal-2k-3schedd-fairshare", diurnal_day(2_000, seed=11),
+                e2e, schedds=3, fairshare=True)[0])
+    # the live-fusion cadence: the standard 30/60/300 s grid leaves no
+    # window in which a staged cycle may wait, so batch=8 fuses nothing
+    # there; at 20 s inside a 60 s grid it does
+    fused_row, fused_block, _ = run_e2e(
+        "diurnal-10k-batch8", diurnal_day(10_000, seed=7), e2e, batch=8,
+        cadence=FUSION_CADENCE)
+    add(fused_row)
+    if fused_row["fused_batches"] == 0:
+        raise AssertionError("diurnal-10k-batch8: no batch was fused")
+    if fused_row["launches_by_kind"]["cycles"] != fused_row["fused_batches"]:
+        raise AssertionError(f"diurnal-10k-batch8: "
+                             f"{fused_row['launches_by_kind']['cycles']} "
+                             f"cycles launches for "
+                             f"{fused_row['fused_batches']} fused batches")
+    one_row, one_block, _ = run_e2e(
+        "diurnal-10k-batch1-fusion-cadence", diurnal_day(10_000, seed=7),
+        e2e, cadence=FUSION_CADENCE)
+    add(one_row)
+    fused_row["equals_batch1"] = comparable(fused_block) == comparable(
+        one_block)
+    fused_row["launches_saved"] = (one_row["waterfill_launches"]
+                                   - fused_row["waterfill_launches"])
+    print(json.dumps({"e2e_fusion": fused_row["e2e"],
+                      "equals_batch1": fused_row["equals_batch1"],
+                      "launches_saved": fused_row["launches_saved"],
+                      "fused_cycles_less_batches":
+                          fused_row["fused_cycles"]
+                          - fused_row["fused_batches"]}), flush=True)
+
+    # the water-fill's line: timed at the largest problem the 10k day
+    # solved, and match() broken down there
+    p, kw = largest
+    main = check_case("main-path-largest", p, budget=kw.get("budget"),
+                      active=kw.get("active"), plain_reps=3, **check)
+    add(main)
+    breakdown = add(match_breakdown(mm, ops, p, kw))
+    return {
+        "name": "waterfill", "route": "cuda",
+        "source": "src/repro_torch/kernels/waterfill/waterfill.cu",
+        "replaces": "src/repro/kernels/waterfill/kernel.py:120",
+        "launches": day["waterfill_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if "max_abs_err" in r),
+        "ms": main["ms"], "device_ms": main.get("device_ms"),
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "step_floor_ms": main["step_floor_ms"],
+        "rounds_ms": main["rounds_ms"],
+        "rounds_device_ms": main["rounds_device_ms"],
+        "divide_share": main.get("divide_share"),
+        "instances": {
+            "staged": "R = 6, up to 8,192 lanes: tiles staged ahead by "
+                      "bulk copies, the carry "
+                      "in registers, fits by a checked multiply, one "
+                      "launch for one cycle, K cycles or N candidates",
+            "rounds": "PR 11's kernel, for the rest"},
+        "routes": day["launches_by_instance"],
+        "launches_by_kind": {r["e2e"]: r["launches_by_kind"]
+                             for r in rows if "e2e" in r},
+        "match_breakdown_ms": breakdown}
+
+
+def run_waterfill_phase(after=None):
+    """`waterfill_phase` with the port's modules (``src`` on the path)."""
+    from repro_torch.core.matchmaker import (
+        MatchProblem, NumpyMatchmaker, TorchMatchmaker,
+    )
+    from repro_torch.core.matchmaker.base import (
+        sequential_match_cycles, sequential_preview_many,
+    )
+    from repro_torch.kernels.waterfill import ops
+    from repro_torch.kernels.waterfill.ref import (
+        waterfill_cycles_reference, waterfill_preview_reference,
+        waterfill_reference,
+    )
+    from repro_torch.workload import (
+        PolicySpec, diurnal_day, run_policy, standard_policy,
+    )
+    return waterfill_phase(
+        (PolicySpec, standard_policy, run_policy, ops, diurnal_day),
+        MatchProblem, TorchMatchmaker, NumpyMatchmaker,
+        (waterfill_reference, waterfill_cycles_reference,
+         waterfill_preview_reference, sequential_match_cycles,
+         sequential_preview_many), after)
 
 
 # ---------------------------------------------------------------------------
@@ -565,21 +1102,50 @@ def flash_route(dtype, Sq, Hq, Hkv, Dh) -> str:
     return "simt"
 
 
+profiler_sessions = 0          # torch.profiler sessions this process opened
+SESSION_TRIES = 3              # sessions a device_ms reading may take
+
+
+def profiled(activities):
+    """A `torch.profiler.profile` session, counted in
+    `profiler_sessions` (printed before the kernels line: the session at
+    which a process stops reading device events is studied by
+    `repro_torch.kernels.waterfill.study`)."""
+    global profiler_sessions
+    from torch.profiler import profile
+    profiler_sessions += 1
+    return profile(activities=activities)
+
+
 def device_ms(fn, reps: int, match: str | None = None) -> float:
     """Device time of one call of ``fn``: the kernels' own time summed by
     `torch.profiler` over ``reps`` calls (after one warm call), without
     the host's launch cost that a CUDA-event bracket of a small call
-    measures; ``match`` keeps only kernels whose name holds it."""
-    from torch.profiler import ProfilerActivity, profile
+    measures; ``match`` keeps only kernels whose name holds it.  A
+    session that read no kernel lost its events (a probe in
+    `repro_torch.kernels.waterfill.study` read none once after 25k
+    launches): it is measured again, at most SESSION_TRIES times, then
+    raises."""
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and (match is None or match in e.key)) / reps / 1e3
+    counts = []
+    for _ in range(SESSION_TRIES):
+        with profiled([ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and (match is None or match in e.key)]
+        n = sum(e.count for e in kernels)
+        if n > 0:
+            return sum(e.self_device_time_total
+                       for e in kernels) / reps / 1e3
+        counts.append(n)
+    raise AssertionError(f"profiler sessions up to {profiler_sessions} read "
+                         f"{counts} kernels (match={match!r}) for {reps} "
+                         f"calls")
 
 
 def check_flash(label, fa, q, k, v, qp, kp, *, timed=False,
@@ -1572,7 +2138,7 @@ def profile_ticks(cfg, params, engine, ticks=4,
     the runtime calls per tick.  The profiler's own host cost inflates
     the wall; the unprofiled tick is the serving run's
     ``decode_ms_per_tick``."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, record_function
 
     from repro_torch.models import model as model_lib
     acts = [ProfilerActivity.CPU]
@@ -1587,7 +2153,7 @@ def profile_ticks(cfg, params, engine, ticks=4,
     torch.cuda.synchronize()
     model_lib._unembed = labelled
     try:
-        with profile(activities=acts) as prof:
+        with profiled(acts) as prof:
             t0 = time.perf_counter()
             for _ in range(ticks):
                 logits, engine.cache, engine.lengths = model_lib.decode_step(
@@ -1640,7 +2206,7 @@ def prefill_profile(cfg, params, S=1024, reps=3):
     unprofiled) beside the device's busy time in one more run under
     `torch.profiler` (every kernel's, one stream) and the port's kernels'
     share of it, to tell a host-bound prefill from a device-bound one."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from repro_torch.models import model as model_lib
     device = torch.device("cuda", torch.cuda.current_device())
     toks = torch.tensor(np.random.default_rng(S).integers(
@@ -1658,7 +2224,7 @@ def prefill_profile(cfg, params, S=1024, reps=3):
         run()
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled([ProfilerActivity.CUDA]) as prof:
         run()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1868,63 +2434,14 @@ def main() -> int:
 
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.core.matchmaker import (
-        MatchProblem, NumpyMatchmaker, TorchMatchmaker,
-    )
     from repro_torch.kernels.build import launch_counts
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.moe_gmm import ops as gm
     from repro_torch.kernels.ssd import ops as so
     from repro_torch.kernels.waterfill import ops
-    from repro_torch.kernels.waterfill.ref import waterfill_reference
-    from repro_torch.workload import (
-        PolicySpec, diurnal_day, run_policy, standard_policy,
-    )
 
     # phase 2: build every kernel from the checkout's sources
     build_all([ops, fa, so, gm])
-
-    # phase 3: kernel vs plain version, matchmaker vs numpy
-    mm, ref_mm = TorchMatchmaker(), NumpyMatchmaker()
-    check = dict(mm=mm, ref_mm=ref_mm, ops=ops,
-                 waterfill_reference=waterfill_reference)
-    for tier, spec in TIERS.items():
-        check_case(f"tier-{tier}", build_problem(MatchProblem, **spec),
-                   **check)
-    check_case("fractional", fractional_problem(MatchProblem, 300, 200, 5),
-               **check)
-    p = build_problem(MatchProblem, jobs=10_000, C=512, W=128, seed=3)
-    active = np.random.default_rng(3).random(512) < 0.6
-    check_case("budget+active", p, budget=3_000, active=active, **check)
-    drain = fractional_problem(MatchProblem, 600, 4, 17)
-    drain.requests[300:, 0] = 0.0           # zero-cpu cohorts, late chunks
-    check_case("drained-pool", drain, **check)
-    for W in (129, 1000, 1500, 6000):
-        check_case(f"W={W}", build_problem(MatchProblem, jobs=20_000, C=512,
-                                           W=W, seed=W), **check)
-    check_case("float32-10k", build_problem(MatchProblem, **TIERS["10k"]),
-               mm=TorchMatchmaker(dtype="float32"), ref_mm=ref_mm, ops=ops,
-               waterfill_reference=waterfill_reference)
-
-    # phase 4: end to end through run_policy
-    mods = (PolicySpec, standard_policy, run_policy, ops)
-    launches, largest = run_e2e("diurnal-10k", diurnal_day(10_000, seed=7),
-                                mods)
-    run_e2e("diurnal-2k-3schedd-fairshare", diurnal_day(2_000, seed=11),
-            mods, schedds=3, fairshare=True)
-
-    # the water-fill's line: timed at the largest problem the 10k day solved
-    p, kw = largest
-    row = check_case("main-path-largest", p, budget=kw.get("budget"),
-                     active=kw.get("active"), plain_reps=3, **check)
-    waterfill_line = {
-        "name": "waterfill", "route": "cuda",
-        "source": "src/repro_torch/kernels/waterfill/waterfill.cu",
-        "replaces": "src/repro/kernels/waterfill/kernel.py:120",
-        "launches": launches, "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"], "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": None}
 
     # phase 5: flash attention against its plain version, timed at the
     # serving shapes
@@ -2070,6 +2587,13 @@ def main() -> int:
             "gmm_case", "route", "shape", "ms", "stream_ms", "plain_ms",
             "bound_ms", "bound_by", "bound_share", "library_ms",
             "max_abs_err")} for r in gmm_timed]}
+    # phases 3 and 4, run last: the water-fill's cases, cycles and
+    # candidates, then the days through run_policy (once the tier-1m
+    # case has run the profiler reads no device events in this process,
+    # so every phase that reads it runs first; these time device work by
+    # queued_ms)
+    waterfill_line = run_waterfill_phase()
+    print(json.dumps({"profiler_sessions": profiler_sessions}), flush=True)
     print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
                                   gmm_line]}), flush=True)
     print(card, flush=True)

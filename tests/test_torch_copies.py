@@ -47,7 +47,8 @@ PORT_OWN = {
     "__init__.py", "core/matchmaker/__init__.py",
     "core/matchmaker/torch_backend.py", "kernels/__init__.py",
     "kernels/waterfill/__init__.py", "kernels/waterfill/ops.py",
-    "kernels/waterfill/ref.py", "kernels/build.py",
+    "kernels/waterfill/ref.py", "kernels/waterfill/study.py",
+    "kernels/build.py",
     "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
     "kernels/ssd/__init__.py", "kernels/ssd/ops.py", "kernels/ssd/ref.py",
     "kernels/ssd/study.py",

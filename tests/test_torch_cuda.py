@@ -7,7 +7,12 @@ installed:
 Water-fill: each case builds the kernel's inputs through
 `TorchMatchmaker`, launches the kernel and holds it against the plain
 version on the same CUDA tensors (takes equal, free_after bit for bit),
-then holds the matchmaker's plan against the NumPy backend's.
+then holds the matchmaker's plan against the NumPy backend's; the same
+on each instance ("staged", PR 11's "rounds"), which `ops.route` picks
+from width and dtype; K cycles (`waterfill_cycles`) and N
+candidates (`waterfill_preview`) against their plain loops, each one
+launch; the rows of skipped chunks zero with no memset; the drain
+guard leaving zero chunk minima out.
 
 Flash attention: the reference suite's eight cases, the fully masked
 rows and the rolling-window permutation, qwen2-1.5b's serving shapes and
@@ -64,14 +69,18 @@ from repro_torch.kernels.ssd import ssd, ssd_chunked
 from repro_torch.kernels.ssd.ops import route_counts as ssd_routes
 from repro_torch.kernels.ssd.ops import _ssd_instance
 from repro_torch.kernels.ssd.ref import ssd_reference
-from repro_torch.kernels.waterfill import launch_counts, waterfill
-from repro_torch.kernels.waterfill.ref import waterfill_reference
+from repro_torch.kernels.waterfill import launch_counts, ops, waterfill
+from repro_torch.kernels.waterfill.ref import (
+    waterfill_cycles_reference, waterfill_preview_reference,
+    waterfill_reference,
+)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
     FLASH_CASES, FLASH_TOL, FLASH_WGMMA_CASES, GMM_CASES, GMM_RAGGED,
     GMM_TC_CASES, GMM_TOL, SSD_CASES, SSD_TC_CASES, SSD_TOL,
-    attention_inputs, bitwise_equal, check_fully_masked_rows,
+    attention_inputs, bitwise_equal, check_fully_masked_rows, fused_deltas,
+    guard_problem,
     check_rolling_window, flash_route, flash_wgmma_inputs, gmm_arrays,
     gmm_inputs, gmm_route, moe_serving_inputs, moe_serving_shapes,
     serving_shapes, ssd_arrays, ssd_inputs, ssd_route, ssd_serving_cases,
@@ -118,6 +127,7 @@ CASES = {
     "drain": dict(C=600, W=4),
     "two-rounds": dict(C=70, W=1500, fractional=True),
     "device-memory-carry": dict(C=64, W=5000),
+    "sixteen-lanes-512-threads": dict(C=64, W=8000),
 }
 
 
@@ -178,6 +188,182 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert torch.equal(bad["want"], args["want"])
     with pytest.raises(ValueError, match="contiguous"):
         waterfill(**bad)
+
+
+def plain_single(args):
+    nch, chunk, r = args["want"].shape
+    Wp = args["crow"].shape[2]
+    return waterfill_reference(
+        args["freeT"].T, args["want"].reshape(-1, r),
+        args["demand"].reshape(-1), args["crow"].reshape(-1, Wp),
+        budget=args["left"])
+
+
+def counts():
+    return (launch_counts["waterfill"], dict(ops.route_counts),
+            dict(ops.kind_counts))
+
+
+@pytest.mark.parametrize("instance", ["staged", "rounds"])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_each_instance_equals_plain_version(cuda, name, instance):
+    kw = dict(CASES[name])
+    budget, active = kw.pop("budget", None), kw.pop("active", None)
+    p = problem(len(name) + 100, **kw)
+    if active is not None:
+        active = np.random.default_rng(2).random(p.n_cohorts) < active
+    args, _ = TorchMatchmaker(device=cuda).kernel_inputs(
+        p, budget=budget, active=active)
+    n, routes, kinds = counts()
+    out = ops._waterfill_instance(instance, **args)
+    takes_k, free_k = ops.dense_takes(out)[0], out.free[0]
+    takes_p, free_p = plain_single(args)
+    torch.cuda.synchronize()
+    assert torch.equal(takes_k.reshape(takes_p.shape), takes_p)
+    assert bitwise_equal(free_k, free_p.T)
+    assert launch_counts["waterfill"] == n + 1
+    assert ops.route_counts[instance] == routes[instance] + 1
+    assert ops.kind_counts["single"] == kinds["single"] + 1
+
+
+def test_route_picks_the_instance(cuda):
+    mm = TorchMatchmaker(device=cuda)
+    keys = ("freeT", "want", "safe", "big", "crow", "inv")
+    for W, dtype, want in ((100, "float64", "staged"),
+                           (6100, "float64", "staged"),
+                           (6200, "float64", "staged"),
+                           (8100, "float32", "staged"),
+                           (8300, "float64", "rounds")):
+        p = problem(W, C=20, W=W)
+        args, _ = TorchMatchmaker(device=cuda, dtype=dtype).kernel_inputs(p)
+        assert ops.route(*(args[k] for k in keys)) == want, (W, dtype)
+        _n, routes, _k = counts()
+        waterfill(**args)
+        assert ops.route_counts[want] == routes[want] + 1
+    args, _ = mm.kernel_inputs(problem(3, C=20, W=30))
+    moved = torch.empty(args["want"].numel() + 1, dtype=torch.float64,
+                        device=cuda)[1:].view_as(args["want"])
+    moved.copy_(args["want"])
+    args["want"] = moved
+    _n, routes, _k = counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        waterfill(**args)
+    assert ops.route_counts == routes
+
+
+@pytest.mark.parametrize("K", [1, 2, 8])
+@pytest.mark.parametrize("fractional", [False, True])
+def test_cycles_kernel_equals_plain_loop(cuda, K, fractional):
+    """One launch for K cycles against the plain loop on the same tensors
+    (takes, each cycle's free bitwise, totals); the takes hold the rows
+    of the chunks that ran, in order."""
+    p = problem(K + 10 * fractional, C=150, W=90, fractional=fractional)
+    p.demand = np.zeros_like(p.demand)
+    deltas = fused_deltas(np.random.default_rng(K), p, K)
+    a, _ = TorchMatchmaker(device=cuda).cycles_inputs(p, deltas)
+    Wp = a["crow"].shape[2]
+    n, routes, kinds = counts()
+    out = ops.waterfill_cycles(**a)
+    assert launch_counts["waterfill"] == n + 1
+    assert ops.kind_counts["cycles"] == kinds["cycles"] + 1
+    assert ops.route_counts["staged"] == routes["staged"] + 1
+    takes_p, free_p, tot_p = waterfill_cycles_reference(
+        a["freeT"].T, a["want"].reshape(-1, 6), a["demand"].reshape(-1),
+        a["arrivals"].reshape(K, -1), a["free_add"].transpose(1, 2),
+        a["add_free"], a["budgets"], a["crow"].reshape(-1, Wp))
+    torch.cuda.synchronize()
+    dense = ops.dense_takes(out)
+    assert torch.equal(dense.reshape(K, -1, Wp), takes_p)
+    assert bitwise_equal(out.free, free_p.transpose(1, 2))
+    assert torch.equal(out.totals.reshape(K, -1), tot_p)
+    live = out.ran.reshape(-1)
+    assert torch.equal(out.takes[:int(live.sum())],
+                       dense.reshape(-1, 64, Wp)[live])
+
+
+@pytest.mark.parametrize("with_demands", [False, True])
+def test_preview_kernel_equals_plain_loop(cuda, with_demands):
+    p = problem(31, C=150, W=90)
+    rng = np.random.default_rng(5)
+    frees = [p.free * s for s in (0.0, 0.5, 1.0, 2.0, 1.0, 0.5, 2.0, 3.0)]
+    demands = ([rng.integers(0, 40, p.n_cohorts) for _ in frees]
+               if with_demands else None)
+    a, _ = TorchMatchmaker(device=cuda).preview_inputs(p, frees, demands)
+    Wp = a["crow"].shape[2]
+    n, _routes, kinds = counts()
+    out = ops.waterfill_preview(**a)
+    assert launch_counts["waterfill"] == n + 1
+    assert ops.kind_counts["preview"] == kinds["preview"] + 1
+    want = waterfill_preview_reference(
+        a["frees"].transpose(1, 2), a["demands"].reshape(len(frees), -1),
+        a["want"].reshape(-1, 6), a["crow"].reshape(-1, Wp))
+    torch.cuda.synchronize()
+    assert torch.equal(out.totals.reshape(len(frees), -1), want)
+
+
+def test_skipped_chunks_take_zero_rows_without_a_memset(cuda):
+    """A pool that drains in the first chunk: the later chunks are
+    skipped; the solve is one kernel launch and no memset, writes only
+    the ran chunk's rows, and `waterfill`'s dense takes (spread from
+    them in the wrapper) are zero for the skipped chunks, from memory
+    that held something else."""
+    from torch.profiler import ProfilerActivity, profile
+    p = problem(9, C=600, W=4)
+    args, _ = TorchMatchmaker(device=cuda).kernel_inputs(p)
+    nch, chunk, _r = args["want"].shape
+    Wp = args["crow"].shape[2]
+    junk = torch.full((nch * chunk * Wp,), -7, dtype=torch.int32,
+                      device=cuda)
+    del junk                       # its block goes back to the allocator
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = ops.waterfill_solve(**args)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "staged_kernel" in names[0], names
+    assert not bool(out.ran.all())
+    junk = torch.full((nch * chunk * Wp,), -7, dtype=torch.int32,
+                      device=cuda)
+    del junk
+    takes, _free, ran = waterfill(**args)
+    skipped = ~ran
+    assert bool(skipped.any())
+    assert int(takes[skipped].abs().sum()) == 0
+    takes_p, _ = plain_single(args)
+    assert torch.equal(takes.reshape(takes_p.shape), takes_p)
+
+
+@pytest.mark.parametrize("instance", ["staged", "rounds"])
+def test_drain_guard_leaves_zero_minima_out(cuda, instance):
+    """A memory a rounding below zero must not retire a worker for a
+    cohort that asks no memory: 3 claims, as the NumPy backend makes."""
+    from repro_torch.core.matchmaker import MatchProblem
+    p = guard_problem(MatchProblem)
+    args, _ = TorchMatchmaker(device=cuda).kernel_inputs(p)
+    out = ops._waterfill_instance(instance, **args)
+    takes, ran = ops.dense_takes(out)[0], out.ran[0]
+    assert bool(ran[0]) and int(takes[0, 0, 0]) == 3
+    assert TorchMatchmaker(device=cuda).match(p).claimed == 3
+
+
+def test_fused_matchmaker_calls_equal_numpy(cuda):
+    from repro_torch.core.matchmaker.base import (
+        sequential_match_cycles, sequential_preview_many,
+    )
+    mm, ref = TorchMatchmaker(device=cuda), NumpyMatchmaker()
+    p = problem(41, C=150, W=90, fractional=True)
+    q = problem(41, C=150, W=90, fractional=True)
+    q.demand = np.zeros_like(q.demand)
+    deltas = fused_deltas(np.random.default_rng(3), q, 8)
+    for a, b in zip(mm.match_cycles(q, deltas),
+                    sequential_match_cycles(ref, q, deltas)):
+        np.testing.assert_array_equal(a.takes, b.takes)
+        np.testing.assert_array_equal(a.free_after, b.free_after)
+    frees = [p.free, p.free * 0.5]
+    for a, b in zip(mm.preview_many(p, frees, session="s"),
+                    sequential_preview_many(ref, p, frees)):
+        np.testing.assert_array_equal(a, b)
+
 
 
 def assert_kernel_matches_plain(q, k, v, qp, kp, **kw):

@@ -32,6 +32,7 @@ from repro_torch.core.matchmaker import (
 from repro_torch.core.matchmaker.base import (
     sequential_match_cycles, sequential_preview_many,
 )
+from repro_torch.kernels.build import launch_counts
 from test_fused_negotiation import random_deltas
 from test_matchmaker_differential import random_problem
 
@@ -130,43 +131,159 @@ def test_drain_guard_exact_when_pool_exhausts(jax_backend):
 
 @pytest.mark.parametrize("K", [1, 2, 8])
 def test_sequential_match_cycles_equal_reference_fused(jax_backend, K):
-    """The port has no fused `match_cycles`: the Collector routes K
-    cycles through `sequential_match_cycles`, which must equal the JAX
-    backend's fused K-cycle dispatch."""
-    jm, tm = jax_backend.JaxMatchmaker(), port_mm()
-    assert getattr(tm, "match_cycles", None) is None
+    """The port's fused `match_cycles` (one launch for K cycles; the plain
+    cycle loop on the CPU) against the JAX backend's fused K-cycle
+    dispatch and against `sequential_match_cycles` on the NumPy backend:
+    takes equal, free_after bitwise against NumPy, and against JAX
+    bitwise on integer problems, within 1e-7 on fractional ones."""
+    jm, tm, nm = jax_backend.JaxMatchmaker(), port_mm(), RefNumpy()
     rng = np.random.default_rng(100 + K)
     for trial in range(4):
-        p = random_problem(rng)
+        fractional = trial % 2 == 1
+        p = random_problem(rng, fractional=fractional)
         p.demand = np.zeros_like(p.demand)     # arrivals carry the demand
         deltas = random_deltas(rng, p, K)
         fused = jm.match_cycles(p, deltas)
-        seq = sequential_match_cycles(tm, problem_from_reference(p), deltas)
-        assert len(seq) == len(fused) == K
+        seq = sequential_match_cycles(nm, p, deltas)
+        port = tm.match_cycles(problem_from_reference(p), deltas)
+        assert tm.last_call["kind"] == "match_cycles"
+        assert len(port) == len(fused) == len(seq) == K
         for k in range(K):
-            label = f"K={K} trial={trial} cycle={k}"
-            np.testing.assert_array_equal(seq[k].takes, fused[k].takes,
-                                          err_msg=label)
-            np.testing.assert_array_equal(seq[k].free_after,
-                                          fused[k].free_after, err_msg=label)
+            assert_plans(port[k], fused[k], seq[k],
+                         f"K={K} trial={trial} cycle={k}",
+                         fractional=fractional)
 
 
 def test_sequential_preview_many_equals_reference_batched(jax_backend):
-    jm, tm = jax_backend.JaxMatchmaker(), port_mm()
-    assert getattr(tm, "preview_many", None) is None
+    """The port's fused `preview_many` (one launch for N candidates)
+    against the JAX backend's vmapped dispatch and against
+    `sequential_preview_many` on the NumPy backend, with and without
+    per-candidate demands: equal absorbed counts."""
+    jm, tm, nm = jax_backend.JaxMatchmaker(), port_mm(), RefNumpy()
     rng = np.random.default_rng(23)
     for trial in range(4):
-        p = random_problem(rng)
+        p = random_problem(rng, fractional=trial % 2 == 1)
+        q = problem_from_reference(p)
         frees = [p.free * rng.integers(0, 3) for _ in range(3)] + [p.free]
         demands = [np.maximum(p.demand - rng.integers(0, 9, p.n_cohorts), 0)
                    for _ in frees]
         for dm in (None, demands):
             want = jm.preview_many(p, frees, dm)
-            got = sequential_preview_many(tm, problem_from_reference(p),
-                                          frees, dm)
-            assert len(got) == len(want)
-            for g, w in zip(got, want):
+            seq = sequential_preview_many(nm, p, frees, dm)
+            got = tm.preview_many(q, frees, dm)
+            assert tm.last_call["kind"] == "preview"
+            assert len(got) == len(want) == len(seq)
+            for g, w, s in zip(got, want, seq):
                 np.testing.assert_array_equal(g, w, err_msg=f"trial={trial}")
+                np.testing.assert_array_equal(g, s, err_msg=f"trial={trial}")
+                assert g.dtype == np.int64
+
+
+# -- the preview session and the call telemetry -------------------------------
+
+def preview_ref(p, frees, demands=None):
+    return sequential_preview_many(make_matchmaker("numpy"), p, frees,
+                                   demands)
+
+
+def test_preview_session_hit_ships_only_free_and_demand(monkeypatch):
+    """A hit on (token, shape, order) reuses the device rows: only the
+    candidates' free and demand go through the feed."""
+    tm = port_mm()
+    rng = np.random.default_rng(41)
+    p = problem_from_reference(random_problem(rng, C=37, W=21))
+    shipped = []
+    ship = tm._feed.ship
+
+    def spy(arrays, **kw):
+        shipped.append(sorted(name for name, _a, _dt in arrays))
+        return ship(arrays, **kw)
+
+    monkeypatch.setattr(tm._feed, "ship", spy)
+    for call in range(3):
+        frees = [p.free * (call + 1), p.free]
+        got = tm.preview_many(p, frees, session="pool")
+        for g, w in zip(got, preview_ref(p, frees)):
+            np.testing.assert_array_equal(g, w, err_msg=f"call={call}")
+    consts = sorted(["want", "safe", "big", "inv", "crow"])
+    assert shipped == [consts] + [["demands", "frees"]] * 3
+
+
+@pytest.mark.parametrize("change", ["token", "order", "shape"])
+def test_preview_session_rebuilds_on_change(change):
+    tm = port_mm()
+    rng = np.random.default_rng(43)
+    p = problem_from_reference(random_problem(rng, C=30, W=12))
+    tm.preview_many(p, [p.free], session="pool")
+    consts = tm._preview_session["consts"]
+    token = "pool"
+    if change == "token":
+        token = "other"
+    elif change == "order":
+        p = dataclasses.replace(p, order=np.roll(p.order, 5))
+    else:
+        p = problem_from_reference(random_problem(rng, C=31, W=12))
+    frees = [p.free, p.free * 0.5]
+    got = tm.preview_many(p, frees, session=token)
+    assert tm._preview_session["consts"] is not consts
+    for g, w in zip(got, preview_ref(p, frees)):
+        np.testing.assert_array_equal(g, w, err_msg=change)
+
+
+def test_preview_session_never_caches_demand():
+    """Demand changes within a session; every call reads the problem's
+    (or the candidates') demand anew."""
+    tm = port_mm()
+    rng = np.random.default_rng(47)
+    p = problem_from_reference(random_problem(rng, C=25, W=10))
+    for call in range(3):
+        q = dataclasses.replace(
+            p, demand=rng.integers(0, 30, p.n_cohorts).astype(np.int64))
+        demands = [rng.integers(0, 30, p.n_cohorts).astype(np.int64)]
+        for dm in (None, demands):
+            got = tm.preview_many(q, [p.free], dm, session="pool")
+            np.testing.assert_array_equal(
+                got[0], preview_ref(q, [p.free], dm)[0],
+                err_msg=f"call={call} demands={dm is not None}")
+    assert tm._preview_session["token"] == "pool"
+
+
+def test_last_call_kinds_and_buckets():
+    """The JAX backend's telemetry: kind and padding bucket of every
+    call, `compiled` on a bucket's first call only; previews pad to a
+    power-of-two bucket of at least 512 lanes."""
+    tm = port_mm()
+    rng = np.random.default_rng(53)
+    p = problem_from_reference(random_problem(rng, C=70, W=130))
+    tm.match(p)
+    assert tm.last_call == {"kind": "match", "bucket": (2, 256, "float64"),
+                            "compiled": True}
+    tm.match(p, budget=5)
+    assert tm.last_call["compiled"] is False
+    q = dataclasses.replace(p, demand=np.zeros_like(p.demand))
+    deltas = random_deltas(rng, q, 3)
+    tm.match_cycles(q, deltas)
+    assert tm.last_call == {"kind": "match_cycles",
+                            "bucket": (2, 256, 3, "float64"),
+                            "compiled": True}
+    tm.preview_many(p, [p.free, p.free])
+    assert tm.last_call == {"kind": "preview",
+                            "bucket": (2, 512, 2, "float64"),
+                            "compiled": True}
+    small = problem_from_reference(random_problem(rng, C=5, W=600))
+    tm.preview_many(small, [small.free])
+    assert tm.last_call["bucket"] == (1, 1024, 1, "float64")
+    assert tm._seen_buckets == {(2, 256, "float64"), (2, 256, 3, "float64"),
+                                (2, 512, 2, "float64"),
+                                (1, 1024, 1, "float64")}
+    assert tm.match_cycles(q, []) == [] and tm.preview_many(p, []) == []
+
+
+def test_warm_preview_does_nothing_on_the_cpu():
+    tm = port_mm()
+    before = dict(launch_counts)
+    assert tm.warm_preview() is None
+    assert launch_counts == before and tm.last_call is None
 
 
 def test_float32_on_integer_problems(jax_backend):
@@ -285,3 +402,32 @@ def test_flocking_fairshare_books_equal_reference(jax_backend, quantum):
     for qa, qb in zip(qsa, qsb):
         assert claim_map(qa) == claim_map(qb), qa.name
     assert aa.snapshot(0.0) == ab.snapshot(0.0)
+
+
+def guard_fault_problem(core):
+    """One cohort asking 1 cpu and no memory, one worker with 4 cpus and a
+    memory a rounding below zero (what fractional claims leave behind)."""
+    req = np.zeros((1, 6))
+    req[0, 0] = 1.0
+    free = np.zeros((1, 6))
+    free[0, 0] = 4.0
+    free[0, 2] = -1.1102230246251565e-15
+    return core.MatchProblem(
+        keys=[(0, 0)], requests=req, demand=np.array([3]),
+        order=np.array([0]), free=free, capacity=free.copy(),
+        compat=np.ones((1, 1), dtype=bool))
+
+
+def test_reference_drain_guard_skips_claims_on_negative_free(jax_backend):
+    """A fault of the JAX package, not the port: its drain guard asks
+    every lane for free_r >= chunk_min_r (1 - 2 eps) also where the
+    chunk minimum is 0, so a memory a rounding below zero retires a
+    worker that a cohort asking no memory fits 4 times.  The NumPy
+    backend claims 3; so does the port (the plain version has no guard,
+    and the kernel's guard leaves zero minima out:
+    tests/test_torch_cuda.py)."""
+    p = guard_fault_problem(ref_core.matchmaker)
+    assert jax_backend.JaxMatchmaker().match(p).claimed == 0
+    assert RefNumpy().match(p).claimed == 3
+    plan = port_mm().match(problem_from_reference(p))
+    np.testing.assert_array_equal(plan.takes, [[3]])
