@@ -5,7 +5,7 @@ Run from the repository root on a machine with the card:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package.  Phases, run
-in the order 1, 2, 5-13, 3, 4, 14 (the water-fill's last: once its
+in the order 1, 2, 5-13, 15, 3, 4, 14 (the water-fill's last: once its
 tier-1m case has run, `torch.profiler` reads no device events in the
 same process -- `repro_torch.kernels.waterfill.study` finds where -- so
 every phase that reads the profiler runs first); any failure raises and
@@ -14,8 +14,9 @@ to a plain version):
 
   1. the card: name and power limit as nvidia-smi reports them;
   2. build every kernel from the checkout's CUDA sources, one nvcc per
-     source, all started together (water-fill, flash attention, SSD,
-     grouped matmul), with ptxas' register and shared-memory report;
+     source, all started together (water-fill, flash attention and its
+     backward, SSD, grouped matmul), with ptxas' register and
+     shared-memory report;
   3. the water-fill kernel against its plain PyTorch version on the card,
      on the matchmaking tiers (10k/100k/1m jobs), a fractional-request
      problem, a finite budget with an `active` mask, a drained pool, a
@@ -136,10 +137,33 @@ to a plain version):
      prefills the tensor-core instance and its ticks the split, and every
      SSD launch the tensor-core instance; then the decode-tick and
      prefill profiles;
+ 15. training: flash attention's backward kernel against its plain
+     version (`attention_backward_reference`) on `FLASH_BWD_CASES` (the
+     reference suite's shapes, fully masked rows, softcap, window, G = 1,
+     4 and 6, a shape the forward sends to the decode split) in float32
+     (1e-4 of each gradient's max) and bfloat16 (2e-2), two calls bitwise
+     equal, then timed at qwen2-1.5b's training shapes (B = 8, S = 512 and
+     B = 2, S = 2048; CUDA events, the three passes' device time, the
+     bound, the plain backward, SDPA's backward as a yardstick); qwen2 at
+     full width cut to 2 layers in float32: loss and every gradient leaf
+     with the kernels against attention through the plain version; the
+     same 2 layers in bfloat16 with the kernels against the float32
+     model of the same weights through the plain attention; then the
+     main path: `repro_torch.launch.train.run_fixed` on qwen2-1.5b at
+     full width (28 layers, bfloat16, random weights from a seed), 6
+     steps of 8 x 512 tokens with checkpoints at steps 3 and 6: every
+     loss finite, each step 28 flash forward launches, all on the
+     tensor-core instance, and 28 backward launches; step time, tokens/s,
+     peak device memory; then the step-3 checkpoint restored into a fresh
+     state (every parameter, both moments and the step bit for bit the
+     first run's after step 3) retakes steps 4-6 (one profiled: the
+     device's busy share and the backward's share) with losses within
+     `RESUME_TOL` of the first run's;
  14. a JSON line per kernel (the water-fill's with its launches by
      instance and by entry point and the host breakdown; flash's, the
      SSD's and gmm's with their launches by instance and ptxas' report of
-     their instances), the card line, and the result line.
+     their instances; the flash backward's with its training shapes),
+     the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -206,6 +230,23 @@ FLASH_WGMMA_CASES = [
     (2, 100, 100, 12, 2, 128, True, None, None, True),
     (2, 1000, 1000, 12, 2, 128, True, None, None, False),
 ]
+# the backward kernel's cases: the reference suite's eight, then G = 6 at
+# Dh 128 with Sq < Skv, a shape the forward routes to the decode split (Sq
+# * G <= 32), G = 6 with a window and a softcap, G = 1 at Dh 32, and G = 4
+# without causal masking; the last field is the number of leading query
+# rows that see no key at all (their cache slots emptied)
+FLASH_BWD_CASES = [(*case, 0) for case in FLASH_CASES] + [
+    (2, 40, 72, 12, 2, 128, True, None, None, 0),
+    (1, 4, 50, 24, 4, 64, True, None, None, 0),
+    (2, 100, 100, 12, 2, 64, True, 24, 20.0, 5),
+    (1, 70, 70, 6, 6, 32, True, None, None, 3),
+    (1, 64, 130, 16, 4, 128, False, None, None, 0),
+]
+# gates on max |kernel - plain| / max |plain| of each gradient: float32
+# sums in another order; bfloat16 gradients round once to 8 bits
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# qwen2-1.5b's attention at its training shapes (B, S), timed
+FLASH_BWD_TIMED = [(8, 512), (2, 2048)]
 ARCH = "qwen2-1.5b"
 # the serving run: slots, cache capacity, requests, prompt lengths, and
 # new tokens per request
@@ -1279,6 +1320,64 @@ def flash_wgmma_inputs(case, device):
                                    softcap=softcap)
 
 
+def flash_bwd_inputs(case, dtype, device, seed=11, dense=False):
+    """A `FLASH_BWD_CASES` case: the reference suite's inputs (every 7th
+    slot empty, none with ``dense``: a training batch) with the slots up
+    to the first ``masked`` query rows' positions emptied, so that those
+    rows see no key, and an output gradient drawn from the same seed;
+    returns ((q, k, v, q_pos, kv_pos), the options, dout)."""
+    B, Sq, Skv, Hq, Hkv, Dh, causal, window, softcap, masked = case
+    q, k, v, qp, kp = attention_inputs(seed, B, Sq, Skv, Hq, Hkv, Dh, dtype,
+                                       device, dense=dense)
+    if masked:
+        kp[kp <= qp[:, masked - 1:masked]] = -1
+    dout = torch.tensor(np.random.default_rng(seed + 1).standard_normal(
+        q.shape), dtype=dtype, device=device)
+    return (q, k, v, qp, kp), dict(causal=causal, window=window,
+                                   softcap=softcap), dout
+
+
+def check_flash_bwd(label, fa, inputs, kw, dout, *, masked=0):
+    """The backward kernel against the plain backward (float32 math on
+    the same inputs and the kernel forward's output) on the card: each
+    gradient within `FLASH_BWD_TOL` x its max, finite, in its input's
+    dtype; rows that see no key get dq = 0 exactly; one launch counted.
+    Returns (the kernel's gradients, the worst error relative to each
+    gradient's max, the largest absolute error)."""
+    from repro_torch.kernels.build import launch_counts
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference,
+    )
+    q, k, v, qp, kp = inputs
+    out = fa.flash_attention(q, k, v, qp, kp, **kw)
+    before = launch_counts["flash_attention_bwd"]
+    got = fa.flash_attention_backward(q, k, v, out, dout, qp, kp, **kw)
+    if launch_counts["flash_attention_bwd"] != before + 1:
+        raise AssertionError(f"{label}: the backward did not count one "
+                             f"launch")
+    want = attention_backward_reference(q.float(), k.float(), v.float(),
+                                        out.float(), dout.float(), qp, kp,
+                                        **kw)
+    torch.cuda.synchronize()
+    worst = max_abs = 0.0
+    for name, a, b, like in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        if a.dtype != like.dtype or a.shape != like.shape:
+            raise AssertionError(f"{label}: {name} is {a.dtype} "
+                                 f"{tuple(a.shape)}")
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label}: {name} is not finite")
+        err = (a.float() - b).abs().max()
+        rel = float(err / b.abs().max().clamp(min=1e-30))
+        if rel > FLASH_BWD_TOL[q.dtype]:
+            raise AssertionError(f"{label}: {name} differs from the plain "
+                                 f"backward by {rel:.3g} of its max > "
+                                 f"{FLASH_BWD_TOL[q.dtype]}")
+        worst, max_abs = max(worst, rel), max(max_abs, float(err))
+    if masked and bool(got[0][:, :masked].any()):
+        raise AssertionError(f"{label}: rows that see no key have dq != 0")
+    return got, worst, max_abs
+
+
 def flash_phase(fa, device):
     """Every case of the reference suite in both dtypes, the two special
     cases, the tensor-core instance's edge cases (each also twice, bitwise
@@ -2246,7 +2345,7 @@ def expected_launches(cfg, engine) -> dict:
     once per attention layer and model call, the SSD scan once per Mamba
     layer and prefill (decode runs the plain one-token update), the
     grouped matmul three times (gate, up, down) per MoE layer and model
-    call, and no water-fill."""
+    call, and no water-fill and no backward."""
     mixers = [cfg.mixer_kind(s) for s in range(cfg.period)]
     ffns = [cfg.ffn_kind(s) for s in range(cfg.period)]
     attn = cfg.n_scan * mixers.count("attn")
@@ -2254,7 +2353,8 @@ def expected_launches(cfg, engine) -> dict:
     moe = cfg.n_scan * ffns.count("moe")
     calls = engine.prefill_calls + engine.decode_ticks
     return {"waterfill": 0, "flash_attention": attn * calls,
-            "ssd": ssm * engine.prefill_calls, "gmm": 3 * moe * calls}
+            "ssd": ssm * engine.prefill_calls, "gmm": 3 * moe * calls,
+            "flash_attention_bwd": 0}
 
 
 def expected_flash_routes(cfg, engine) -> dict:
@@ -2400,23 +2500,439 @@ def reclaim_phase(cfg, params):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Training: flash attention's backward, qwen2-1.5b through run_fixed
+# ---------------------------------------------------------------------------
+
+# the training run: qwen2-1.5b at full width, all 28 layers, bfloat16
+TRAIN = dict(steps=6, batch=8, seq=512, ckpt_every=3)
+# the float32 gate: the same widths cut to 2 layers
+TRAIN_F32 = dict(layers=2, batch=2, seq=512)
+# gates of the float32 model with the kernels against the plain versions
+# (float32 sums in another order): the loss, and each gradient leaf on
+# max |diff| / max |plain|
+GATE_TRAIN_LOSS, GATE_TRAIN_GRAD = 1e-5, 1e-4
+# gates of the same 2-layer model in bfloat16 with the kernels (the
+# bfloat16 products' backward through `layers._MatmulF32`) against the
+# float32 model of the same weights through the plain attention: the
+# loss, and each gradient leaf on max |diff| / max |f32|.  Read on an
+# H100 (every step deterministic, so every run reads the same): the
+# loss 9.9e-7, the leaves 2.4e-3 to 7.6e-3 and the tied embedding's
+# 1.30e-2; the limits are 10x and 2x those.  A dropped or miscast
+# operand gradient moves a leaf by its own size.
+GATE_TRAIN_BF16_LOSS, GATE_TRAIN_BF16_GRAD = 1e-5, 2.5e-2
+# the resumed steps' losses against the first run's: the restored state
+# is checked bit for bit first, and the steps are deterministic (the
+# resumed losses equal the first run's bit for bit in every run so far);
+# the limit leaves room for a few float32 ulps of a loss near 200
+RESUME_TOL = 1e-6
+
+
+def flash_bwd_bound(q, k, q_pos, kv_pos, mask):
+    """Least time for the backward of this call: FlashAttention-2's
+    backward work, 2.5 x the forward's QK^T and PV FLOPs of the unmasked
+    (query, key) pairs (4 Dh per pair and query head), at the
+    tensor-core bf16 rate (float32 at the vector rate), against the bytes
+    at the HBM rate: q, k, v, the output and its gradient read once, dq,
+    dk and dv written once, the positions.  Returns (ms, bound by,
+    bytes, FLOPs)."""
+    item = q.element_size()
+    nbytes = (item * (4 * q.numel() + 4 * k.numel())
+              + 4 * (q_pos.numel() + kv_pos.numel()))
+    flops = 2.5 * 4 * q.shape[3] * q.shape[2] * int(mask.sum().item())
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes", nbytes, flops
+    return 1e3 * t_ops, "operations", nbytes, flops
+
+
+def time_flash_bwd(fa, B, S, device):
+    """The backward at qwen2-1.5b's training shape (12 query heads over 2
+    kv heads of 128, bfloat16, causal, no empty slot), checked against the
+    plain backward, then timed: CUDA events (median of KERNEL_REPS) and
+    the three passes' device time, beside the bound, the plain backward
+    and SDPA's backward (causal, the kv heads expanded to 12; a yardstick
+    only, its forward not timed)."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_backward_reference, attention_mask,
+    )
+    case = (B, S, S, 12, 2, 128, True, None, None, 0)
+    (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(case, torch.bfloat16,
+                                                   device, dense=True)
+    _, rel, err = check_flash_bwd(f"qwen2-train-{B}x{S}", fa,
+                                  (q, k, v, qp, kp), kw, dout)
+    out = fa.flash_attention(q, k, v, qp, kp)
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1).detach()
+              .requires_grad_() for x in (k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    lib_dout = dout.transpose(1, 2)
+
+    def kernel():
+        return fa.flash_attention_backward(q, k, v, out, dout, qp, kp)
+
+    def plain():
+        return attention_backward_reference(q, k, v, out, dout, qp, kp)
+
+    def library():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), lib_dout,
+                                   retain_graph=True)
+
+    mask = attention_mask(qp, kp, causal=True, window=None).expand(B, S, S)
+    bound_ms, bound_by, nbytes, flops = flash_bwd_bound(q, k, qp, kp, mask)
+    row = {"flash_bwd_case": f"qwen2-train-{B}x{S}",
+           "shape": [B, S, 12, 128, S, 2], "dtype": "bfloat16",
+           "ms": cuda_ms(kernel, KERNEL_REPS),
+           "device_ms": device_ms(kernel, KERNEL_REPS, match="flash_bwd_"),
+           "passes_device_ms": {
+               name: device_ms(kernel, KERNEL_REPS, match=f"flash_bwd_{name}")
+               for name in ("stats", "dkdv", "dq")},
+           "plain_ms": cuda_ms(plain, KERNEL_REPS),
+           "library_ms": cuda_ms(library, KERNEL_REPS),
+           "library_device_ms": device_ms(library, KERNEL_REPS),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "flops": flops, "max_abs_err": err, "max_rel_err": rel}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def flash_bwd_phase(fa, device):
+    """The backward kernel against the plain backward on every
+    `FLASH_BWD_CASES` case in both dtypes (two calls bitwise equal), then
+    timed at qwen2-1.5b's training shapes.  Returns (the timed rows, the
+    largest absolute error of any check)."""
+    worst = 0.0
+    for case in FLASH_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs, kw, dout = flash_bwd_inputs(case, dtype, device)
+            label = f"bwd{case}-{str(dtype).split('.')[1]}"
+            got, rel, err = check_flash_bwd(label, fa, inputs, kw, dout,
+                                            masked=case[9])
+            out = fa.flash_attention(*inputs, **kw)
+            again = fa.flash_attention_backward(*inputs[:3], out, dout,
+                                                *inputs[3:], **kw)
+            if not all(bitwise_equal(a.float(), b.float())
+                       for a, b in zip(got, again)):
+                raise AssertionError(f"{label}: two calls differ")
+            worst = max(worst, err)
+            print(json.dumps({"flash_bwd_case": label, "max_rel_err": rel,
+                              "max_abs_err": err,
+                              "tol": FLASH_BWD_TOL[dtype]}), flush=True)
+    rows = [time_flash_bwd(fa, B, S, device) for B, S in FLASH_BWD_TIMED]
+    return rows, max([worst] + [r["max_abs_err"] for r in rows])
+
+
+def state_items(tree, prefix=""):
+    """(path, tensor) of a `TrainState`'s parameters, moments and step
+    (or of a nested dict of tensors)."""
+    if not isinstance(tree, dict):
+        tree = vars(tree) if hasattr(tree, "params") else tree
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from state_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def loss_and_grads(model_lib, params, cfg, batch):
+    """One `loss_fn` and its backward: the loss and the gradient of
+    every leaf, in the parameters' order."""
+    from repro_torch.models.param import tree_leaves, tree_map
+    req = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = model_lib.loss_fn(req, cfg, batch, remat="none")
+    return loss.detach(), torch.autograd.grad(loss, tree_leaves(req))
+
+
+def train_f32_gate(cfg, device, launch_counts):
+    """qwen2-1.5b at full width cut to `TRAIN_F32`'s layers, float32: one
+    `loss_fn` and backward with the kernels (flash forward and backward
+    once per layer) against the same with attention through the plain
+    version, which autograd differentiates."""
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models import model as model_lib
+    f32 = dataclasses.replace(cfg, n_layers=TRAIN_F32["layers"],
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    params = model_lib.init_model(f32, seed=0, device=device)
+    batch = SyntheticTokenPipeline(
+        f32.vocab_size, TRAIN_F32["seq"], TRAIN_F32["batch"]).torch_batch_at(
+        0, device)
+
+    before = dict(launch_counts)
+    loss, grads = loss_and_grads(model_lib, params, f32, batch)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if launch_counts[name] - before[name] != f32.n_layers:
+            raise AssertionError(f"f32 training gate: {name} launched "
+                                 f"{launch_counts[name] - before[name]} "
+                                 f"times, not {f32.n_layers}")
+    with plain_attention():
+        loss_plain, grads_plain = loss_and_grads(model_lib, params, f32,
+                                                 batch)
+    if not bool(torch.isfinite(loss)) or not all(
+            bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("f32 training gate: loss or gradients not "
+                             "finite")
+    gate(f"{cfg.name} f32 {f32.n_layers} layers: loss, kernels vs plain",
+         abs(float(loss) - float(loss_plain)) / abs(float(loss_plain)),
+         GATE_TRAIN_LOSS)
+    gate(f"{cfg.name} f32 {f32.n_layers} layers: worst gradient leaf, "
+         f"kernels vs plain", max(rel_err(a, b) for a, b in
+                                 zip(grads, grads_plain)), GATE_TRAIN_GRAD)
+    del params, grads, grads_plain
+    torch.cuda.empty_cache()
+
+
+def train_bf16_gate(cfg, device, launch_counts):
+    """qwen2-1.5b at full width cut to `TRAIN_F32`'s layers in its own
+    bfloat16: one `loss_fn` and backward with the kernels, whose MLP and
+    unembedding products differentiate through `layers._MatmulF32`,
+    against the float32 model of the same weights (the bfloat16 ones
+    widened) with attention through the plain version.  Returns the
+    readings, each leaf's max |diff| / max |f32| among them."""
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import tree_map
+    bf16 = dataclasses.replace(cfg, n_layers=TRAIN_F32["layers"])
+    if bf16.param_dtype != "bfloat16":
+        raise AssertionError(f"bf16 training gate: {cfg.name} is "
+                             f"{bf16.param_dtype}")
+    f32 = dataclasses.replace(bf16, param_dtype="float32",
+                              activation_dtype="float32")
+    params = model_lib.init_model(bf16, seed=0, device=device)
+    batch = SyntheticTokenPipeline(
+        bf16.vocab_size, TRAIN_F32["seq"], TRAIN_F32["batch"]).torch_batch_at(
+        0, device)
+    before = dict(launch_counts)
+    loss, grads = loss_and_grads(model_lib, params, bf16, batch)
+    for name in ("flash_attention", "flash_attention_bwd"):
+        if launch_counts[name] - before[name] != bf16.n_layers:
+            raise AssertionError(f"bf16 training gate: {name} launched "
+                                 f"{launch_counts[name] - before[name]} "
+                                 f"times, not {bf16.n_layers}")
+    if any(g.dtype != torch.bfloat16 for g in grads):
+        raise AssertionError("bf16 training gate: a gradient is not "
+                             "bfloat16")
+    with plain_attention():
+        loss_ref, grads_ref = loss_and_grads(
+            model_lib, tree_map(lambda p: p.float(), params), f32, batch)
+    if not bool(torch.isfinite(loss)) or not all(
+            bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("bf16 training gate: loss or gradients not "
+                             "finite")
+    names = [path for path, _ in state_items(params)]
+    leaves = {path: rel_err(a, b) for path, a, b in
+              zip(names, grads, grads_ref)}
+    loss_rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    print(json.dumps({"train_bf16_gate": {"loss": float(loss),
+                                          "loss_f32": float(loss_ref),
+                                          "loss_rel": loss_rel,
+                                          "leaves": leaves}}), flush=True)
+    gate(f"{cfg.name} bf16 {bf16.n_layers} layers: loss, kernels vs f32 "
+         f"plain", loss_rel, GATE_TRAIN_BF16_LOSS)
+    gate(f"{cfg.name} bf16 {bf16.n_layers} layers: worst gradient leaf, "
+         f"kernels vs f32 plain", max(leaves.values()), GATE_TRAIN_BF16_GRAD)
+    del params, grads, grads_ref
+    torch.cuda.empty_cache()
+
+
+#: profiler labels of a training step's parts, set by `make_train_step`
+#: (the backward runs on autograd's device thread, outside them, so it
+#: is the rest of the step)
+STEP_LABELS = ("forward", "optimizer")
+
+
+def profile_summary(prof, wall_ms, kernel="flash_bwd_"):
+    """A profiled training step: the device's busy time (its kernels' and
+    copies' own time) against the step's wall, the device-timeline span
+    of its forward and its optimizer (`STEP_LABELS`; a span includes
+    the gaps between its kernels), the backward kernel's share of the
+    busy time and the kernels that take the most."""
+    stats = prof.key_averages()
+    device = [e for e in stats
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in STEP_LABELS]
+    span = {e.key: e.device_time_total / 1e3 for e in stats
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key in STEP_LABELS}
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    mine = sum(e.self_device_time_total for e in device
+               if kernel in e.key) / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:12]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_busy_share": busy / wall_ms,
+            "device_idle_share": 1 - busy / wall_ms,
+            "forward_span_ms": span.get("forward"),
+            "optimizer_span_ms": span.get("optimizer"),
+            "flash_bwd_ms": mine,
+            "flash_bwd_share_of_busy": mine / busy if busy else None,
+            "kernels": sum(e.count for e in device),
+            "top_kernels": [{"name": e.key[:80],
+                             "ms": e.self_device_time_total / 1e3,
+                             "calls": e.count} for e in top]}
+
+
+def train_phase(cfg, device, launch_counts, routes):
+    """The main path of training: `run_fixed` on qwen2-1.5b at full width
+    (`TRAIN`), with every count set to 0 just before and read just after,
+    and per step: each step must launch the flash forward once per layer,
+    on the tensor-core instance, and the backward once per layer.  Every
+    loss finite; checkpoints at steps 3 and 6.  Then the step-3
+    checkpoint restored into a fresh state retakes steps 4-6 (one of them
+    profiled) with the first run's losses within `RESUME_TOL`."""
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as launch_train
+    layers = cfg.n_layers
+    build = ROOT / "build" / "repro_torch"
+    build.mkdir(parents=True, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=build)
+    steps = []
+
+    at_3 = {}           # the state after step 3, in host memory
+
+    def on_step(i, state, metrics, seconds):
+        steps.append({"step": i, "seconds": seconds,
+                      "counts": dict(launch_counts), "routes": dict(routes),
+                      "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"])})
+        if i == 2:
+            at_3.update((path, t.to("cpu", copy=True))
+                        for path, t in state_items(state))
+
+    restored_checked = []
+
+    def check_restored(state):
+        """The step-3 checkpoint restored into a fresh state: every
+        parameter, both moments and the step bit for bit the state the
+        first run had after step 3."""
+        got = dict(state_items(state))
+        if got.keys() != at_3.keys():
+            raise AssertionError(f"training {cfg.name}: restored leaves "
+                                 f"{sorted(got.keys() ^ at_3.keys())} "
+                                 f"differ from the step-3 state's")
+        differ = [path for path, t in got.items()
+                  if t.dtype != at_3[path].dtype
+                  or not torch.equal(t.cpu(), at_3[path])]
+        if differ:
+            raise AssertionError(f"training {cfg.name}: restored leaves "
+                                 f"differ from the step-3 state: {differ}")
+        restored_checked.append(len(got))
+        print(json.dumps({"restored_step_3": {
+            "leaves": len(got), "bitwise_equal": True,
+            "bytes": sum(t.numel() * t.element_size()
+                         for t in got.values())}}), flush=True)
+
+    kw = dict(steps=TRAIN["steps"], batch=TRAIN["batch"], seq=TRAIN["seq"],
+              ckpt_dir=ckpt, log_every=1, device=device)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for counter in (launch_counts, routes):
+            for name in counter:
+                counter[name] = 0
+        losses = launch_train.run_fixed(cfg, ckpt_every=TRAIN["ckpt_every"],
+                                        on_step=on_step, **kw)
+        counts, routed = dict(launch_counts), dict(routes)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if len(losses) != TRAIN["steps"] or not all(
+                math.isfinite(x) for x in losses):
+            raise AssertionError(f"training {cfg.name}: losses {losses}")
+        prev = {"counts": {k: 0 for k in counts},
+                "routes": {k: 0 for k in routed}}
+        for s in steps:
+            delta = {k: s["counts"][k] - prev["counts"][k] for k in counts}
+            via = {k: s["routes"][k] - prev["routes"][k] for k in routed}
+            want = {"waterfill": 0, "flash_attention": layers, "ssd": 0,
+                    "gmm": 0, "flash_attention_bwd": layers}
+            if delta != want or via != {"wgmma": layers, "split": 0,
+                                        "simt": 0}:
+                raise AssertionError(
+                    f"training {cfg.name}, step {s['step']}: launches "
+                    f"{delta} by instance {via}, expected {want}, every "
+                    f"forward on wgmma")
+            prev = s
+        if counts["flash_attention_bwd"] != layers * TRAIN["steps"]:
+            raise AssertionError(f"training {cfg.name}: {counts}")
+        committed = CheckpointManager(ckpt).all_steps()
+        if committed != [3, 6]:
+            raise AssertionError(f"training {cfg.name}: checkpoints "
+                                 f"{committed}, expected [3, 6]")
+        timed = [s["seconds"] for s in steps[2:]]       # steps 3-6
+        step_ms = 1e3 * statistics.median(timed)
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+
+        # the step-3 checkpoint into a fresh state; step 5 (i = 4)
+        # profiled; no checkpoint written
+        prof = profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        resumed = []
+
+        def on_resume(i, state, metrics, seconds):
+            resumed.append((i, seconds))
+            if i == 3:
+                prof.start()
+            elif i == 4:
+                prof.stop()
+
+        again = launch_train.run_fixed(cfg, ckpt_every=10 ** 9,
+                                       resume_from=3, on_step=on_resume,
+                                       on_resume=check_restored, **kw)
+        if not restored_checked:
+            raise AssertionError(f"training {cfg.name}: the resume did not "
+                                 f"restore a state")
+        worst = max(abs(a - b) / abs(b) for a, b in zip(again, losses[3:]))
+        gate(f"training {cfg.name}: steps 4-6 resumed from the step-3 "
+             f"checkpoint, losses vs the first run", worst, RESUME_TOL)
+        profile = profile_summary(prof, 1e3 * resumed[1][1])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    row = {"train": cfg.name, "layers": layers, "d_model": cfg.d_model,
+           "dtype": cfg.param_dtype, "batch": TRAIN["batch"],
+           "seq": TRAIN["seq"], "steps": TRAIN["steps"], "losses": losses,
+           "grad_norms": [s["grad_norm"] for s in steps],
+           "step_seconds": [s["seconds"] for s in steps],
+           "step_ms_median_3_6": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "max_memory_allocated_gb": peak / 1e9, "wall_s": wall,
+           "launch_counts": counts, "routes": routed,
+           "resumed_losses": again, "resume_worst_rel": worst,
+           "profiled_step": profile}
+    print(json.dumps({"train_run": row}), flush=True)
+    return row
+
+
 def build_all(modules) -> None:
-    """Builds every kernel at once, one nvcc per source, and prints each
+    """Builds every kernel at once, one nvcc per source (a module's
+    `build`, and its `build_backward` where it has one), and prints each
     build's time and ptxas' register and shared-memory report."""
     from concurrent.futures import ThreadPoolExecutor
+    jobs = [(mod, "build", "build_log") for mod in modules] + [
+        (mod, "build_backward", "bwd_build_log") for mod in modules
+        if hasattr(mod, "build_backward")]
 
-    def timed(mod):
+    def timed(job):
         t0 = time.perf_counter()
-        lib = mod.build()
+        lib = getattr(job[0], job[1])()
         return lib, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(modules)) as pool:
-        built = list(pool.map(timed, modules))
-    for mod, (lib, secs) in zip(modules, built):
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(timed, jobs))
+    for (mod, _, log), (lib, secs) in zip(jobs, built):
         print(f"built {lib.relative_to(ROOT)} in {secs:.3f} s", flush=True)
-        if mod.build_log:
-            print(mod.build_log.strip(), flush=True)
+        if getattr(mod, log):
+            print(getattr(mod, log).strip(), flush=True)
     print(f"all kernels built in {time.perf_counter() - t0:.3f} s",
           flush=True)
 
@@ -2587,6 +3103,39 @@ def main() -> int:
             "gmm_case", "route", "shape", "ms", "stream_ms", "plain_ms",
             "bound_ms", "bound_by", "bound_share", "library_ms",
             "max_abs_err")} for r in gmm_timed]}
+    # phase 15: training -- flash attention's backward kernel against
+    # its plain version, timed at qwen2's training shapes; the float32
+    # and bfloat16 2-layer gates; then qwen2-1.5b at full width through run_fixed, its
+    # main path (before the water-fill: the profiler reads it)
+    cfg = get_config(ARCH)
+    bwd_timed, bwd_err = flash_bwd_phase(fa, dev)
+    train_f32_gate(cfg, dev, launch_counts)
+    train_bf16_gate(cfg, dev, launch_counts)
+    trained = train_phase(cfg, dev, launch_counts, fa.route_counts)
+    main_shape = bwd_timed[FLASH_BWD_TIMED.index(
+        (TRAIN["batch"], TRAIN["seq"]))]
+    bwd_line = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/"
+                  "flash_attention_bwd.cu",
+        "replaces": "gradient of src/repro/kernels/flash_attention/"
+                    "ops.py:74 (no Pallas backward)",
+        "launches": trained["launch_counts"]["flash_attention_bwd"],
+        "max_abs_err": bwd_err,
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
+        "device_ms": main_shape["device_ms"],
+        "library_device_ms": main_shape["library_device_ms"],
+        "passes": {"stats": "row max, normaliser and dO.O per query row",
+                   "dkdv": "dk, dv per 64 keys over the group's heads",
+                   "dq": "dq per 64 query rows"},
+        "ptxas": ptxas_report(fa.bwd_build_log, "flash_bwd_"),
+        "shapes": bwd_timed,
+        "train_step_ms": trained["step_ms_median_3_6"],
+        "train_tokens_per_s": trained["tokens_per_s"]}
+
     # phases 3 and 4, run last: the water-fill's cases, cycles and
     # candidates, then the days through run_policy (once the tier-1m
     # case has run the profiler reads no device events in this process,
@@ -2595,7 +3144,7 @@ def main() -> int:
     waterfill_line = run_waterfill_phase()
     print(json.dumps({"profiler_sessions": profiler_sessions}), flush=True)
     print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
-                                  gmm_line]}), flush=True)
+                                  gmm_line, bwd_line]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,19 @@ TF32 would miss the 2e-5 tolerance) and Dh = 32.  `split_plan` sizes the
 decode split from shapes.  `launch_counts["flash_attention"]` counts
 every call; `route_counts` counts each instance.
 
-The CUDA source is built at first use by `repro_torch.kernels.build`
+Gradients: when grad is enabled and q, k or v requires grad, a CUDA
+call goes through `FlashAttentionFn`, whose forward is the same routed
+launch and whose backward launches `flash_attention_bwd.cu`
+(`flash_attention_backward`: three passes -- row statistics, dk/dv, dq
+-- recomputed from q, k, v and the saved output; any instance's output
+will do).  `launch_counts["flash_attention_bwd"]` counts each backward
+call.  On CPU tensors `flash_attention` runs `ref.attention_reference`,
+which autograd differentiates, and `flash_attention_backward` runs
+`ref.attention_backward_reference`.
+
+The CUDA sources are built at first use by `repro_torch.kernels.build`
 (nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
-headers).
+headers), each into a library of its own.
 """
 from __future__ import annotations
 
@@ -33,10 +43,11 @@ import torch
 
 from repro_torch.kernels.build import build_library, launch_counts
 from repro_torch.kernels.flash_attention.ref import (
-    NEG_INF, attention_reference,
+    NEG_INF, attention_backward_reference, attention_reference,
 )
 
 SOURCE = Path(__file__).with_name("flash_attention.cu")
+BWD_SOURCE = Path(__file__).with_name("flash_attention_bwd.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -64,6 +75,11 @@ _max_smem: dict[int, int] = {}
 #: nvcc's output (ptxas register and shared-memory report) of the build
 #: this process loaded, or None before the first build.
 build_log: str | None = None
+#: the backward's library, the devices it is set up on, and its build's
+#: nvcc output
+_bwd_lib: ctypes.CDLL | None = None
+_bwd_devices: set[int] = set()
+bwd_build_log: str | None = None
 
 
 def build() -> Path:
@@ -95,6 +111,33 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def build_backward() -> Path:
+    """Compile `flash_attention_bwd.cu` unless this source and these
+    flags were built before; returns the shared library's path."""
+    global bwd_build_log
+    out, log = build_library(BWD_SOURCE, NVCC_FLAGS)
+    if log is not None:
+        bwd_build_log = log
+    return out
+
+
+def _bwd_library() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = ctypes.CDLL(str(build_backward()))
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_bwd_launch.argtypes = [
+            i, i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i,
+            i, i, i, f, f, vp]
+        lib.flash_attention_bwd_launch.restype = i
+        lib.flash_attention_bwd_init.argtypes = [i]
+        lib.flash_attention_bwd_init.restype = i
+        lib.flash_attention_bwd_error_string.argtypes = [i]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def _device_smem(lib: ctypes.CDLL, index: int) -> int:
@@ -177,6 +220,56 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device):
         raise ValueError(f"flash_attention: {name} must be 16-byte aligned")
 
 
+def _check_call(name: str, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, window, softcap):
+    """The checks both wrappers make of shapes and options; returns the
+    kernels' dtype code."""
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: float32 or bfloat16 only, got {q.dtype}")
+    if Dh not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim must be one of {_HEAD_DIMS}, "
+                         f"got {Dh}")
+    if Hkv <= 0 or Hq % Hkv or Hq // Hkv > _MAX_GROUP:
+        raise ValueError(f"{name}: Hq={Hq} must be a multiple of Hkv={Hkv} "
+                         f"with at most {_MAX_GROUP} per group")
+    if min(B, Sq, Skv) <= 0:
+        raise ValueError(f"{name}: empty shapes B={B} Sq={Sq} Skv={Skv}")
+    if max(B, Hkv) > _MAX_GRID_YZ:
+        raise ValueError(f"{name}: B={B} and Hkv={Hkv} must be at most "
+                         f"{_MAX_GRID_YZ} (the grid's y and z axes)")
+    if window is not None and window <= 0:
+        raise ValueError(f"{name}: window must be positive, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"{name}: softcap must be positive, got {softcap}")
+    return _DTYPES[q.dtype]
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention` with a gradient: the forward is the routed
+    kernel (the plain version on CPU tensors), and it saves q, k, v, the
+    output and the positions; the backward is `flash_attention_backward`
+    (the backward kernel, or its plain version on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, softcap,
+                scale):
+        out = flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                              window=window, softcap=softcap, scale=scale)
+        ctx.save_for_backward(q, k, v, out, q_pos, kv_pos)
+        ctx.options = dict(causal=causal, window=window, softcap=softcap,
+                           scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, q_pos, kv_pos = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, q_pos,
+                                              kv_pos, **ctx.options)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -190,37 +283,23 @@ def flash_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Position-masked GQA attention (see ref.py for the semantics);
-    returns (B, Sq, Hq, Dh) in q's dtype."""
+    returns (B, Sq, Hq, Dh) in q's dtype.  A CUDA call that autograd
+    records (grad enabled, q, k or v requiring grad) goes through
+    `FlashAttentionFn`."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, q_pos, kv_pos, causal=causal,
                                    window=window, softcap=softcap,
                                    scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, q_pos, kv_pos, causal, window,
+                                      softcap, scale)
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dev, dt = q.device, q.dtype
-    if dt not in _DTYPES:
-        raise TypeError(f"flash_attention: float32 or bfloat16 only, "
-                        f"got {dt}")
-    if Dh not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim must be one of "
-                         f"{_HEAD_DIMS}, got {Dh}")
-    if Hkv <= 0 or Hq % Hkv or Hq // Hkv > _MAX_GROUP:
-        raise ValueError(f"flash_attention: Hq={Hq} must be a multiple of "
-                         f"Hkv={Hkv} with at most {_MAX_GROUP} per group")
-    if min(B, Sq, Skv) <= 0:
-        raise ValueError(f"flash_attention: empty shapes B={B} Sq={Sq} "
-                         f"Skv={Skv}")
-    if max(B, Hkv) > _MAX_GRID_YZ:
-        raise ValueError(f"flash_attention: B={B} and Hkv={Hkv} must be at "
-                         f"most {_MAX_GRID_YZ} (the grid's y and z axes)")
-    if window is not None and window <= 0:
-        raise ValueError(f"flash_attention: window must be positive, "
-                         f"got {window}")
-    if softcap is not None and softcap <= 0:
-        raise ValueError(f"flash_attention: softcap must be positive, "
-                         f"got {softcap}")
+    dtype_code = _check_call("flash_attention", q, k, v, window, softcap)
     _check("q", q, dt, (B, Sq, Hq, Dh), dev)
     _check("k", k, dt, (B, Skv, Hkv, Dh), dev)
     _check("v", v, dt, (B, Skv, Hkv, Dh), dev)
@@ -248,7 +327,7 @@ def flash_attention(
     if scale is None:
         scale = 1.0 / (Dh ** 0.5)
     err = lib.flash_attention_launch(
-        dev.index, _INSTANCES[instance], _DTYPES[dt], Dh, q.data_ptr(),
+        dev.index, _INSTANCES[instance], dtype_code, Dh, q.data_ptr(),
         k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
         out.data_ptr(), None if ws is None else ws.data_ptr(), B, Sq, Skv,
         Hq, Hkv, int(causal), window or 0, float(scale),
@@ -263,6 +342,79 @@ def flash_attention(
     return out
 
 
-__all__ = ["flash_attention", "attention_reference", "NEG_INF", "build",
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of `flash_attention` at its output
+    ``out`` for the output gradient ``dout`` (see
+    `ref.attention_backward_reference`), in q's and k's dtypes.  On CUDA
+    tensors it checks them as the forward does (``dout`` is made
+    contiguous first: autograd often hands over a view) and launches the
+    three passes of `flash_attention_bwd.cu` on the current stream, or
+    raises; on CPU tensors, and only there, it runs the plain version."""
+    if q.device.type == "cpu":
+        return attention_backward_reference(
+            q, k, v, out, dout, q_pos, kv_pos, causal=causal, window=window,
+            softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward: no kernel for device "
+                         f"{q.device}")
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dev, dt = q.device, q.dtype
+    dtype_code = _check_call("flash_attention_backward", q, k, v, window,
+                             softcap)
+    if Hq > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention_backward: Hq={Hq} must be at most "
+                         f"{_MAX_GRID_YZ} (the grid's y axis)")
+    dout = dout.contiguous()
+    for name, t, shape in (("q", q, (B, Sq, Hq, Dh)),
+                           ("k", k, (B, Skv, Hkv, Dh)),
+                           ("v", v, (B, Skv, Hkv, Dh)),
+                           ("out", out, (B, Sq, Hq, Dh)),
+                           ("dout", dout, (B, Sq, Hq, Dh))):
+        _check(name, t, dt, shape, dev)
+    _check("q_pos", q_pos, torch.int32, (B, Sq), dev)
+    _check("kv_pos", kv_pos, torch.int32, (B, Skv), dev)
+    lib = _bwd_library()
+    if dev.index not in _bwd_devices:
+        got = lib.flash_attention_bwd_init(dev.index)
+        if got < 0:
+            raise RuntimeError(
+                "flash_attention_backward kernel set-up failed: "
+                + lib.flash_attention_bwd_error_string(-got).decode())
+        _bwd_devices.add(dev.index)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stats = torch.empty(3 * B * Hq * Sq, dtype=torch.float32, device=dev)
+    if scale is None:
+        scale = 1.0 / (Dh ** 0.5)
+    err = lib.flash_attention_bwd_launch(
+        dev.index, dtype_code, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, Sq,
+        Skv, Hq, Hkv, int(causal), window or 0, float(scale),
+        float(softcap or 0.0), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash_attention_backward kernel launch failed: "
+                           + lib.flash_attention_bwd_error_string(err)
+                           .decode())
+    launch_counts["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+__all__ = ["flash_attention", "flash_attention_backward", "FlashAttentionFn",
+           "attention_reference", "attention_backward_reference", "NEG_INF",
+           "build", "build_backward",
            "launch_counts", "route", "route_counts", "split_plan",
            "SplitPlan", "wgmma_smem_bytes"]

@@ -16,6 +16,10 @@ The same semantics as the JAX package's dense oracle
 Softmax and the value sum are computed in float32 over the valid set;
 fully masked rows return 0.  Optional logit soft-capping:
 logits = cap * tanh(logits / cap).
+
+`attention_backward_reference` is the plain version of the backward
+kernel (`flash_attention_bwd.cu`): the gradients of `attention_reference`
+by their explicit formulas, given its output.
 """
 from __future__ import annotations
 
@@ -122,5 +126,67 @@ def attention_split_reference(
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
+def attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    dout: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of `attention_reference` at output ``o``
+    for the output gradient ``dout``, in float32 math, returned in q's and
+    k's dtypes.  With P recomputed from q and k (the softmax over the
+    valid keys, 0 elsewhere), raw scores s = scale q.k and logits c = s, or
+    cap tanh(s / cap):
+
+        dP = dO V^T,   D = sum_d dO * O   (per query row and head),
+        dS = P * (dP - D) * (1 - tanh^2(s / cap) with a softcap),
+        dq = scale dS K,  dk = scale dS^T Q,  dv = P^T dO,
+
+    dk and dv summed over the G query heads of each kv head.  A fully
+    masked row has P = 0, so it gives dq = 0 and adds nothing to dk, dv."""
+    B, Sq, Hq, Dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (Dh ** 0.5)
+
+    qf = q.float().reshape(B, Sq, Hkv, G, Dh)
+    of = o.float().reshape(B, Sq, Hkv, G, Dh)
+    dof = dout.float().reshape(B, Sq, Hkv, G, Dh)
+    kf, vf = k.float(), v.float()
+    raw = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    logits = raw
+    if softcap is not None:
+        tanh = torch.tanh(raw / softcap)
+        logits = softcap * tanh
+    mask = attention_mask(q_pos, kv_pos, causal=causal,
+                          window=window)[:, None, None]
+    logits = torch.where(mask, logits, NEG_INF)
+    m = torch.clamp(logits.amax(dim=-1, keepdim=True), min=NEG_INF / 2)
+    p = torch.where(mask, torch.exp(logits - m), 0.0)
+    p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    D = (dof * of).sum(dim=-1).permute(0, 2, 3, 1)[..., None]  # (B,Hkv,G,Sq,1)
+    ds = p * (dp - D)
+    if softcap is not None:
+        ds = ds * (1.0 - tanh * tanh)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return (dq.reshape(B, Sq, Hq, Dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 __all__ = ["NEG_INF", "attention_mask", "attention_reference",
-           "attention_split_reference"]
+           "attention_split_reference", "attention_backward_reference"]

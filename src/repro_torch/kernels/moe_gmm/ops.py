@@ -20,7 +20,8 @@ bfloat16; the SIMT instance (``"simt"``) for float32 inputs (FP32 FMAs:
 TF32 would miss the 1e-4 tolerance) and for the bfloat16 shapes TMA
 cannot take.  `launch_counts["gmm"]` counts both; `route_counts` counts
 each.  On a CPU tensor, and only there, `gmm` runs `gmm_plain`, a loop of
-one matmul per group.
+one matmul per group.  The kernel has no backward yet (ROADMAP Queue 1
+item 12c): a CUDA call that autograd would record raises.
 
 `tile_expert_map` is the reference kernel's row-tile-to-expert map for
 groups aligned to the row tile (``kernel.py:63``); the CUDA kernel walks
@@ -183,6 +184,10 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
         return gmm_plain(lhs, rhs, group_sizes, out_dtype=out_dtype)
     if lhs.device.type != "cuda":
         raise ValueError(f"gmm: no kernel for device {lhs.device}")
+    if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
+        raise NotImplementedError(
+            "gmm: the grouped matmul has no backward kernel yet (ROADMAP "
+            "Queue 1 item 12c); on cuda it runs under torch.no_grad() only")
     dev, dtype = lhs.device, lhs.dtype
     if dtype not in _DTYPES:
         raise TypeError(f"gmm: float32 or bfloat16 only, got {dtype}")

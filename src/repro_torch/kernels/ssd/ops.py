@@ -32,7 +32,8 @@ elements; the SIMT instance (``"simt"``: one block a head, scalar FP32
 FMAs) for the rest: float32 (TF32 or bf16 operands would not keep its
 2e-3 gate) and the small shapes.  `launch_counts["ssd"]` counts every
 call, whatever the number of passes; `route_counts` counts each
-instance.
+instance.  The kernel has no backward yet (ROADMAP Queue 1 item 12b): a
+CUDA call that autograd would record raises.
 
 The CUDA source is built at first use by `repro_torch.kernels.build`
 (nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
@@ -406,6 +407,12 @@ def ssd(
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
                            initial_state=initial_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bm, Cm, D, initial_state)):
+        raise NotImplementedError(
+            "ssd: the SSD scan has no backward kernel yet (ROADMAP Queue 1 "
+            "item 12b); on cuda it runs under torch.no_grad() only")
     dims = _checked(x, dt, A, Bm, Cm, D, chunk, initial_state)
     return _launch(route(x, Bm, Cm, chunk), dims, x, dt, A, Bm, Cm, D,
                    chunk, initial_state)

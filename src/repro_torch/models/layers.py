@@ -26,13 +26,39 @@ import torch.nn.functional as F
 from repro_torch.models.param import Init
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``x @ w`` for 2-D CUDA operands of a 16-bit dtype, accumulated and
+    returned in float32 (``torch.mm(..., out_dtype=float32)``, which has
+    no derivative of its own).  The backward's products, dx = dy w^T and
+    dw = x^T dy, take the float32 cotangent rounded to the operands'
+    dtype, so that they run on the tensor cores as the other 16-bit
+    products' gradients do, accumulate in float32 and are returned in x's
+    and w's dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(dy, w.T, out_dtype=torch.float32).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.mm(x.T, dy, out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with float32 products and accumulation, returned in
-    float32 whatever the inputs' dtype."""
+    float32 whatever the inputs' dtype; differentiable."""
     if x.dtype == torch.float32:
         return x @ w.float()
     if x.is_cuda:
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        y = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
 

@@ -12,8 +12,16 @@ The model's parameters live on one device, chosen when they are made:
 passes ``device="cpu"``, which runs every kernel's plain version.  The
 other entry points follow the parameters' device.
 
-Not on this slice: ``loss_fn`` and training (ROADMAP Queue 1 item 12),
-the encoder of enc-dec models and the VLM patch prefix (item 11).
+`forward` and `loss_fn` are differentiable (parameters that require
+grad get gradients; serving's do not, so no graph is built there).  On a
+CUDA device, training runs attention's backward kernel; the SSD scan and
+the grouped matmul have no backward kernel yet, so `loss_fn` refuses to
+differentiate a model that runs them there (ROADMAP Queue 1 items 12b
+and 12c) before any forward work.  On the CPU every family trains
+through the plain versions.
+
+Not on this slice: the encoder of enc-dec models and the VLM patch
+prefix (item 11).
 """
 from __future__ import annotations
 
@@ -126,16 +134,74 @@ def _input_embeds(params: PyTree, cfg: ModelConfig, batch: dict
 # Forward
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
+def _forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
+             remat: str, unroll: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """(logits (B, S, vocab) float32, the MoE auxiliary loss)."""
+    x, positions = _input_embeds(params, cfg, batch)
+    x, aux = tfm.stack_forward(params["stack"], cfg, x, positions=positions,
+                               causal=True, remat=remat, unroll=unroll)
+    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    return _unembed(params, cfg, x), aux
+
+
 def forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
             remat: str = "none", unroll: bool = False) -> torch.Tensor:
     """Returns logits (B, S, vocab) float32.  (The MoE auxiliary loss that
-    the stack returns beside them is for ``loss_fn``, item 12.)"""
-    x, positions = _input_embeds(params, cfg, batch)
-    x, _aux = tfm.stack_forward(params["stack"], cfg, x, positions=positions,
-                          causal=True, remat=remat, unroll=unroll)
-    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-    return _unembed(params, cfg, x)
+    the stack returns beside them goes to `loss_fn`.)"""
+    return _forward(params, cfg, batch, remat=remat, unroll=unroll)[0]
+
+
+#: the kernels without a backward yet, and the ROADMAP item of each
+_NO_BACKWARD = {"ssd": ("the SSD scan", "12b"),
+                "gmm": ("the grouped matmul", "12c")}
+
+
+def _kernels_without_backward(cfg: ModelConfig) -> list[str]:
+    kinds = [cfg.mixer_kind(s) for s in range(cfg.period)]
+    ffns = [cfg.ffn_kind(s) for s in range(cfg.period)]
+    return ((["ssd"] if "ssm" in kinds else [])
+            + (["gmm"] if "moe" in ffns else []))
+
+
+def check_trainable(params: PyTree, cfg: ModelConfig):
+    """Raises NotImplementedError when autograd would differentiate, on a
+    CUDA device, a kernel that has no backward kernel yet."""
+    if params_device(params).type != "cuda" or not torch.is_grad_enabled():
+        return
+    missing = _kernels_without_backward(cfg)
+    if missing:
+        named = "; ".join(
+            f"{_NO_BACKWARD[k][0]} ({k}: ROADMAP Queue 1 item "
+            f"{_NO_BACKWARD[k][1]})" for k in missing)
+        raise NotImplementedError(
+            f"{cfg.name}: training on cuda needs a backward kernel for "
+            f"{named}, which is not ported yet; train on device='cpu' "
+            f"(the plain versions), or run the model under torch.no_grad()")
+
+
+def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict, *,
+            remat: str = "full", z_loss: float = 1e-4,
+            unroll: bool = False) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy over the labels >= 0, plus ``z_loss`` times
+    the mean squared log-normaliser and the MoE auxiliary loss times its
+    weight.  Returns (loss, metrics) with the reference's metrics
+    (``loss``, ``ce``, ``z_loss``, ``moe_aux``, ``tokens``), float32."""
+    check_trainable(params, cfg)
+    logits, aux = _forward(params, cfg, batch, remat=remat, unroll=unroll)
+    labels = batch["labels"].to(logits.device)
+    valid = labels >= 0
+    labels_c = labels.clamp(min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    ce = (logz - gold) * valid
+    n = valid.sum().clamp(min=1)
+    ce_mean = ce.sum() / n
+    zl = z_loss * (logz.square() * valid).sum() / n
+    aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+    total = ce_mean + zl + aux_w * aux
+    metrics = {"loss": total, "ce": ce_mean, "z_loss": zl, "moe_aux": aux,
+               "tokens": n.float()}
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -183,5 +249,6 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens_t: torch.Tensor,
     return logits, cache, lengths + 1
 
 
-__all__ = ["init_model", "init_cache", "forward", "prefill", "decode_step",
-           "resolve_device", "params_device", "sinusoidal"]
+__all__ = ["init_model", "init_cache", "forward", "loss_fn", "prefill",
+           "decode_step", "resolve_device", "params_device", "sinusoidal",
+           "check_trainable"]

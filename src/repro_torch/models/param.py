@@ -139,4 +139,22 @@ def param_count(tree: PyTree) -> int:
     return tree.numel()
 
 
-__all__ = ["Init", "params_from_reference", "param_count", "torch_dtype"]
+def tree_leaves(tree: PyTree) -> list:
+    """The leaves of a tree of nested dicts, in the dicts' order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
+    """``fn`` over the leaves of ``tree`` and of the trees of the same
+    structure in ``rest``, leaf by leaf; the result has tree's
+    structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+__all__ = ["Init", "params_from_reference", "param_count", "torch_dtype",
+           "tree_leaves", "tree_map"]

@@ -17,13 +17,27 @@ by layer, through views of the stacked cache tensors.  `stack_forward`
 returns the MoE layers' summed auxiliary loss beside the activations, as
 the reference does.
 
+`stack_forward` is differentiable, and takes the reference's ``remat``
+policies for training: ``"full"`` recomputes each step of the depth loop
+(one period of blocks, the reference's ``jax.checkpoint(step)``) in the
+backward pass (`torch.utils.checkpoint`, non-reentrant); ``"dots"``
+keeps the outputs of the plain matrix products (``aten.mm``/``addmm``:
+products with no batch axis, as ``checkpoint_dots_with_no_batch_dims``
+keeps the reference's) and recomputes the rest; ``"none"`` keeps
+everything.
+
 Not on this slice, and refused with NotImplementedError: cross-attention
-(ROADMAP Queue 1 item 11), and ``remat``/``unroll``, which only matter to
-training (item 12) and to the dry-run's cost analysis (item 15).
+(ROADMAP Queue 1 item 11), and ``unroll``, which only matters to the
+dry-run's cost analysis (item 15).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -75,18 +89,47 @@ def slot_specs(cfg: ModelConfig, *, cross: bool = False) -> list[SlotSpec]:
     return [SlotSpec(cfg, s) for s in range(cfg.period)]
 
 
+REMAT_POLICIES = ("none", "full", "dots")
+
+
 def _check_modes(*, remat: str = "none", unroll: bool = False):
-    if remat != "none":
-        raise _not_ported(f"remat={remat!r} (training)", "12")
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat}")
     if unroll:
         raise _not_ported("unroll=True (the dry-run's cost analysis)", "15")
 
 
-def _layer(tree: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked tree: views, so cache writes land in the
-    stacked tensors."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+#: the products whose outputs ``remat="dots"`` keeps: matrix products
+#: with no batch axis (a linear layer's ``x @ w`` reaches aten as mm)
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.mm.dtype}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _rematted(step, remat: str):
+    """``step`` under the remat policy (see the module docstring)."""
+    if remat == "none":
+        return step
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, step, use_reentrant=False, **kw)
+
+
+def _layers(tree: dict, n: int) -> list[dict]:
+    """The ``n`` layers of a stacked tree, as views (so cache writes land
+    in the stacked tensors) made by one unbind a leaf: in training its
+    backward stacks the layers' gradients once, where indexing each layer
+    out would make autograd add a zero-padded copy of the whole stack per
+    layer."""
+    parts = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: parts[k][i] for k in tree} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -166,14 +209,22 @@ def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     if positions is None:
         positions = attn.default_positions(B, S, x.device)
     specs = slot_specs(cfg, cross=cross)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(_n_scan(params)):
+
+    def step(x, slices):
+        """One period of blocks; returns (x, its MoE aux, float32)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec in specs:
-            x, aux_l = apply_block(_layer(params[f"slot{spec.slot}"], i), cfg,
-                                   spec, x, positions=positions,
-                                   causal=causal)
+            x, aux_l = apply_block(slices[f"slot{spec.slot}"], cfg, spec, x,
+                                   positions=positions, causal=causal)
             if aux_l is not None:
                 aux = aux + aux_l
+        return x, aux
+
+    step = _rematted(step, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for slices in _layers(params, _n_scan(params)):
+        x, aux_l = step(x, slices)
+        aux = aux + aux_l
     return x, aux
 
 
@@ -220,11 +271,11 @@ def stack_decode(params: dict, cfg: ModelConfig, x_t: torch.Tensor,
     place and returned."""
     _check_modes(unroll=unroll)
     specs = slot_specs(cfg, cross=cross)
-    for i in range(_n_scan(params)):
+    n = _n_scan(params)
+    for p, c in zip(_layers(params, n), _layers(cache, n)):
         for spec in specs:
             key = f"slot{spec.slot}"
-            x_t = apply_block_decode(_layer(params[key], i), cfg, spec, x_t,
-                                     _layer(cache[key], i), lengths)
+            x_t = apply_block_decode(p[key], cfg, spec, x_t, c[key], lengths)
     return x_t, cache
 
 
@@ -257,11 +308,11 @@ def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if positions is None:
         positions = attn.default_positions(B, S, x.device)
     specs = slot_specs(cfg, cross=cross)
-    for i in range(_n_scan(params)):
+    n = _n_scan(params)
+    for p, c in zip(_layers(params, n), _layers(cache, n)):
         for spec in specs:
             key = f"slot{spec.slot}"
-            x = apply_block_prefill(_layer(params[key], i), cfg, spec, x,
-                                    _layer(cache[key], i),
+            x = apply_block_prefill(p[key], cfg, spec, x, c[key],
                                     positions=positions)
     return x, cache
 

@@ -25,6 +25,7 @@ COPIES = [
     *(f"workload/{m}.py" for m in ("trace", "generators", "replay",
                                    "compare")),
     "models/__init__.py", "models/config.py",
+    "train/__init__.py", "checkpoint/__init__.py",
     "kernels/flash_attention/__init__.py", "kernels/moe_gmm/__init__.py",
     *(f"configs/{m}.py" for m in (
         "shapes", "granite_8b", "jamba_v0_1_52b",
@@ -41,6 +42,8 @@ DIFFERING = {
     "core/matchmaker/base.py": "adds problem_from_reference at the end",
     "configs/__init__.py": "no ShapeDtypeStruct input specs (only the "
                            "dry-run reads them, and it is not ported)",
+    "data/__init__.py": "exports stub_modality_inputs in place of "
+                        "make_batch_specs (sharded specs: ROADMAP item 14)",
 }
 #: modules of the port with no reference counterpart to copy
 PORT_OWN = {
@@ -57,7 +60,9 @@ PORT_OWN = {
     "models/transformer.py", "models/model.py", "models/ssm.py",
     "models/moe.py",
     "serve/__init__.py", "serve/engine.py",
-    "launch/__init__.py", "launch/serve.py",
+    "launch/__init__.py", "launch/serve.py", "launch/train.py",
+    "train/optimizer.py", "train/schedule.py", "train/train_step.py",
+    "data/pipeline.py", "checkpoint/manager.py",
 }
 
 
@@ -122,4 +127,32 @@ def test_config_registry_is_the_reference_without_input_specs():
              "decode_input_specs", "input_specs"}
     assert set(ref) - specs == set(port)
     for name in port:
+        assert port[name] == ref[name], name
+
+
+def test_pipeline_draws_are_the_references_letter_for_letter():
+    """data/pipeline.py imports torch, so it is the port's own module,
+    but the code that draws the batches is the reference's verbatim: the
+    dataclass's fields, __post_init__, batch_at, and
+    stub_modality_inputs."""
+    def pieces(text):
+        tree = ast.parse(text)
+        out = {n.name: ast.get_source_segment(text, n)
+               for n in tree.body if isinstance(n, ast.FunctionDef)}
+        cls = next(n for n in tree.body if isinstance(n, ast.ClassDef)
+                   and n.name == "SyntheticTokenPipeline")
+        out["fields"] = [ast.get_source_segment(text, n) for n in cls.body
+                         if isinstance(n, ast.AnnAssign)]
+        out["decorators"] = [ast.get_source_segment(text, d)
+                             for d in cls.decorator_list]
+        for n in cls.body:
+            if isinstance(n, ast.FunctionDef):
+                out[f"SyntheticTokenPipeline.{n.name}"] = \
+                    ast.get_source_segment(text, n)
+        return out
+
+    ref = pieces(substituted("data/pipeline.py"))
+    port = pieces((PORT / "data/pipeline.py").read_text())
+    for name in ("fields", "decorators", "SyntheticTokenPipeline.__post_init__",
+                 "SyntheticTokenPipeline.batch_at", "stub_modality_inputs"):
         assert port[name] == ref[name], name

@@ -44,6 +44,17 @@ plain version on the same CUDA tensors at the reference's tolerances
 cores for bfloat16 with K and N multiples of 8, SIMT otherwise); two
 tensor-core calls give the same bits.
 
+Flash-attention backward: chip_smoke's `FLASH_BWD_CASES` (the reference
+suite's shapes, fully masked rows, softcap, window, G = 1, 4 and 6, a
+shape the forward sends to the decode split) and qwen2-1.5b's training
+shapes, in float32 (1e-4 of each gradient's max) and bfloat16 (2e-2),
+against the plain backward on the same CUDA tensors; two calls give the
+same bits; autograd through `flash_attention` launches it once per
+backward.  Training: mamba2 and jamba refuse to train on cuda, naming
+their missing backward kernels (ROADMAP Queue 1 items 12b and 12c),
+before any kernel runs; `matmul_f32`'s gradient; a small dense model's
+loss and gradients on the card against the same model on the CPU.
+
 The cases, inputs and checks are chip_smoke.py's own, so the two cannot
 drift apart.
 """
@@ -58,6 +69,7 @@ from repro_torch.core.matchmaker import (
     MatchProblem, NumpyMatchmaker, TorchMatchmaker,
 )
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (
     route_counts as flash_routes,
 )
@@ -77,6 +89,7 @@ from repro_torch.kernels.waterfill.ref import (
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
+    FLASH_BWD_CASES, FLASH_BWD_TIMED, check_flash_bwd, flash_bwd_inputs,
     FLASH_CASES, FLASH_TOL, FLASH_WGMMA_CASES, GMM_CASES, GMM_RAGGED,
     GMM_TC_CASES, GMM_TOL, SSD_CASES, SSD_TC_CASES, SSD_TOL,
     attention_inputs, bitwise_equal, check_fully_masked_rows, fused_deltas,
@@ -718,3 +731,173 @@ def test_gmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         gmm(lhs[:, :8].contiguous(), rhs, gs)
     with pytest.raises(ValueError, match="shape"):
         gmm(lhs, rhs, gs[:1].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# flash-attention backward and training
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_equals_plain_version(cuda, case, dtype):
+    inputs, kw, dout = flash_bwd_inputs(case, dtype, cuda)
+    check_flash_bwd(f"case{case}", fa_ops, inputs, kw, dout, masked=case[9])
+
+
+@pytest.mark.parametrize("B,S", FLASH_BWD_TIMED)
+def test_flash_backward_at_qwen2_training_shapes(cuda, B, S):
+    case = (B, S, S, 12, 2, 128, True, None, None, 0)
+    inputs, kw, dout = flash_bwd_inputs(case, torch.bfloat16, cuda)
+    check_flash_bwd(f"qwen2-train-{B}x{S}", fa_ops, inputs, kw, dout)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_deterministic(cuda, dtype):
+    """The group's heads are summed inside one block: no atomics."""
+    inputs, kw, dout = flash_bwd_inputs(FLASH_BWD_CASES[8], dtype, cuda)
+    out = fa_ops.flash_attention(*inputs, **kw)
+    a = fa_ops.flash_attention_backward(*inputs[:3], out, dout,
+                                        *inputs[3:], **kw)
+    b = fa_ops.flash_attention_backward(*inputs[:3], out, dout,
+                                        *inputs[3:], **kw)
+    assert all(bitwise_equal(x.float(), y.float()) for x, y in zip(a, b))
+
+
+def test_autograd_through_flash_attention_launches_the_backward(cuda):
+    inputs, kw, dout = flash_bwd_inputs(FLASH_BWD_CASES[2], torch.bfloat16,
+                                        cuda)
+    leaves = [t.clone().requires_grad_() for t in inputs[:3]]
+    before = dict(launch_counts)
+    out = flash_attention(*leaves, *inputs[3:], **kw)
+    grads = torch.autograd.grad(out, leaves, dout.transpose(1, 2)
+                                .contiguous().transpose(1, 2))
+    assert launch_counts["flash_attention"] == before["flash_attention"] + 1
+    assert launch_counts["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    want = fa_ops.flash_attention_backward(*inputs[:3], out.detach(), dout,
+                                           *inputs[3:], **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
+    backwards = launch_counts["flash_attention_bwd"]
+    with torch.no_grad():
+        flash_attention(*leaves, *inputs[3:], **kw)
+    assert launch_counts["flash_attention_bwd"] == backwards
+
+
+def test_flash_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(FLASH_BWD_CASES[1],
+                                                   torch.float32, cuda)
+    out = fa_ops.flash_attention(q, k, v, qp, kp, **kw)
+    bwd = fa_ops.flash_attention_backward
+    with pytest.raises(TypeError, match="dout"):
+        bwd(q, k, v, out, dout.bfloat16(), qp, kp)
+    with pytest.raises(ValueError, match="contiguous"):
+        bwd(q, torch.cat([k, k], dim=-1)[..., :64], v, out, dout, qp, kp)
+    with pytest.raises(ValueError, match="out"):
+        bwd(q, k, v, out[:, :1].contiguous(), dout, qp, kp)
+    with pytest.raises(ValueError, match="window"):
+        bwd(q, k, v, out, dout, qp, kp, window=0)
+    with pytest.raises(ValueError, match="head dim"):
+        bwd(*(t[..., :16].contiguous() for t in (q, k, v, out, dout)), qp,
+            kp)
+
+
+@pytest.mark.parametrize("arch,items", [("mamba2-1.3b", ["12b"]),
+                                        ("jamba-v0.1-52b", ["12b", "12c"])])
+def test_training_without_backward_kernels_is_refused(cuda, arch, items):
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import model as model_lib
+    cfg = dataclasses.replace(reduced_config(arch), d_head=32)
+    params = model_lib.init_model(cfg, device=cuda)
+    batch = {"tokens": torch.zeros((1, 16), dtype=torch.int32),
+             "labels": torch.zeros((1, 16), dtype=torch.int32)}
+    before = dict(launch_counts)
+    with pytest.raises(NotImplementedError) as err:
+        model_lib.loss_fn(params, cfg, batch)
+    for item in items:
+        assert f"ROADMAP Queue 1 item {item}" in str(err.value)
+    assert launch_counts == before            # no forward work
+    with torch.no_grad():
+        loss, _ = model_lib.loss_fn(params, cfg, batch)
+    assert bool(torch.isfinite(loss))
+
+
+def test_kernels_without_backward_refuse_recorded_calls(cuda):
+    x = torch.zeros((1, 64, 2, 64), device=cuda, requires_grad=True)
+    dt = torch.ones((1, 64, 2), device=cuda)
+    bc = torch.zeros((1, 64, 1, 64), device=cuda)
+    with pytest.raises(NotImplementedError, match="item 12b"):
+        ssd(x, dt, -torch.ones(2, device=cuda), bc, bc,
+            torch.ones(2, device=cuda), chunk=64)
+    lhs = torch.zeros((8, 16), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 12c"):
+        gmm(lhs, torch.zeros((2, 16, 8), device=cuda),
+            torch.tensor([4, 4], dtype=torch.int32, device=cuda))
+
+
+def test_matmul_f32_gradient(cuda):
+    """bfloat16 operands: the forward accumulates in float32 (unchanged),
+    the backward's products take the cotangent rounded to bfloat16 and
+    return each gradient in its operand's dtype; both gradients agree
+    with float32 autograd of ``x.float() @ w.float()`` within bfloat16's
+    rounding (the cotangent's and the result's: 1e-2 of each gradient's
+    max), and each operand alone gets its gradient."""
+    from repro_torch.models.layers import matmul_f32
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((2, 48, 64), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((64, 96), generator=gen, device=cuda).bfloat16()
+    dy = torch.randn((2, 48, 96), generator=gen, device=cuda)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = matmul_f32(xr, wr)
+    assert y.dtype == torch.float32
+    torch.testing.assert_close(y, x.float() @ w.float(), atol=1e-4,
+                               rtol=1e-5)
+    dx, dw = torch.autograd.grad(y, (xr, wr), dy)
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    dyb = dy.bfloat16().float()
+    torch.testing.assert_close(dx.float(), dyb @ w.float().T, atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(dw.float(), (x.float().reshape(-1, 64).T
+                                            @ dyb.reshape(-1, 96)),
+                               atol=2e-2, rtol=2e-2)
+    xf, wf = x.float().requires_grad_(), w.float().requires_grad_()
+    dx_ref, dw_ref = torch.autograd.grad(xf @ wf, (xf, wf), dy)
+    for got, want in ((dx, dx_ref), (dw, dw_ref)):
+        err = (got.float() - want).abs().max() / want.abs().max()
+        assert float(err) <= 1e-2
+    (dx_only,) = torch.autograd.grad(matmul_f32(xr, w), xr, dy)
+    (dw_only,) = torch.autograd.grad(matmul_f32(x, wr), wr, dy)
+    assert torch.equal(dx_only, dx) and torch.equal(dw_only, dw)
+
+
+def test_dense_model_gradients_on_the_card_match_the_cpu(cuda):
+    """A small qwen2 (d_head 32, float32): loss and gradients with the
+    kernels on the card against the plain versions on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import tree_leaves, tree_map
+    cfg = dataclasses.replace(reduced_config("qwen2-1.5b"), d_head=32,
+                              n_heads=6, n_kv_heads=1)
+    params = model_lib.init_model(cfg, device="cpu")
+    tok = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 65)), dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+    def grads(ps, device):
+        req = tree_map(lambda p: p.to(device).requires_grad_(), ps)
+        loss, _ = model_lib.loss_fn(req, cfg, batch, remat="full")
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(req))
+
+    before = dict(launch_counts)
+    loss, g = grads(params, cuda)
+    assert launch_counts["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + cfg.n_layers
+    loss_cpu, g_cpu = grads(params, "cpu")
+    assert abs(float(loss) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
+    for a, b in zip(g, g_cpu):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max().clamp(min=1e-30))

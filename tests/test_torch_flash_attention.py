@@ -8,32 +8,46 @@ same numpy inputs go through `flash_attention_pallas(interpret=True)` and
 for bfloat16, whose output is rounded to bf16 (an ulp of 2^-8 relative)
 on both sides.
 
+The plain backward, `ref.attention_backward_reference`, is held against
+``jax.vjp`` of the JAX package's `attention_reference` and of its
+``ops.flash_attention`` (the jnp path the reference's training
+differentiates) on chip_smoke's `FLASH_BWD_CASES` (the reference suite's
+shapes, fully masked rows, softcap, window, G = 1, 4 and 6, Sq != Skv)
+in float32, each gradient within 1e-5 x its max; `FlashAttentionFn` on
+CPU tensors is held against autograd through `attention_reference`.
+
 The CUDA wrapper's choices that need no card are held here too: `route`
 (which of the three instances a call takes) against chip_smoke's own
 statement of it, `split_plan` (how the decode instance cuts the cache),
 and the decode instance's two passes, written out in plain torch
 (`attention_split_reference`), against the Pallas kernel and the oracle.
 """
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention import ops as ref_ops
 from repro.kernels.flash_attention.kernel import flash_attention_pallas
 from repro.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.build import launch_counts
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ops import (
-    SPLIT_SLICE, SPLIT_TARGET_BLOCKS, route, split_plan,
+    SPLIT_SLICE, SPLIT_TARGET_BLOCKS, FlashAttentionFn,
+    flash_attention_backward, route, split_plan,
 )
 from repro_torch.kernels.flash_attention.ref import (
-    attention_mask, attention_split_reference,
+    attention_backward_reference, attention_mask, attention_split_reference,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_reference as plain_attention,
 )
 from test_kernel_flash_attention import CASES
 from test_torch_cuda import (
-    FLASH_CASES, FLASH_WGMMA_CASES, check_fully_masked_rows,
-    check_rolling_window, flash_route,
+    FLASH_BWD_CASES, FLASH_CASES, FLASH_WGMMA_CASES, check_fully_masked_rows,
+    check_rolling_window, flash_bwd_inputs, flash_route,
 )
 from test_torch_matchmaker import one_torch_thread  # noqa: F401
 
@@ -281,3 +295,98 @@ def test_split_and_merge_of_a_permuted_rolling_window(rng):
     torch.testing.assert_close(permuted, ordered, atol=1e-6, rtol=1e-6)
     torch.testing.assert_close(ordered, flash_attention(q, k, v, qp, kp, **kw),
                                atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+BWD_TOL = 1e-5      # x max |grad| of each gradient; float32 on both sides
+
+
+def assert_grads_close(got, want, tol=BWD_TOL):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = as_f32(a), as_f32(b)
+        assert a.shape == b.shape, name
+        assert np.isfinite(a).all(), name
+        err = np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+        assert err <= tol, (name, err)
+
+
+def test_backward_cases_cover_the_hard_parts():
+    """Fully masked rows, a softcap, a window, G = 1, 4 and 6, Sq != Skv,
+    Dh 32/64/128, a shape the forward sends to the decode split."""
+    groups = {c[3] // c[4] for c in FLASH_BWD_CASES}
+    assert {1, 4, 6} <= groups
+    assert any(c[9] for c in FLASH_BWD_CASES)
+    assert any(c[8] for c in FLASH_BWD_CASES)
+    assert any(c[7] for c in FLASH_BWD_CASES)
+    assert any(c[1] != c[2] for c in FLASH_BWD_CASES)
+    assert {c[5] for c in FLASH_BWD_CASES} == {32, 64, 128}
+    assert any(flash_route(torch.float32, c[1], c[3], c[4], c[5]) == "split"
+               for c in FLASH_BWD_CASES)
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_plain_backward_matches_jax_vjp(case):
+    """attention_backward_reference against jax.vjp of the reference's
+    oracle and of its ops.flash_attention, at the JAX forward's output."""
+    (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(case, torch.float32,
+                                                   torch.device("cpu"))
+
+    @jax.jit
+    def outputs_and_vjps(q, k, v, qp, kp, dout):
+        res = []
+        for fn in (attention_reference, ref_ops.flash_attention):
+            out, vjp = jax.vjp(lambda a, b, c: fn(a, b, c, qp, kp, **kw),
+                               q, k, v)
+            res.append((out, vjp(dout)))
+        return res
+
+    for out, want in outputs_and_vjps(*(jnp.asarray(a.numpy()) for a in (
+            q, k, v, qp, kp, dout))):
+        got = attention_backward_reference(
+            q, k, v, to_torch(np.array(out)), dout, qp, kp, **kw)
+        assert [g.dtype for g in got] == [torch.float32] * 3
+        assert_grads_close(got, want)
+    masked = case[9]
+    if masked:                      # rows that see no key get dq = 0
+        assert float(got[0][:, :masked].abs().max()) == 0.0
+
+
+def test_plain_backward_keeps_the_input_dtypes():
+    (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(FLASH_BWD_CASES[1],
+                                                   torch.bfloat16,
+                                                   torch.device("cpu"))
+    out = flash_attention(q, k, v, qp, kp, **kw)
+    dq, dk, dv = attention_backward_reference(q, k, v, out, dout, qp, kp,
+                                              **kw)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("case", [FLASH_BWD_CASES[i] for i in (2, 6, 10, 11)])
+def test_flash_attention_fn_matches_autograd(case):
+    """FlashAttentionFn on CPU tensors (the plain forward, the plain
+    backward) against autograd through attention_reference, and the
+    wrapper's CPU path is that autograd."""
+    (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(case, torch.float32,
+                                                   torch.device("cpu"))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = plain_attention(*leaves, qp, kp, **kw)
+    want = torch.autograd.grad(out, leaves, dout)
+    before = dict(launch_counts)
+    fn_out = FlashAttentionFn.apply(*leaves, qp, kp, kw["causal"],
+                                    kw["window"], kw["softcap"], None)
+    torch.testing.assert_close(fn_out, out, atol=0, rtol=0)
+    assert_grads_close(torch.autograd.grad(fn_out, leaves, dout), want)
+    wrapped = flash_attention(*leaves, qp, kp, **kw)
+    assert_grads_close(torch.autograd.grad(wrapped, leaves, dout), want,
+                       tol=0.0)
+    assert launch_counts == before          # the CPU branch launches nothing
+
+
+def test_backward_refuses_other_devices():
+    q = torch.zeros((1, 1, 2, 32), device="meta")
+    pos = torch.zeros((1, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        flash_attention_backward(q, q, q, q, q, pos, pos)
