@@ -137,14 +137,20 @@ to a plain version):
      prefills the tensor-core instance and its ticks the split, and every
      SSD launch the tensor-core instance; then the decode-tick and
      prefill profiles;
- 15. training: flash attention's backward kernel against its plain
-     version (`attention_backward_reference`) on `FLASH_BWD_CASES` (the
-     reference suite's shapes, fully masked rows, softcap, window, G = 1,
-     4 and 6, a shape the forward sends to the decode split) in float32
-     (1e-4 of each gradient's max) and bfloat16 (2e-2), two calls bitwise
-     equal, then timed at qwen2-1.5b's training shapes (B = 8, S = 512 and
-     B = 2, S = 2048; CUDA events, the three passes' device time, the
-     bound, the plain backward, SDPA's backward as a yardstick); qwen2 at
+ 15. training: the forward's log-sum-exp (`flash_attention_forward`, each
+     instance's against the plain one's within `LSE_TOL`, +inf on the
+     rows that see no key) and flash attention's backward kernel against
+     its plain version (`attention_backward_reference`, given that lse)
+     on `FLASH_BWD_CASES` (the reference suite's shapes, fully masked
+     rows, softcap, window, G = 1, 4 and 6, a shape the forward sends to
+     the decode split) in float32 (1e-4 of each gradient's max) and
+     bfloat16 (2e-2), each call through the instance `flash_bwd_route`
+     names (the tensor cores for bfloat16 with Dh 64 or 128, SIMT
+     otherwise), two calls bitwise equal, then timed at qwen2-1.5b's
+     training shapes (B = 8, S = 512 and B = 2, S = 2048; the routed
+     instance and the SIMT one at the same shape: CUDA events, device
+     time in all and by kernel (`dot`, `dkdv`, `dq`), the bound, the
+     plain backward, SDPA's backward as a yardstick); qwen2 at
      full width cut to 2 layers in float32: loss and every gradient leaf
      with the kernels against attention through the plain version; the
      same 2 layers in bfloat16 with the kernels against the float32
@@ -152,8 +158,8 @@ to a plain version):
      main path: `repro_torch.launch.train.run_fixed` on qwen2-1.5b at
      full width (28 layers, bfloat16, random weights from a seed), 6
      steps of 8 x 512 tokens with checkpoints at steps 3 and 6: every
-     loss finite, each step 28 flash forward launches, all on the
-     tensor-core instance, and 28 backward launches; step time, tokens/s,
+     loss finite, each step 28 flash forward launches and 28 backward
+     launches, all on the tensor-core instances; step time, tokens/s,
      peak device memory; then the step-3 checkpoint restored into a fresh
      state (every parameter, both moments and the step bit for bit the
      first run's after step 3) retakes steps 4-6 (one profiled: the
@@ -162,7 +168,8 @@ to a plain version):
  14. a JSON line per kernel (the water-fill's with its launches by
      instance and by entry point and the host breakdown; flash's, the
      SSD's and gmm's with their launches by instance and ptxas' report of
-     their instances; the flash backward's with its training shapes),
+     their instances; the flash backward's with its launches by
+     instance and its training shapes),
      the card line, and the result line.
 """
 from __future__ import annotations
@@ -245,6 +252,11 @@ FLASH_BWD_CASES = [(*case, 0) for case in FLASH_CASES] + [
 # gates on max |kernel - plain| / max |plain| of each gradient: float32
 # sums in another order; bfloat16 gradients round once to 8 bits
 FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# gate on max |kernel - plain| of the forward's log-sum-exp (natural log,
+# float32 in both dtypes: the same input values), where both are finite;
+# the rows that see no key must be +inf in both: float32 sums in another
+# order, exp2 of a log2-domain max on the tensor cores
+LSE_TOL = 1e-4
 # qwen2-1.5b's attention at its training shapes (B, S), timed
 FLASH_BWD_TIMED = [(8, 512), (2, 2048)]
 ARCH = "qwen2-1.5b"
@@ -1162,11 +1174,30 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
     """Device time of one call of ``fn``: the kernels' own time summed by
     `torch.profiler` over ``reps`` calls (after one warm call), without
     the host's launch cost that a CUDA-event bracket of a small call
-    measures; ``match`` keeps only kernels whose name holds it.  A
-    session that read no kernel lost its events (a probe in
-    `repro_torch.kernels.waterfill.study` read none once after 25k
-    launches): it is measured again, at most SESSION_TRIES times, then
-    raises."""
+    measures; ``match`` keeps only kernels whose name holds it."""
+    return sum(e.self_device_time_total
+               for e in device_kernels(fn, reps, match)) / reps / 1e3
+
+
+def device_ms_by(fn, reps: int, match: str, names) -> dict:
+    """`device_ms` of ``fn`` in total (``"all"``) and by kernel (each of
+    ``names``: the kernels whose name holds ``match + name``), read from
+    one profiler session."""
+    kernels = device_kernels(fn, reps, match)
+    ms = {"all": sum(e.self_device_time_total for e in kernels) / reps / 1e3}
+    for name in names:
+        ms[name] = sum(e.self_device_time_total for e in kernels
+                       if match + name in e.key) / reps / 1e3
+    return ms
+
+
+def device_kernels(fn, reps: int, match: str | None = None) -> list:
+    """The profiler's kernels (`key_averages` entries) of ``reps`` calls
+    of ``fn``, after one warm call; ``match`` keeps only kernels whose
+    name holds it.  A session that read no kernel lost its events (a
+    probe in `repro_torch.kernels.waterfill.study` read none once after
+    25k launches): it is measured again, at most SESSION_TRIES times,
+    then raises."""
     from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
@@ -1181,8 +1212,7 @@ def device_ms(fn, reps: int, match: str | None = None) -> float:
                    and (match is None or match in e.key)]
         n = sum(e.count for e in kernels)
         if n > 0:
-            return sum(e.self_device_time_total
-                       for e in kernels) / reps / 1e3
+            return kernels
         counts.append(n)
     raise AssertionError(f"profiler sessions up to {profiler_sessions} read "
                          f"{counts} kernels (match={match!r}) for {reps} "
@@ -1337,27 +1367,74 @@ def flash_bwd_inputs(case, dtype, device, seed=11, dense=False):
                                    softcap=softcap), dout
 
 
-def check_flash_bwd(label, fa, inputs, kw, dout, *, masked=0):
-    """The backward kernel against the plain backward (float32 math on
-    the same inputs and the kernel forward's output) on the card: each
-    gradient within `FLASH_BWD_TOL` x its max, finite, in its input's
-    dtype; rows that see no key get dq = 0 exactly; one launch counted.
+def flash_bwd_route(dtype, Dh) -> str:
+    """The backward instance a call must take: the tensor cores for
+    bfloat16 with Dh 64 or 128 (the tensors here are fresh, so 16-byte
+    aligned, and far short of the tile limits), the SIMT instance for
+    the rest (float32: no TF32; Dh 32)."""
+    return "wgmma" if dtype == torch.bfloat16 and Dh in (64, 128) else "simt"
+
+
+def check_lse(label, q, k, v, qp, kp, lse, kw):
+    """The forward kernel's log-sum-exp against the plain version's on
+    the same inputs (float32): +inf on the same rows (those that see no
+    key), within `LSE_TOL` elsewhere.  Returns the largest difference."""
+    from repro_torch.kernels.flash_attention.ref import attention_reference
+    _, want = attention_reference(q.float(), k.float(), v.float(), qp, kp,
+                                  return_lse=True, **kw)
+    if lse.dtype != torch.float32 or lse.shape != want.shape:
+        raise AssertionError(f"{label}: lse is {lse.dtype} "
+                             f"{tuple(lse.shape)}")
+    inf = torch.isinf(want)
+    if not bool(torch.equal(torch.isinf(lse), inf)) or bool(
+            (lse[inf] < 0).any()):
+        raise AssertionError(f"{label}: lse is +inf on other rows than the "
+                             f"plain version's")
+    err = float((lse[~inf] - want[~inf]).abs().max()) if bool(
+        (~inf).any()) else 0.0
+    if not err <= LSE_TOL:
+        raise AssertionError(f"{label}: lse differs from the plain "
+                             f"version's by {err:.3g} > {LSE_TOL}")
+    return err
+
+
+def check_flash_bwd(label, fa, inputs, kw, dout, *, masked=0,
+                    instance=None):
+    """The routed forward's output and log-sum-exp (the lse against the
+    plain one, `check_lse`), then the backward kernel against the plain
+    backward (float32 math on the same inputs, the kernel forward's
+    output and lse) on the card: each gradient within `FLASH_BWD_TOL` x
+    its max, finite, in its input's dtype; rows that see no key get dq =
+    0 exactly; one launch counted, on the instance `flash_bwd_route`
+    names (or on ``instance``, forced through `ops._backward_instance`).
     Returns (the kernel's gradients, the worst error relative to each
-    gradient's max, the largest absolute error)."""
+    gradient's max, the largest absolute error, the lse's error)."""
     from repro_torch.kernels.build import launch_counts
     from repro_torch.kernels.flash_attention.ref import (
         attention_backward_reference,
     )
     q, k, v, qp, kp = inputs
-    out = fa.flash_attention(q, k, v, qp, kp, **kw)
+    out, lse = fa.flash_attention_forward(q, k, v, qp, kp, **kw)
+    lse_err = check_lse(label, q, k, v, qp, kp, lse, kw)
+    want_route = instance or flash_bwd_route(q.dtype, q.shape[3])
     before = launch_counts["flash_attention_bwd"]
-    got = fa.flash_attention_backward(q, k, v, out, dout, qp, kp, **kw)
+    routed = dict(fa.bwd_route_counts)
+    if instance is None:
+        got = fa.flash_attention_backward(q, k, v, out, dout, lse, qp, kp,
+                                          **kw)
+    else:
+        got = fa._backward_instance(instance, q, k, v, out, dout, lse, qp,
+                                    kp, **kw)
     if launch_counts["flash_attention_bwd"] != before + 1:
         raise AssertionError(f"{label}: the backward did not count one "
                              f"launch")
+    moved = {n: fa.bwd_route_counts[n] - routed[n] for n in routed}
+    if moved != {n: int(n == want_route) for n in moved}:
+        raise AssertionError(f"{label}: the backward took {moved}, "
+                             f"expected {want_route}")
     want = attention_backward_reference(q.float(), k.float(), v.float(),
-                                        out.float(), dout.float(), qp, kp,
-                                        **kw)
+                                        out.float(), dout.float(), lse, qp,
+                                        kp, **kw)
     torch.cuda.synchronize()
     worst = max_abs = 0.0
     for name, a, b, like in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
@@ -1375,7 +1452,7 @@ def check_flash_bwd(label, fa, inputs, kw, dout, *, masked=0):
         worst, max_abs = max(worst, rel), max(max_abs, float(err))
     if masked and bool(got[0][:, :masked].any()):
         raise AssertionError(f"{label}: rows that see no key have dq != 0")
-    return got, worst, max_abs
+    return got, worst, max_abs, lse_err
 
 
 def flash_phase(fa, device):
@@ -2533,12 +2610,13 @@ def flash_bwd_bound(q, k, q_pos, kv_pos, mask):
     backward work, 2.5 x the forward's QK^T and PV FLOPs of the unmasked
     (query, key) pairs (4 Dh per pair and query head), at the
     tensor-core bf16 rate (float32 at the vector rate), against the bytes
-    at the HBM rate: q, k, v, the output and its gradient read once, dq,
-    dk and dv written once, the positions.  Returns (ms, bound by,
-    bytes, FLOPs)."""
+    at the HBM rate: q, k, v, the output, its gradient and the forward's
+    float32 log-sum-exp read once, dq, dk and dv written once, the
+    positions.  Returns (ms, bound by, bytes, FLOPs)."""
     item = q.element_size()
     nbytes = (item * (4 * q.numel() + 4 * k.numel())
-              + 4 * (q_pos.numel() + kv_pos.numel()))
+              + 4 * (q_pos.numel() + kv_pos.numel())
+              + 4 * q.numel() // q.shape[3])
     flops = 2.5 * 4 * q.shape[3] * q.shape[2] * int(mask.sum().item())
     rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
@@ -2547,22 +2625,30 @@ def flash_bwd_bound(q, k, q_pos, kv_pos, mask):
     return 1e3 * t_ops, "operations", nbytes, flops
 
 
+#: the backward's kernels, by the name each holds after "flash_bwd_"
+BWD_KERNELS = ("dot", "dkdv", "dq")
+
+
 def time_flash_bwd(fa, B, S, device):
     """The backward at qwen2-1.5b's training shape (12 query heads over 2
     kv heads of 128, bfloat16, causal, no empty slot), checked against the
-    plain backward, then timed: CUDA events (median of KERNEL_REPS) and
-    the three passes' device time, beside the bound, the plain backward
-    and SDPA's backward (causal, the kv heads expanded to 12; a yardstick
-    only, its forward not timed)."""
+    plain backward on the routed instance and on the SIMT one
+    (`ops._backward_instance`), then both timed: CUDA events (median of
+    KERNEL_REPS) and device time in all and by kernel (`BWD_KERNELS`),
+    beside the bound, the plain backward and SDPA's backward (causal, the
+    kv heads expanded to 12; a yardstick only, its forward not timed)."""
     from repro_torch.kernels.flash_attention.ref import (
         attention_backward_reference, attention_mask,
     )
     case = (B, S, S, 12, 2, 128, True, None, None, 0)
-    (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(case, torch.bfloat16,
-                                                   device, dense=True)
-    _, rel, err = check_flash_bwd(f"qwen2-train-{B}x{S}", fa,
-                                  (q, k, v, qp, kp), kw, dout)
-    out = fa.flash_attention(q, k, v, qp, kp)
+    label = f"qwen2-train-{B}x{S}"
+    inputs, kw, dout = flash_bwd_inputs(case, torch.bfloat16, device,
+                                        dense=True)
+    (q, k, v, qp, kp) = inputs
+    _, rel, err, lse_err = check_flash_bwd(label, fa, inputs, kw, dout)
+    _, simt_rel, simt_err, _ = check_flash_bwd(f"{label}-simt", fa, inputs,
+                                               kw, dout, instance="simt")
+    out, lse = fa.flash_attention_forward(q, k, v, qp, kp)
     G = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).detach().requires_grad_()
     kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1).detach()
@@ -2572,10 +2658,13 @@ def time_flash_bwd(fa, B, S, device):
     lib_dout = dout.transpose(1, 2)
 
     def kernel():
-        return fa.flash_attention_backward(q, k, v, out, dout, qp, kp)
+        return fa.flash_attention_backward(q, k, v, out, dout, lse, qp, kp)
+
+    def simt():
+        return fa._backward_instance("simt", q, k, v, out, dout, lse, qp, kp)
 
     def plain():
-        return attention_backward_reference(q, k, v, out, dout, qp, kp)
+        return attention_backward_reference(q, k, v, out, dout, lse, qp, kp)
 
     def library():
         return torch.autograd.grad(lib_out, (qt, kt, vt), lib_dout,
@@ -2583,46 +2672,61 @@ def time_flash_bwd(fa, B, S, device):
 
     mask = attention_mask(qp, kp, causal=True, window=None).expand(B, S, S)
     bound_ms, bound_by, nbytes, flops = flash_bwd_bound(q, k, qp, kp, mask)
-    row = {"flash_bwd_case": f"qwen2-train-{B}x{S}",
+    by = device_ms_by(kernel, KERNEL_REPS, "flash_bwd_", BWD_KERNELS)
+    simt_by = device_ms_by(simt, KERNEL_REPS, "flash_bwd_", BWD_KERNELS)
+    row = {"flash_bwd_case": label, "route": fa.bwd_route(q, k, v),
            "shape": [B, S, 12, 128, S, 2], "dtype": "bfloat16",
            "ms": cuda_ms(kernel, KERNEL_REPS),
-           "device_ms": device_ms(kernel, KERNEL_REPS, match="flash_bwd_"),
-           "passes_device_ms": {
-               name: device_ms(kernel, KERNEL_REPS, match=f"flash_bwd_{name}")
-               for name in ("stats", "dkdv", "dq")},
+           "device_ms": by.pop("all"), "kernels_device_ms": by,
+           "simt_ms": cuda_ms(simt, KERNEL_REPS),
+           "simt_device_ms": simt_by.pop("all"),
+           "simt_kernels_device_ms": simt_by,
            "plain_ms": cuda_ms(plain, KERNEL_REPS),
            "library_ms": cuda_ms(library, KERNEL_REPS),
            "library_device_ms": device_ms(library, KERNEL_REPS),
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-           "flops": flops, "max_abs_err": err, "max_rel_err": rel}
+           "flops": flops, "max_abs_err": max(err, simt_err),
+           "max_rel_err": rel, "simt_max_rel_err": simt_rel,
+           "lse_max_abs_err": lse_err}
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+    row["device_over_library"] = (row["device_ms"]
+                                  / row["library_device_ms"])
+    row["simt_over_wgmma_device"] = (row["simt_device_ms"]
+                                     / row["device_ms"])
     print(json.dumps(row), flush=True)
     return row
 
 
 def flash_bwd_phase(fa, device):
     """The backward kernel against the plain backward on every
-    `FLASH_BWD_CASES` case in both dtypes (two calls bitwise equal), then
-    timed at qwen2-1.5b's training shapes.  Returns (the timed rows, the
-    largest absolute error of any check)."""
+    `FLASH_BWD_CASES` case in both dtypes (each forward instance's
+    log-sum-exp against the plain one; the backward through the instance
+    `flash_bwd_route` names; two calls bitwise equal), then timed at
+    qwen2-1.5b's training shapes.  Returns (the timed rows, the largest
+    absolute error of any check)."""
     worst = 0.0
     for case in FLASH_BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             inputs, kw, dout = flash_bwd_inputs(case, dtype, device)
             label = f"bwd{case}-{str(dtype).split('.')[1]}"
-            got, rel, err = check_flash_bwd(label, fa, inputs, kw, dout,
-                                            masked=case[9])
-            out = fa.flash_attention(*inputs, **kw)
-            again = fa.flash_attention_backward(*inputs[:3], out, dout,
+            got, rel, err, lse_err = check_flash_bwd(label, fa, inputs, kw,
+                                                     dout, masked=case[9])
+            out, lse = fa.flash_attention_forward(*inputs, **kw)
+            again = fa.flash_attention_backward(*inputs[:3], out, dout, lse,
                                                 *inputs[3:], **kw)
             if not all(bitwise_equal(a.float(), b.float())
                        for a, b in zip(got, again)):
                 raise AssertionError(f"{label}: two calls differ")
             worst = max(worst, err)
-            print(json.dumps({"flash_bwd_case": label, "max_rel_err": rel,
-                              "max_abs_err": err,
-                              "tol": FLASH_BWD_TOL[dtype]}), flush=True)
+            print(json.dumps({
+                "flash_bwd_case": label,
+                "forward": flash_route(dtype, case[1], case[3], case[4],
+                                       case[5]),
+                "backward": flash_bwd_route(dtype, case[5]),
+                "max_rel_err": rel, "max_abs_err": err,
+                "lse_max_abs_err": lse_err,
+                "tol": FLASH_BWD_TOL[dtype]}), flush=True)
     rows = [time_flash_bwd(fa, B, S, device) for B, S in FLASH_BWD_TIMED]
     return rows, max([worst] + [r["max_abs_err"] for r in rows])
 
@@ -2776,11 +2880,12 @@ def profile_summary(prof, wall_ms, kernel="flash_bwd_"):
                              "calls": e.count} for e in top]}
 
 
-def train_phase(cfg, device, launch_counts, routes):
+def train_phase(cfg, device, launch_counts, routes, bwd_routes):
     """The main path of training: `run_fixed` on qwen2-1.5b at full width
     (`TRAIN`), with every count set to 0 just before and read just after,
     and per step: each step must launch the flash forward once per layer,
-    on the tensor-core instance, and the backward once per layer.  Every
+    on the tensor-core instance, and the backward once per layer, on its
+    tensor-core instance.  Every
     loss finite; checkpoints at steps 3 and 6.  Then the step-3
     checkpoint restored into a fresh state retakes steps 4-6 (one of them
     profiled) with the first run's losses within `RESUME_TOL`."""
@@ -2802,6 +2907,7 @@ def train_phase(cfg, device, launch_counts, routes):
     def on_step(i, state, metrics, seconds):
         steps.append({"step": i, "seconds": seconds,
                       "counts": dict(launch_counts), "routes": dict(routes),
+                      "bwd_routes": dict(bwd_routes),
                       "loss": float(metrics["loss"]),
                       "grad_norm": float(metrics["grad_norm"])})
         if i == 2:
@@ -2838,30 +2944,35 @@ def train_phase(cfg, device, launch_counts, routes):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for counter in (launch_counts, routes):
+        for counter in (launch_counts, routes, bwd_routes):
             for name in counter:
                 counter[name] = 0
         losses = launch_train.run_fixed(cfg, ckpt_every=TRAIN["ckpt_every"],
                                         on_step=on_step, **kw)
         counts, routed = dict(launch_counts), dict(routes)
+        bwd_routed = dict(bwd_routes)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         if len(losses) != TRAIN["steps"] or not all(
                 math.isfinite(x) for x in losses):
             raise AssertionError(f"training {cfg.name}: losses {losses}")
         prev = {"counts": {k: 0 for k in counts},
-                "routes": {k: 0 for k in routed}}
+                "routes": {k: 0 for k in routed},
+                "bwd_routes": {k: 0 for k in bwd_routed}}
         for s in steps:
             delta = {k: s["counts"][k] - prev["counts"][k] for k in counts}
             via = {k: s["routes"][k] - prev["routes"][k] for k in routed}
+            bwd_via = {k: s["bwd_routes"][k] - prev["bwd_routes"][k]
+                       for k in bwd_routed}
             want = {"waterfill": 0, "flash_attention": layers, "ssd": 0,
                     "gmm": 0, "flash_attention_bwd": layers}
             if delta != want or via != {"wgmma": layers, "split": 0,
-                                        "simt": 0}:
+                                        "simt": 0} or bwd_via != {
+                    "wgmma": layers, "simt": 0}:
                 raise AssertionError(
                     f"training {cfg.name}, step {s['step']}: launches "
-                    f"{delta} by instance {via}, expected {want}, every "
-                    f"forward on wgmma")
+                    f"{delta} by instance {via}, backward {bwd_via}, "
+                    f"expected {want}, every forward and backward on wgmma")
             prev = s
         if counts["flash_attention_bwd"] != layers * TRAIN["steps"]:
             raise AssertionError(f"training {cfg.name}: {counts}")
@@ -2906,7 +3017,7 @@ def train_phase(cfg, device, launch_counts, routes):
            "tokens_per_s": tokens / (step_ms / 1e3),
            "max_memory_allocated_gb": peak / 1e9, "wall_s": wall,
            "launch_counts": counts, "routes": routed,
-           "resumed_losses": again, "resume_worst_rel": worst,
+           "bwd_routes": bwd_routed, "resumed_losses": again, "resume_worst_rel": worst,
            "profiled_step": profile}
     print(json.dumps({"train_run": row}), flush=True)
     return row
@@ -3111,7 +3222,8 @@ def main() -> int:
     bwd_timed, bwd_err = flash_bwd_phase(fa, dev)
     train_f32_gate(cfg, dev, launch_counts)
     train_bf16_gate(cfg, dev, launch_counts)
-    trained = train_phase(cfg, dev, launch_counts, fa.route_counts)
+    trained = train_phase(cfg, dev, launch_counts, fa.route_counts,
+                          fa.bwd_route_counts)
     main_shape = bwd_timed[FLASH_BWD_TIMED.index(
         (TRAIN["batch"], TRAIN["seq"]))]
     bwd_line = {
@@ -3128,9 +3240,16 @@ def main() -> int:
         "library_ms": main_shape["library_ms"],
         "device_ms": main_shape["device_ms"],
         "library_device_ms": main_shape["library_device_ms"],
-        "passes": {"stats": "row max, normaliser and dO.O per query row",
-                   "dkdv": "dk, dv per 64 keys over the group's heads",
-                   "dq": "dq per 64 query rows"},
+        "instances": {
+            "wgmma": "bfloat16, Dh 64 or 128: dk/dv and dq on wgmma, packed "
+                     "query tiles and K/V tiles on TMA rings, P and dS in "
+                     "registers",
+            "simt": "float32, and Dh 32: f32 FMAs from shared memory"},
+        "launches_by_instance": trained["bwd_routes"],
+        "kernels_of_a_call": {
+            "dot": "D = dO . O per row and head (both instances)",
+            "dkdv": "dk, dv per 64 keys over the group's heads",
+            "dq": "dq per packed query tile (wgmma) or 64 rows (simt)"},
         "ptxas": ptxas_report(fa.bwd_build_log, "flash_bwd_"),
         "shapes": bwd_timed,
         "train_step_ms": trained["step_ms_median_3_6"],

@@ -21,6 +21,11 @@
 // Every instance packs the query rows of one kv head as (position, head)
 // pairs, position-major (row r = iq * G + g), as the Pallas kernel does
 // (BQ * G rows), so each K/V row read feeds all G heads of its group.
+// Given a non-null `lse`, every instance also writes each row's
+// log-sum-exp, m + log l of its valid logits (natural log; +inf for a row
+// that sees no key), as f32 (B, Sq, Hq): the training forward asks for it,
+// so that the backward (`flash_attention_bwd.cu`) recomputes no
+// statistics; serving passes null and nothing more is written.
 //
 // Three instances, chosen by `ops.route` from dtype, shape and alignment
 // alone (one ctypes call, one launch count per call):
@@ -161,6 +166,7 @@ struct Params {
   const int* q_pos;     // (B, Sq)
   const int* kv_pos;    // (B, Skv)
   void* out;            // (B, Sq, Hq, DH)
+  float* lse;           // (B, Sq, Hq) or null: the rows' log-sum-exp
   int Sq, Skv, Hq, Hkv, G;
   int bq;               // query positions per block
   int n_groups;         // row groups of kRowsPerWarp rows
@@ -195,6 +201,13 @@ __device__ __forceinline__ float warp_sum(float x) {
 __device__ __forceinline__ bool attends(int qp, int kp, int causal,
                                         int window) {
   return kp >= 0 && (!causal || kp <= qp) && (window <= 0 || qp - kp < window);
+}
+
+// A row's natural-log log-sum-exp from its running max m and sum l (of
+// exp(c - m)): m + log l, or +inf for a row that saw no key (l = 0), so
+// that the backward's exp(c - lse) is 0 for every key.
+__device__ __forceinline__ float log_sum_exp(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
 }
 
 // Copies `n` rows of DH elements, row r at src + r * src_stride, into
@@ -398,6 +411,7 @@ flash_attention_kernel(const Params p) {
 #pragma unroll
         for (int i = 0; i < NI; ++i) at[i] += w * st[r * DH + lane + i * kWarp];
       }
+      m[r] = mt;
       l[r] = lt;
 #pragma unroll
       for (int i = 0; i < NI; ++i) acc[r][i] = at[i];
@@ -410,9 +424,11 @@ flash_attention_kernel(const Params p) {
   for (int r = 0; r < R; ++r) {
     if (!row_ok[r]) continue;
     const int row = r0 + r, iq = row / p.G, g = row % p.G;
-    T* o = out + ((static_cast<size_t>(b) * p.Sq + q0 + iq) * p.Hq
-                  + static_cast<size_t>(h) * p.G + g) * DH + lane;
+    const size_t at = (static_cast<size_t>(b) * p.Sq + q0 + iq) * p.Hq
+                      + static_cast<size_t>(h) * p.G + g;
+    T* o = out + at * DH + lane;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (p.lse != nullptr && lane == 0) p.lse[at] = log_sum_exp(m[r], l[r]);
 #pragma unroll
     for (int i = 0; i < NI; ++i) store(o + i * kWarp, acc[r][i] / denom);
   }
@@ -434,6 +450,7 @@ struct SplitParams {
   const int* q_pos;     // (B, Sq)
   const int* kv_pos;    // (B, Skv)
   void* out;            // (B, Sq, Hq, DH)
+  float* lse;           // (B, Sq, Hq) or null: the rows' log-sum-exp
   float* ws_acc;        // (B, Hkv, n_splits, rows, DH): each part's acc
   float* ws_ml;         // (B, Hkv, n_splits, rows, 2): its m and l
   int Sq, Skv, Hq, Hkv, G;
@@ -760,10 +777,11 @@ flash_attention_kernel_merge(const SplitParams p) {
   }
   if (threadIdx.x >= DH) return;
   const int iq = r / p.G, g = r % p.G;
+  const size_t row = (static_cast<size_t>(b) * p.Sq + iq) * p.Hq +
+                     static_cast<size_t>(h) * p.G + g;
+  if (p.lse != nullptr && threadIdx.x == 0) p.lse[row] = log_sum_exp(mt, lt);
   T* out = static_cast<T*>(p.out);
-  store(out + ((static_cast<size_t>(b) * p.Sq + iq) * p.Hq +
-               static_cast<size_t>(h) * p.G + g) * DH + threadIdx.x,
-        at / fmaxf(lt, 1e-30f));
+  store(out + row * DH + threadIdx.x, at / fmaxf(lt, 1e-30f));
 }
 
 template <typename T, int DH>
@@ -798,11 +816,13 @@ constexpr int kSMs = 132;                // the H100's, for the block shape
 constexpr int kWgMaxTiles = 2048;        // Skv up to 262,144
 constexpr int kBoxBytes = 64 * 64 * 2;   // 64 rows of one 64-column box
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct WgParams {
   const int* q_pos;     // (B, Sq)
   const int* kv_pos;    // (B, Skv)
   void* out;            // (B, Sq, Hq, DH) bfloat16
+  float* lse;           // (B, Sq, Hq) or null: the rows' log-sum-exp
   int Sq, Skv, Hq, Hkv, G;
   int pw;               // positions per warpgroup: floor(64 / G)
   int causal, window;
@@ -1258,10 +1278,14 @@ __global__ void __launch_bounds__(Wg<DH, W>::kThreads, 1)
     if (!row_ok[i]) continue;
     const int row = 16 * wq + lane / 4 + 8 * i;
     const int pos = q0 + wg * pw + row / G, g = row % G;
-    __nv_bfloat16* dst =
-        out + ((static_cast<size_t>(b) * p.Sq + pos) * p.Hq +
-               static_cast<size_t>(h) * G + g) * DH + 2 * (lane % 4);
+    const size_t at = (static_cast<size_t>(b) * p.Sq + pos) * p.Hq +
+                      static_cast<size_t>(h) * G + g;
+    __nv_bfloat16* dst = out + at * DH + 2 * (lane % 4);
     const float denom = fmaxf(li, 1e-30f);
+    // m is in the log2 domain with the scale folded in: back to the
+    // natural log
+    if (p.lse != nullptr && lane % 4 == 0)
+      p.lse[at] = log_sum_exp(m[i] * kLn2, li);
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
@@ -1455,12 +1479,15 @@ int flash_attention_init(int device) {
 // instance: 0 = simt, 1 = split (then n_splits, keys_per_split and the
 // workspace `ws` of B * Hkv * n_splits * Sq * G * (dh + 2) floats),
 // 2 = wgmma (bfloat16, dh 64 or 128).  dtype: 0 = float32, 1 = bfloat16.
+// lse: null, or (B, Sq, Hq) floats that get each row's log-sum-exp (the
+// backward's input; serving passes null and nothing more is written).
 // window <= 0 and softcap <= 0 mean none.  Returns 0, a cudaError_t, or
 // kEncodeError + the CUresult of a refused tensor map.
 int flash_attention_launch(int device, int instance, int dtype, int dh,
                            const void* q, const void* k, const void* v,
                            const void* q_pos, const void* kv_pos, void* out,
-                           void* ws, int B, int Sq, int Skv, int Hq, int Hkv,
+                           void* ws, void* lse, int B, int Sq, int Skv,
+                           int Hq, int Hkv,
                            int causal, int window, float scale, float softcap,
                            int n_splits, int keys_per_split, void* stream) {
   DeviceScope scope(device);
@@ -1478,6 +1505,7 @@ int flash_attention_launch(int device, int instance, int dtype, int dh,
     p.q_pos = static_cast<const int*>(q_pos);
     p.kv_pos = static_cast<const int*>(kv_pos);
     p.out = out;
+    p.lse = static_cast<float*>(lse);
     p.Sq = Sq;
     p.Skv = Skv;
     p.Hq = Hq;
@@ -1513,6 +1541,7 @@ int flash_attention_launch(int device, int instance, int dtype, int dh,
     p.q_pos = static_cast<const int*>(q_pos);
     p.kv_pos = static_cast<const int*>(kv_pos);
     p.out = out;
+    p.lse = static_cast<float*>(lse);
     p.Sq = Sq;
     p.Skv = Skv;
     p.Hq = Hq;
@@ -1534,6 +1563,7 @@ int flash_attention_launch(int device, int instance, int dtype, int dh,
   p.q_pos = static_cast<const int*>(q_pos);
   p.kv_pos = static_cast<const int*>(kv_pos);
   p.out = out;
+  p.lse = static_cast<float*>(lse);
   p.Sq = Sq;
   p.Skv = Skv;
   p.Hq = Hq;

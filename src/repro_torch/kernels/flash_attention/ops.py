@@ -21,13 +21,22 @@ every call; `route_counts` counts each instance.
 
 Gradients: when grad is enabled and q, k or v requires grad, a CUDA
 call goes through `FlashAttentionFn`, whose forward is the same routed
-launch and whose backward launches `flash_attention_bwd.cu`
-(`flash_attention_backward`: three passes -- row statistics, dk/dv, dq
--- recomputed from q, k, v and the saved output; any instance's output
-will do).  `launch_counts["flash_attention_bwd"]` counts each backward
-call.  On CPU tensors `flash_attention` runs `ref.attention_reference`,
-which autograd differentiates, and `flash_attention_backward` runs
-`ref.attention_backward_reference`.
+launch asked also for each row's log-sum-exp (`flash_attention_forward`:
+every instance writes it, float32 (B, Sq, Hq), +inf for a row that sees
+no key; serving calls ask for none and write nothing more), saved beside
+the output; its backward launches `flash_attention_bwd.cu`
+(`flash_attention_backward`, which takes that lse): D = dO . O, then
+dk/dv and dq from q, k, v, dO, lse and D, nothing recomputed of the
+statistics.  `bwd_route` picks the backward's instance like `route`:
+``"wgmma"`` (bfloat16, Dh 64 or 128, 16-byte aligned: S^T, dP^T, dV, dK
+and S, dP, dQ as wgmma products on TMA rings, P and dS rounded to
+bfloat16 before their products) or ``"simt"`` (float32 -- TF32 would miss
+the 1e-4 gate -- and Dh 32: f32 FMAs).  `launch_counts
+["flash_attention_bwd"]` counts each backward call, `bwd_route_counts`
+each instance.  On CPU tensors `flash_attention` runs
+`ref.attention_reference`, which autograd differentiates, and
+`FlashAttentionFn` and `flash_attention_backward` run the plain forward
+with its lse and `ref.attention_backward_reference`.
 
 The CUDA sources are built at first use by `repro_torch.kernels.build`
 (nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
@@ -45,6 +54,8 @@ from repro_torch.kernels.build import build_library, launch_counts
 from repro_torch.kernels.flash_attention.ref import (
     NEG_INF, attention_backward_reference, attention_reference,
 )
+
+_BWD_INSTANCES = {"simt": 0, "wgmma": 1}
 
 SOURCE = Path(__file__).with_name("flash_attention.cu")
 BWD_SOURCE = Path(__file__).with_name("flash_attention_bwd.cu")
@@ -69,6 +80,9 @@ WGMMA_TILE, WGMMA_MAX_TILES = 128, 2048
 #: branch of `flash_attention` adds to it, once per call, beside
 #: launch_counts["flash_attention"]
 route_counts = {"wgmma": 0, "split": 0, "simt": 0}
+#: the backward's launches by instance, beside
+#: launch_counts["flash_attention_bwd"]
+bwd_route_counts = {"wgmma": 0, "simt": 0}
 _lib: ctypes.CDLL | None = None
 #: the opt-in dynamic shared-memory limit of each device set up so far
 _max_smem: dict[int, int] = {}
@@ -98,8 +112,8 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_launch.argtypes = [
-            i, i, i, i, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, f,
-            f, i, i, vp]
+            i, i, i, i, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
+            f, f, i, i, vp]
         lib.flash_attention_launch.restype = i
         lib.flash_attention_smem.argtypes = [i, i, i]
         lib.flash_attention_smem.restype = i
@@ -129,8 +143,8 @@ def _bwd_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_backward()))
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_attention_bwd_launch.argtypes = [
-            i, i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i,
-            i, i, i, f, f, vp]
+            i, i, i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i,
+            i, i, i, i, i, f, f, vp]
         lib.flash_attention_bwd_launch.restype = i
         lib.flash_attention_bwd_init.argtypes = [i]
         lib.flash_attention_bwd_init.restype = i
@@ -197,6 +211,30 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "simt"
 
 
+#: the most packed query tiles (ceil(Sq / floor(64 / G))) and 64-key
+#: tiles the backward's tensor-core instance marks in shared memory
+BWD_MAX_QUERY_TILES, BWD_MAX_KEY_TILES = 8192, 4096
+
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The instance a CUDA backward takes, from dtype, shape and
+    alignment alone, as `route` decides the forward's: ``"wgmma"`` for
+    bfloat16 with Dh 64 or 128, 16-byte aligned q, k and v, and at most
+    `BWD_MAX_QUERY_TILES` packed query tiles and `BWD_MAX_KEY_TILES` key
+    tiles; ``"simt"`` otherwise (float32, Dh 32).  There is no decode
+    split: a backward runs over whole sequences."""
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv if Hkv > 0 and Hq % Hkv == 0 else 0
+    if (q.dtype == k.dtype == v.dtype == torch.bfloat16 and Dh in (64, 128)
+            and 0 < G <= _MAX_GROUP
+            and -(-Sq // (64 // G)) <= BWD_MAX_QUERY_TILES
+            and -(-Skv // 64) <= BWD_MAX_KEY_TILES
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return "wgmma"
+    return "simt"
+
+
 def wgmma_smem_bytes(dh: int, warpgroups: int) -> int:
     """Dynamic shared memory of one tensor-core block with ``warpgroups``
     consumer warpgroups (1 or 2) at head dim ``dh`` (builds the kernel if
@@ -205,6 +243,8 @@ def wgmma_smem_bytes(dh: int, warpgroups: int) -> int:
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device):
+    if t is None:
+        raise TypeError(f"flash_attention: {name} is required, got None")
     if t.dtype != dtype:
         raise TypeError(f"flash_attention: {name} must be {dtype}, "
                         f"got {t.dtype}")
@@ -248,24 +288,26 @@ def _check_call(name: str, q: torch.Tensor, k: torch.Tensor,
 
 class FlashAttentionFn(torch.autograd.Function):
     """`flash_attention` with a gradient: the forward is the routed
-    kernel (the plain version on CPU tensors), and it saves q, k, v, the
-    output and the positions; the backward is `flash_attention_backward`
+    kernel asked for its log-sum-exp (`flash_attention_forward`; the
+    plain version on CPU tensors), and it saves q, k, v, the output, the
+    lse and the positions; the backward is `flash_attention_backward`
     (the backward kernel, or its plain version on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, softcap,
                 scale):
-        out = flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
-                              window=window, softcap=softcap, scale=scale)
-        ctx.save_for_backward(q, k, v, out, q_pos, kv_pos)
+        out, lse = flash_attention_forward(q, k, v, q_pos, kv_pos,
+                                           causal=causal, window=window,
+                                           softcap=softcap, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, kv_pos)
         ctx.options = dict(causal=causal, window=window, softcap=softcap,
                            scale=scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, q_pos, kv_pos = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, q_pos,
+        q, k, v, out, lse, q_pos, kv_pos = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, lse, q_pos,
                                               kv_pos, **ctx.options)
         return dq, dk, dv, None, None, None, None, None, None
 
@@ -296,6 +338,42 @@ def flash_attention(
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, q_pos, kv_pos, causal, window,
                                       softcap, scale)
+    return _forward(q, k, v, q_pos, kv_pos, causal, window, softcap, scale,
+                    with_lse=False)[0]
+
+
+def flash_attention_forward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward as training runs it: `flash_attention`'s output and
+    each row's log-sum-exp of its valid logits, float32 (B, Sq, Hq), +inf
+    for a row that sees no key (`ref.attention_reference` with
+    ``return_lse``).  On CUDA tensors the routed instance writes both in
+    one launch, counted like `flash_attention`'s; autograd does not
+    record it (`FlashAttentionFn` does)."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, q_pos, kv_pos, causal=causal,
+                                   window=window, softcap=softcap,
+                                   scale=scale, return_lse=True)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return _forward(q, k, v, q_pos, kv_pos, causal, window, softcap, scale,
+                    with_lse=True)
+
+
+def _forward(q, k, v, q_pos, kv_pos, causal, window, softcap, scale, *,
+             with_lse):
+    """The routed launch of `flash_attention.cu` on CUDA tensors: the
+    output, and with ``with_lse`` the rows' log-sum-exp (else None)."""
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dev, dt = q.device, q.dtype
@@ -315,6 +393,8 @@ def flash_attention(
                          f"memory, the device allows "
                          f"{_max_smem[dev.index]}")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Sq, Hq), dtype=torch.float32, device=dev)
+           if with_lse else None)
     n_splits = keys_per_split = 0
     ws = None
     if instance == "split":
@@ -329,8 +409,9 @@ def flash_attention(
     err = lib.flash_attention_launch(
         dev.index, _INSTANCES[instance], dtype_code, Dh, q.data_ptr(),
         k.data_ptr(), v.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-        out.data_ptr(), None if ws is None else ws.data_ptr(), B, Sq, Skv,
-        Hq, Hkv, int(causal), window or 0, float(scale),
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Skv, Hq, Hkv,
+        int(causal), window or 0, float(scale),
         float(softcap or 0.0), n_splits, keys_per_split,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -339,7 +420,7 @@ def flash_attention(
                            + lib.flash_attention_error_string(err).decode())
     launch_counts["flash_attention"] += 1
     route_counts[instance] += 1
-    return out
+    return out, lse
 
 
 def flash_attention_backward(
@@ -348,6 +429,7 @@ def flash_attention_backward(
     v: torch.Tensor,
     out: torch.Tensor,
     dout: torch.Tensor,
+    lse: torch.Tensor,
     q_pos: torch.Tensor,
     kv_pos: torch.Tensor,
     *,
@@ -357,19 +439,59 @@ def flash_attention_backward(
     scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of `flash_attention` at its output
-    ``out`` for the output gradient ``dout`` (see
+    ``out`` for the output gradient ``dout``, given the forward's
+    log-sum-exp ``lse`` (`flash_attention_forward`; see
     `ref.attention_backward_reference`), in q's and k's dtypes.  On CUDA
     tensors it checks them as the forward does (``dout`` is made
-    contiguous first: autograd often hands over a view) and launches the
-    three passes of `flash_attention_bwd.cu` on the current stream, or
-    raises; on CPU tensors, and only there, it runs the plain version."""
+    contiguous first: autograd often hands over a view; ``lse`` float32
+    (B, Sq, Hq) on q's device) and launches the instance `bwd_route`
+    names on the current stream, or raises; on CPU tensors, and only
+    there, it runs the plain version."""
     if q.device.type == "cpu":
         return attention_backward_reference(
-            q, k, v, out, dout, q_pos, kv_pos, causal=causal, window=window,
-            softcap=softcap, scale=scale)
+            q, k, v, out, dout, lse, q_pos, kv_pos, causal=causal,
+            window=window, softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward: no kernel for device "
                          f"{q.device}")
+    return _backward(bwd_route(q, k, v), q, k, v, out, dout, lse, q_pos,
+                     kv_pos, causal, window, softcap, scale)
+
+
+def _backward_instance(
+    instance: str,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    q_pos: torch.Tensor,
+    kv_pos: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`flash_attention_backward` on CUDA tensors through ``instance``
+    (``"wgmma"`` or ``"simt"``) rather than the one `bwd_route` picks, to
+    time and test one instance against the other (the port itself calls
+    `flash_attention_backward`): the SIMT instance takes every call the
+    backward takes, the tensor-core one only what `bwd_route` sends it.
+    Counted like the backward's launches."""
+    if instance not in bwd_route_counts:
+        raise ValueError(f"flash_attention_backward: no instance "
+                         f"{instance!r}")
+    if instance == "wgmma" and bwd_route(q, k, v) != "wgmma":
+        raise ValueError("flash_attention_backward: the wgmma instance does "
+                         "not take this call")
+    return _backward(instance, q, k, v, out, dout, lse, q_pos, kv_pos,
+                     causal, window, softcap, scale)
+
+
+def _backward(instance, q, k, v, out, dout, lse, q_pos, kv_pos, causal,
+              window, softcap, scale):
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dev, dt = q.device, q.dtype
@@ -385,6 +507,7 @@ def flash_attention_backward(
                            ("out", out, (B, Sq, Hq, Dh)),
                            ("dout", dout, (B, Sq, Hq, Dh))):
         _check(name, t, dt, shape, dev)
+    _check("lse", lse, torch.float32, (B, Sq, Hq), dev)
     _check("q_pos", q_pos, torch.int32, (B, Sq), dev)
     _check("kv_pos", kv_pos, torch.int32, (B, Skv), dev)
     lib = _bwd_library()
@@ -396,25 +519,30 @@ def flash_attention_backward(
                 + lib.flash_attention_bwd_error_string(-got).decode())
         _bwd_devices.add(dev.index)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    stats = torch.empty(3 * B * Hq * Sq, dtype=torch.float32, device=dev)
+    # D = dO . O per row and head; made per call (nothing outlives it)
+    dsum = torch.empty((B, Sq, Hq), dtype=torch.float32, device=dev)
     if scale is None:
         scale = 1.0 / (Dh ** 0.5)
     err = lib.flash_attention_bwd_launch(
-        dev.index, dtype_code, Dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, Sq,
-        Skv, Hq, Hkv, int(causal), window or 0, float(scale),
-        float(softcap or 0.0), torch.cuda.current_stream(dev).cuda_stream)
+        dev.index, _BWD_INSTANCES[instance], dtype_code, Dh, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), B, Sq, Skv, Hq, Hkv,
+        int(causal), window or 0, float(scale), float(softcap or 0.0),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError("flash_attention_backward kernel launch failed: "
+        raise RuntimeError(f"flash_attention_backward kernel launch failed "
+                           f"({instance}): "
                            + lib.flash_attention_bwd_error_string(err)
                            .decode())
     launch_counts["flash_attention_bwd"] += 1
+    bwd_route_counts[instance] += 1
     return dq, dk, dv
 
 
-__all__ = ["flash_attention", "flash_attention_backward", "FlashAttentionFn",
+__all__ = ["flash_attention", "flash_attention_forward",
+           "flash_attention_backward", "FlashAttentionFn",
            "attention_reference", "attention_backward_reference", "NEG_INF",
-           "build", "build_backward",
+           "build", "build_backward", "bwd_route", "bwd_route_counts",
            "launch_counts", "route", "route_counts", "split_plan",
            "SplitPlan", "wgmma_smem_bytes"]

@@ -53,6 +53,7 @@ PORT_OWN = {
     "kernels/waterfill/ref.py", "kernels/waterfill/study.py",
     "kernels/build.py",
     "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
+    "kernels/flash_attention/study.py",
     "kernels/ssd/__init__.py", "kernels/ssd/ops.py", "kernels/ssd/ref.py",
     "kernels/ssd/study.py",
     "kernels/moe_gmm/ops.py", "kernels/moe_gmm/ref.py",

@@ -44,13 +44,17 @@ plain version on the same CUDA tensors at the reference's tolerances
 cores for bfloat16 with K and N multiples of 8, SIMT otherwise); two
 tensor-core calls give the same bits.
 
-Flash-attention backward: chip_smoke's `FLASH_BWD_CASES` (the reference
-suite's shapes, fully masked rows, softcap, window, G = 1, 4 and 6, a
-shape the forward sends to the decode split) and qwen2-1.5b's training
-shapes, in float32 (1e-4 of each gradient's max) and bfloat16 (2e-2),
-against the plain backward on the same CUDA tensors; two calls give the
-same bits; autograd through `flash_attention` launches it once per
-backward.  Training: mamba2 and jamba refuse to train on cuda, naming
+Flash-attention backward: each forward instance's log-sum-exp against
+the plain one; chip_smoke's `FLASH_BWD_CASES` (the reference suite's
+shapes, fully masked rows, softcap, window, G = 1, 4 and 6, a shape the
+forward sends to the decode split) and qwen2-1.5b's training shapes, in
+float32 (1e-4 of each gradient's max) and bfloat16 (2e-2), against the
+plain backward on the same CUDA tensors, through the instance
+`flash_bwd_route` names (`bwd_route`: the tensor cores for bfloat16 at Dh
+64 or 128, SIMT otherwise) and through each instance forced; two calls
+give the same bits; autograd through `flash_attention` launches one
+forward and one backward; the wrapper refuses a missing, mis-shaped,
+wrong-dtype or CPU lse.  Training: mamba2 and jamba refuse to train on cuda, naming
 their missing backward kernels (ROADMAP Queue 1 items 12b and 12c),
 before any kernel runs; `matmul_f32`'s gradient; a small dense model's
 loss and gradients on the card against the same model on the CPU.
@@ -89,7 +93,8 @@ from repro_torch.kernels.waterfill.ref import (
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
-    FLASH_BWD_CASES, FLASH_BWD_TIMED, check_flash_bwd, flash_bwd_inputs,
+    FLASH_BWD_CASES, FLASH_BWD_TIMED, FLASH_BWD_TOL, LSE_TOL, check_flash_bwd,
+    check_lse, flash_bwd_inputs, flash_bwd_route,
     FLASH_CASES, FLASH_TOL, FLASH_WGMMA_CASES, GMM_CASES, GMM_RAGGED,
     GMM_TC_CASES, GMM_TOL, SSD_CASES, SSD_TC_CASES, SSD_TOL,
     attention_inputs, bitwise_equal, check_fully_masked_rows, fused_deltas,
@@ -745,6 +750,69 @@ def test_flash_backward_kernel_equals_plain_version(cuda, case, dtype):
     check_flash_bwd(f"case{case}", fa_ops, inputs, kw, dout, masked=case[9])
 
 
+@pytest.mark.parametrize("instance", ["split", "wgmma", "simt"])
+def test_flash_forward_lse_of_each_instance(cuda, instance):
+    """Each forward instance's log-sum-exp (qwen2's decode tick, its
+    bfloat16 and float32 prefill) against the plain one, and the output
+    the same bits as `flash_attention`'s, which writes no lse."""
+    q, k, v, qp, kp = flash_instance_inputs(instance, cuda)
+    before = dict(flash_routes)
+    out, lse = fa_ops.flash_attention_forward(q, k, v, qp, kp)
+    assert flash_routes[instance] == before[instance] + 1
+    check_lse(instance, q, k, v, qp, kp, lse, {})
+    assert bitwise_equal(out.float(), flash_attention(q, k, v, qp,
+                                                      kp).float())
+
+
+@pytest.mark.parametrize("instance", ["split", "wgmma", "simt"])
+def test_flash_forward_lse_of_rows_that_see_no_key(cuda, instance):
+    """A row that sees no key gets lse = +inf on every instance."""
+    dtype = torch.float32 if instance == "simt" else torch.bfloat16
+    Sq = 1 if instance == "split" else 100
+    q, k, v, qp, kp = attention_inputs(9, 2, Sq, 100, 12, 2, 128, dtype,
+                                       cuda)
+    kp[1] = -1
+    out, lse = fa_ops.flash_attention_forward(q, k, v, qp, kp)
+    check_lse(f"{instance}-masked", q, k, v, qp, kp, lse, {})
+    assert bool(torch.isposinf(lse[1]).all())
+    assert not bool(out[1].any())
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_route_on_every_case(cuda, case, dtype):
+    inputs, _, _ = flash_bwd_inputs(case, dtype, cuda)
+    assert fa_ops.bwd_route(*inputs[:3]) == flash_bwd_route(dtype, case[5])
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+@pytest.mark.parametrize("instance", ["wgmma", "simt"])
+def test_flash_backward_instances_equal_plain_and_are_bitwise(cuda, case,
+                                                              instance):
+    """Each instance forced (`_backward_instance`): the SIMT one on every
+    case in both dtypes, the tensor-core one on the bfloat16 cases it
+    takes; each against the plain backward, two calls the same bits."""
+    dtypes = [torch.bfloat16] if instance == "wgmma" else [torch.float32,
+                                                            torch.bfloat16]
+    if instance == "wgmma" and flash_bwd_route(torch.bfloat16,
+                                               case[5]) != "wgmma":
+        with pytest.raises(ValueError, match="does not take"):
+            inputs, kw, dout = flash_bwd_inputs(case, torch.bfloat16, cuda)
+            out, lse = fa_ops.flash_attention_forward(*inputs, **kw)
+            fa_ops._backward_instance("wgmma", *inputs[:3], out, dout, lse,
+                                      *inputs[3:], **kw)
+        return
+    for dtype in dtypes:
+        inputs, kw, dout = flash_bwd_inputs(case, dtype, cuda)
+        got, *_ = check_flash_bwd(f"{instance}{case}", fa_ops, inputs, kw,
+                                  dout, masked=case[9], instance=instance)
+        out, lse = fa_ops.flash_attention_forward(*inputs, **kw)
+        again = fa_ops._backward_instance(instance, *inputs[:3], out, dout,
+                                          lse, *inputs[3:], **kw)
+        assert all(bitwise_equal(a.float(), b.float())
+                   for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("B,S", FLASH_BWD_TIMED)
 def test_flash_backward_at_qwen2_training_shapes(cuda, B, S):
     case = (B, S, S, 12, 2, 128, True, None, None, 0)
@@ -754,29 +822,37 @@ def test_flash_backward_at_qwen2_training_shapes(cuda, B, S):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_backward_is_deterministic(cuda, dtype):
-    """The group's heads are summed inside one block: no atomics."""
+    """No atomics: on the tensor cores the packed rows (positions x the
+    group's G heads) are the reduction dimension of dK and dV, so the sum
+    over the group's heads happens inside one block, and its two consumer
+    warpgroups' sums meet in a fixed order; the SIMT instance loops over
+    the heads inside one block."""
     inputs, kw, dout = flash_bwd_inputs(FLASH_BWD_CASES[8], dtype, cuda)
-    out = fa_ops.flash_attention(*inputs, **kw)
-    a = fa_ops.flash_attention_backward(*inputs[:3], out, dout,
+    out, lse = fa_ops.flash_attention_forward(*inputs, **kw)
+    a = fa_ops.flash_attention_backward(*inputs[:3], out, dout, lse,
                                         *inputs[3:], **kw)
-    b = fa_ops.flash_attention_backward(*inputs[:3], out, dout,
+    b = fa_ops.flash_attention_backward(*inputs[:3], out, dout, lse,
                                         *inputs[3:], **kw)
     assert all(bitwise_equal(x.float(), y.float()) for x, y in zip(a, b))
 
 
 def test_autograd_through_flash_attention_launches_the_backward(cuda):
+    """One forward launch (with its lse) and one backward launch, on the
+    tensor cores; the gradients equal a direct backward call's."""
     inputs, kw, dout = flash_bwd_inputs(FLASH_BWD_CASES[2], torch.bfloat16,
                                         cuda)
     leaves = [t.clone().requires_grad_() for t in inputs[:3]]
-    before = dict(launch_counts)
+    before, bwd_before = dict(launch_counts), dict(fa_ops.bwd_route_counts)
     out = flash_attention(*leaves, *inputs[3:], **kw)
     grads = torch.autograd.grad(out, leaves, dout.transpose(1, 2)
                                 .contiguous().transpose(1, 2))
     assert launch_counts["flash_attention"] == before["flash_attention"] + 1
     assert launch_counts["flash_attention_bwd"] == \
         before["flash_attention_bwd"] + 1
+    assert fa_ops.bwd_route_counts["wgmma"] == bwd_before["wgmma"] + 1
+    _, lse = fa_ops.flash_attention_forward(*inputs, **kw)
     want = fa_ops.flash_attention_backward(*inputs[:3], out.detach(), dout,
-                                           *inputs[3:], **kw)
+                                           lse, *inputs[3:], **kw)
     assert all(torch.equal(a, b) for a, b in zip(grads, want))
     backwards = launch_counts["flash_attention_bwd"]
     with torch.no_grad():
@@ -787,19 +863,40 @@ def test_autograd_through_flash_attention_launches_the_backward(cuda):
 def test_flash_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(FLASH_BWD_CASES[1],
                                                    torch.float32, cuda)
-    out = fa_ops.flash_attention(q, k, v, qp, kp, **kw)
+    out, lse = fa_ops.flash_attention_forward(q, k, v, qp, kp, **kw)
     bwd = fa_ops.flash_attention_backward
     with pytest.raises(TypeError, match="dout"):
-        bwd(q, k, v, out, dout.bfloat16(), qp, kp)
+        bwd(q, k, v, out, dout.bfloat16(), lse, qp, kp)
     with pytest.raises(ValueError, match="contiguous"):
-        bwd(q, torch.cat([k, k], dim=-1)[..., :64], v, out, dout, qp, kp)
-    with pytest.raises(ValueError, match="out"):
-        bwd(q, k, v, out[:, :1].contiguous(), dout, qp, kp)
-    with pytest.raises(ValueError, match="window"):
-        bwd(q, k, v, out, dout, qp, kp, window=0)
-    with pytest.raises(ValueError, match="head dim"):
-        bwd(*(t[..., :16].contiguous() for t in (q, k, v, out, dout)), qp,
+        bwd(q, torch.cat([k, k], dim=-1)[..., :64], v, out, dout, lse, qp,
             kp)
+    with pytest.raises(ValueError, match="out"):
+        bwd(q, k, v, out[:, :1].contiguous(), dout, lse, qp, kp)
+    with pytest.raises(ValueError, match="window"):
+        bwd(q, k, v, out, dout, lse, qp, kp, window=0)
+    with pytest.raises(ValueError, match="head dim"):
+        bwd(*(t[..., :16].contiguous() for t in (q, k, v, out, dout)), lse,
+            qp, kp)
+
+
+def test_flash_backward_wrapper_refuses_a_bad_lse(cuda):
+    """lse is required, float32, (B, Sq, Hq), on q's device."""
+    (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(FLASH_BWD_CASES[8],
+                                                   torch.bfloat16, cuda)
+    out, lse = fa_ops.flash_attention_forward(q, k, v, qp, kp, **kw)
+    bwd = fa_ops.flash_attention_backward
+    before = dict(launch_counts)
+    with pytest.raises(TypeError, match="lse is required"):
+        bwd(q, k, v, out, dout, None, qp, kp)
+    with pytest.raises(TypeError):
+        bwd(q, k, v, out, dout, qp, kp)             # lse left out
+    with pytest.raises(ValueError, match="lse must have shape"):
+        bwd(q, k, v, out, dout, lse[:, :-1].contiguous(), qp, kp)
+    with pytest.raises(TypeError, match="lse must be torch.float32"):
+        bwd(q, k, v, out, dout, lse.bfloat16(), qp, kp)
+    with pytest.raises(ValueError, match="lse is on cpu"):
+        bwd(q, k, v, out, dout, lse.cpu(), qp, kp)
+    assert launch_counts == before
 
 
 @pytest.mark.parametrize("arch,items", [("mamba2-1.3b", ["12b"]),

@@ -8,17 +8,25 @@ same numpy inputs go through `flash_attention_pallas(interpret=True)` and
 for bfloat16, whose output is rounded to bf16 (an ulp of 2^-8 relative)
 on both sides.
 
-The plain backward, `ref.attention_backward_reference`, is held against
-``jax.vjp`` of the JAX package's `attention_reference` and of its
-``ops.flash_attention`` (the jnp path the reference's training
+The plain forward's log-sum-exp (`attention_reference(...,
+return_lse=True)`, what the forward kernel saves for the backward) is held
+against ``torch.logsumexp`` of the masked logits, +inf on the rows that
+see no key, and its output against the JAX reference's.  The plain
+backward, `ref.attention_backward_reference`, given an lse (the plain
+forward's, or the JAX forward's output with ``torch.logsumexp``'s lse), is
+held against ``jax.vjp`` of the JAX package's `attention_reference` and
+of its ``ops.flash_attention`` (the jnp path the reference's training
 differentiates) on chip_smoke's `FLASH_BWD_CASES` (the reference suite's
 shapes, fully masked rows, softcap, window, G = 1, 4 and 6, Sq != Skv)
-in float32, each gradient within 1e-5 x its max; `FlashAttentionFn` on
-CPU tensors is held against autograd through `attention_reference`.
+in float32, each gradient within 1e-5 x its max; the tensor-core
+instance's rounding mirror (`ref.attention_backward_passes`: P and dS in
+bfloat16) within the bfloat16 gate of 2e-2 on the cases that instance
+takes; `FlashAttentionFn` on CPU tensors is held against autograd through
+`attention_reference`, and saves the plain forward's lse.
 
 The CUDA wrapper's choices that need no card are held here too: `route`
-(which of the three instances a call takes) against chip_smoke's own
-statement of it, `split_plan` (how the decode instance cuts the cache),
+(which of the three instances a call takes) and `bwd_route` (the
+backward's two) against chip_smoke's own statements of them, `split_plan` (how the decode instance cuts the cache),
 and the decode instance's two passes, written out in plain torch
 (`attention_split_reference`), against the Pallas kernel and the oracle.
 """
@@ -35,19 +43,22 @@ from repro.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.build import launch_counts
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ops import (
-    SPLIT_SLICE, SPLIT_TARGET_BLOCKS, FlashAttentionFn,
-    flash_attention_backward, route, split_plan,
+    BWD_MAX_KEY_TILES, BWD_MAX_QUERY_TILES, SPLIT_SLICE, SPLIT_TARGET_BLOCKS,
+    FlashAttentionFn, bwd_route, flash_attention_backward,
+    flash_attention_forward, route, split_plan,
 )
 from repro_torch.kernels.flash_attention.ref import (
-    attention_backward_reference, attention_mask, attention_split_reference,
+    attention_backward_passes, attention_backward_reference,
+    attention_mask, attention_split_reference,
 )
 from repro_torch.kernels.flash_attention.ref import (
     attention_reference as plain_attention,
 )
 from test_kernel_flash_attention import CASES
 from test_torch_cuda import (
-    FLASH_BWD_CASES, FLASH_CASES, FLASH_WGMMA_CASES, check_fully_masked_rows,
-    check_rolling_window, flash_bwd_inputs, flash_route,
+    FLASH_BWD_CASES, FLASH_BWD_TIMED, FLASH_BWD_TOL, FLASH_CASES,
+    FLASH_WGMMA_CASES, check_fully_masked_rows, check_rolling_window,
+    flash_bwd_inputs, flash_bwd_route, flash_route,
 )
 from test_torch_matchmaker import one_torch_thread  # noqa: F401
 
@@ -315,7 +326,8 @@ def assert_grads_close(got, want, tol=BWD_TOL):
 
 def test_backward_cases_cover_the_hard_parts():
     """Fully masked rows, a softcap, a window, G = 1, 4 and 6, Sq != Skv,
-    Dh 32/64/128, a shape the forward sends to the decode split."""
+    Dh 32/64/128, a shape the forward sends to the decode split, and both
+    backward instances in bfloat16."""
     groups = {c[3] // c[4] for c in FLASH_BWD_CASES}
     assert {1, 4, 6} <= groups
     assert any(c[9] for c in FLASH_BWD_CASES)
@@ -325,12 +337,78 @@ def test_backward_cases_cover_the_hard_parts():
     assert {c[5] for c in FLASH_BWD_CASES} == {32, 64, 128}
     assert any(flash_route(torch.float32, c[1], c[3], c[4], c[5]) == "split"
                for c in FLASH_BWD_CASES)
+    assert {flash_bwd_route(torch.bfloat16, c[5])
+            for c in FLASH_BWD_CASES} == {"wgmma", "simt"}
+
+
+def masked_logits(q, k, qp, kp, causal, window, softcap):
+    """The logits of `attention_reference`, masked to -inf, (B, Hkv, G,
+    Sq, Skv), in float64: an independent statement of what lse sums."""
+    B, Sq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    qf = q.double().reshape(B, Sq, Hkv, Hq // Hkv, Dh)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.double()) / Dh ** 0.5
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = attention_mask(qp, kp, causal=causal, window=window)[:, None, None]
+    return torch.where(mask, logits, -torch.inf)
 
 
 @pytest.mark.parametrize("case", FLASH_BWD_CASES)
-def test_plain_backward_matches_jax_vjp(case):
-    """attention_backward_reference against jax.vjp of the reference's
-    oracle and of its ops.flash_attention, at the JAX forward's output."""
+def test_plain_forward_lse(case):
+    """The plain (out, lse) forward: lse against torch.logsumexp of the
+    masked logits, +inf exactly on the rows that see no key (so that the
+    backward's exp(c - lse) is 0 there); out the same as without lse and
+    within the reference suite's tolerance of the JAX reference's."""
+    (q, k, v, qp, kp), kw, _ = flash_bwd_inputs(case, torch.float32,
+                                                torch.device("cpu"))
+    B, Sq, Hq, _ = q.shape
+    out, lse = plain_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (B, Sq, Hq)
+    want = torch.logsumexp(masked_logits(q, k, qp, kp, **kw), dim=-1)
+    want = want.permute(0, 3, 1, 2).reshape(B, Sq, Hq)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    assert bool(torch.isposinf(lse[:, :case[9]]).all())
+    assert not bool(torch.isneginf(lse).any())
+    finite = ~torch.isinf(want)
+    np.testing.assert_allclose(lse[finite].numpy(), want[finite].numpy(),
+                               atol=1e-5, rtol=1e-6)
+    assert torch.equal(out, plain_attention(q, k, v, qp, kp, **kw))
+    jx = attention_reference(*(jnp.asarray(a.numpy())
+                               for a in (q, k, v, qp, kp)), **kw)
+    np.testing.assert_allclose(out.numpy(), as_f32(jx), atol=2e-5, rtol=2e-5)
+    assert torch.equal(flash_attention_forward(q, k, v, qp, kp, **kw)[1], lse)
+
+
+def test_plain_forward_lse_of_a_fully_masked_batch_row():
+    """A batch row with no key at all: lse +inf on every row, output 0."""
+    (q, k, v, qp, kp), kw, _ = flash_bwd_inputs(FLASH_BWD_CASES[0],
+                                                torch.float32,
+                                                torch.device("cpu"))
+    kp[1] = -1
+    out, lse = plain_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    assert bool(torch.isposinf(lse[1]).all())
+    assert not bool(torch.isinf(lse[0, 1:]).any())    # position 0: empty
+    assert float(out[1].abs().max()) == 0.0
+
+
+def out_and_lse(q, k, v, qp, kp, kw, source, jax_out):
+    """(out, lse) for the plain backward: the port's plain forward in its
+    lse form, or the JAX forward's output with torch.logsumexp's lse."""
+    if source == "plain-forward":
+        return plain_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    B, Sq, Hq, _ = q.shape
+    lse = torch.logsumexp(masked_logits(q, k, qp, kp, **kw), dim=-1)
+    return (to_torch(np.array(jax_out)),
+            lse.permute(0, 3, 1, 2).reshape(B, Sq, Hq).float())
+
+
+@pytest.mark.parametrize("source", ["plain-forward", "logsumexp"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_plain_backward_matches_jax_vjp(case, source):
+    """attention_backward_reference, given an lse (the plain forward's,
+    or torch.logsumexp's beside the JAX forward's output), against
+    jax.vjp of the reference's oracle and of its ops.flash_attention."""
     (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(case, torch.float32,
                                                    torch.device("cpu"))
 
@@ -345,8 +423,9 @@ def test_plain_backward_matches_jax_vjp(case):
 
     for out, want in outputs_and_vjps(*(jnp.asarray(a.numpy()) for a in (
             q, k, v, qp, kp, dout))):
-        got = attention_backward_reference(
-            q, k, v, to_torch(np.array(out)), dout, qp, kp, **kw)
+        o, lse = out_and_lse(q, k, v, qp, kp, kw, source, out)
+        got = attention_backward_reference(q, k, v, o, dout, lse, qp, kp,
+                                           **kw)
         assert [g.dtype for g in got] == [torch.float32] * 3
         assert_grads_close(got, want)
     masked = case[9]
@@ -354,13 +433,58 @@ def test_plain_backward_matches_jax_vjp(case):
         assert float(got[0][:, :masked].abs().max()) == 0.0
 
 
+TC_CASES = [c for c in FLASH_BWD_CASES
+            if flash_bwd_route(torch.bfloat16, c[5]) == "wgmma"]
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_tensor_core_mirror_matches_jax_vjp(case):
+    """The tensor-core instance's roundings in plain torch (P and dS to
+    bfloat16 before their products, float32 sums), on bfloat16 inputs,
+    against jax.vjp of the reference at the same values in float32:
+    within the card's bfloat16 gate (FLASH_BWD_TOL) of each gradient's
+    max; rows that see no key get dq = 0 exactly."""
+    (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(case, torch.bfloat16,
+                                                   torch.device("cpu"))
+    out, lse = plain_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    got = attention_backward_passes(q, k, v, out, dout, lse, qp, kp, **kw)
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3
+    f32 = [jnp.asarray(a.float().numpy()) for a in (q, k, v, dout)]
+    _, vjp = jax.vjp(lambda a, b, c: attention_reference(
+        a, b, c, jnp.asarray(qp.numpy()), jnp.asarray(kp.numpy()), **kw),
+        *f32[:3])
+    want = vjp(f32[3])
+    assert_grads_close(got, want, tol=FLASH_BWD_TOL[torch.bfloat16])
+    if case[9]:
+        assert float(got[0][:, :case[9]].float().abs().max()) == 0.0
+
+
+def test_tensor_core_mirror_rounds_p_and_ds():
+    """The mirror differs from the float32 plain backward by its
+    bfloat16 roundings of P and dS: on the same float32 inputs it moves
+    each gradient by more than float32's sums would (1e-5 of its max)
+    and by less than the bfloat16 gate."""
+    (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(FLASH_BWD_CASES[2],
+                                                   torch.float32,
+                                                   torch.device("cpu"))
+    out, lse = plain_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    exact = attention_backward_reference(q, k, v, out, dout, lse, qp, kp,
+                                         **kw)
+    rounded = attention_backward_passes(q, k, v, out, dout, lse, qp, kp,
+                                        **kw)
+    for a, b in zip(rounded, exact):
+        rel = float((a - b).abs().max() / b.abs().max())
+        assert 1e-5 < rel < FLASH_BWD_TOL[torch.bfloat16]
+
+
 def test_plain_backward_keeps_the_input_dtypes():
     (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(FLASH_BWD_CASES[1],
                                                    torch.bfloat16,
                                                    torch.device("cpu"))
-    out = flash_attention(q, k, v, qp, kp, **kw)
-    dq, dk, dv = attention_backward_reference(q, k, v, out, dout, qp, kp,
-                                              **kw)
+    out, lse = flash_attention_forward(q, k, v, qp, kp, **kw)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    dq, dk, dv = attention_backward_reference(q, k, v, out, dout, lse, qp,
+                                              kp, **kw)
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
 
 
@@ -385,8 +509,68 @@ def test_flash_attention_fn_matches_autograd(case):
     assert launch_counts == before          # the CPU branch launches nothing
 
 
+def test_flash_attention_fn_saves_the_lse():
+    """FlashAttentionFn on CPU tensors saves q, k, v, the output, the
+    plain forward's lse ((B, Sq, Hq), float32, +inf on the rows that see
+    no key) and the positions; its backward is the plain backward with
+    that lse."""
+    case = FLASH_BWD_CASES[10]
+    (q, k, v, qp, kp), kw, dout = flash_bwd_inputs(case, torch.float32,
+                                                   torch.device("cpu"))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fn_out = FlashAttentionFn.apply(*leaves, qp, kp, kw["causal"],
+                                    kw["window"], kw["softcap"], None)
+    saved = fn_out.grad_fn.saved_tensors
+    assert len(saved) == 7
+    out, lse = plain_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    assert torch.equal(saved[3], out) and torch.equal(saved[4], lse)
+    assert saved[4].dtype == torch.float32
+    assert bool(torch.isposinf(saved[4][:, :case[9]]).all())
+    got = torch.autograd.grad(fn_out, leaves, dout)
+    want = attention_backward_reference(q, k, v, out, dout, lse, qp, kp,
+                                        **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_route_of_the_backward_cases(case, dtype):
+    """The backward's instance from dtype, head dim and alignment: the
+    tensor cores for bfloat16 at Dh 64 or 128, the SIMT instance for the
+    rest; never the decode split, which is the forward's alone."""
+    B, Sq, Skv, Hq, Hkv, Dh = case[:6]
+    q = empty((B, Sq, Hq, Dh), dtype)
+    k, v = empty((B, Skv, Hkv, Dh), dtype), empty((B, Skv, Hkv, Dh), dtype)
+    assert bwd_route(q, k, v) == flash_bwd_route(q.dtype, Dh)
+
+
+def test_bwd_route_of_the_training_shapes_and_its_limits():
+    """qwen2's training shapes take the tensor cores; a misaligned view,
+    and more query or key tiles than its marks hold, the SIMT instance."""
+    for B, S in FLASH_BWD_TIMED:
+        q = empty((B, S, 12, 128), "bfloat16")
+        k = empty((B, S, 2, 128), "bfloat16")
+        assert bwd_route(q, k, k) == "wgmma"
+    q = empty((1, 129 * 64 * 12 + 1), "bfloat16")[:, 1:].view(1, 129, 12, 64)
+    k = empty((1, 129, 2, 64), "bfloat16")
+    assert bwd_route(q, k, k) == "simt"
+    assert bwd_route(q.clone(), k, k) == "wgmma"
+    # G = 6: 10 positions a packed tile
+    long_q = empty((1, 1, 12, 128), "bfloat16").expand(
+        1, 10 * BWD_MAX_QUERY_TILES + 1, 12, 128)
+    one_key = empty((1, 1, 2, 128), "bfloat16")
+    assert bwd_route(long_q[:, :-1], one_key, one_key) == "wgmma"
+    assert bwd_route(long_q, one_key, one_key) == "simt"
+    long_k = empty((1, 1, 2, 128), "bfloat16").expand(
+        1, 64 * BWD_MAX_KEY_TILES + 1, 2, 128)
+    assert bwd_route(empty((1, 64, 12, 128), "bfloat16"), long_k,
+                     long_k) == "simt"
+
+
 def test_backward_refuses_other_devices():
     q = torch.zeros((1, 1, 2, 32), device="meta")
     pos = torch.zeros((1, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        flash_attention_backward(q, q, q, q, q, pos, pos)
+        flash_attention_backward(q, q, q, q, q, q[..., 0], pos, pos)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        flash_attention_forward(q, q, q, pos, pos)
