@@ -165,11 +165,32 @@ to a plain version):
      first run's after step 3) retakes steps 4-6 (one profiled: the
      device's busy share and the backward's share) with losses within
      `RESUME_TOL` of the first run's;
+ 16. training mamba2: the SSD scan's backward kernel (`ssd_bwd.cu`)
+     against the plain backward (`ssd_backward_reference`, given the
+     states the forward kept) on `SSD_CASES` (both dtypes), the
+     tensor-core edge cases `SSD_TC_CASES` (ragged tails, an initial
+     state, G > 1, fused views) and `SSD_BWD_DFINAL` (a final-state
+     gradient), each gradient within `SSD_BWD_TOL` of its max (1e-4 in
+     float32, 2e-2 in bfloat16), each call on the instance `ssd_route`
+     names, two calls bitwise equal; then timed at `SSD_BWD_TIMED`
+     (mamba2's B = 8, S = 512 and B = 2, S = 2048, jamba's heads at B =
+     2, S = 2048; the routed instance and the SIMT one: CUDA events,
+     device time in all and by kernel, the bound, the plain backward);
+     mamba2 at full width cut to 2 layers in float32, kernels against the
+     plain scan (loss 1e-5, each leaf 1e-4, one `ssd` and one `ssd_bwd`
+     launch a layer), then in bfloat16 against that float32 model; then
+     the main path: `run_fixed` on mamba2-1.3b at full width (48 layers,
+     bfloat16), 6 steps of 8 x 512 with checkpoints at steps 3 and 6:
+     every loss finite, each step 48 `ssd` and 48 `ssd_bwd` launches and
+     nothing else, all on the tensor-core instances; step time, tokens/s,
+     peak memory, and step 2 profiled, outside steps 3-6 (busy share,
+     the backward's and the optimizer's shares; qwen2's run already
+     checks the resume);
  14. a JSON line per kernel (the water-fill's with its launches by
      instance and by entry point and the host breakdown; flash's, the
      SSD's and gmm's with their launches by instance and ptxas' report of
-     their instances; the flash backward's with its launches by
-     instance and its training shapes),
+     their instances; the flash backward's and the SSD backward's with
+     their launches by instance and their training shapes),
      the card line, and the result line.
 """
 from __future__ import annotations
@@ -305,6 +326,10 @@ SSD_TC_CASES = [
     (1, 200, 2, 128, 1, 128, 256, True, False),
     (2, 300, 4, 64, 1, 64, 128, True, True),
 ]
+# the backward's case beyond SSD_CASES and SSD_TC_CASES: a final-state
+# gradient, with an initial state, on a ragged tail (300 = 2 x 128 + 44)
+# and G = 2 (B, S, H, P, G, N, chunk, init)
+SSD_BWD_DFINAL = (2, 300, 4, 64, 2, 64, 128, True)
 
 # the cases of tests/test_kernel_moe_gmm.py: E, K, N, BT, group sizes (BT
 # aligned), tail padding rows
@@ -1527,6 +1552,19 @@ def ssd_inputs(seed, B, S, H, P, G, N, init, dtype, device):
             t(st))
 
 
+def ssd_bwd_arrays(seed, B, S, H, P, G, N, init, dfinal):
+    """`ssd_arrays`, then the backward's cotangents drawn after them: dy
+    normal (B, S, H, P) and, with ``dfinal``, a final-state gradient
+    normal (B, H, P, N), float32 numpy arrays.  Returns (the arrays, dy,
+    dfinal or None)."""
+    arrays = ssd_arrays(seed, B, S, H, P, G, N, init)
+    rng = np.random.default_rng(seed + 1000)
+    dy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    df = (rng.standard_normal((B, H, P, N)).astype(np.float32)
+          if dfinal else None)
+    return arrays, dy, df
+
+
 def ssd_route(dtype, P, N, chunk) -> str:
     """The SSD instance a call must take (`ops.route` for fresh or
     fused-projection tensors, which are 16-byte aligned with strides a
@@ -1564,17 +1602,19 @@ def ssd_serving_cases():
             for S in c["S"] for init in (False, True)]
 
 
-def ssd_flops(S, chunk, H, P, N, B=1):
-    """The causal work of a chunked scan: per head and chunk of L steps,
-    the L(L+1)/2 (query, key) pairs' C.B and score.x products (2N and 2P
-    FLOPs each), and the inter-chunk output and state update (2PN each
-    per step)."""
+def ssd_flops(S, chunk, H, P, N, B=1, G=1):
+    """The causal work of a chunked scan: per chunk of L steps, the
+    L(L+1)/2 (query, key) pairs' C.B products once per group (2N FLOPs
+    each: the group's heads share them) and score.x products per head
+    (2P each), and per head the inter-chunk output and state update (2PN
+    each per step)."""
     Q = min(chunk, S)
     total = 0
     for t0 in range(0, S, Q):
         L = min(Q, S - t0)
-        total += L * (L + 1) * (N + P) + 4 * L * P * N
-    return B * H * total
+        total += (G * L * (L + 1) * N
+                  + H * (L * (L + 1) * P + 4 * L * P * N))
+    return B * total
 
 
 def ssd_bound(x, dt, Bm, Cm, init, chunk):
@@ -1589,7 +1629,7 @@ def ssd_bound(x, dt, Bm, Cm, init, chunk):
     nbytes = (2 * x.numel() * item + dt.numel() * 4 + 2 * H * 4
               + (Bm.numel() + Cm.numel()) * item + state
               + (state if init is not None else 0))
-    flops = ssd_flops(S, chunk, H, P, N, Bsz)
+    flops = ssd_flops(S, chunk, H, P, N, Bsz, Bm.shape[2])
     rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     if t_bytes >= t_ops:
@@ -2431,7 +2471,7 @@ def expected_launches(cfg, engine) -> dict:
     calls = engine.prefill_calls + engine.decode_ticks
     return {"waterfill": 0, "flash_attention": attn * calls,
             "ssd": ssm * engine.prefill_calls, "gmm": 3 * moe * calls,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "ssd_bwd": 0}
 
 
 def expected_flash_routes(cfg, engine) -> dict:
@@ -2752,11 +2792,14 @@ def loss_and_grads(model_lib, params, cfg, batch):
     return loss.detach(), torch.autograd.grad(loss, tree_leaves(req))
 
 
-def train_f32_gate(cfg, device, launch_counts):
-    """qwen2-1.5b at full width cut to `TRAIN_F32`'s layers, float32: one
-    `loss_fn` and backward with the kernels (flash forward and backward
-    once per layer) against the same with attention through the plain
-    version, which autograd differentiates."""
+def train_f32_gate(cfg, device, launch_counts, *,
+                   kernels=("flash_attention", "flash_attention_bwd"),
+                   plain=plain_attention):
+    """qwen2-1.5b (or mamba2-1.3b) at full width cut to `TRAIN_F32`'s
+    layers, float32: one `loss_fn` and backward with the kernels (each of
+    ``kernels``, a forward and its backward, once per layer) against the
+    same with the kernel through the plain version (``plain``), which
+    autograd differentiates."""
     from repro_torch.data.pipeline import SyntheticTokenPipeline
     from repro_torch.models import model as model_lib
     f32 = dataclasses.replace(cfg, n_layers=TRAIN_F32["layers"],
@@ -2769,12 +2812,12 @@ def train_f32_gate(cfg, device, launch_counts):
 
     before = dict(launch_counts)
     loss, grads = loss_and_grads(model_lib, params, f32, batch)
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in kernels:
         if launch_counts[name] - before[name] != f32.n_layers:
             raise AssertionError(f"f32 training gate: {name} launched "
                                  f"{launch_counts[name] - before[name]} "
                                  f"times, not {f32.n_layers}")
-    with plain_attention():
+    with plain():
         loss_plain, grads_plain = loss_and_grads(model_lib, params, f32,
                                                  batch)
     if not bool(torch.isfinite(loss)) or not all(
@@ -2791,13 +2834,18 @@ def train_f32_gate(cfg, device, launch_counts):
     torch.cuda.empty_cache()
 
 
-def train_bf16_gate(cfg, device, launch_counts):
-    """qwen2-1.5b at full width cut to `TRAIN_F32`'s layers in its own
-    bfloat16: one `loss_fn` and backward with the kernels, whose MLP and
+def train_bf16_gate(cfg, device, launch_counts, *,
+                    kernels=("flash_attention", "flash_attention_bwd"),
+                    plain=plain_attention,
+                    limits=(GATE_TRAIN_BF16_LOSS, GATE_TRAIN_BF16_GRAD)):
+    """qwen2-1.5b (or mamba2-1.3b) at full width cut to `TRAIN_F32`'s
+    layers in its own bfloat16: one `loss_fn` and backward with the
+    kernels (each of ``kernels`` once per layer), whose MLP and
     unembedding products differentiate through `layers._MatmulF32`,
     against the float32 model of the same weights (the bfloat16 ones
-    widened) with attention through the plain version.  Returns the
-    readings, each leaf's max |diff| / max |f32| among them."""
+    widened) with the kernel through the plain version (``plain``), held
+    to ``limits`` (the loss, the worst leaf).  Prints the readings, each
+    leaf's max |diff| / max |f32| among them."""
     from repro_torch.data.pipeline import SyntheticTokenPipeline
     from repro_torch.models import model as model_lib
     from repro_torch.models.param import tree_map
@@ -2813,15 +2861,16 @@ def train_bf16_gate(cfg, device, launch_counts):
         0, device)
     before = dict(launch_counts)
     loss, grads = loss_and_grads(model_lib, params, bf16, batch)
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in kernels:
         if launch_counts[name] - before[name] != bf16.n_layers:
             raise AssertionError(f"bf16 training gate: {name} launched "
                                  f"{launch_counts[name] - before[name]} "
                                  f"times, not {bf16.n_layers}")
-    if any(g.dtype != torch.bfloat16 for g in grads):
-        raise AssertionError("bf16 training gate: a gradient is not "
-                             "bfloat16")
-    with plain_attention():
+    from repro_torch.models.param import tree_leaves
+    if any(g.dtype != t.dtype for g, t in zip(grads, tree_leaves(params))):
+        raise AssertionError("bf16 training gate: a gradient is not in its "
+                             "parameter's dtype")
+    with plain():
         loss_ref, grads_ref = loss_and_grads(
             model_lib, tree_map(lambda p: p.float(), params), f32, batch)
     if not bool(torch.isfinite(loss)) or not all(
@@ -2832,14 +2881,15 @@ def train_bf16_gate(cfg, device, launch_counts):
     leaves = {path: rel_err(a, b) for path, a, b in
               zip(names, grads, grads_ref)}
     loss_rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
-    print(json.dumps({"train_bf16_gate": {"loss": float(loss),
+    print(json.dumps({"train_bf16_gate": {"model": cfg.name,
+                                          "loss": float(loss),
                                           "loss_f32": float(loss_ref),
                                           "loss_rel": loss_rel,
                                           "leaves": leaves}}), flush=True)
     gate(f"{cfg.name} bf16 {bf16.n_layers} layers: loss, kernels vs f32 "
-         f"plain", loss_rel, GATE_TRAIN_BF16_LOSS)
+         f"plain", loss_rel, limits[0])
     gate(f"{cfg.name} bf16 {bf16.n_layers} layers: worst gradient leaf, "
-         f"kernels vs f32 plain", max(leaves.values()), GATE_TRAIN_BF16_GRAD)
+         f"kernels vs f32 plain", max(leaves.values()), limits[1])
     del params, grads, grads_ref
     torch.cuda.empty_cache()
 
@@ -2854,8 +2904,9 @@ def profile_summary(prof, wall_ms, kernel="flash_bwd_"):
     """A profiled training step: the device's busy time (its kernels' and
     copies' own time) against the step's wall, the device-timeline span
     of its forward and its optimizer (`STEP_LABELS`; a span includes
-    the gaps between its kernels), the backward kernel's share of the
-    busy time and the kernels that take the most."""
+    the gaps between its kernels) and its share of the wall, the
+    backward kernel's (the kernels whose name holds ``kernel``) share of
+    the busy time and the kernels that take the most."""
     stats = prof.key_averages()
     device = [e for e in stats
               if e.device_type == torch.autograd.DeviceType.CUDA
@@ -2867,28 +2918,36 @@ def profile_summary(prof, wall_ms, kernel="flash_bwd_"):
     mine = sum(e.self_device_time_total for e in device
                if kernel in e.key) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:12]
+    name = kernel.rstrip("_")
+    optimizer = span.get("optimizer")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_busy_share": busy / wall_ms,
             "device_idle_share": 1 - busy / wall_ms,
             "forward_span_ms": span.get("forward"),
-            "optimizer_span_ms": span.get("optimizer"),
-            "flash_bwd_ms": mine,
-            "flash_bwd_share_of_busy": mine / busy if busy else None,
+            "optimizer_span_ms": optimizer,
+            "optimizer_share_of_wall": (optimizer / wall_ms
+                                        if optimizer is not None else None),
+            f"{name}_ms": mine,
+            f"{name}_share_of_busy": mine / busy if busy else None,
             "kernels": sum(e.count for e in device),
             "top_kernels": [{"name": e.key[:80],
                              "ms": e.self_device_time_total / 1e3,
                              "calls": e.count} for e in top]}
 
 
-def train_phase(cfg, device, launch_counts, routes, bwd_routes):
-    """The main path of training: `run_fixed` on qwen2-1.5b at full width
-    (`TRAIN`), with every count set to 0 just before and read just after,
-    and per step: each step must launch the flash forward once per layer,
-    on the tensor-core instance, and the backward once per layer, on its
-    tensor-core instance.  Every
-    loss finite; checkpoints at steps 3 and 6.  Then the step-3
-    checkpoint restored into a fresh state retakes steps 4-6 (one of them
-    profiled) with the first run's losses within `RESUME_TOL`."""
+def train_phase(cfg, device, launch_counts, routes, bwd_routes, *,
+                kernels=("flash_attention", "flash_attention_bwd"),
+                instances=("wgmma", "wgmma"), resume=True):
+    """The main path of training: `run_fixed` on qwen2-1.5b (or
+    mamba2-1.3b) at full width (`TRAIN`), with every count set to 0 just
+    before and read just after, and per step: each step must launch the
+    forward kernel and its backward (``kernels``) once per layer, each on
+    its tensor-core instance (``instances``: `routes` and `bwd_routes`
+    count them), and nothing else.  Every loss finite; checkpoints at
+    steps 3 and 6.  With ``resume`` the step-3 checkpoint restored into a
+    fresh state then retakes steps 4-6 (one of them profiled) with the
+    first run's losses within `RESUME_TOL`; without, step 2 of the first
+    run is profiled (outside steps 3-6, whose median stays unprofiled)."""
     import shutil
     import tempfile
 
@@ -2904,15 +2963,22 @@ def train_phase(cfg, device, launch_counts, routes, bwd_routes):
 
     at_3 = {}           # the state after step 3, in host memory
 
+    prof = (None if resume
+            else profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+
     def on_step(i, state, metrics, seconds):
         steps.append({"step": i, "seconds": seconds,
                       "counts": dict(launch_counts), "routes": dict(routes),
                       "bwd_routes": dict(bwd_routes),
                       "loss": float(metrics["loss"]),
                       "grad_norm": float(metrics["grad_norm"])})
-        if i == 2:
+        if i == 2 and resume:
             at_3.update((path, t.to("cpu", copy=True))
                         for path, t in state_items(state))
+        if not resume and i == 0:
+            prof.start()
+        elif not resume and i == 1:
+            prof.stop()
 
     restored_checked = []
 
@@ -2964,17 +3030,19 @@ def train_phase(cfg, device, launch_counts, routes, bwd_routes):
             via = {k: s["routes"][k] - prev["routes"][k] for k in routed}
             bwd_via = {k: s["bwd_routes"][k] - prev["bwd_routes"][k]
                        for k in bwd_routed}
-            want = {"waterfill": 0, "flash_attention": layers, "ssd": 0,
-                    "gmm": 0, "flash_attention_bwd": layers}
-            if delta != want or via != {"wgmma": layers, "split": 0,
-                                        "simt": 0} or bwd_via != {
-                    "wgmma": layers, "simt": 0}:
+            want = {"waterfill": 0, "flash_attention": 0, "ssd": 0,
+                    "gmm": 0, "flash_attention_bwd": 0, "ssd_bwd": 0}
+            want.update({name: layers for name in kernels})
+            want_via = {k: layers * (k == instances[0]) for k in routed}
+            want_bwd = {k: layers * (k == instances[1]) for k in bwd_routed}
+            if delta != want or via != want_via or bwd_via != want_bwd:
                 raise AssertionError(
                     f"training {cfg.name}, step {s['step']}: launches "
                     f"{delta} by instance {via}, backward {bwd_via}, "
-                    f"expected {want}, every forward and backward on wgmma")
+                    f"expected {want}, every forward on {instances[0]} "
+                    f"and every backward on {instances[1]}")
             prev = s
-        if counts["flash_attention_bwd"] != layers * TRAIN["steps"]:
+        if counts[kernels[1]] != layers * TRAIN["steps"]:
             raise AssertionError(f"training {cfg.name}: {counts}")
         committed = CheckpointManager(ckpt).all_steps()
         if committed != [3, 6]:
@@ -2983,29 +3051,14 @@ def train_phase(cfg, device, launch_counts, routes, bwd_routes):
         timed = [s["seconds"] for s in steps[2:]]       # steps 3-6
         step_ms = 1e3 * statistics.median(timed)
         tokens = TRAIN["batch"] * TRAIN["seq"]
-
-        # the step-3 checkpoint into a fresh state; step 5 (i = 4)
-        # profiled; no checkpoint written
-        prof = profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA])
-        resumed = []
-
-        def on_resume(i, state, metrics, seconds):
-            resumed.append((i, seconds))
-            if i == 3:
-                prof.start()
-            elif i == 4:
-                prof.stop()
-
-        again = launch_train.run_fixed(cfg, ckpt_every=10 ** 9,
-                                       resume_from=3, on_step=on_resume,
-                                       on_resume=check_restored, **kw)
-        if not restored_checked:
-            raise AssertionError(f"training {cfg.name}: the resume did not "
-                                 f"restore a state")
-        worst = max(abs(a - b) / abs(b) for a, b in zip(again, losses[3:]))
-        gate(f"training {cfg.name}: steps 4-6 resumed from the step-3 "
-             f"checkpoint, losses vs the first run", worst, RESUME_TOL)
-        profile = profile_summary(prof, 1e3 * resumed[1][1])
+        if resume:
+            again, worst, profile = resume_run(cfg, losses, kw,
+                                               check_restored,
+                                               restored_checked)
+        else:
+            again = worst = None
+            profile = profile_summary(prof, 1e3 * steps[1]["seconds"],
+                                      kernel=kernels[1] + "_")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     row = {"train": cfg.name, "layers": layers, "d_model": cfg.d_model,
@@ -3017,10 +3070,261 @@ def train_phase(cfg, device, launch_counts, routes, bwd_routes):
            "tokens_per_s": tokens / (step_ms / 1e3),
            "max_memory_allocated_gb": peak / 1e9, "wall_s": wall,
            "launch_counts": counts, "routes": routed,
-           "bwd_routes": bwd_routed, "resumed_losses": again, "resume_worst_rel": worst,
-           "profiled_step": profile}
+           "bwd_routes": bwd_routed, "resumed_losses": again,
+           "resume_worst_rel": worst, "profiled_step": profile}
     print(json.dumps({"train_run": row}), flush=True)
     return row
+
+
+def resume_run(cfg, losses, kw, check_restored, restored_checked):
+    """The step-3 checkpoint of ``kw["ckpt_dir"]`` into a fresh state
+    (``check_restored`` checks it); steps 4-6 retaken with step 5 (i = 4)
+    profiled and no checkpoint written; the losses against the first
+    run's within `RESUME_TOL`.  Returns (the resumed losses, the worst
+    relative difference, the profiled step's summary)."""
+    from torch.profiler import ProfilerActivity
+
+    from repro_torch.launch import train as launch_train
+    prof = profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    resumed = []
+
+    def on_resume(i, state, metrics, seconds):
+        resumed.append((i, seconds))
+        if i == 3:
+            prof.start()
+        elif i == 4:
+            prof.stop()
+
+    again = launch_train.run_fixed(cfg, ckpt_every=10 ** 9, resume_from=3,
+                                   on_step=on_resume,
+                                   on_resume=check_restored, **kw)
+    if not restored_checked:
+        raise AssertionError(f"training {cfg.name}: the resume did not "
+                             f"restore a state")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(again, losses[3:]))
+    gate(f"training {cfg.name}: steps 4-6 resumed from the step-3 "
+         f"checkpoint, losses vs the first run", worst, RESUME_TOL)
+    return again, worst, profile_summary(prof, 1e3 * resumed[1][1])
+
+
+# ---------------------------------------------------------------------------
+# Training mamba2: the SSD scan's backward, mamba2-1.3b through run_fixed
+# ---------------------------------------------------------------------------
+
+# gates on max |kernel - plain| / max |plain| of each gradient (0 where
+# both are exactly 0): float32 sums in another order; the tensor-core
+# instance rounds the masked, decayed products to bfloat16 before their
+# products, and bfloat16 gradients round once to 8 bits
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the timed backward calls (bfloat16, chunk 256, G = 1, no initial
+# state): mamba2-1.3b's training shape and a longer sequence, and
+# jamba-v0.1-52b's heads (label, B, S, H, P, N)
+SSD_BWD_TIMED = [("mamba2", 8, 512, 64, 64, 128),
+                 ("mamba2", 2, 2048, 64, 64, 128),
+                 ("jamba", 2, 2048, 128, 64, 64)]
+#: the backward's kernels, by the name each holds after "ssd_bwd_"
+SSD_BWD_KERNELS = ("states", "pass", "keys", "queries", "dcum",
+                   "group_sums", "head_sums")
+# gates of mamba2's 2-layer model in bfloat16 with the kernels against the
+# float32 model of the same weights through the plain scan: the loss, and
+# each gradient leaf on max |diff| / max |f32|.  Read on an H100 (run
+# 21d): the loss 3.14e-5, the leaves 3.4e-3 to 7.8e-3 and dt_bias's
+# 1.47e-2; the limits are 10x and 2x those, as qwen2's.  (The float32
+# gate read 0 on the loss and 1.98e-5 on the worst leaf.)
+GATE_SSD_TRAIN_BF16_LOSS, GATE_SSD_TRAIN_BF16_GRAD = 3.2e-4, 3e-2
+
+
+def ssd_bwd_inputs(seed, case, dtype, device, *, inputs=None, dfinal=False):
+    """A backward case's inputs (`ssd_inputs`, or ``inputs`` as given),
+    the output gradient dy in ``dtype`` and, with ``dfinal``, a
+    final-state gradient (float32), drawn by `ssd_bwd_arrays`."""
+    B, S, H, P, G, N, chunk, init = case[:8]
+    arrays, dy, df = ssd_bwd_arrays(seed, B, S, H, P, G, N, init, dfinal)
+    if inputs is None:
+        inputs = ssd_inputs(seed, B, S, H, P, G, N, init, dtype, device)
+    return (inputs, torch.tensor(dy, device=device).to(dtype),
+            None if df is None else torch.tensor(df, device=device))
+
+
+def ssd_bwd_flops(S, chunk, H, P, N, B=1, G=1):
+    """The backward's work, counted as `ssd_flops` counts the forward's:
+    per chunk of L steps, the L(L+1)/2 (query, key) pairs' C.B once per
+    group (2N FLOPs each), and per head their dy.x, dx, dB and dC
+    products (2P, 2P, 2N and 2N each) and per step the products with a
+    (P, N) state (exp(cum) dy^T C, G B, G^T x and S_prev^T dy: 2PN
+    each)."""
+    Q = min(chunk, S)
+    total = 0
+    for t0 in range(0, S, Q):
+        L = min(Q, S - t0)
+        total += (G * L * (L + 1) * N
+                  + H * (L * (L + 1) * 2 * (N + P) + 8 * L * P * N))
+    return B * total
+
+
+def ssd_bwd_bound(x, Bm, init, dfinal, chunk):
+    """Least time for one backward call: x and dy, B and C per group, dt,
+    A, D, the states the forward kept (every chunk's but a first one
+    without an initial state, 4 bytes an element) and the final state's
+    gradient once in; dx, dB, dC, ddt, dA, dD and the initial state's
+    gradient once out, at the HBM rate; against `ssd_bwd_flops` at the
+    tensor-core bf16 rate (float32 at the vector rate).  Returns (ms,
+    bound by, bytes, FLOPs)."""
+    Bsz, S, H, P = x.shape
+    G, N, item = Bm.shape[2], Bm.shape[3], x.element_size()
+    n_chunks = -(-S // min(chunk, S))
+    state = Bsz * H * P * N * 4
+    kept = (n_chunks - (init is None)) * state
+    nbytes = (3 * x.numel() * item + 4 * Bm.numel() * item
+              + 2 * Bsz * S * H * 4 + 4 * H * 4 + kept
+              + (state if dfinal is not None else 0)
+              + (state if init is not None else 0))
+    flops = ssd_bwd_flops(S, chunk, H, P, N, Bsz, G)
+    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes", nbytes, flops
+    return 1e3 * t_ops, "operations", nbytes, flops
+
+
+def check_ssd_bwd(label, so, case, seed, dtype, device, *, inputs=None,
+                  dfinal=False, instance=None):
+    """The backward kernel against the plain backward on the card: the
+    forward through `ssd_forward` (which keeps the entering states), then
+    the backward twice (bitwise equal) through the instance
+    `ssd_route` names (or ``instance``, forced), each gradient within
+    `SSD_BWD_TOL` of its max, in its input's dtype and finite.  Returns
+    the row (the worst relative error of each gradient, the largest
+    absolute one), the inputs and the gradients."""
+    from repro_torch.kernels.build import launch_counts
+    from repro_torch.kernels.ssd.ref import ssd_backward_reference
+    B, S, H, P, G, N, chunk, init = case[:8]
+    ins, dy, df = ssd_bwd_inputs(seed, case, dtype, device, inputs=inputs,
+                                 dfinal=dfinal)
+    x, dt, A, Bm, Cm, D, st = ins
+    _, _, kept = so.ssd_forward(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                initial_state=st)
+    want = instance or ssd_route(dtype, P, N, chunk)
+    kw = dict(chunk=chunk, initial_state=st, dfinal=df, kept=kept)
+
+    def kernel():
+        if instance is None:
+            return so.ssd_backward(x, dt, A, Bm, Cm, D, dy, **kw)
+        return so._backward_instance(instance, x, dt, A, Bm, Cm, D, dy, **kw)
+
+    before, launched = dict(so.bwd_route_counts), launch_counts["ssd_bwd"]
+    got, again = kernel(), kernel()
+    plain = ssd_backward_reference(x, dt, A, Bm, Cm, D, st, dy, df, chunk)
+    torch.cuda.synchronize()
+    routed = {k: so.bwd_route_counts[k] - before[k] for k in before}
+    if (routed != {k: 2 * (k == want) for k in routed}
+            or launch_counts["ssd_bwd"] != launched + 2):
+        raise AssertionError(f"{label}: backward routed {routed}, expected "
+                             f"two calls on {want}")
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dinit")
+    dtypes = (dtype, torch.float32, torch.float32, dtype, dtype,
+              torch.float32, torch.float32)
+    errs, worst_abs = {}, 0.0
+    for name, g, g2, p, want_dtype in zip(names, got, again, plain, dtypes):
+        if (g is None) != (p is None):
+            raise AssertionError(f"{label}: {name} is {g}, plain {p}")
+        if g is None:
+            continue
+        if g.dtype != want_dtype or g.shape != p.shape:
+            raise AssertionError(f"{label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}, plain {p.dtype} "
+                                 f"{tuple(p.shape)}")
+        if not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"{label}: {name} is not finite")
+        if not bitwise_equal(g.float(), g2.float()):
+            raise AssertionError(f"{label}: two calls differ in {name}")
+        errs[name] = rel_err(g, p)
+        worst_abs = max(worst_abs, float((g.float() - p.float()).abs().max()))
+    tol = SSD_BWD_TOL[dtype]
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"{label}: gradients {bad} differ from the "
+                             f"plain backward by more than {tol} of their "
+                             f"max")
+    row = {"ssd_bwd_case": label, "instance": want,
+           "dtype": str(dtype).split(".")[1], "shape": list(case[:8]),
+           "dfinal": dfinal, "max_rel_err": max(errs.values()),
+           "max_abs_err": worst_abs, "errs": errs, "tol": tol}
+    return row, (ins, dy, df, kept), got
+
+
+def time_ssd_bwd(so, label, B, S, H, P, N, device):
+    """The backward at one training shape (bfloat16, G = 1, chunk 256, no
+    initial state or final-state gradient), checked against the plain
+    backward on the routed instance and on the SIMT one, then both timed:
+    CUDA events (median of KERNEL_REPS) and device time in all and by
+    kernel (`SSD_BWD_KERNELS`), beside the bound and the plain backward
+    (no PyTorch call computes it: library_ms is null)."""
+    from repro_torch.kernels.ssd.ref import ssd_backward_reference
+    case = (B, S, H, P, 1, N, 256, False)
+    row, (ins, dy, df, kept), _ = check_ssd_bwd(
+        f"{label}-train-{B}x{S}", so, case, 60 + S, torch.bfloat16, device)
+    simt_row, _, _ = check_ssd_bwd(f"{label}-train-{B}x{S}-simt", so, case,
+                                   60 + S, torch.bfloat16, device,
+                                   inputs=ins, instance="simt")
+    x, dt, A, Bm, Cm, D, st = ins
+    kw = dict(chunk=256, kept=kept)
+
+    def kernel():
+        return so.ssd_backward(x, dt, A, Bm, Cm, D, dy, **kw)
+
+    def simt():
+        return so._backward_instance("simt", x, dt, A, Bm, Cm, D, dy, **kw)
+
+    def plain():
+        return ssd_backward_reference(x, dt, A, Bm, Cm, D, None, dy, None,
+                                      256)
+
+    bound_ms, bound_by, nbytes, flops = ssd_bwd_bound(x, Bm, None, None, 256)
+    by = device_ms_by(kernel, KERNEL_REPS, "ssd_bwd_", SSD_BWD_KERNELS)
+    simt_by = device_ms_by(simt, KERNEL_REPS, "ssd_bwd_", SSD_BWD_KERNELS)
+    row.update(
+        ssd_bwd_case=f"{label}-train-{B}x{S}", shape=[B, S, H, P, 1, N, 256],
+        ms=cuda_ms(kernel, KERNEL_REPS), device_ms=by.pop("all"),
+        kernels_device_ms=by, simt_ms=cuda_ms(simt, KERNEL_REPS),
+        simt_device_ms=simt_by.pop("all"), simt_kernels_device_ms=simt_by,
+        plain_ms=cuda_ms(plain, KERNEL_REPS), library_ms=None,
+        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+        simt_max_rel_err=simt_row["max_rel_err"])
+    row["max_abs_err"] = max(row["max_abs_err"], simt_row["max_abs_err"])
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+    row["simt_over_mma_device"] = row["simt_device_ms"] / row["device_ms"]
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def ssd_bwd_phase(so, device):
+    """The backward kernel against the plain backward on every `SSD_CASES`
+    case in both dtypes, every `SSD_TC_CASES` case (bfloat16, the fused
+    views where the case has them) and `SSD_BWD_DFINAL` in both dtypes
+    (with a final-state gradient), each through the instance `ssd_route`
+    names, bitwise on two calls; then timed at `SSD_BWD_TIMED`.  Returns
+    (the timed rows, the largest absolute error of any check)."""
+    rows = []
+    for case in SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(check_ssd_bwd(f"bwd{case}", so, case, 0, dtype,
+                                      device, dfinal=case[7])[0])
+    for case in SSD_TC_CASES:
+        rows.append(check_ssd_bwd(f"bwd-tc{case}", so, case, 6,
+                                  torch.bfloat16, device,
+                                  inputs=ssd_tc_inputs(case, device),
+                                  dfinal=True)[0])
+    for dtype in (torch.float32, torch.bfloat16):
+        rows.append(check_ssd_bwd(f"bwd-dfinal{SSD_BWD_DFINAL}", so,
+                                  SSD_BWD_DFINAL, 3, dtype, device,
+                                  dfinal=True)[0])
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    timed = [time_ssd_bwd(so, *shape, device) for shape in SSD_BWD_TIMED]
+    torch.cuda.empty_cache()
+    return timed, max(r["max_abs_err"] for r in rows + timed)
 
 
 def build_all(modules) -> None:
@@ -3255,6 +3559,56 @@ def main() -> int:
         "train_step_ms": trained["step_ms_median_3_6"],
         "train_tokens_per_s": trained["tokens_per_s"]}
 
+    # phase 16: training mamba2 -- the SSD scan's backward kernel against
+    # its plain version, timed at mamba2's and jamba's training shapes;
+    # the float32 and bfloat16 2-layer gates; then mamba2-1.3b at full
+    # width through run_fixed, its main path (before the water-fill: the
+    # profiler reads it)
+    cfg = get_config(SSD_ARCH)
+    ssd_bwd_timed, ssd_bwd_err = ssd_bwd_phase(so, dev)
+    ssd_kernels = dict(kernels=("ssd", "ssd_bwd"), plain=plain_ssd)
+    train_f32_gate(cfg, dev, launch_counts, **ssd_kernels)
+    train_bf16_gate(cfg, dev, launch_counts, limits=(
+        GATE_SSD_TRAIN_BF16_LOSS, GATE_SSD_TRAIN_BF16_GRAD), **ssd_kernels)
+    ssd_trained = train_phase(cfg, dev, launch_counts, so.route_counts,
+                              so.bwd_route_counts,
+                              kernels=ssd_kernels["kernels"],
+                              instances=("mma", "mma"), resume=False)
+    main_shape = next(r for r in ssd_bwd_timed if r["ssd_bwd_case"] ==
+                      f"mamba2-train-{TRAIN['batch']}x{TRAIN['seq']}")
+    ssd_bwd_line = {
+        "name": "ssd_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/ssd_bwd.cu",
+        "replaces": "gradient of src/repro/kernels/ssd/ops.py:32 (no Pallas "
+                    "backward)",
+        "launches": ssd_trained["launch_counts"]["ssd_bwd"],
+        "max_abs_err": ssd_bwd_err,
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"], "library_ms": None,
+        "device_ms": main_shape["device_ms"],
+        "kernels_device_ms": main_shape["kernels_device_ms"],
+        "instances": {
+            "mma": "bfloat16, P and N 64 or 128, chunk a multiple of 64: "
+                   "U_c, the key-side and query-side tile passes on "
+                   "mma.sync",
+            "simt": "float32, and the shapes mma does not take: f32 FMAs "
+                    "from shared memory"},
+        "launches_by_instance": ssd_trained["bwd_routes"],
+        "kernels_of_a_call": {
+            "states": "U_c = sum exp(cum) dy^T C per chunk, and cum",
+            "pass": "the state's gradient G_c walked back over the chunks",
+            "keys": "dx, ddt's direct part, dB per split of heads",
+            "queries": "dC per split of heads, dcum",
+            "dcum": "da, then ddt += A da and dA per chunk",
+            "group_sums": "dB and dC over each group's splits",
+            "head_sums": "dA and dD"},
+        "ptxas": ptxas_report(so.bwd_build_log, "ssd_bwd_"),
+        "shapes": ssd_bwd_timed,
+        "train_step_ms": ssd_trained["step_ms_median_3_6"],
+        "train_tokens_per_s": ssd_trained["tokens_per_s"],
+        "train_peak_gb": ssd_trained["max_memory_allocated_gb"]}
+
     # phases 3 and 4, run last: the water-fill's cases, cycles and
     # candidates, then the days through run_policy (once the tier-1m
     # case has run the profiler reads no device events in this process,
@@ -3263,7 +3617,8 @@ def main() -> int:
     waterfill_line = run_waterfill_phase()
     print(json.dumps({"profiler_sessions": profiler_sessions}), flush=True)
     print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
-                                  gmm_line, bwd_line]}), flush=True)
+                                  gmm_line, bwd_line, ssd_bwd_line]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

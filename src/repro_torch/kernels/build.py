@@ -20,7 +20,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: Kernel launches since the count was last reset, by kernel name.  Only
 #: the CUDA branch of a wrapper adds to it, once per launch.
 launch_counts = {"waterfill": 0, "flash_attention": 0, "ssd": 0, "gmm": 0,
-                 "flash_attention_bwd": 0}
+                 "flash_attention_bwd": 0, "ssd_bwd": 0}
 
 
 def nvcc() -> str:

@@ -132,6 +132,8 @@ struct Params {
   const float* init;     // (B, H, P, N) or null
   void* y;               // (B, S, H, P) contiguous
   float* fin;            // (B, H, P, N) contiguous
+  float* enter;          // (B, nc, H, P, N) the state entering each chunk
+                         // (for the backward), or null
   int S, H, G, N, Q;
   long long xs_b, xs_s, xs_h, bs_b, bs_s, bs_g, cs_b, cs_s, cs_g;
 };
@@ -201,6 +203,14 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(Params p) {
     const int L = min(p.Q, p.S - t0);
     const int n_tiles = (L + kTile - 1) / kTile;
     __syncthreads();                // the last chunk is done with cum..wj
+    if (p.enter && (t0 > 0 || p.init)) {
+      // kept for the backward: chunk 0's only with an initial state
+      const int nc = (p.S + p.Q - 1) / p.Q;
+      float* to = p.enter + ((static_cast<long long>(b) * nc + t0 / p.Q) *
+                                 p.H + h) * P * N;
+      for (int i = tid; i < P * N; i += kThreads)
+        to[i] = st[(i / N) * NS + i % N];
+    }
 
     // dt and the inclusive scan of dt*A over the chunk; past L the terms
     // are 0, so cumA stays at cum[L-1] and the weights are 0
@@ -1045,11 +1055,15 @@ int ssd_init(int device) {
 }
 
 // The simt instance.  dtype: 0 = float32, 1 = bfloat16 (x, Bm, Cm and
-// y); dt, A, D and the states are float32.  init may be null (a zero initial state).  Strides
-// are in elements.  Returns a cudaError_t (0 = launched).
+// y); dt, A, D and the states are float32.  init may be null (a zero
+// initial state); enter, when not null, receives the float32 state
+// entering each chunk c (B, nc, H, P, N), for c > 0 and, with an initial
+// state, c = 0.  Strides are in elements.  Returns a cudaError_t (0 =
+// launched).
 int ssd_launch(int device, int dtype, const void* x, const void* dt,
                const void* A, const void* Bm, const void* Cm, const void* D,
-               const void* init, void* y, void* fin, int B, int S, int H,
+               const void* init, void* y, void* fin, void* enter, int B,
+               int S, int H,
                int P, int G, int N, int Q, long long xs_b, long long xs_s,
                long long xs_h, long long bs_b, long long bs_s, long long bs_g,
                long long cs_b, long long cs_s, long long cs_g, void* stream) {
@@ -1068,6 +1082,7 @@ int ssd_launch(int device, int dtype, const void* x, const void* dt,
   p.init = static_cast<const float*>(init);
   p.y = y;
   p.fin = static_cast<float*>(fin);
+  p.enter = static_cast<float*>(enter);
   p.S = S;
   p.H = H;
   p.G = G;

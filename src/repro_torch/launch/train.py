@@ -3,10 +3,11 @@
 The port of the JAX package's ``launch/train.py`` fixed mode: build the
 state -> step loop over the synthetic pipeline's batches -> asynchronous
 checkpoints.  It runs on cuda unless ``device="cpu"`` (``--device cpu``),
-where every kernel runs its plain version.  On cuda, attention's forward
-and backward are the port's kernels; the models that run the SSD scan or
-the grouped matmul refuse to train there until their backward kernels
-are in (ROADMAP Queue 1 items 12b and 12c).
+where every kernel runs its plain version.  On cuda, attention's and the
+SSD scan's forward and backward are the port's kernels, so the dense
+models and mamba2 train there; the models that run the grouped matmul
+(jamba, the llama4 MoE models) refuse to until its backward kernel is in
+(ROADMAP Queue 1 item 12c).
 
 `run_fixed` can also resume: ``resume_from=n`` restores the committed
 checkpoint of step n into the freshly built state and runs the steps
@@ -19,6 +20,8 @@ ROADMAP Queue 1 item 14) and the provisioner-managed elastic mode
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --steps 6 --batch 8 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --steps 6 --batch 8 --seq 512
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --reduced --device cpu --steps 4 --batch 2 --seq 32

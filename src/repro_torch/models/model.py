@@ -14,10 +14,10 @@ other entry points follow the parameters' device.
 
 `forward` and `loss_fn` are differentiable (parameters that require
 grad get gradients; serving's do not, so no graph is built there).  On a
-CUDA device, training runs attention's backward kernel; the SSD scan and
-the grouped matmul have no backward kernel yet, so `loss_fn` refuses to
-differentiate a model that runs them there (ROADMAP Queue 1 items 12b
-and 12c) before any forward work.  On the CPU every family trains
+CUDA device, training runs attention's and the SSD scan's backward
+kernels; the grouped matmul has no backward kernel yet, so `loss_fn`
+refuses to differentiate a model that runs it there (ROADMAP Queue 1
+item 12c) before any forward work.  On the CPU every family trains
 through the plain versions.
 
 Not on this slice: the encoder of enc-dec models and the VLM patch
@@ -152,15 +152,12 @@ def forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
 
 
 #: the kernels without a backward yet, and the ROADMAP item of each
-_NO_BACKWARD = {"ssd": ("the SSD scan", "12b"),
-                "gmm": ("the grouped matmul", "12c")}
+_NO_BACKWARD = {"gmm": ("the grouped matmul", "12c")}
 
 
 def _kernels_without_backward(cfg: ModelConfig) -> list[str]:
-    kinds = [cfg.mixer_kind(s) for s in range(cfg.period)]
     ffns = [cfg.ffn_kind(s) for s in range(cfg.period)]
-    return ((["ssd"] if "ssm" in kinds else [])
-            + (["gmm"] if "moe" in ffns else []))
+    return ["gmm"] if "moe" in ffns else []
 
 
 def check_trainable(params: PyTree, cfg: ModelConfig):

@@ -54,10 +54,21 @@ plain backward on the same CUDA tensors, through the instance
 64 or 128, SIMT otherwise) and through each instance forced; two calls
 give the same bits; autograd through `flash_attention` launches one
 forward and one backward; the wrapper refuses a missing, mis-shaped,
-wrong-dtype or CPU lse.  Training: mamba2 and jamba refuse to train on cuda, naming
-their missing backward kernels (ROADMAP Queue 1 items 12b and 12c),
-before any kernel runs; `matmul_f32`'s gradient; a small dense model's
-loss and gradients on the card against the same model on the CPU.
+wrong-dtype or CPU lse.
+
+SSD backward: chip_smoke's `check_ssd_bwd` (the backward kernel against
+the plain backward given the states the forward kept, each gradient
+within 1e-4 (f32) / 2e-2 (bf16) of its max, in its input's dtype, on the
+instance `ssd_route` names, two calls bitwise) on the reference suite's
+cases in both dtypes, the tensor-core edge cases, the final-state
+gradient case, and the SIMT instance on the tensor-core forward's
+states; autograd through `ssd` launching one forward and one backward,
+counted by instance; the wrapper refusing missing or mismatched states.
+
+Training: jamba refuses to train on cuda, naming its missing backward
+kernel (ROADMAP Queue 1 item 12c), before any kernel runs;
+`matmul_f32`'s gradient; a small dense model's and a small mamba2's loss
+and gradients on the card against the same model on the CPU.
 
 The cases, inputs and checks are chip_smoke.py's own, so the two cannot
 drift apart.
@@ -81,6 +92,7 @@ from repro_torch.kernels.flash_attention.ref import attention_reference
 from repro_torch.kernels.moe_gmm.ops import (
     gmm, gmm_plain, route_counts, stream_floor,
 )
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ssd, ssd_chunked
 from repro_torch.kernels.ssd.ops import route_counts as ssd_routes
 from repro_torch.kernels.ssd.ops import _ssd_instance
@@ -94,15 +106,15 @@ from repro_torch.kernels.waterfill.ref import (
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
     FLASH_BWD_CASES, FLASH_BWD_TIMED, FLASH_BWD_TOL, LSE_TOL, check_flash_bwd,
-    check_lse, flash_bwd_inputs, flash_bwd_route,
+    check_lse, check_ssd_bwd, flash_bwd_inputs, flash_bwd_route,
     FLASH_CASES, FLASH_TOL, FLASH_WGMMA_CASES, GMM_CASES, GMM_RAGGED,
-    GMM_TC_CASES, GMM_TOL, SSD_CASES, SSD_TC_CASES, SSD_TOL,
+    GMM_TC_CASES, GMM_TOL, SSD_BWD_DFINAL, SSD_CASES, SSD_TC_CASES, SSD_TOL,
     attention_inputs, bitwise_equal, check_fully_masked_rows, fused_deltas,
     guard_problem,
     check_rolling_window, flash_route, flash_wgmma_inputs, gmm_arrays,
     gmm_inputs, gmm_route, moe_serving_inputs, moe_serving_shapes,
-    serving_shapes, ssd_arrays, ssd_inputs, ssd_route, ssd_serving_cases,
-    ssd_tc_inputs, ssd_timed_cases,
+    serving_shapes, ssd_arrays, ssd_bwd_arrays, ssd_inputs, ssd_route,
+    ssd_serving_cases, ssd_tc_inputs, ssd_timed_cases,
 )
 
 pytestmark = pytest.mark.cuda
@@ -899,8 +911,7 @@ def test_flash_backward_wrapper_refuses_a_bad_lse(cuda):
     assert launch_counts == before
 
 
-@pytest.mark.parametrize("arch,items", [("mamba2-1.3b", ["12b"]),
-                                        ("jamba-v0.1-52b", ["12b", "12c"])])
+@pytest.mark.parametrize("arch,items", [("jamba-v0.1-52b", ["12c"])])
 def test_training_without_backward_kernels_is_refused(cuda, arch, items):
     import dataclasses
 
@@ -915,6 +926,7 @@ def test_training_without_backward_kernels_is_refused(cuda, arch, items):
         model_lib.loss_fn(params, cfg, batch)
     for item in items:
         assert f"ROADMAP Queue 1 item {item}" in str(err.value)
+    assert "item 12b" not in str(err.value)   # the SSD scan has one
     assert launch_counts == before            # no forward work
     with torch.no_grad():
         loss, _ = model_lib.loss_fn(params, cfg, batch)
@@ -922,12 +934,6 @@ def test_training_without_backward_kernels_is_refused(cuda, arch, items):
 
 
 def test_kernels_without_backward_refuse_recorded_calls(cuda):
-    x = torch.zeros((1, 64, 2, 64), device=cuda, requires_grad=True)
-    dt = torch.ones((1, 64, 2), device=cuda)
-    bc = torch.zeros((1, 64, 1, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ssd(x, dt, -torch.ones(2, device=cuda), bc, bc,
-            torch.ones(2, device=cuda), chunk=64)
     lhs = torch.zeros((8, 16), device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="item 12c"):
         gmm(lhs, torch.zeros((2, 16, 8), device=cuda),
@@ -993,6 +999,123 @@ def test_dense_model_gradients_on_the_card_match_the_cpu(cuda):
     loss, g = grads(params, cuda)
     assert launch_counts["flash_attention_bwd"] == \
         before["flash_attention_bwd"] + cfg.n_layers
+    loss_cpu, g_cpu = grads(params, "cpu")
+    assert abs(float(loss) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
+    for a, b in zip(g, g_cpu):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max().clamp(min=1e-30))
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan's backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_equals_plain_version(cuda, case, dtype):
+    """Each gradient within 1e-4 (f32) / 2e-2 (bf16) of its max, on the
+    routed instance, two calls bitwise; a final-state gradient where the
+    case has an initial state."""
+    check_ssd_bwd(f"bwd{case}", ssd_ops, case, 0, dtype, cuda,
+                  dfinal=case[7])
+
+
+@pytest.mark.parametrize("case", SSD_TC_CASES)
+def test_ssd_backward_tensor_cores_take_edge_cases(cuda, case):
+    """One step, a chunk ending inside a tile, a one-row second chunk, a
+    ragged last chunk, 2 and 4 heads a group, P and N 64 and 128, fused
+    views of one projection."""
+    check_ssd_bwd(f"bwd-tc{case}", ssd_ops, case, 6, torch.bfloat16, cuda,
+                  inputs=ssd_tc_inputs(case, cuda), dfinal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_with_a_final_state_gradient(cuda, dtype):
+    check_ssd_bwd(f"bwd-dfinal{SSD_BWD_DFINAL}", ssd_ops, SSD_BWD_DFINAL, 3,
+                  dtype, cuda, dfinal=True)
+
+
+@pytest.mark.parametrize("case", SSD_TC_CASES)
+def test_ssd_backward_simt_takes_the_tensor_core_states(cuda, case):
+    """The SIMT instance forced on the tensor-core forward's bf16 hi + lo
+    states: the same gates."""
+    check_ssd_bwd(f"bwd-tc{case}-simt", ssd_ops, case, 6, torch.bfloat16,
+                  cuda, inputs=ssd_tc_inputs(case, cuda), dfinal=True,
+                  instance="simt")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_recorded_call_launches_the_backward(cuda, dtype):
+    """Autograd through `ssd`: one forward launch, then one backward
+    launch on the instance `ssd_route` names; the gradients are the
+    backward's on the states the forward kept."""
+    x, dt, A, Bm, Cm, D, st = ssd_inputs(14, 1, 300, 4, 64, 1, 64, True,
+                                         dtype, cuda)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D, st)]
+    want = ssd_route(dtype, 64, 64, 256)
+    before, routed = dict(launch_counts), dict(ssd_ops.bwd_route_counts)
+    y, fin = ssd(*leaves[:6], initial_state=leaves[6])
+    assert launch_counts["ssd"] == before["ssd"] + 1
+    assert launch_counts["ssd_bwd"] == before["ssd_bwd"]
+    dy = torch.randn(y.shape, device=cuda).to(dtype)
+    grads = torch.autograd.grad((y.float() * dy.float()).sum()
+                                + fin.sum(), leaves)
+    assert launch_counts["ssd_bwd"] == before["ssd_bwd"] + 1
+    assert ssd_ops.bwd_route_counts[want] == routed[want] + 1
+    assert sum(ssd_ops.bwd_route_counts.values()) == sum(routed.values()) + 1
+    _, _, kept = ssd_ops.ssd_forward(x, dt, A, Bm, Cm, D, initial_state=st)
+    again = ssd_ops.ssd_backward(x, dt, A, Bm, Cm, D, dy, initial_state=st,
+                                 dfinal=torch.ones_like(fin), kept=kept)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_ssd_backward_wrapper_refuses_bad_states(cuda):
+    x, dt, A, Bm, Cm, D, st = ssd_inputs(15, 1, 128, 2, 64, 1, 64, True,
+                                         torch.bfloat16, cuda)
+    dy = torch.ones_like(x)
+    _, _, kept = ssd_ops.ssd_forward(x, dt, A, Bm, Cm, D, initial_state=st)
+    _, _, kept_f32 = ssd_ops._launch(
+        "simt", ssd_ops._checked(x, dt, A, Bm, Cm, D, 256, st), x, dt, A, Bm,
+        Cm, D, 256, st, keep=True)
+    bwd = ssd_ops.ssd_backward
+    before = dict(launch_counts)
+    with pytest.raises(ValueError, match="kept entering states"):
+        bwd(x, dt, A, Bm, Cm, D, dy, initial_state=st)
+    with pytest.raises(ValueError, match="kept must have shape"):
+        bwd(x, dt, A, Bm, Cm, D, dy, initial_state=st, kept=kept[:, :, :1])
+    with pytest.raises(ValueError, match="mma instance reads"):
+        bwd(x, dt, A, Bm, Cm, D, dy, initial_state=st, kept=kept_f32)
+    with pytest.raises(TypeError, match="dfinal"):
+        bwd(x, dt, A, Bm, Cm, D, dy, initial_state=st, kept=kept,
+            dfinal=torch.ones_like(st).double())
+    assert launch_counts["ssd_bwd"] == before["ssd_bwd"]
+    got = ssd_ops._backward_instance("simt", x, dt, A, Bm, Cm, D, dy,
+                                     initial_state=st, kept=kept_f32)
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+
+
+def test_mamba2_gradients_on_the_card_match_the_cpu(cuda):
+    """A small mamba2 (float32): loss and gradients with the kernels on
+    the card (one scan and one backward a layer) against the plain
+    versions on the CPU."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import tree_leaves, tree_map
+    cfg = reduced_config("mamba2-1.3b")
+    params = model_lib.init_model(cfg, device="cpu")
+    tok = torch.tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 97)), dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+    def grads(ps, device):
+        req = tree_map(lambda p: p.to(device).requires_grad_(), ps)
+        loss, _ = model_lib.loss_fn(req, cfg, batch, remat="none")
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(req))
+
+    before = dict(launch_counts)
+    loss, g = grads(params, cuda)
+    assert launch_counts["ssd"] == before["ssd"] + cfg.n_layers
+    assert launch_counts["ssd_bwd"] == before["ssd_bwd"] + cfg.n_layers
     loss_cpu, g_cpu = grads(params, "cpu")
     assert abs(float(loss) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
     for a, b in zip(g, g_cpu):

@@ -21,24 +21,40 @@ the same float32 sums, chunk by chunk.  The design study's chunked scan
 (`study.rounded_scan`) is the oracle without roundings and the mirror
 with the kernel's.  `ops.route` is held against chip_smoke.py's
 `ssd_route` on every reference, serving and edge shape.
+
+The backward: `ref.ssd_backward_reference`, the plain version that
+`ssd_bwd.cu` is held against on the card, against ``jax.vjp`` of the
+JAX package's chunked scan and of its sequential oracle on the same
+numpy inputs with a random output and final-state gradient (with and
+without an initial state, ragged tails, G > 1, S shorter than a chunk),
+within 1e-5 of each gradient's max (float32 sums in another order);
+`SSDFn` on CPU tensors against autograd through `ssd_chunked`, and under
+``torch.autograd.gradcheck`` in float64.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.ssd.kernel import ssd_pallas
+from repro.kernels.ssd.ops import ssd_chunked_jnp
 from repro.kernels.ssd.ops import ssd_decode_step as ref_decode_step
 from repro.kernels.ssd.ref import ssd_reference as ref_oracle
 from repro_torch.kernels.build import launch_counts
 from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_decode_step
 from repro_torch.kernels.ssd import study
-from repro_torch.kernels.ssd.ops import route, route_counts
-from repro_torch.kernels.ssd.ref import ssd_passes, ssd_reference
+from repro_torch.kernels.ssd.ops import (
+    SSDFn, bwd_route, bwd_route_counts, route, route_counts, ssd_backward,
+    ssd_forward,
+)
+from repro_torch.kernels.ssd.ref import (
+    ssd_backward_reference, ssd_passes, ssd_reference,
+)
 from test_kernel_ssd import CASES
 from test_torch_cuda import (
-    SSD_CASES, SSD_TC_CASES, ssd_arrays, ssd_inputs, ssd_route,
-    ssd_serving_cases, ssd_timed_cases,
+    SSD_BWD_DFINAL, SSD_CASES, SSD_TC_CASES, ssd_arrays, ssd_bwd_arrays,
+    ssd_inputs, ssd_route, ssd_serving_cases, ssd_timed_cases,
 )
 from test_torch_matchmaker import one_torch_thread  # noqa: F401
 
@@ -57,6 +73,16 @@ RAGGED_CASES = [(1, 777, 2, 64, 1, 64, 256, True),
 # shapes of the design study's scan (S a multiple of the chunk; B, S, H,
 # P, G, N, chunk)
 STUDY_CASES = [(1, 256, 4, 64, 1, 64, 64), (2, 128, 4, 32, 2, 32, 32)]
+# the backward's cases (B, S, H, P, G, N, chunk, init, dfinal): the
+# reference cases with and without a final-state gradient, chip_smoke's
+# dfinal case, a ragged tail with G = 2 and an initial state, S shorter
+# than the chunk, one step
+BWD_CASES = ([(*c, dfinal) for c in CASES for dfinal in (False, True)]
+             + [(*SSD_BWD_DFINAL, True),
+                (2, 77, 4, 16, 2, 16, 32, True, True),
+                (1, 40, 2, 32, 1, 16, 64, False, False),
+                (1, 1, 2, 16, 1, 16, 64, False, True)])
+BWD_TOL = 1e-5
 ROUTE_EDGE_CASES = [(1, 128, 4, 32, 1, 64, 256, False),
                     (1, 128, 4, 64, 1, 32, 256, False),
                     (1, 128, 4, 64, 1, 64, 96, False),
@@ -326,3 +352,176 @@ def test_route_sends_misaligned_views_to_simt():
                  256) == "simt"
     assert route(x, Bm, Bm, 256 - 64) == "mma"
     assert route(x, Bm, Bm, 100) == "simt"
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+def bwd_tensors(seed, case, dtype=torch.float32):
+    """A backward case's numpy draws (`ssd_bwd_arrays`) as CPU tensors:
+    x, B, C and dy in ``dtype``, the rest float32 (float64 for
+    float64)."""
+    B, S, H, P, G, N, chunk, init, dfinal = case
+    arrays, dy, df = ssd_bwd_arrays(seed, B, S, H, P, G, N, init, dfinal)
+    rest = torch.float64 if dtype == torch.float64 else torch.float32
+
+    def t(a, to=rest):
+        return None if a is None else torch.from_numpy(a).to(to)
+
+    x, dt, A, Bm, Cm, D, st = arrays
+    return ((t(x, dtype), t(dt), t(A), t(Bm, dtype), t(Cm, dtype), t(D),
+             t(st)), t(dy, dtype), t(df))
+
+
+def worst_rel(got, want) -> float:
+    """max |got - want| / max |want| (0 where both are exactly 0: one
+    step's dA)."""
+    got, want = as_f32(got), as_f32(want)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("oracle", ["chunked", "sequential"])
+def test_backward_reference_matches_jax_vjp(case, oracle):
+    B, S, H, P, G, N, chunk, init, dfinal = case
+    (x, dt, A, Bm, Cm, D, st), dy, df = bwd_tensors(3, case)
+    got = ssd_backward_reference(x, dt, A, Bm, Cm, D, st, dy, df, chunk)
+    arrays, dy_np, df_np = ssd_bwd_arrays(3, B, S, H, P, G, N, init,
+                                          dfinal)
+    jx = jax_inputs(arrays, "float32")
+    primals = jx[:6] + ((jx[6],) if init else ())
+
+    def f(*a):
+        state = a[6] if init else None
+        if oracle == "chunked":
+            return ssd_chunked_jnp(*a[:6], chunk=chunk, initial_state=state)
+        return ref_oracle(*a[:6], initial_state=state)
+
+    (y, fin), vjp = jax.vjp(jax.jit(f), *primals)
+    want = vjp((jnp.asarray(dy_np), jnp.zeros_like(fin) if df_np is None
+                else jnp.asarray(df_np)))
+    names = ["dx", "ddt", "dA", "dB", "dC", "dD", "dinit"]
+    assert (got[6] is None) == (not init)
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert worst_rel(g, w) <= BWD_TOL, (name, worst_rel(g, w))
+
+
+@pytest.mark.parametrize("case", BWD_CASES[-4:])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssdfn_matches_autograd_through_the_chunked_scan(case, dtype):
+    """`SSDFn` on CPU tensors (`ssd_chunked` forward, the plain backward)
+    against autograd through `ssd_chunked`, both outputs used; in
+    bfloat16 the gradients of x, B and C come back in bfloat16."""
+    chunk, init, dfinal = case[6:]
+    inputs, dy, df = bwd_tensors(4, case, dtype)
+    needs = [t.clone().requires_grad_() for t in inputs if t is not None]
+    again = [t.clone().requires_grad_() for t in inputs if t is not None]
+    state = (lambda ts: ts[6] if init else None)
+
+    y, fin = SSDFn.apply(*needs[:6], state(needs), chunk)
+    y_ref, fin_ref = ssd_chunked(*again[:6], chunk=chunk,
+                                 initial_state=state(again))
+    assert torch.equal(y, y_ref) and torch.equal(fin, fin_ref)
+    loss = (y.float() * dy.float()).sum()
+    loss_ref = (y_ref.float() * dy.float()).sum()
+    if dfinal:
+        loss = loss + (fin * df).sum()
+        loss_ref = loss_ref + (fin_ref * df).sum()
+    got = torch.autograd.grad(loss, needs)
+    want = torch.autograd.grad(loss_ref, again)
+    for g, w, t in zip(got, want, needs):
+        assert g.dtype == t.dtype
+        tol = BWD_TOL if dtype == torch.float32 else TOL["bfloat16"]
+        assert worst_rel(g, w) <= tol
+
+
+def test_chunked_gradient_stays_finite_where_masked_decays_overflow():
+    """Decays of pairs j > i overflow float32 at mamba2's largest dt * |A|
+    (0.1 x 16 a step: exp(+101) within a 64-step chunk); autograd through
+    `ssd_chunked` must not turn their masked zeros into NaN.  Its
+    gradients against the float64 plain backward: 1e-5 of each max, but
+    dA's float32 sums cancel (autograd's is 4e-4 off here; the plain
+    backward's float32 one 4e-5), so dA is held to 1e-3."""
+    B, S, H, P, G, N, chunk = 1, 64, 2, 16, 1, 16, 64
+    (x, dt, A, Bm, Cm, D, _), dy, _ = bwd_tensors(
+        8, (B, S, H, P, G, N, chunk, False, False))
+    dt = torch.full_like(dt, 0.1)
+    A = torch.full_like(A, -16.0)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, D)]
+    y, _ = ssd_chunked(*leaves, chunk=chunk)
+    got = torch.autograd.grad((y * dy).sum(), leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    want = ssd_backward_reference(*(t.double() for t in (x, dt, A, Bm, Cm,
+                                                          D)),
+                                  None, dy.double(), None, chunk)
+    for name, g, w in zip(["dx", "ddt", "dA", "dB", "dC", "dD"], got, want):
+        tol = 1e-3 if name == "dA" else BWD_TOL
+        assert worst_rel(g, w) <= tol, (name, worst_rel(g, w))
+
+
+def test_ssdfn_unused_final_state_gives_no_gradient_tensor(monkeypatch):
+    """Autograd hands the backward None for a final state nobody uses,
+    and the backward makes no zeros for it."""
+    case = BWD_CASES[-3]
+    (x, dt, A, Bm, Cm, D, st), dy, _ = bwd_tensors(5, case)
+    seen = []
+
+    def spy(*args, dfinal=None, **kw):
+        seen.append(dfinal)
+        return ssd_backward_reference(*args[:6], kw["initial_state"],
+                                      args[6], dfinal, kw["chunk"])
+
+    monkeypatch.setattr("repro_torch.kernels.ssd.ops.ssd_backward", spy)
+    x.requires_grad_()
+    y, _ = SSDFn.apply(x, dt, A, Bm, Cm, D, st, case[6])
+    (gx,) = torch.autograd.grad((y * dy).sum(), [x])
+    assert seen == [None]
+    want = ssd_backward_reference(x.detach(), dt, A, Bm, Cm, D, st, dy, None,
+                                  case[6])[0]
+    assert torch.equal(gx, want)
+
+
+@pytest.mark.parametrize("init", [False, True])
+def test_ssdfn_gradcheck(init):
+    """Finite differences of `SSDFn` in float64 (the plain forward and
+    backward accumulate in float64 there): every input, both outputs,
+    a ragged second chunk and G = 2."""
+    case = (1, 7, 4, 3, 2, 2, 4, init, True)
+    inputs, _, _ = bwd_tensors(6, case, torch.float64)
+    leaves = [t.requires_grad_() for t in inputs if t is not None]
+
+    def fn(*ts):
+        return SSDFn.apply(*ts[:6], ts[6] if init else None, 4)
+
+    assert torch.autograd.gradcheck(fn, leaves, eps=1e-6, atol=1e-7)
+
+
+def test_cpu_backward_entry_points_are_the_plain_versions():
+    """On CPU tensors `ssd_forward` keeps nothing and `ssd_backward` is
+    the plain backward; neither counts a launch."""
+    case = BWD_CASES[-4]
+    (x, dt, A, Bm, Cm, D, st), dy, df = bwd_tensors(7, case)
+    before = dict(launch_counts), dict(bwd_route_counts)
+    y, fin, kept = ssd_forward(x, dt, A, Bm, Cm, D, chunk=case[6],
+                               initial_state=st)
+    assert kept is None
+    assert all(torch.equal(a, b) for a, b in zip(
+        (y, fin), ssd_chunked(x, dt, A, Bm, Cm, D, chunk=case[6],
+                              initial_state=st)))
+    got = ssd_backward(x, dt, A, Bm, Cm, D, dy, chunk=case[6],
+                       initial_state=st, dfinal=df)
+    want = ssd_backward_reference(x, dt, A, Bm, Cm, D, st, dy, df, case[6])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (dict(launch_counts), dict(bwd_route_counts)) == before
+
+
+@pytest.mark.parametrize("label,case", route_shapes())
+def test_bwd_route_is_the_forwards(label, case):
+    """The backward takes the forward's instance, so the tensor-core
+    backward always finds the tensor-core forward's bf16 states."""
+    B, S, H, P, G, N, chunk = case[:7]
+    x = torch.empty((B, S, H, P), dtype=torch.bfloat16)
+    bc = torch.empty((B, S, G, N), dtype=torch.bfloat16)
+    assert bwd_route(x, bc, bc, chunk) == route(x, bc, bc, chunk), label

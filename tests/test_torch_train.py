@@ -10,6 +10,8 @@ sums:
   * gradients against ``jax.value_and_grad(loss_fn, remat="none")``, per
     leaf: max |diff| <= 1e-4 x max |g_ref| of that leaf; the port's
     ``remat="full"`` and ``"dots"`` against its own ``"none"``, the same;
+    mamba2 with its scans through `SSDFn` (the plain backward of the SSD
+    kernel's closed forms) against the reference, the same;
   * `adamw_update` on identical numpy inputs: 1e-6 (both state policies,
     the clip active);
   * `lr_schedule`: relative 1e-6;
@@ -166,6 +168,40 @@ def test_gradients_match_reference(reference_runs, arch):
     assert errs[worst] <= GRAD_TOL, (names[worst], errs[worst])
 
 
+def test_mamba2_through_the_ssd_function_matches_reference(reference_runs,
+                                                         monkeypatch):
+    """mamba2 with every scan forced through `SSDFn` on the CPU (its
+    plain forward and the plain backward, the closed forms the kernel's
+    backward computes, instead of autograd through `ssd_chunked`): loss
+    and gradients against jax.value_and_grad of the reference's."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.models import ssm as ssm_mod
+    arch = "mamba2-1.3b"
+    cfg = reduced_config(arch)
+    calls = {"forward": 0, "backward": 0}
+    backward = ssd_ops.ssd_backward
+
+    def through_fn(x, dt, A, Bm, Cm, D, *, chunk=256, initial_state=None):
+        calls["forward"] += 1
+        return ssd_ops.SSDFn.apply(x, dt, A, Bm, Cm, D, initial_state, chunk)
+
+    def counted(*args, **kw):
+        calls["backward"] += 1
+        return backward(*args, **kw)
+
+    monkeypatch.setattr(ssm_mod, "ssd", through_fn)
+    monkeypatch.setattr(ssd_ops, "ssd_backward", counted)
+    ref = reference_runs(arch)
+    loss, _, grads = port_grads(carried(ref["params"]), cfg,
+                                to_torch(ref["batch"]))
+    assert calls == {"forward": cfg.n_layers, "backward": cfg.n_layers}
+    assert rel(loss, ref["loss"]) <= LOSS_TOL
+    ref_leaves = jax.tree_util.tree_leaves(ref["grads"])
+    assert len(grads) == len(ref_leaves)
+    assert max(leaf_errors([g.numpy() for g in grads], ref_leaves)) \
+        <= GRAD_TOL
+
+
 @pytest.mark.parametrize("remat", ["full", "dots"])
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "jamba-v0.1-52b"])
 def test_remat_policies_give_the_same_gradients(arch, remat):
@@ -244,8 +280,8 @@ def test_unknown_remat_and_unroll_are_refused():
 
 
 @pytest.mark.parametrize("arch,items", [
-    ("qwen2-1.5b", []), ("granite-8b", []), ("mamba2-1.3b", ["12b"]),
-    ("jamba-v0.1-52b", ["12b", "12c"])])
+    ("qwen2-1.5b", []), ("granite-8b", []), ("mamba2-1.3b", []),
+    ("jamba-v0.1-52b", ["12c"])])
 def test_cuda_training_refusal_names_the_missing_backward(monkeypatch, arch,
                                                           items):
     """What `loss_fn` refuses on a CUDA device (the check itself, with
@@ -265,6 +301,7 @@ def test_cuda_training_refusal_names_the_missing_backward(monkeypatch, arch,
         model_lib.loss_fn(params, cfg, to_torch(batch_of(cfg)))
     for item in items:
         assert f"ROADMAP Queue 1 item {item}" in str(err.value)
+    assert "item 12b" not in str(err.value)     # the SSD scan has one
     assert not forwards
     with torch.no_grad():
         model_lib.check_trainable(params, cfg)
