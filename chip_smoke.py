@@ -169,8 +169,9 @@ to a plain version):
      against the plain backward (`ssd_backward_reference`, given the
      states the forward kept) on `SSD_CASES` (both dtypes), the
      tensor-core edge cases `SSD_TC_CASES` (ragged tails, an initial
-     state, G > 1, fused views) and `SSD_BWD_DFINAL` (a final-state
-     gradient), each gradient within `SSD_BWD_TOL` of its max (1e-4 in
+     state, G > 1, fused views), the tensor-core backward's own
+     `SSD_BWD_TC_CASES` and `SSD_BWD_DFINAL` (a final-state gradient),
+     each gradient within `SSD_BWD_TOL` of its max (1e-4 in
      float32, 2e-2 in bfloat16), each call on the instance `ssd_route`
      names, two calls bitwise equal; then timed at `SSD_BWD_TIMED`
      (mamba2's B = 8, S = 512 and B = 2, S = 2048, jamba's heads at B =
@@ -330,6 +331,20 @@ SSD_TC_CASES = [
 # gradient, with an initial state, on a ragged tail (300 = 2 x 128 + 44)
 # and G = 2 (B, S, H, P, G, N, chunk, init)
 SSD_BWD_DFINAL = (2, 300, 4, 64, 2, 64, 128, True)
+# the tensor-core backward's own edges (bfloat16; a final-state gradient
+# where the case has an initial state; B, S, H, P, G, N, chunk, init): G =
+# 2 with two splits a group (32 heads a group in splits of 16, the scores
+# read by group); a second chunk whose last key tile holds 2 rows (450 =
+# 256 + 3 x 64 + 2); S under one tile; P 64 with N 64 and 128; three heads
+# a split (a pair, then one head with the second warpgroup idle); P 128
+# (one head a stage) over three chunks of 64, 64 and 2
+SSD_BWD_TC_CASES = [
+    (1, 256, 64, 64, 2, 128, 256, False),
+    (2, 450, 8, 64, 1, 64, 256, True),
+    (2, 40, 4, 64, 1, 128, 256, True),
+    (1, 300, 6, 64, 2, 64, 128, True),
+    (1, 130, 4, 128, 1, 64, 64, True),
+]
 
 # the cases of tests/test_kernel_moe_gmm.py: E, K, N, BT, group sizes (BT
 # aligned), tail padding rows
@@ -3123,7 +3138,7 @@ SSD_BWD_TIMED = [("mamba2", 8, 512, 64, 64, 128),
                  ("mamba2", 2, 2048, 64, 64, 128),
                  ("jamba", 2, 2048, 128, 64, 64)]
 #: the backward's kernels, by the name each holds after "ssd_bwd_"
-SSD_BWD_KERNELS = ("states", "pass", "keys", "queries", "dcum",
+SSD_BWD_KERNELS = ("states", "pass", "scores", "keys", "queries", "dcum",
                    "group_sums", "head_sums")
 # gates of mamba2's 2-layer model in bfloat16 with the kernels against the
 # float32 model of the same weights through the plain scan: the loss, and
@@ -3299,6 +3314,21 @@ def time_ssd_bwd(so, label, B, S, H, P, N, device):
     return row
 
 
+def ssd_bwd_tile_passes(so):
+    """ptxas' registers and spill bytes of the tensor-core backward's
+    key and query passes (`ssd_bwd_keys_wgmma`, `ssd_bwd_queries_wgmma`)
+    at each head dim and d_state."""
+    rows = []
+    for r in ptxas_report(so.bwd_build_log, "ssd_bwd_"):
+        name = re.search(r"ssd_bwd_(keys|queries)_wgmmaILi(\d+)ELi(\d+)E",
+                         r["kernel"])
+        if name:
+            rows.append({"pass": name[1], "P": int(name[2]),
+                         "N": int(name[3]), "registers": r.get("registers"),
+                         "spill_bytes": r.get("spill_bytes")})
+    return rows
+
+
 def ssd_bwd_phase(so, device):
     """The backward kernel against the plain backward on every `SSD_CASES`
     case in both dtypes, every `SSD_TC_CASES` case (bfloat16, the fused
@@ -3316,12 +3346,17 @@ def ssd_bwd_phase(so, device):
                                   torch.bfloat16, device,
                                   inputs=ssd_tc_inputs(case, device),
                                   dfinal=True)[0])
+    for case in SSD_BWD_TC_CASES:
+        rows.append(check_ssd_bwd(f"bwd-tc-edge{case}", so, case, 9,
+                                  torch.bfloat16, device, dfinal=case[7])[0])
     for dtype in (torch.float32, torch.bfloat16):
         rows.append(check_ssd_bwd(f"bwd-dfinal{SSD_BWD_DFINAL}", so,
                                   SSD_BWD_DFINAL, 3, dtype, device,
                                   dfinal=True)[0])
     for row in rows:
         print(json.dumps(row), flush=True)
+    print(json.dumps({"ssd_bwd_tile_passes": ssd_bwd_tile_passes(so)}),
+          flush=True)
     timed = [time_ssd_bwd(so, *shape, device) for shape in SSD_BWD_TIMED]
     torch.cuda.empty_cache()
     return timed, max(r["max_abs_err"] for r in rows + timed)
@@ -3590,20 +3625,23 @@ def main() -> int:
         "kernels_device_ms": main_shape["kernels_device_ms"],
         "instances": {
             "mma": "bfloat16, P and N 64 or 128, chunk a multiple of 64: "
-                   "U_c, the key-side and query-side tile passes on "
-                   "mma.sync",
+                   "U_c on mma.sync; the scores C B^T once per group, then "
+                   "the key-side and query-side tile passes on wgmma, a "
+                   "head a warpgroup, tiles staged by TMA",
             "simt": "float32, and the shapes mma does not take: f32 FMAs "
                     "from shared memory"},
         "launches_by_instance": ssd_trained["bwd_routes"],
         "kernels_of_a_call": {
             "states": "U_c = sum exp(cum) dy^T C per chunk, and cum",
             "pass": "the state's gradient G_c walked back over the chunks",
+            "scores": "C_i B_j^T and B_j C_i^T once per group (mma only)",
             "keys": "dx, ddt's direct part, dB per split of heads",
             "queries": "dC per split of heads, dcum",
             "dcum": "da, then ddt += A da and dA per chunk",
             "group_sums": "dB and dC over each group's splits",
             "head_sums": "dA and dD"},
         "ptxas": ptxas_report(so.bwd_build_log, "ssd_bwd_"),
+        "tile_passes_ptxas": ssd_bwd_tile_passes(so),
         "shapes": ssd_bwd_timed,
         "train_step_ms": ssd_trained["step_ms_median_3_6"],
         "train_tokens_per_s": ssd_trained["tokens_per_s"],

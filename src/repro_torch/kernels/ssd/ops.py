@@ -41,9 +41,11 @@ from the SIMT instance, bf16 hi + lo planes from the tensor-core
 one, written in the same kernels), and whose backward launches
 `ssd_bwd.cu` (`ssd_backward`): the chunk-parallel U_c = sum exp(cum)
 dy^T C, the reverse walk over the chunks for the state's gradient, the
-key-side (dx, dB, ddt) and query-side (dC, dcum) tile passes, then
-fixed-order reductions (da, then ddt and dA; dB and dC over heads; dD),
-seven kernels on one stream, no atomics.  The backward recomputes cum
+key-side (dx, dB, ddt) and query-side (dC, dcum) tile passes (on the
+tensor-core instance after C B^T formed once per group, and on
+``wgmma`` with TMA-staged tiles), then fixed-order reductions (da, then
+ddt and dA; dB and dC over heads; dD), seven kernels on one stream
+(eight on the tensor cores), no atomics.  The backward recomputes cum
 itself (a scan of dt A per chunk), so the forward keeps only the
 entering states.
 `bwd_route` names the backward's instance as `route` names the

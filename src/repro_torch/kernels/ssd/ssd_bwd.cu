@@ -37,17 +37,15 @@
 //      group's splits; dA and dD over batch rows, chunks and tiles.
 //
 // No atomics: every sum runs in a fixed order, so two calls give the same
-// bits.  Only pairs j <= i are exponentiated (the others are set to 0 by a
-// select, never multiplied by a decay that may be infinite).  cum and tot
-// are float32 scans without fast math.  The ragged tail is handled here,
-// not padded on the host: rows past the chunk's end load as 0 with dt = 0
-// and are never stored.  x, B and C are read through their strides (the
-// views of the model's fused projection); dy, dx, dB and dC are
-// contiguous.  The split of heads: a block walks Hs heads of one group (the
-// largest divisor of the group's heads up to 8), so the per-split dB and
-// dC partials are (H / Hs) / H of per-head ones -- at mamba2's B = 8, S =
-// 512 (64 heads, N 128) 16.8 MB each instead of 134 MB -- while the grid
-// keeps 4 x 2 x 8 x 8 = 512 blocks.
+// bits.  No decay of a pair j > i is formed: on a diagonal tile those pairs
+// are set to 0 by a select, never multiplied by a decay that may be
+// infinite.  cum and tot are float32 scans without fast math.  The ragged
+// tail is handled here, not padded on the host: rows past the chunk's end
+// load as 0 with dt = 0 and are never stored.  x, B and C are read through
+// their strides (the views of the model's fused projection); dy, dx, dB
+// and dC are contiguous.  The split of heads: a block walks Hs heads of one
+// group, so the per-split dB and dC partials are (H / Hs) / H of per-head
+// ones (`ssd_bwd_launch` chooses Hs from the shapes).
 //
 // The state entering each chunk comes from the forward (the `keep`
 // workspace of ssd.cu): float32 from the SIMT instance, bf16 hi + lo
@@ -58,13 +56,43 @@
 //   "simt": f32 FMAs from shared memory (bf16 operands widened on load);
 //     float32 keeps its gates without TF32.  256 threads, a thread owning
 //     4 rows x (cols / 16) of each tile.
-//   "mma" (bfloat16, P and N 64 or 128, 16-byte aligned rows): passes a,
-//     c1 and c2 on mma.sync.m16n8k16 (bf16 in, f32 accumulate), tiles by
-//     cp.async into padded shared rows, fragments by ldmatrix; the masked,
-//     decayed products S L dt and dY L dt are rounded to bf16 as the A
-//     operand of the next product straight from the accumulators; G_c and
-//     S_prev enter their products as bf16 hi + lo (two products each);
-//     ddt and dcum are formed from the float32 accumulators.
+//   "mma" (bfloat16, P and N 64 or 128, 16-byte aligned rows and strides;
+//     the name is the forward's): pass a on mma.sync.m16n8k16, then
+//     s. the scores C_i B_j^T and B_j C_i^T of each tile pair kt <= qt,
+//        once per (batch row, chunk, group), into a float32 workspace
+//        (fragment order, 16 KB a tile, 5.2 MB at mamba2's 8 x 512) that
+//        every head of the group reads, so the tile passes do not form
+//        C.B per head (2N of the 8N + 6P products a pair and head);
+//     c1, c2 on wgmma (bf16 in, f32 accumulate), 256 threads, one block an
+//        SM: each warpgroup owns a head (two heads a stage; one where the
+//        P = 128 tiles would not fit, the second warpgroup idle), so dx,
+//        the row sums of ddt and dcum and the state terms stay in it, and
+//        only dB / dC meet the other warpgroup's, once, at the end.  A
+//        stage is one (head pair, 64-row tile); its tiles (each head's dy_i
+//        or x_j, the pair's C_i or B_j, the S^T or S tile, at a pair's start
+//        x_j or dy_i and cum) come by TMA from one thread (128-byte
+//        swizzle, zeros past S) on a two-slot mbarrier ring while the stage
+//        before runs, and the next pair's G_c or S_prev planes as soon as
+//        this pair's state terms have read the last ones; dt, strided, by
+//        cp.async.  The masked, decayed products S L dt and dY L dt are
+//        rounded to bf16 as the A operand of the next product straight
+//        from the accumulators, 32 queries (keys) at a time, the next
+//        half's dY issued with this half's products.  Below the diagonal
+//        tile the decay is exp(c_i - c_r) exp(c_r - c_j) with c_r between
+//        the tiles, two factors at most 1 (dt >= 0, A <= 0), formed once a
+//        column and once a row, with no mask: queries and keys past L meet
+//        zero rows.  G_c and S_prev enter as bf16 hi + lo (two products
+//        each); w_j x_j G_c goes in as w_j x_j rounded to bf16 once, in
+//        registers.  ddt and dcum are formed from the float32 accumulators.
+//     What bounds them on this card: not the tensor cores (≈ 63 GFLOP a
+//     call at mamba2's 8 x 512, ≈ 0.06 ms at the bf16 peak) but
+//     instructions and latency: a stage's elementwise mask-and-decay, its
+//     waits on wgmma and its barriers, at 8 warps an SM (the registers,
+//     most of the 255 a thread may have, hold a block an SM).  Per-thread
+//     cp.async of the stage tiles spent much of each stage in load-store
+//     instructions; TMA, from one thread, does not.
+#include <cuda.h>           // CUtensorMap; its encoder is looked up
+#include <cudaTypedefs.h>   // through the runtime, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -76,7 +104,8 @@ using bf16 = __nv_bfloat16;
 constexpr int kRows = 64;        // steps of a key or query tile
 constexpr int kMaxQ = 256;       // the longest chunk
 constexpr int kMaxN = 128;       // the largest d_state
-constexpr int kMaxSplit = 8;     // the most heads a block walks
+constexpr int kMaxSplit = 8;     // the most heads a SIMT block walks
+constexpr int kMaxSplitTc = 16;  // ... a tensor-core block
 constexpr int kPassThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -110,6 +139,8 @@ struct Params {
   float* dcp;            // (B, S, nsplit, N) dC over a split's heads
   float* dDp;            // (B*H, nc, Qp / 64) sum dy.x of a key tile
   float* dAp;            // (B*H, nc) sum dt da of a chunk
+  float* sc;             // (B, nc, G, T, 64 x 64) C_i B_j^T of each tile
+  float* sct;            //   pair kt <= qt, and B_j C_i^T ("mma" only)
   int Bsz, S, H, G, P, N, Q, Qp, nc, Hs, nsplit, nblk;
   int has_init, enter_f32;
   long long xs_b, xs_s, xs_h, bs_b, bs_s, bs_g, cs_b, cs_s, cs_g;
@@ -126,9 +157,10 @@ __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16(v);
 }
 
-__host__ __device__ inline int heads_per_split(int heads_in_group) {
+__host__ __device__ inline int heads_per_split(int heads_in_group,
+                                               int most = kMaxSplit) {
   int hs = 1;
-  for (int d = 1; d <= kMaxSplit; ++d)
+  for (int d = 1; d <= most; ++d)
     if (heads_in_group % d == 0) hs = d;
   return hs;
 }
@@ -929,7 +961,7 @@ size_t max_smem(int P, int N) {
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
-// the tensor-core instance ("mma"): passes a, c1 and c2 on mma.sync
+// the tensor-core instance ("mma"): pass a on mma.sync
 // ---------------------------------------------------------------------------
 
 namespace tc {
@@ -963,13 +995,6 @@ __device__ __forceinline__ void cp_async_commit() {
 // Waits until at most one committed group is still in flight.
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(ptr)));
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
@@ -1138,547 +1163,1262 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_states_mma(Params p) {
   }
 }
 
-// Passes c1 and c2: two step tiles (64 x N and 64 x P) beside a region
-// that holds a state's hi and lo planes (2 x P x N) first and two more
-// step tiles later, then cum and dt.
-__host__ __device__ constexpr int region(int P, int N) {
-  return 2 * P * pad(N) > kRows * (pad(N) + pad(P)) ? 2 * P * pad(N)
-                                                    : kRows * (pad(N) + pad(P));
+// ---------------------------------------------------------------------------
+// the tensor-core tile passes: the scores once per group, then the key and
+// query passes on wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 256;          // two warpgroups
+constexpr uint32_t kBox = kRows * 128;   // a 64-row box of 64 bf16 columns
+
+// 4 bytes global -> shared, asynchronously; bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes));
 }
 
-__host__ __device__ constexpr size_t tiles_smem(int P, int N) {
-  return sizeof(bf16) * (kRows * (pad(N) + pad(P)) + region(P, N)) +
-         sizeof(float) * (2 * kMaxQ + 4);
+// Orders this thread's landed cp.async writes before wgmma's reads (the
+// async proxy); the barrier that follows makes them everyone's.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Pass c1, block (key tile kt, chunk c, batch row and split): dx, ddt's
-// direct part and the split's dB, for the 64 key rows j0 .. j0+63.  Warp w
-// owns key rows j0 + 16w .. j0 + 16w + 15; a thread rows r0 and r0 + 8.
-template <int P, int N>
-__global__ void __launch_bounds__(kThreads) ssd_bwd_keys_mma(Params p) {
-  constexpr int LN = pad(N), LP = pad(P);
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* bsm = reinterpret_cast<bf16*>(smem_tc);   // (64 keys, N) B
-  bf16* xs = bsm + kRows * LN;                    // (64 keys, P) x
-  bf16* reg = xs + kRows * LP;
-  bf16* ghi = reg;                                // (P, N) G_c hi, lo
-  bf16* glo = ghi + P * LN;
-  bf16* cs = reg;                                 // (64 queries, N) C,
-  bf16* dys = cs + kRows * LN;                    // (64 queries, P) dy
-  float* cum = reinterpret_cast<float*>(reg + region(P, N));  // log2 units
-  float* dts = cum + kMaxQ;
-  float* red = dts + kMaxQ;
-  const int kt = blockIdx.x, c = blockIdx.y;
-  const int b = blockIdx.z / p.nsplit, s = blockIdx.z - b * p.nsplit;
-  const int h0 = s * p.Hs, g = h0 / (p.H / p.G);
-  const int t0 = c * p.Q, L = min(p.Q, p.S - t0), j0 = kt * kRows;
-  if (j0 >= L) return;              // a tile past the ragged last chunk
-  const int n_tiles = (L + kRows - 1) / kRows, rows = min(kRows, L - j0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tq = lane & 3, r0 = warp * 16 + (lane >> 2);   // rows r0, r0+8
-  const long long row_dy = static_cast<long long>(p.H) * P;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// The arrival that completes a phase once `bytes` more have landed.
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// `bytes` more for the current phase, without an arrival.
+__device__ __forceinline__ void mbar_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// One box of a tensor map (64 bf16 columns, swizzled by 128 bytes; zeros
+// out of bounds) into shared memory, counted on `bar`.
+__device__ __forceinline__ void tma_4d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1) : "memory");
+}
+
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16), counted on
+// `bar`.
+__device__ __forceinline__ void bulk_1d(uint32_t dst, const void* src,
+                                        uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Rows 0 .. ROWS-1 of a (rows, W) bf16 matrix whose rows are `stride`
+// elements apart, by cp.async, as wgmma reads them under the 128-byte
+// swizzle: W / 64 boxes of ROWS rows x 128 bytes, the 16-byte chunk k of
+// row r at chunk k ^ (r % 8) (dst 1024-byte aligned); rows at or past
+// `valid` are 0.  The block's THREADS threads take part, thread t chunk
+// t % (W / 8) of rows t / (W / 8) + n THREADS / (W / 8), which keep one
+// swizzle phase; the caller commits.
+template <int W, int ROWS, int THREADS>
+__device__ __forceinline__ void load_sw(bf16* dst, const bf16* src,
+                                        long long stride, int valid) {
+  constexpr int kPer = W / 8, kStep = THREADS / kPer;
+  static_assert(kStep % 8 == 0 && ROWS % kStep == 0, "thread layout");
+  const int k = threadIdx.x % kPer, r0 = threadIdx.x / kPer;
+  bf16* d = dst + (k >> 3) * (ROWS * 64) + r0 * 64 +
+            (((k & 7) ^ (r0 & 7)) << 3);
+  const bf16* from = src + r0 * stride + k * 8;
+#pragma unroll
+  for (int n = 0; n < ROWS / kStep; ++n) {
+    const bool ok = r0 + n * kStep < valid;
+    cp_async16(d + n * kStep * 64, ok ? from + n * kStep * stride : src,
+               ok ? 16 : 0);
+  }
+}
+
+// The element (row, col) of such a swizzled tile of ROWS rows.
+template <int ROWS>
+__device__ __forceinline__ int sw(int row, int col) {
+  return (col >> 6) * (ROWS * 64) + row * 64 +
+         ((((col >> 3) & 7) ^ (row & 7)) << 3) + (col & 7);
+}
+
+// A wgmma shared-memory descriptor under the 128-byte swizzle: start
+// address, leading and stride byte offsets, layout type 1 (128B).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// The k16 step kk of a K-major operand (its rows are M or N, K runs along
+// them), boxes `box` bytes apart.
+__device__ __forceinline__ uint64_t kmaj(uint32_t tile, int kk, uint32_t box) {
+  return desc(tile + (kk >> 2) * box + (kk & 3) * 32, 16, 1024);
+}
+
+// The k16 step c of an MN-major B (its rows are K: rows 16c .. 16c + 15),
+// boxes `box` bytes apart along N; read with the transpose bit.
+__device__ __forceinline__ uint64_t mnmaj(uint32_t tile, int c, uint32_t box) {
+  return desc(tile + c * 16 * 128, box, 1024);
+}
+
+// Pins n accumulators: the compiler may not move a read or write of them
+// across this point (wgmma writes them asynchronously).
+template <int n>
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Pins n registers that an issued wgmma reads (A fragments): called after
+// its wait, so that the compiler keeps them until then.
+template <int n>
+__device__ __forceinline__ void fence_frag(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (64 x N, f32) = (acc ? d : 0) + A (64 x 16, shared, K-major) B (16 x N,
+// shared: K-major, or MN-major with TB = 1).
+template <int N, int TB>
+__device__ __forceinline__ void wg_ss(float* d, uint64_t a, uint64_t b,
+                                      int acc);
+// d (64 x N, f32) += A (64 x 16, bf16 pairs in registers) B (16 x N,
+// shared, MN-major).
+template <int N>
+__device__ __forceinline__ void wg_rs(float* d, const uint32_t* a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wg_ss<32, 0>(float* d, uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wg_ss<64, 0>(float* d, uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wg_ss<64, 1>(float* d, uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wg_ss<128, 0>(float* d, uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wg_ss<128, 1>(float* d, uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wg_rs<64>(float* d, const uint32_t* a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wg_rs<128>(float* d, const uint32_t* a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// The first 1024-byte aligned byte of the dynamic shared memory (the
+// swizzle's atoms are 1024 bytes).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* raw) {
+  const uint32_t at = smem_u32(raw);
+  return raw + (((at + 1023) & ~1023u) - at);
+}
+
+// The 16 accumulators of a 64 x 32 tile (two k16 slices of 16 columns) as
+// the bf16 A fragments of two k16 steps: slice k is accumulators 8k ..
+// 8k + 7 (the m16n8 accumulator map is the m16k16 A map).
+__device__ __forceinline__ void to_fragments(const float* v, uint32_t* a) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[4 * k + r] = pack_bf16(v[8 * k + 2 * r], v[8 * k + 2 * r + 1]);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+// The scores workspace: tile pair (qt, kt <= qt) of chunk c, batch row b
+// and group g at this offset (T = nq (nq + 1) / 2 pairs of the nq = Qp /
+// 64 tiles of a chunk, pair qt (qt + 1) / 2 + kt), 64 x 64 floats in
+// fragment order: thread `lane` of warp w keeps its four accumulators of
+// n8 tile nt at ((w * 8 + nt) * 32 + lane) * 4, so a warp reads 512
+// contiguous bytes an n8 tile.
+__device__ __forceinline__ long long pair_tile(const Params& p, int b, int c,
+                                               int g, int qt, int kt) {
+  const int nq = p.Qp / kRows, T = nq * (nq + 1) / 2;
+  return (((static_cast<long long>(b) * p.nc + c) * p.G + g) * T +
+          qt * (qt + 1) / 2 + kt) *
+         kRows * kRows;
+}
+
+__host__ __device__ constexpr int scores_smem(int N) {
+  return 3 * kRows * N * 2 + 1024;
+}
+
+// Pass s, block (query tile qt, chunk c, batch row and group bg), one
+// warpgroup: S = C_i B_j^T and S^T = B_j C_i^T of the key tiles kt <= qt,
+// 64 x 64 of depth N each, into the scores workspace (S for the query
+// pass, S^T for the key pass), once for every head of the group; the key
+// tiles through a two-stage cp.async ring.
+template <int N>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_scores(Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* cs = reinterpret_cast<bf16*>(base);       // (64 queries, N)
+  bf16* ring = cs + kRows * N;                    // 2 x (64 keys, N)
+  const int qt = blockIdx.x, c = blockIdx.y, bg = blockIdx.z;
+  const int t0 = c * p.Q, L = min(p.Q, p.S - t0), i0 = qt * kRows;
+  if (i0 >= L) return;              // a tile past the ragged last chunk
+  const int b = bg / p.G, g = bg - b * p.G;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bf16* bb = static_cast<const bf16*>(p.Bm) + b * p.bs_b +
                    static_cast<long long>(t0) * p.bs_s + g * p.bs_g;
   const bf16* cb = static_cast<const bf16*>(p.Cm) + b * p.cs_b +
                    static_cast<long long>(t0) * p.cs_s + g * p.cs_g;
-  load_tile<N>(bsm, LN, bb + static_cast<long long>(j0) * p.bs_s, p.bs_s,
-               rows);
-
-  float db[N / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < N / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) db[nt][e] = 0.f;
-
-  for (int hh = 0; hh < p.Hs; ++hh) {
-    const int h = h0 + hh, bh = b * p.H + h;
-    const bf16* xb = static_cast<const bf16*>(p.x) + b * p.xs_b +
-                     static_cast<long long>(t0) * p.xs_s + h * p.xs_h;
-    const bf16* dyb = static_cast<const bf16*>(p.dy) +
-                      (static_cast<long long>(b) * p.S + t0) * row_dy + h * P;
-    const bf16* gsrc =
-        static_cast<const bf16*>(p.Gs) + 2 * state_at(p, b, c, h);
-    __syncthreads();                // the last head is done with xs, reg
-    load_tile<P>(xs, LP, xb + static_cast<long long>(j0) * p.xs_s, p.xs_s,
-                 rows);
-    load_tile<N, P>(ghi, LN, gsrc, N, P);
-    load_tile<N, P>(glo, LN, gsrc + P * N, N, P);
-    simt::load_cum_dt(p, cum, dts, b, h, c, t0, L, kThreads, kLog2e);
-    cp_async_wait_all();
-    __syncthreads();
-    const float tot = cum[L - 1];
-
-    // state terms: G (B_j) rows j x columns p, two products (hi, lo)
-    float dxa[P / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < P / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dxa[nt][e] = 0.f;
-#pragma unroll 2
-    for (int kk = 0; kk < N; kk += 16) {
-      uint32_t a[4];                // B[j][n] stored (j, n)
-      ldsm_x4(a, bsm + (warp * 16 + (lane & 15)) * LN + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int nt = 0; nt < P / 8; nt += 2) {
-        // G[p][n] stored (p, n): the col-major B of B_j G^T
-        const int off = (nt * 8 + (lane & 7) + (lane >> 4) * 8) * LN + kk +
-                        ((lane >> 3) & 1) * 8;
-        uint32_t bq[4];
-        ldsm_x4(bq, ghi + off);
-        mma16816(dxa[nt], a, bq[0], bq[1]);
-        mma16816(dxa[nt + 1], a, bq[2], bq[3]);
-        ldsm_x4(bq, glo + off);
-        mma16816(dxa[nt], a, bq[0], bq[1]);
-        mma16816(dxa[nt + 1], a, bq[2], bq[3]);
-      }
+  load_sw<N, kRows, kThreads>(cs, cb + static_cast<long long>(i0) * p.cs_s,
+                              p.cs_s, min(kRows, L - i0));
+  load_sw<N, kRows, kThreads>(ring, bb, p.bs_s, min(kRows, L));
+  cp_async_commit();
+  const uint32_t ct = smem_u32(cs);
+  for (int kt = 0; kt <= qt; ++kt) {
+    cp_async_wait_all();            // key tile kt, issued a tile ago
+    fence_async_smem();
+    __syncthreads();                // ... for every thread; kt - 1 is read
+    if (kt < qt) {
+      const int j0 = (kt + 1) * kRows;
+      load_sw<N, kRows, kThreads>(ring + ((kt + 1) & 1) * kRows * N,
+                                  bb + static_cast<long long>(j0) * p.bs_s,
+                                  p.bs_s, min(kRows, L - j0));
+      cp_async_commit();
     }
-    const float e0 = ex2(tot - cum[j0 + r0]), e1 = ex2(tot - cum[j0 + r0 + 8]);
-    const float w0 = e0 * dts[j0 + r0], w1 = e1 * dts[j0 + r0 + 8];
-    float z0 = 0.f, z1 = 0.f;
+    const uint32_t bt = smem_u32(ring + (kt & 1) * kRows * N);
+    float s[32], st[32];
 #pragma unroll
-    for (int nt = 0; nt < P / 8; ++nt) {
-      const int col = nt * 8 + 2 * tq;
-      const float2 x0 = bf16x2(xs + r0 * LP + col);
-      const float2 x1 = bf16x2(xs + (r0 + 8) * LP + col);
-      z0 += x0.x * dxa[nt][0] + x0.y * dxa[nt][1];
-      z1 += x1.x * dxa[nt][2] + x1.y * dxa[nt][3];
-      dxa[nt][0] *= w0;
-      dxa[nt][1] *= w0;
-      dxa[nt][2] *= w1;
-      dxa[nt][3] *= w1;
+    for (int e = 0; e < 32; ++e) s[e] = st[e] = 0.f;
+    fence_acc<32>(s);
+    fence_acc<32>(st);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wg_ss<64, 0>(s, kmaj(ct, kk, kBox), kmaj(bt, kk, kBox), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk)
+      wg_ss<64, 0>(st, kmaj(bt, kk, kBox), kmaj(ct, kk, kBox), kk > 0);
+    wg_commit_wait();
+    fence_acc<32>(s);
+    fence_acc<32>(st);
+    const long long at = pair_tile(p, b, c, g, qt, kt);
+    float4* os = reinterpret_cast<float4*>(p.sc + at) + warp * 8 * 32 + lane;
+    float4* ot = reinterpret_cast<float4*>(p.sct + at) + warp * 8 * 32 + lane;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      os[nt * 32] =
+          make_float4(s[4 * nt], s[4 * nt + 1], s[4 * nt + 2], s[4 * nt + 3]);
+      ot[nt * 32] = make_float4(st[4 * nt], st[4 * nt + 1], st[4 * nt + 2],
+                                st[4 * nt + 3]);
     }
-    // G^T x_j: rows j x columns n, scaled by w_j in float32 into dB
-    {
-      float gx[N / 8][4];
+  }
+}
+
+constexpr int kMaxSmem = 232448;         // a block's opt-in shared memory
+
+// Pass c1's shared memory, in bytes from a 1024-byte aligned base, for HPS
+// heads a stage (one a warpgroup): the key tile's B, each head's G_c (hi
+// and lo planes), x_j, cum and dt (two of each: this head pair's and the
+// next's), the ring's two slots (each head's dy_i, C_i and the S^T tile,
+// float32) and the warps' dD sums.
+template <int P, int N, int HPS>
+struct KeysSmem {
+  static constexpr int kSlot = kRows * (HPS * P + N) * 2 + kRows * kRows * 4;
+  static constexpr int kB = 0;
+  static constexpr int kG = kB + kRows * N * 2;
+  static constexpr int kX = kG + HPS * 2 * P * N * 2;
+  static constexpr int kRing = kX + 2 * HPS * kRows * P * 2;
+  static constexpr int kCum = kRing + 2 * kSlot;
+  static constexpr int kXch = kCum + 2 * HPS * 2 * kMaxQ * 4;
+  static constexpr int kBar = kXch + 8 * 4;      // full[2], planes
+  static constexpr int kBytes = kBar + 3 * 8 + 1024;
+  static_assert(kSlot >= kRows * N * 4, "dB exchange space");
+};
+
+// Pass c2's: the query tile's C, each head's S_prev (hi and lo planes),
+// dy_i, cum and dt (two of each), the ring's two slots (each head's x_j,
+// B_j and the S tile, float32).
+template <int P, int N, int HPS>
+struct QueriesSmem {
+  static constexpr int kSlot = kRows * (HPS * P + N) * 2 + kRows * kRows * 4;
+  static constexpr int kC = 0;
+  static constexpr int kSp = kC + kRows * N * 2;
+  static constexpr int kDy = kSp + HPS * 2 * P * N * 2;
+  static constexpr int kRing = kDy + 2 * HPS * kRows * P * 2;
+  static constexpr int kCum = kRing + 2 * kSlot;
+  static constexpr int kBar = kCum + 2 * HPS * 2 * kMaxQ * 4;
+  static constexpr int kBytes = kBar + 3 * 8 + 1024;
+  static_assert(kSlot >= kRows * N * 4, "dC exchange space");
+};
+
+// Heads a stage: two (a warpgroup each) where their tiles fit a block's
+// shared memory (P = 64), else one, the second warpgroup idle (P = 128:
+// each head's G_c or S_prev planes alone are 32 or 64 KB).
+template <int P, int N>
+__host__ __device__ constexpr int pair_heads() {
+  return KeysSmem<P, N, 2>::kBytes <= kMaxSmem &&
+                 QueriesSmem<P, N, 2>::kBytes <= kMaxSmem
+             ? 2
+             : 1;
+}
+template <int P, int N>
+using KeysLayout = KeysSmem<P, N, pair_heads<P, N>()>;
+template <int P, int N>
+using QueriesLayout = QueriesSmem<P, N, pair_heads<P, N>()>;
+
+// Pass c1, block (key tile kt, chunk c, batch row and split), two
+// warpgroups in step: dx, ddt's direct part, dcum's key-side part, T_j and
+// the split's dB for the 64 key rows j0 .. j0+63.  Warpgroup w takes head
+// h0 + HPS m + w of the m-th head pair, all of it: its state terms, and
+// for each query tile i >= kt (a stage) dY^T and the masked products in
+// two halves of 32 queries, so that dx and the row sums never leave it;
+// the pair shares the stage's C_i and S^T tile.  The stages' dy_i, C_i and
+// S^T are staged by cp.async while the stage before runs; x_j, cum and dt
+// of the next pair come with its first stage, its G_c planes as soon as
+// this pair's state terms have read the last ones.  Warp q of a
+// warpgroup holds key rows 16q + l/4 and + 8 (lane l), columns 8n +
+// 2(l%4) + e: accumulator 4n + 2i + e.
+template <int P, int N>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    ssd_bwd_keys_wgmma(__grid_constant__ const CUtensorMap x_map,
+                       __grid_constant__ const CUtensorMap dy_map,
+                       __grid_constant__ const CUtensorMap b_map,
+                       __grid_constant__ const CUtensorMap c_map,
+                       __grid_constant__ const CUtensorMap g_map,
+                       const Params p) {
+  constexpr int HPS = pair_heads<P, N>();
+  using K = KeysLayout<P, N>;
+  static_assert(K::kBytes <= kMaxSmem, "shared memory");
+  constexpr uint32_t kGBox = P * 128;   // G_c's boxes: P rows of 64 columns
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* bsm = reinterpret_cast<bf16*>(base + K::kB);
+  float* xch = reinterpret_cast<float*>(base + K::kXch);
+  const int kt = blockIdx.z, c = blockIdx.x;
+  const int b = blockIdx.y / p.nsplit, s = blockIdx.y - b * p.nsplit;
+  const int h0 = s * p.Hs, g = h0 / (p.H / p.G);
+  const int t0 = c * p.Q, L = min(p.Q, p.S - t0), j0 = kt * kRows;
+  if (j0 >= L) return;              // a tile past the ragged last chunk
+  const int n_tiles = (L + kRows - 1) / kRows;
+  const int nI = n_tiles - kt, T = (p.Hs + HPS - 1) / HPS * nI;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int warp = (tid >> 5) & 3, tq = lane & 3, r0 = warp * 16 + (lane >> 2);
+  const int rj0 = j0 + r0, rj1 = rj0 + 8;
+  const long long row_dy = static_cast<long long>(p.H) * P;
+  const float* dtb = p.dt + (static_cast<long long>(b) * p.S + t0) * p.H;
+  const uint32_t full = smem_u32(base + K::kBar), planes = full + 16;
+  // head w of pair m: its slot of each kind
+  auto slot = [&](int t) { return base + K::kRing + (t & 1) * K::kSlot; };
+  auto xslot = [&](int m, int w) {
+    return reinterpret_cast<bf16*>(base + K::kX +
+                                   ((m & 1) * HPS + w) * kRows * P * 2);
+  };
+  auto cslot = [&](int m, int w) {
+    return reinterpret_cast<float*>(base + K::kCum +
+                                    ((m & 1) * HPS + w) * 2 * kMaxQ * 4);
+  };
+  // stage t = (pair m, query tile kt + ti)'s copies, by TMA from one
+  // thread, on full[t % 2]: each head's dy_i, C_i and the S^T tile, with
+  // x_j and cum when it starts a pair (rows past S arrive as zeros)
+  auto load_stage = [&](int t, int m, int ti) {
+    const int it = kt + ti, i0 = it * kRows;
+    const int heads = min(HPS, p.Hs - HPS * m);
+    const uint32_t bar = full + 8 * (t & 1), sl = smem_u32(slot(t));
+    mbar_arrive_tx(bar, heads * kRows * P * 2 + kRows * N * 2 +
+                            kRows * kRows * 4 +
+                            (ti == 0 ? heads * (kRows * P * 2 + p.Qp * 4)
+                                     : 0));
+    for (int w = 0; w < heads; ++w) {
+      const int h = h0 + HPS * m + w;
 #pragma unroll
-      for (int nt = 0; nt < N / 8; ++nt)
+      for (int cc = 0; cc < P / 64; ++cc) {
+        tma_4d(sl + w * kRows * P * 2 + cc * kBox, &dy_map, bar, 64 * cc, h,
+               t0 + i0, b);
+        if (ti == 0)
+          tma_4d(smem_u32(xslot(m, w)) + cc * kBox, &x_map, bar, 64 * cc, h,
+                 t0 + j0, b);
+      }
+      if (ti == 0)
+        bulk_1d(smem_u32(cslot(m, w)),
+                p.cum +
+                    ((static_cast<long long>(b) * p.H + h) * p.nc + c) * p.Qp,
+                p.Qp * 4, bar);
+    }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) gx[nt][e] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < P; kk += 16) {
-        uint32_t a[4];              // x[j][p] stored (j, p)
-        ldsm_x4(a, xs + (warp * 16 + (lane & 15)) * LP + kk + (lane >> 4) * 8);
+    for (int cc = 0; cc < N / 64; ++cc)
+      tma_4d(sl + HPS * kRows * P * 2 + cc * kBox, &c_map, bar, 64 * cc, g,
+             t0 + i0, b);
+    bulk_1d(sl + kRows * (HPS * P + N) * 2,
+            p.sct + pair_tile(p, b, c, g, it, kt), kRows * kRows * 4, bar);
+  };
+  // dt of pair m's heads (strided, so by cp.async, every thread)
+  auto load_dt = [&](int m) {
+    for (int w = 0; w < min(HPS, p.Hs - HPS * m); ++w) {
+      float* to = cslot(m, w) + kMaxQ;
+      const float* from = dtb + h0 + HPS * m + w;
+      for (int j = tid; j < p.Qp; j += kWgThreads)
+        cp_async4(to + j, from + static_cast<long long>(j < L ? j : 0) * p.H,
+                  j < L ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  // the G_c planes of pair m's heads, on `planes`
+  auto load_g = [&](int m) {
+    const int heads = min(HPS, p.Hs - HPS * m);
+    mbar_arrive_tx(planes, heads * 2 * P * N * 2);
+    for (int w = 0; w < heads; ++w) {
+      const int row = static_cast<int>(2 * state_at(p, b, c, h0 + HPS * m + w) /
+                                       N);
+      const uint32_t to = smem_u32(base + K::kG + w * 2 * P * N * 2);
 #pragma unroll
-        for (int nt = 0; nt < N / 8; nt += 2) {
-          // G[p][n] stored (p, n): the row-major B of x_j G
-          const int off = (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LN +
-                          nt * 8 + (lane >> 4) * 8;
-          uint32_t bq[4];
-          ldsm_x4_trans(bq, ghi + off);
-          mma16816(gx[nt], a, bq[0], bq[1]);
-          mma16816(gx[nt + 1], a, bq[2], bq[3]);
-          ldsm_x4_trans(bq, glo + off);
-          mma16816(gx[nt], a, bq[0], bq[1]);
-          mma16816(gx[nt + 1], a, bq[2], bq[3]);
+      for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+        for (int cc = 0; cc < N / 64; ++cc)
+          tma_2d(to + pl * P * N * 2 + cc * P * 128, &g_map, planes, 64 * cc,
+                 row + pl * P);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 8, 1);
+    mbar_init(planes, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_tx(full, kRows * N * 2);   // the key tile's B, with stage 0
+#pragma unroll
+    for (int cc = 0; cc < N / 64; ++cc)
+      tma_4d(smem_u32(bsm) + cc * kBox, &b_map, full, 64 * cc, g, t0 + j0, b);
+    load_stage(0, 0, 0);
+    load_g(0);
+  }
+  load_dt(0);
+
+  float db[N / 2], dx[P / 2];
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) db[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < P / 2; ++e) dx[e] = 0.f;
+  float cj0 = 0.f, cj1 = 0.f, d0 = 0.f, d1 = 0.f, e0 = 0.f, e1 = 0.f;
+  float w0 = 0.f, w1 = 0.f, z0 = 0.f, z1 = 0.f;
+  float cr = 0.f, f0 = 0.f, f1 = 0.f, fd0 = 0.f, fd1 = 0.f;
+  float co0 = 0.f, co1 = 0.f;       // sum_i S L dY of rows rj0, rj1 below
+                                    // the diagonal tile (all i > j)
+  float cs0 = 0.f, cs1 = 0.f;       // ... on it, over i >= j
+  float ks0 = 0.f, ks1 = 0.f;       // ... on it, over i > j
+  const uint32_t bt = smem_u32(bsm);
+  const uint32_t gt = smem_u32(base + K::kG + wg * 2 * P * N * 2);
+  for (int t = 0, m = 0, ti = 0; t < T; ++t) {
+    const int it = kt + ti, i0 = it * kRows, hh = HPS * m + wg, h = h0 + hh;
+    // this warpgroup has a head in this pair (an odd split's last pair
+    // leaves the second one idle; with HPS = 1 it always is)
+    const bool mine = wg < HPS && hh < p.Hs;
+    // this stage's copies were issued a stage ago (and a pair's G_c
+    // planes during the last pair's first stage)
+    mbar_wait(full + 8 * (t & 1), (t >> 1) & 1);
+    if (ti == 0) mbar_wait(planes, m & 1);
+    cp_async_wait_all();            // dt
+    __syncthreads();                // ... for every thread; stage t-1 is read
+    if (t + 1 < T) {
+      const bool next = ti + 1 == nI;
+      if (tid == 0) load_stage(t + 1, m + next, next ? 0 : ti + 1);
+      if (next) load_dt(m + 1);
+    }
+    const float* cum = cslot(m, mine ? wg : 0);
+    const float* dts = cum + kMaxQ;
+    const bf16* xs = xslot(m, mine ? wg : 0);
+    const uint32_t xt = smem_u32(xs);
+    unsigned char* sl = slot(t);
+    const bf16* dys = reinterpret_cast<const bf16*>(sl + wg * kRows * P * 2);
+    const uint32_t yt = smem_u32(dys);
+    const uint32_t ct = smem_u32(sl + HPS * kRows * P * 2);
+    const float4* stile =
+        reinterpret_cast<const float4*>(sl + kRows * (HPS * P + N) * 2);
+
+    if (ti == 0) {
+      if (mine) {                   // the head's state terms
+        const float tot = cum[L - 1] * kLog2e;
+        cj0 = cum[rj0] * kLog2e;
+        cj1 = cum[rj1] * kLog2e;
+        d0 = dts[rj0];
+        d1 = dts[rj1];
+        e0 = ex2(tot - cj0);
+        e1 = ex2(tot - cj1);
+        w0 = e0 * d0;
+        w1 = e1 * d1;
+        // below the diagonal tile exp(c_i - c_j) = exp(c_i - c_r) exp(c_r -
+        // c_j), c_r the key tile's last cum: each factor is at most 1 (dt
+        // >= 0, A <= 0), so neither overflows
+        cr = cum[j0 + kRows - 1] * kLog2e;
+        f0 = ex2(cr - cj0);
+        f1 = ex2(cr - cj1);
+        fd0 = f0 * d0;
+        fd1 = f1 * d1;
+        // dB += (w_j x_j) G: x_j scaled by w_j in float32 and rounded to
+        // bf16 once, in registers
+        uint32_t a[P / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < P / 16; ++kk) {
+          const int col = kk * 16 + 2 * tq;
+          const float2 x00 = bf16x2(xs + sw<kRows>(r0, col));
+          const float2 x10 = bf16x2(xs + sw<kRows>(r0 + 8, col));
+          const float2 x01 = bf16x2(xs + sw<kRows>(r0, col + 8));
+          const float2 x11 = bf16x2(xs + sw<kRows>(r0 + 8, col + 8));
+          a[kk][0] = pack_bf16(w0 * x00.x, w0 * x00.y);
+          a[kk][1] = pack_bf16(w1 * x10.x, w1 * x10.y);
+          a[kk][2] = pack_bf16(w0 * x01.x, w0 * x01.y);
+          a[kk][3] = pack_bf16(w1 * x11.x, w1 * x11.y);
         }
-      }
+        // dx starts as B_j G^T (hi, lo), in the same group
 #pragma unroll
-      for (int nt = 0; nt < N / 8; ++nt) {
-        db[nt][0] += w0 * gx[nt][0];
-        db[nt][1] += w0 * gx[nt][1];
-        db[nt][2] += w1 * gx[nt][2];
-        db[nt][3] += w1 * gx[nt][3];
+        for (int e = 0; e < P / 2; ++e) dx[e] = 0.f;
+        fence_acc<N / 2>(db);
+        fence_acc<P / 2>(dx);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < P / 16; ++kk) {
+          wg_rs<N>(db, a[kk], mnmaj(gt, kk, kGBox));
+          wg_rs<N>(db, a[kk], mnmaj(gt + P * N * 2, kk, kGBox));
+        }
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk) {
+          wg_ss<P, 0>(dx, kmaj(bt, kk, kBox), kmaj(gt, kk, kGBox), kk > 0);
+          wg_ss<P, 0>(dx, kmaj(bt, kk, kBox),
+                      kmaj(gt + P * N * 2, kk, kGBox), 1);
+        }
+        wg_commit_wait();
+        fence_frag<P / 4>(&a[0][0]);
+        fence_acc<N / 2>(db);
+        fence_acc<P / 2>(dx);
+        // z_j = x_j.(G B_j), then dx scaled by w_j
+        z0 = z1 = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < P / 8; ++nt) {
+          const int col = nt * 8 + 2 * tq;
+          const float2 x0 = bf16x2(xs + sw<kRows>(r0, col));
+          const float2 x1 = bf16x2(xs + sw<kRows>(r0 + 8, col));
+          z0 += x0.x * dx[4 * nt] + x0.y * dx[4 * nt + 1];
+          z1 += x1.x * dx[4 * nt + 2] + x1.y * dx[4 * nt + 3];
+          dx[4 * nt] *= w0;
+          dx[4 * nt + 1] *= w0;
+          dx[4 * nt + 2] *= w1;
+          dx[4 * nt + 3] *= w1;
+        }
+        z0 = quad_sum(z0);
+        z1 = quad_sum(z1);
+        co0 = co1 = cs0 = cs1 = ks0 = ks1 = 0.f;
       }
+      __syncthreads();              // both warpgroups are done with G_c
+      if (tid == 0 && HPS * (m + 1) < p.Hs) load_g(m + 1);
     }
 
-    // the query tiles at or after the key tile
-    float cs0 = 0.f, cs1 = 0.f;     // sum_i S L dY of rows r0, r0 + 8
-    float ks0 = 0.f, ks1 = 0.f;     // the same over i > j
-    const float cj0 = cum[j0 + r0], cj1 = cum[j0 + r0 + 8];
-    const float d0 = dts[j0 + r0], d1 = dts[j0 + r0 + 8];
-    const int rj0 = j0 + r0, rj1 = rj0 + 8;
-    for (int it = kt; it < n_tiles; ++it) {
-      const int i0 = it * kRows, irows = min(kRows, L - i0);
-      __syncthreads();              // G_c or the last tile's space is free
-      load_tile<N>(cs, LN, cb + static_cast<long long>(i0) * p.cs_s, p.cs_s,
-                   irows);
-      load_tile<P>(dys, LP, dyb + i0 * row_dy, row_dy, irows);
-      cp_async_wait_all();
-      __syncthreads();
-      const bool diag = it == kt;
-      // on the diagonal, query n8 tiles holding some i >= j of this warp
-      const int first = diag ? 2 * warp : 0;
-      float sv[8][4], dv[8][4];
+    if (mine) {
+      // the pair (key tile kt, query tile it) in two halves of 32 queries:
+      // dY^T = x_j dy_i^T of the second half is issued with the first
+      // half's products
+      float yv[16], sv[16];
+      uint32_t sa[8], da[8];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int e = 0; e < 16; ++e) yv[e] = 0.f;
+      fence_acc<16>(yv);
+      wg_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sv[nt][e] = dv[nt][e] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < N; kk += 16) {
-        uint32_t a[4];              // B[j][n] stored (j, n)
-        ldsm_x4(a, bsm + (warp * 16 + (lane & 15)) * LN + kk + (lane >> 4) * 8);
+      for (int kk = 0; kk < P / 16; ++kk)
+        wg_ss<32, 0>(yv, kmaj(xt, kk, kBox), kmaj(yt, kk, kBox), kk > 0);
+      wg_commit();
 #pragma unroll
-        for (int nt = 0; nt < 8; nt += 2) {
-          if (nt >= first) {
-            uint32_t bq[4];         // C[i][n] stored (i, n)
-            ldsm_x4(bq, cs + (nt * 8 + (lane & 7) + (lane >> 4) * 8) * LN + kk +
-                            ((lane >> 3) & 1) * 8);
-            mma16816(sv[nt], a, bq[0], bq[1]);
-            mma16816(sv[nt + 1], a, bq[2], bq[3]);
-          }
+      for (int half = 0; half < 2; ++half) {
+        wg_wait();
+        if (half == 1) {
+          fence_frag<8>(sa);
+          fence_frag<8>(da);
         }
+        fence_acc<16>(yv);
+        fence_acc<P / 2>(dx);
+        fence_acc<N / 2>(db);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          reinterpret_cast<float4*>(sv)[q] =
+              stile[(warp * 8 + 4 * half + q) * 32 + lane];
+        if (it == kt) {
+          // the diagonal tile: pairs i < j (and i past L) are set to 0 by
+          // a select, never multiplied by their decay, which may be
+          // infinite
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int i = i0 + 32 * half + 8 * q + 2 * tq + u;
+              const float ci = cum[i] * kLog2e;
+              const float l0 = i >= rj0 && i < L ? ex2(ci - cj0) : 0.f;
+              const float l1 = i >= rj1 && i < L ? ex2(ci - cj1) : 0.f;
+              const int a0 = 4 * q + u, a1 = a0 + 2;
+              const float s0 = sv[a0] * l0, s1 = sv[a1] * l1;
+              const float m0 = s0 * yv[a0], m1 = s1 * yv[a1];
+              cs0 += m0;
+              cs1 += m1;
+              ks0 += i > rj0 ? m0 : 0.f;
+              ks1 += i > rj1 ? m1 : 0.f;
+              sv[a0] = s0 * d0;
+              sv[a1] = s1 * d1;
+              yv[a0] *= l0 * d0;
+              yv[a1] *= l1 * d1;
+            }
+        } else {
+          // below it every pair has j < i, and queries past L meet zero
+          // rows of C and dy: no mask, the decay in its two factors
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int i = i0 + 32 * half + 8 * q + 2 * tq + u;
+              const float gi = ex2(cum[i] * kLog2e - cr);
+              const float l0 = gi * f0, l1 = gi * f1;
+              const float ld0 = gi * fd0, ld1 = gi * fd1;
+              const int a0 = 4 * q + u, a1 = a0 + 2;
+              co0 += sv[a0] * l0 * yv[a0];
+              co1 += sv[a1] * l1 * yv[a1];
+              sv[a0] *= ld0;
+              sv[a1] *= ld1;
+              yv[a0] *= ld0;
+              yv[a1] *= ld1;
+            }
+        }
+        // dx += (S^T L dt) dy_i, dB += (dY^T L dt) C_i: the masked
+        // products are, packed to bf16, the A fragments of these queries
+        to_fragments(sv, sa);
+        to_fragments(yv, da);
+        fence_acc<P / 2>(dx);
+        fence_acc<N / 2>(db);
+        fence_acc<16>(yv);
+        wg_fence();
+        wg_rs<P>(dx, sa, mnmaj(yt, 2 * half, kBox));
+        wg_rs<P>(dx, sa + 4, mnmaj(yt, 2 * half + 1, kBox));
+        wg_rs<N>(db, da, mnmaj(ct, 2 * half, kBox));
+        wg_rs<N>(db, da + 4, mnmaj(ct, 2 * half + 1, kBox));
+        if (half == 0) {
+#pragma unroll
+          for (int kk = 0; kk < P / 16; ++kk)
+            wg_ss<32, 0>(yv, kmaj(xt, kk, kBox),
+                         kmaj(yt + 32 * 128, kk, kBox), kk > 0);
+        }
+        wg_commit();
       }
-#pragma unroll 2
-      for (int kk = 0; kk < P; kk += 16) {
-        uint32_t a[4];              // x[j][p] stored (j, p)
-        ldsm_x4(a, xs + (warp * 16 + (lane & 15)) * LP + kk + (lane >> 4) * 8);
-#pragma unroll
-        for (int nt = 0; nt < 8; nt += 2) {
-          if (nt >= first) {
-            uint32_t bq[4];         // dy[i][p] stored (i, p)
-            ldsm_x4(bq, dys + (nt * 8 + (lane & 7) + (lane >> 4) * 8) * LP +
-                            kk + ((lane >> 3) & 1) * 8);
-            mma16816(dv[nt], a, bq[0], bq[1]);
-            mma16816(dv[nt + 1], a, bq[2], bq[3]);
-          }
-        }
-      }
-      // mask and decay: pairs i < j (and i past L) are set to 0 by a select
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int i = i0 + nt * 8 + 2 * tq + u;
-          const float ci = cum[i];
-          const float l0 = i >= rj0 && i < L ? ex2(ci - cj0) : 0.f;
-          const float l1 = i >= rj1 && i < L ? ex2(ci - cj1) : 0.f;
-          const float s0 = sv[nt][u] * l0, s1 = sv[nt][2 + u] * l1;
-          const float m0 = s0 * dv[nt][u], m1 = s1 * dv[nt][2 + u];
-          cs0 += m0;
-          cs1 += m1;
-          ks0 += i > rj0 ? m0 : 0.f;
-          ks1 += i > rj1 ? m1 : 0.f;
-          sv[nt][u] = s0 * d0;
-          sv[nt][2 + u] = s1 * d1;
-          dv[nt][u] *= l0 * d0;
-          dv[nt][2 + u] *= l1 * d1;
-        }
-      // dx += (S^T L dt) dy_i and dB += (dY^T L dt) C_i: query n8 tiles 2k
-      // and 2k+1's accumulators are, packed to bf16, the A fragment of the
-      // k-th 16-query slice
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (2 * k + 1 >= first) {
-          const int k0 = 2 * k, k1 = 2 * k + 1;
-          const uint32_t as[4] = {pack_bf16(sv[k0][0], sv[k0][1]),
-                                  pack_bf16(sv[k0][2], sv[k0][3]),
-                                  pack_bf16(sv[k1][0], sv[k1][1]),
-                                  pack_bf16(sv[k1][2], sv[k1][3])};
-          const uint32_t ad[4] = {pack_bf16(dv[k0][0], dv[k0][1]),
-                                  pack_bf16(dv[k0][2], dv[k0][3]),
-                                  pack_bf16(dv[k1][0], dv[k1][1]),
-                                  pack_bf16(dv[k1][2], dv[k1][3])};
-          const int row = k * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-          for (int nt = 0; nt < P / 8; nt += 2) {
-            uint32_t bq[4];         // dy[i][p] stored (i, p)
-            ldsm_x4_trans(bq, dys + row * LP + nt * 8 + (lane >> 4) * 8);
-            mma16816(dxa[nt], as, bq[0], bq[1]);
-            mma16816(dxa[nt + 1], as, bq[2], bq[3]);
-          }
-#pragma unroll
-          for (int nt = 0; nt < N / 8; nt += 2) {
-            uint32_t bq[4];         // C[i][n] stored (i, n)
-            ldsm_x4_trans(bq, cs + row * LN + nt * 8 + (lane >> 4) * 8);
-            mma16816(db[nt], ad, bq[0], bq[1]);
-            mma16816(db[nt + 1], ad, bq[2], bq[3]);
-          }
-        }
-      }
-      if (diag) {                   // dys holds the key tile's own rows
+      wg_wait();
+      fence_frag<8>(sa);
+      fence_frag<8>(da);
+      fence_acc<P / 2>(dx);
+      fence_acc<N / 2>(db);
+
+      if (it == kt) {               // dy_i holds the key tile's own rows
         const float Dh = p.D[h];
         float dd = 0.f;
 #pragma unroll
         for (int nt = 0; nt < P / 8; ++nt) {
           const int col = nt * 8 + 2 * tq;
-          const float2 y0 = bf16x2(dys + r0 * LP + col);
-          const float2 y1 = bf16x2(dys + (r0 + 8) * LP + col);
-          const float2 x0 = bf16x2(xs + r0 * LP + col);
-          const float2 x1 = bf16x2(xs + (r0 + 8) * LP + col);
-          dxa[nt][0] += Dh * y0.x;
-          dxa[nt][1] += Dh * y0.y;
-          dxa[nt][2] += Dh * y1.x;
-          dxa[nt][3] += Dh * y1.y;
+          const float2 y0 = bf16x2(dys + sw<kRows>(r0, col));
+          const float2 y1 = bf16x2(dys + sw<kRows>(r0 + 8, col));
+          const float2 x0 = bf16x2(xs + sw<kRows>(r0, col));
+          const float2 x1 = bf16x2(xs + sw<kRows>(r0 + 8, col));
+          dx[4 * nt] += Dh * y0.x;
+          dx[4 * nt + 1] += Dh * y0.y;
+          dx[4 * nt + 2] += Dh * y1.x;
+          dx[4 * nt + 3] += Dh * y1.y;
           dd += y0.x * x0.x + y0.y * x0.y + y1.x * x1.x + y1.y * x1.y;
         }
-        dd = block_sum<kThreads>(dd, red);
-        if (tid == 0)
-          p.dDp[(static_cast<long long>(bh) * p.nc + c) * (p.Qp / kRows) +
-                kt] = dd;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) dd += __shfl_xor_sync(kFull, dd, o);
+        if (lane == 0) xch[4 * wg + warp] = dd;
       }
-    }
 
-    // ddt's direct part (sums over the quad's columns), dx
+      if (ti == nI - 1) {           // the head's last stage: its outputs
+        co0 = quad_sum(co0);
+        co1 = quad_sum(co1);
+        cs0 = quad_sum(cs0) + co0;
+        cs1 = quad_sum(cs1) + co1;
+        ks0 = quad_sum(ks0) + co0;
+        ks1 = quad_sum(ks1) + co1;
+        // the warpgroup's four dD sums, in order
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        if ((tid & 127) == 0)
+          p.dDp[((static_cast<long long>(b) * p.H + h) * p.nc + c) *
+                    (p.Qp / kRows) + kt] =
+              xch[4 * wg] + xch[4 * wg + 1] + xch[4 * wg + 2] +
+              xch[4 * wg + 3];
+        const long long tr0 = static_cast<long long>(b) * p.S + t0 + rj0;
+        if (tq == 0) {
+          if (rj0 < L) {
+            p.ddt[tr0 * p.H + h] = cs0 + e0 * z0;
+            p.dcum[tr0 * p.H + h] = -d0 * ks0;
+            p.tj[tr0 * p.H + h] = w0 * z0;
+          }
+          if (rj1 < L) {
+            p.ddt[(tr0 + 8) * p.H + h] = cs1 + e1 * z1;
+            p.dcum[(tr0 + 8) * p.H + h] = -d1 * ks1;
+            p.tj[(tr0 + 8) * p.H + h] = w1 * z1;
+          }
+        }
+        bf16* out = static_cast<bf16*>(p.dx) + (tr0 * p.H + h) * P + 2 * tq;
 #pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      cs0 += __shfl_xor_sync(kFull, cs0, o);
-      cs1 += __shfl_xor_sync(kFull, cs1, o);
-      ks0 += __shfl_xor_sync(kFull, ks0, o);
-      ks1 += __shfl_xor_sync(kFull, ks1, o);
-      z0 += __shfl_xor_sync(kFull, z0, o);
-      z1 += __shfl_xor_sync(kFull, z1, o);
-    }
-    const long long tr0 = static_cast<long long>(b) * p.S + t0 + rj0;
-    if (tq == 0) {
-      if (rj0 < L) {
-        p.ddt[tr0 * p.H + h] = cs0 + e0 * z0;
-        p.dcum[tr0 * p.H + h] = -d0 * ks0;
-        p.tj[tr0 * p.H + h] = w0 * z0;
-      }
-      if (rj1 < L) {
-        p.ddt[(tr0 + 8) * p.H + h] = cs1 + e1 * z1;
-        p.dcum[(tr0 + 8) * p.H + h] = -d1 * ks1;
-        p.tj[(tr0 + 8) * p.H + h] = w1 * z1;
+        for (int nt = 0; nt < P / 8; ++nt) {
+          if (rj0 < L)
+            *reinterpret_cast<__nv_bfloat162*>(out + nt * 8) =
+                __floats2bfloat162_rn(dx[4 * nt], dx[4 * nt + 1]);
+          if (rj1 < L)
+            *reinterpret_cast<__nv_bfloat162*>(out + 8 * row_dy + nt * 8) =
+                __floats2bfloat162_rn(dx[4 * nt + 2], dx[4 * nt + 3]);
+        }
       }
     }
-    bf16* out = static_cast<bf16*>(p.dx) + (tr0 * p.H + h) * P + 2 * tq;
-#pragma unroll
-    for (int nt = 0; nt < P / 8; ++nt) {
-      if (rj0 < L)
-        *reinterpret_cast<__nv_bfloat162*>(out + nt * 8) =
-            __floats2bfloat162_rn(dxa[nt][0], dxa[nt][1]);
-      if (rj1 < L)
-        *reinterpret_cast<__nv_bfloat162*>(out + 8 * row_dy + nt * 8) =
-            __floats2bfloat162_rn(dxa[nt][2], dxa[nt][3]);
+    if (++ti == nI) {
+      ti = 0;
+      ++m;
     }
   }
 
-  const int rj0 = j0 + r0;
+  // the split's dB: the second warpgroup's heads meet the first's, in order
+  __syncthreads();
+  float4* part = reinterpret_cast<float4*>(base + K::kRing);
+  if (wg == 1) {
+#pragma unroll
+    for (int k = 0; k < N / 8; ++k)
+      part[k * 128 + (tid & 127)] =
+          make_float4(db[4 * k], db[4 * k + 1], db[4 * k + 2], db[4 * k + 3]);
+  }
+  __syncthreads();
+  if (wg == 1) return;
   float* out = p.dbp + ((static_cast<long long>(b) * p.S + t0 + rj0) *
                             p.nsplit + s) * N + 2 * tq;
   const long long row = static_cast<long long>(p.nsplit) * N;
 #pragma unroll
   for (int nt = 0; nt < N / 8; ++nt) {
+    const float4 v = part[nt * 128 + tid];
     if (rj0 < L)
       *reinterpret_cast<float2*>(out + nt * 8) =
-          make_float2(db[nt][0], db[nt][1]);
-    if (rj0 + 8 < L)
+          make_float2(db[4 * nt] + v.x, db[4 * nt + 1] + v.y);
+    if (rj1 < L)
       *reinterpret_cast<float2*>(out + 8 * row + nt * 8) =
-          make_float2(db[nt][2], db[nt][3]);
+          make_float2(db[4 * nt + 2] + v.z, db[4 * nt + 3] + v.w);
   }
 }
 
-// Pass c2, block (query tile qt, chunk c, batch row and split): the split's
-// dC and dcum for the 64 query rows i0 .. i0+63.  Warp w owns query rows
-// i0 + 16w .. i0 + 16w + 15; a thread rows r0 and r0 + 8.
+// Pass c2, block (query tile qt, chunk c, batch row and split), two
+// warpgroups in step: the split's dC and dcum's query-side part for the 64
+// query rows i0 .. i0+63.  Warpgroup w takes head h0 + HPS m + w of the
+// m-th head pair, all of it: exp(cum_i) dy_i S_prev, then for each key
+// tile j <= qt (a stage) dY and the masked products in two halves of 32
+// keys; the pair shares the stage's B_j and S tile.  The stages' x_j, B_j
+// and S are staged by cp.async while the stage before runs; dy_i, cum and
+// dt of the next pair come with its first stage, its S_prev planes as
+// soon as this pair's state terms have read the last ones.  The
+// accumulator map is the key pass's.
 template <int P, int N>
-__global__ void __launch_bounds__(kThreads) ssd_bwd_queries_mma(Params p) {
-  constexpr int LN = pad(N), LP = pad(P);
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* csm = reinterpret_cast<bf16*>(smem_tc);   // (64 queries, N) C
-  bf16* dys = csm + kRows * LN;                   // (64 queries, P) dy
-  bf16* reg = dys + kRows * LP;
-  bf16* shi = reg;                                // (P, N) S_prev hi, lo
-  bf16* slo = shi + P * LN;
-  bf16* bsm = reg;                                // (64 keys, N) B,
-  bf16* xs = bsm + kRows * LN;                    // (64 keys, P) x
-  float* cum = reinterpret_cast<float*>(reg + region(P, N));  // log2 units
-  float* dts = cum + kMaxQ;
-  const int qt = blockIdx.x, c = blockIdx.y;
-  const int b = blockIdx.z / p.nsplit, s = blockIdx.z - b * p.nsplit;
+__global__ void __launch_bounds__(kWgThreads, 1)
+    ssd_bwd_queries_wgmma(__grid_constant__ const CUtensorMap x_map,
+                          __grid_constant__ const CUtensorMap dy_map,
+                          __grid_constant__ const CUtensorMap b_map,
+                          __grid_constant__ const CUtensorMap c_map,
+                          __grid_constant__ const CUtensorMap e_map,
+                          const Params p) {
+  constexpr int HPS = pair_heads<P, N>();
+  using Q = QueriesLayout<P, N>;
+  static_assert(Q::kBytes <= kMaxSmem, "shared memory");
+  constexpr uint32_t kSBox = P * 128;   // S_prev's boxes: P rows
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* csm = reinterpret_cast<bf16*>(base + Q::kC);
+  const int qt = gridDim.z - 1 - blockIdx.z, c = blockIdx.x;
+  const int b = blockIdx.y / p.nsplit, s = blockIdx.y - b * p.nsplit;
   const int h0 = s * p.Hs, g = h0 / (p.H / p.G);
   const int t0 = c * p.Q, L = min(p.Q, p.S - t0), i0 = qt * kRows;
   if (i0 >= L) return;
-  const int irows = min(kRows, L - i0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tq = lane & 3, r0 = warp * 16 + (lane >> 2);
+  const int nJ = qt + 1, T = (p.Hs + HPS - 1) / HPS * nJ;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int warp = (tid >> 5) & 3, tq = lane & 3, r0 = warp * 16 + (lane >> 2);
   const int ri0 = i0 + r0, ri1 = ri0 + 8;
-  const long long row_dy = static_cast<long long>(p.H) * P;
   const bool has_prev = c > 0 || p.has_init;
-  const bf16* bb = static_cast<const bf16*>(p.Bm) + b * p.bs_b +
-                   static_cast<long long>(t0) * p.bs_s + g * p.bs_g;
-  const bf16* cb = static_cast<const bf16*>(p.Cm) + b * p.cs_b +
-                   static_cast<long long>(t0) * p.cs_s + g * p.cs_g;
-  load_tile<N>(csm, LN, cb + static_cast<long long>(i0) * p.cs_s, p.cs_s,
-               irows);
-
-  float dc[N / 8][4];
+  const float* dtb = p.dt + (static_cast<long long>(b) * p.S + t0) * p.H;
+  const uint32_t full = smem_u32(base + Q::kBar), planes = full + 16;
+  auto slot = [&](int t) { return base + Q::kRing + (t & 1) * Q::kSlot; };
+  auto dslot = [&](int m, int w) {
+    return reinterpret_cast<bf16*>(base + Q::kDy +
+                                   ((m & 1) * HPS + w) * kRows * P * 2);
+  };
+  auto cslot = [&](int m, int w) {
+    return reinterpret_cast<float*>(base + Q::kCum +
+                                    ((m & 1) * HPS + w) * 2 * kMaxQ * 4);
+  };
+  // stage t = (pair m, key tile jt)'s copies, by TMA from one thread, on
+  // full[t % 2]: each head's x_j, B_j and the S tile, with dy_i and cum
+  // when it starts a pair (rows past S arrive as zeros)
+  auto load_stage = [&](int t, int m, int jt) {
+    const int j0 = jt * kRows;
+    const int heads = min(HPS, p.Hs - HPS * m);
+    const uint32_t bar = full + 8 * (t & 1), sl = smem_u32(slot(t));
+    mbar_arrive_tx(bar, heads * kRows * P * 2 + kRows * N * 2 +
+                            kRows * kRows * 4 +
+                            (jt == 0 ? heads * (kRows * P * 2 + p.Qp * 4)
+                                     : 0));
+    for (int w = 0; w < heads; ++w) {
+      const int h = h0 + HPS * m + w;
 #pragma unroll
-  for (int nt = 0; nt < N / 8; ++nt)
+      for (int cc = 0; cc < P / 64; ++cc) {
+        tma_4d(sl + w * kRows * P * 2 + cc * kBox, &x_map, bar, 64 * cc, h,
+               t0 + j0, b);
+        if (jt == 0)
+          tma_4d(smem_u32(dslot(m, w)) + cc * kBox, &dy_map, bar, 64 * cc, h,
+                 t0 + i0, b);
+      }
+      if (jt == 0)
+        bulk_1d(smem_u32(cslot(m, w)),
+                p.cum +
+                    ((static_cast<long long>(b) * p.H + h) * p.nc + c) * p.Qp,
+                p.Qp * 4, bar);
+    }
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dc[nt][e] = 0.f;
+    for (int cc = 0; cc < N / 64; ++cc)
+      tma_4d(sl + HPS * kRows * P * 2 + cc * kBox, &b_map, bar, 64 * cc, g,
+             t0 + j0, b);
+    bulk_1d(sl + kRows * (HPS * P + N) * 2,
+            p.sc + pair_tile(p, b, c, g, qt, jt), kRows * kRows * 4, bar);
+  };
+  // dt of pair m's heads (strided, so by cp.async, every thread)
+  auto load_dt = [&](int m) {
+    for (int w = 0; w < min(HPS, p.Hs - HPS * m); ++w) {
+      float* to = cslot(m, w) + kMaxQ;
+      const float* from = dtb + h0 + HPS * m + w;
+      for (int j = tid; j < p.Qp; j += kWgThreads)
+        cp_async4(to + j, from + static_cast<long long>(j < L ? j : 0) * p.H,
+                  j < L ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  // the S_prev planes of pair m's heads, on `planes`
+  auto load_sp = [&](int m) {
+    const int heads = min(HPS, p.Hs - HPS * m);
+    mbar_arrive_tx(planes, heads * 2 * P * N * 2);
+    for (int w = 0; w < heads; ++w) {
+      const int row = static_cast<int>(2 * state_at(p, b, c, h0 + HPS * m + w) /
+                                       N);
+      const uint32_t to = smem_u32(base + Q::kSp + w * 2 * P * N * 2);
+#pragma unroll
+      for (int pl = 0; pl < 2; ++pl)
+#pragma unroll
+        for (int cc = 0; cc < N / 64; ++cc)
+          tma_2d(to + pl * P * N * 2 + cc * P * 128, &e_map, planes, 64 * cc,
+                 row + pl * P);
+    }
+  };
 
-  for (int hh = 0; hh < p.Hs; ++hh) {
-    const int h = h0 + hh;
-    const bf16* xb = static_cast<const bf16*>(p.x) + b * p.xs_b +
-                     static_cast<long long>(t0) * p.xs_s + h * p.xs_h;
-    const bf16* dyb = static_cast<const bf16*>(p.dy) +
-                      (static_cast<long long>(b) * p.S + t0) * row_dy + h * P;
+  if (tid == 0) {
+    mbar_init(full, 1);
+    mbar_init(full + 8, 1);
+    mbar_init(planes, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_tx(full, kRows * N * 2);   // the query tile's C, with stage 0
+#pragma unroll
+    for (int cc = 0; cc < N / 64; ++cc)
+      tma_4d(smem_u32(csm) + cc * kBox, &c_map, full, 64 * cc, g, t0 + i0, b);
+    load_stage(0, 0, 0);
+    if (has_prev) load_sp(0);
+  }
+  load_dt(0);
+
+  float dc[N / 2];
+#pragma unroll
+  for (int e = 0; e < N / 2; ++e) dc[e] = 0.f;
+  float ci0 = 0.f, ci1 = 0.f, y0 = 0.f, y1 = 0.f, rs0 = 0.f, rs1 = 0.f;
+  float cr = 0.f, g0 = 0.f, g1 = 0.f;
+  const uint32_t spt = smem_u32(base + Q::kSp + wg * 2 * P * N * 2);
+  for (int t = 0, m = 0, jt = 0; t < T; ++t) {
+    const int j0 = jt * kRows, hh = HPS * m + wg, h = h0 + hh;
+    const bool mine = wg < HPS && hh < p.Hs;
+    mbar_wait(full + 8 * (t & 1), (t >> 1) & 1);
+    if (jt == 0 && has_prev) mbar_wait(planes, m & 1);
+    cp_async_wait_all();            // dt
     __syncthreads();
-    load_tile<P>(dys, LP, dyb + i0 * row_dy, row_dy, irows);
-    if (has_prev) {
-      const bf16* from =
-          static_cast<const bf16*>(p.enter) + 2 * state_at(p, b, c, h);
-      load_tile<N, P>(shi, LN, from, N, P);
-      load_tile<N, P>(slo, LN, from + P * N, N, P);
+    if (t + 1 < T) {
+      const bool next = jt == qt;
+      if (tid == 0) load_stage(t + 1, m + next, next ? 0 : jt + 1);
+      if (next) load_dt(m + 1);
     }
-    simt::load_cum_dt(p, cum, dts, b, h, c, t0, L, kThreads, kLog2e);
-    cp_async_wait_all();
-    __syncthreads();
-    const float ci0 = cum[ri0], ci1 = cum[ri1];
+    const float* cum = cslot(m, mine ? wg : 0);
+    const float* dts = cum + kMaxQ;
+    const uint32_t dyt = smem_u32(dslot(m, mine ? wg : 0));
+    unsigned char* sl = slot(t);
+    const uint32_t xt = smem_u32(sl + wg * kRows * P * 2);
+    const uint32_t bt = smem_u32(sl + HPS * kRows * P * 2);
+    const float4* stile =
+        reinterpret_cast<const float4*>(sl + kRows * (HPS * P + N) * 2);
 
-    float rs0 = 0.f, rs1 = 0.f, y0 = 0.f, y1 = 0.f;
-    if (has_prev) {                 // exp(cum_i) dy_i S_prev, two products
-      float t[N / 8][4];
+    if (jt == 0) {
+      if (mine) {                   // the head's state term
+        ci0 = cum[ri0] * kLog2e;
+        ci1 = cum[ri1] * kLog2e;
+        // before the diagonal tile exp(c_i - c_j) = exp(c_i - c_r) exp(c_r
+        // - c_j), c_r the query tile's first cum: each factor at most 1
+        cr = cum[i0] * kLog2e;
+        g0 = ex2(ci0 - cr);
+        g1 = ex2(ci1 - cr);
+        y0 = y1 = rs0 = rs1 = 0.f;
+        if (has_prev) {             // dC += exp(cum_i) dy_i S_prev (hi, lo)
+          float ta[N / 2];
 #pragma unroll
-      for (int nt = 0; nt < N / 8; ++nt)
+          for (int e = 0; e < N / 2; ++e) ta[e] = 0.f;
+          fence_acc<N / 2>(ta);
+          wg_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) t[nt][e] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < P; kk += 16) {
-        uint32_t a[4];              // dy[i][p] stored (i, p)
-        ldsm_x4(a, dys + (warp * 16 + (lane & 15)) * LP + kk + (lane >> 4) * 8);
-#pragma unroll
-        for (int nt = 0; nt < N / 8; nt += 2) {
-          // S[p][n] stored (p, n): the row-major B of dy S
-          const int off = (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LN +
-                          nt * 8 + (lane >> 4) * 8;
-          uint32_t bq[4];
-          ldsm_x4_trans(bq, shi + off);
-          mma16816(t[nt], a, bq[0], bq[1]);
-          mma16816(t[nt + 1], a, bq[2], bq[3]);
-          ldsm_x4_trans(bq, slo + off);
-          mma16816(t[nt], a, bq[0], bq[1]);
-          mma16816(t[nt + 1], a, bq[2], bq[3]);
-        }
-      }
-      const float e0 = ex2(ci0), e1 = ex2(ci1);
-#pragma unroll
-      for (int nt = 0; nt < N / 8; ++nt) {
-        const int col = nt * 8 + 2 * tq;
-        const float2 c0 = bf16x2(csm + r0 * LN + col);
-        const float2 c1 = bf16x2(csm + (r0 + 8) * LN + col);
-        const float v0 = t[nt][0] * e0, v1 = t[nt][1] * e0;
-        const float v2 = t[nt][2] * e1, v3 = t[nt][3] * e1;
-        dc[nt][0] += v0;
-        dc[nt][1] += v1;
-        dc[nt][2] += v2;
-        dc[nt][3] += v3;
-        y0 += c0.x * v0 + c0.y * v1;
-        y1 += c1.x * v2 + c1.y * v3;
-      }
-    }
-
-    for (int jt = 0; jt <= qt; ++jt) {
-      const int j0 = jt * kRows, jrows = min(kRows, L - j0);
-      __syncthreads();              // S_prev or the last tile's space
-      load_tile<N>(bsm, LN, bb + static_cast<long long>(j0) * p.bs_s, p.bs_s,
-                   jrows);
-      load_tile<P>(xs, LP, xb + static_cast<long long>(j0) * p.xs_s, p.xs_s,
-                   jrows);
-      cp_async_wait_all();
-      __syncthreads();
-      // key n8 tiles holding some j <= i of this warp's rows
-      const int live = jt == qt ? 2 * warp + 2 : 8;
-      float sv[8][4], dv[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sv[nt][e] = dv[nt][e] = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < N; kk += 16) {
-        uint32_t a[4];              // C[i][n] stored (i, n)
-        ldsm_x4(a, csm + (warp * 16 + (lane & 15)) * LN + kk + (lane >> 4) * 8);
-#pragma unroll
-        for (int nt = 0; nt < 8; nt += 2) {
-          if (nt < live) {
-            uint32_t bq[4];         // B[j][n] stored (j, n)
-            ldsm_x4(bq, bsm + (nt * 8 + (lane & 7) + (lane >> 4) * 8) * LN +
-                            kk + ((lane >> 3) & 1) * 8);
-            mma16816(sv[nt], a, bq[0], bq[1]);
-            mma16816(sv[nt + 1], a, bq[2], bq[3]);
+          for (int kk = 0; kk < P / 16; ++kk) {
+            wg_ss<N, 1>(ta, kmaj(dyt, kk, kBox), mnmaj(spt, kk, kSBox),
+                        kk > 0);
+            wg_ss<N, 1>(ta, kmaj(dyt, kk, kBox),
+                        mnmaj(spt + P * N * 2, kk, kSBox), 1);
           }
-        }
-      }
-#pragma unroll 2
-      for (int kk = 0; kk < P; kk += 16) {
-        uint32_t a[4];              // dy[i][p] stored (i, p)
-        ldsm_x4(a, dys + (warp * 16 + (lane & 15)) * LP + kk + (lane >> 4) * 8);
+          wg_commit_wait();
+          fence_acc<N / 2>(ta);
+          const float ea = ex2(ci0), eb = ex2(ci1);
 #pragma unroll
-        for (int nt = 0; nt < 8; nt += 2) {
-          if (nt < live) {
-            uint32_t bq[4];         // x[j][p] stored (j, p)
-            ldsm_x4(bq, xs + (nt * 8 + (lane & 7) + (lane >> 4) * 8) * LP +
-                            kk + ((lane >> 3) & 1) * 8);
-            mma16816(dv[nt], a, bq[0], bq[1]);
-            mma16816(dv[nt + 1], a, bq[2], bq[3]);
+          for (int nt = 0; nt < N / 8; ++nt) {
+            const int col = nt * 8 + 2 * tq;
+            const float2 c0 = bf16x2(csm + sw<kRows>(r0, col));
+            const float2 c1 = bf16x2(csm + sw<kRows>(r0 + 8, col));
+            const float v0 = ta[4 * nt] * ea, v1 = ta[4 * nt + 1] * ea;
+            const float v2 = ta[4 * nt + 2] * eb, v3 = ta[4 * nt + 3] * eb;
+            dc[4 * nt] += v0;
+            dc[4 * nt + 1] += v1;
+            dc[4 * nt + 2] += v2;
+            dc[4 * nt + 3] += v3;
+            y0 += c0.x * v0 + c0.y * v1;   // C_i . its dC term: y_inter
+            y1 += c1.x * v2 + c1.y * v3;
           }
+          y0 = quad_sum(y0);
+          y1 = quad_sum(y1);
         }
       }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int j = j0 + nt * 8 + 2 * tq + u;
-          const float cj = cum[j], dj = dts[j];
-          const float w0 = j <= ri0 && ri0 < L ? ex2(ci0 - cj) * dj : 0.f;
-          const float w1 = j <= ri1 && ri1 < L ? ex2(ci1 - cj) * dj : 0.f;
-          const float q0 = dv[nt][u] * w0, q1 = dv[nt][2 + u] * w1;
-          rs0 += j < ri0 ? sv[nt][u] * q0 : 0.f;
-          rs1 += j < ri1 ? sv[nt][2 + u] * q1 : 0.f;
-          dv[nt][u] = q0;
-          dv[nt][2 + u] = q1;
-        }
-      // dC += (dY L dt) B_j
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        if (2 * k < live) {
-          const uint32_t a[4] = {pack_bf16(dv[2 * k][0], dv[2 * k][1]),
-                                 pack_bf16(dv[2 * k][2], dv[2 * k][3]),
-                                 pack_bf16(dv[2 * k + 1][0], dv[2 * k + 1][1]),
-                                 pack_bf16(dv[2 * k + 1][2], dv[2 * k + 1][3])};
-#pragma unroll
-          for (int nt = 0; nt < N / 8; nt += 2) {
-            uint32_t bq[4];         // B[j][n] stored (j, n)
-            ldsm_x4_trans(bq, bsm + (k * 16 + (lane & 7) +
-                                     ((lane >> 3) & 1) * 8) * LN +
-                                  nt * 8 + (lane >> 4) * 8);
-            mma16816(dc[nt], a, bq[0], bq[1]);
-            mma16816(dc[nt + 1], a, bq[2], bq[3]);
-          }
-        }
-      }
+      __syncthreads();              // both warpgroups are done with S_prev
+      if (tid == 0 && has_prev && HPS * (m + 1) < p.Hs) load_sp(m + 1);
     }
 
+    if (mine) {
+      // dY = dy_i x_j^T in two halves of 32 keys, the second issued with
+      // the first half's product
+      float yv[16], sv[16];
+      uint32_t dw[8];
 #pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      rs0 += __shfl_xor_sync(kFull, rs0, o);
-      rs1 += __shfl_xor_sync(kFull, rs1, o);
-      y0 += __shfl_xor_sync(kFull, y0, o);
-      y1 += __shfl_xor_sync(kFull, y1, o);
+      for (int e = 0; e < 16; ++e) yv[e] = 0.f;
+      fence_acc<16>(yv);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < P / 16; ++kk)
+        wg_ss<32, 0>(yv, kmaj(dyt, kk, kBox), kmaj(xt, kk, kBox), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        wg_wait();
+        if (half == 1) fence_frag<8>(dw);
+        fence_acc<16>(yv);
+        fence_acc<N / 2>(dc);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          reinterpret_cast<float4*>(sv)[q] =
+              stile[(warp * 8 + 4 * half + q) * 32 + lane];
+        if (jt == qt) {             // the diagonal tile: masked
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int j = j0 + 32 * half + 8 * q + 2 * tq + u;
+              const float cj = cum[j] * kLog2e, dj = dts[j];
+              const float wa = j <= ri0 && ri0 < L ? ex2(ci0 - cj) * dj : 0.f;
+              const float wb = j <= ri1 && ri1 < L ? ex2(ci1 - cj) * dj : 0.f;
+              const int a0 = 4 * q + u, a1 = a0 + 2;
+              const float q0 = yv[a0] * wa, q1 = yv[a1] * wb;
+              rs0 += j < ri0 ? sv[a0] * q0 : 0.f;
+              rs1 += j < ri1 ? sv[a1] * q1 : 0.f;
+              yv[a0] = q0;
+              yv[a1] = q1;
+            }
+        } else {                    // before it: j < i, rows past L are 0
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int j = j0 + 32 * half + 8 * q + 2 * tq + u;
+              const float fd = ex2(cr - cum[j] * kLog2e) * dts[j];
+              const int a0 = 4 * q + u, a1 = a0 + 2;
+              const float q0 = yv[a0] * (g0 * fd), q1 = yv[a1] * (g1 * fd);
+              rs0 += sv[a0] * q0;
+              rs1 += sv[a1] * q1;
+              yv[a0] = q0;
+              yv[a1] = q1;
+            }
+        }
+        // dC += (dY L dt) B_j
+        to_fragments(yv, dw);
+        fence_acc<N / 2>(dc);
+        fence_acc<16>(yv);
+        wg_fence();
+        wg_rs<N>(dc, dw, mnmaj(bt, 2 * half, kBox));
+        wg_rs<N>(dc, dw + 4, mnmaj(bt, 2 * half + 1, kBox));
+        if (half == 0) {
+#pragma unroll
+          for (int kk = 0; kk < P / 16; ++kk)
+            wg_ss<32, 0>(yv, kmaj(dyt, kk, kBox),
+                         kmaj(xt + 32 * 128, kk, kBox), kk > 0);
+        }
+        wg_commit();
+      }
+      wg_wait();
+      fence_frag<8>(dw);
+      fence_acc<N / 2>(dc);
+
+      if (jt == qt) {               // the head's last stage: dcum
+        rs0 = quad_sum(rs0);
+        rs1 = quad_sum(rs1);
+        if (tq == 0) {
+          const long long at =
+              (static_cast<long long>(b) * p.S + t0 + ri0) * p.H + h;
+          if (ri0 < L) p.dcum[at] += rs0 + y0;
+          if (ri1 < L) p.dcum[at + 8 * p.H] += rs1 + y1;
+        }
+      }
     }
-    if (tq == 0) {
-      const long long t =
-          (static_cast<long long>(b) * p.S + t0 + ri0) * p.H + h;
-      if (ri0 < L) p.dcum[t] += rs0 + y0;
-      if (ri1 < L) p.dcum[t + 8 * p.H] += rs1 + y1;
+    if (++jt == nJ) {
+      jt = 0;
+      ++m;
     }
   }
 
+  // the split's dC: the second warpgroup's heads meet the first's, in order
+  __syncthreads();
+  float4* part = reinterpret_cast<float4*>(base + Q::kRing);
+  if (wg == 1) {
+#pragma unroll
+    for (int k = 0; k < N / 8; ++k)
+      part[k * 128 + (tid & 127)] =
+          make_float4(dc[4 * k], dc[4 * k + 1], dc[4 * k + 2], dc[4 * k + 3]);
+  }
+  __syncthreads();
+  if (wg == 1) return;
   float* out = p.dcp + ((static_cast<long long>(b) * p.S + t0 + ri0) *
                             p.nsplit + s) * N + 2 * tq;
   const long long row = static_cast<long long>(p.nsplit) * N;
 #pragma unroll
   for (int nt = 0; nt < N / 8; ++nt) {
+    const float4 v = part[nt * 128 + tid];
     if (ri0 < L)
       *reinterpret_cast<float2*>(out + nt * 8) =
-          make_float2(dc[nt][0], dc[nt][1]);
+          make_float2(dc[4 * nt] + v.x, dc[4 * nt + 1] + v.y);
     if (ri1 < L)
       *reinterpret_cast<float2*>(out + 8 * row + nt * 8) =
-          make_float2(dc[nt][2], dc[nt][3]);
+          make_float2(dc[4 * nt + 2] + v.z, dc[4 * nt + 3] + v.w);
   }
 }
 
 template <int P, int N>
 cudaError_t allow() {
-  const int bytes = static_cast<int>(tiles_smem(P, N));
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_keys_mma<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      ssd_bwd_keys_wgmma<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      KeysLayout<P, N>::kBytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ssd_bwd_queries_mma<P, N>,
+    err = cudaFuncSetAttribute(ssd_bwd_queries_wgmma<P, N>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               bytes);
+                               QueriesLayout<P, N>::kBytes);
   return err;
 }
 
@@ -1687,32 +2427,144 @@ cudaError_t init() {
   if (err == cudaSuccess) err = allow<64, 128>();
   if (err == cudaSuccess) err = allow<128, 64>();
   if (err == cudaSuccess) err = allow<128, 128>();
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_scores<64>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               scores_smem(64));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_bwd_scores<128>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               scores_smem(128));
   return err;
 }
 
+// The most dynamic shared memory a block of the instance takes.
 template <int P, int N>
-cudaError_t launch_pn(const Params& p, int BH, cudaStream_t st) {
-  ssd_bwd_states_mma<<<dim3(p.nc, P / kRows * (N / kRows), BH), kThreads,
-                       states_smem(), st>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ssd_bwd_pass<true><<<dim3(p.nblk, BH), kPassThreads, 0, st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 tiles(p.Qp / kRows, p.nc, p.Bsz * p.nsplit);
-  ssd_bwd_keys_mma<P, N><<<tiles, kThreads, tiles_smem(P, N), st>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ssd_bwd_queries_mma<P, N><<<tiles, kThreads, tiles_smem(P, N), st>>>(p);
-  return cudaGetLastError();
+constexpr int smem_pn() {
+  constexpr int k = KeysLayout<P, N>::kBytes, q = QueriesLayout<P, N>::kBytes;
+  return k > q ? k : q;
 }
 
-cudaError_t launch(const Params& p, int BH, cudaStream_t st) {
+int max_smem(int P, int N) {
+  const int s = static_cast<int>(states_smem());
+  int t = 0;
+  if (P == 64 && N == 64) t = smem_pn<64, 64>();
+  if (P == 64 && N == 128) t = smem_pn<64, 128>();
+  if (P == 128 && N == 64) t = smem_pn<128, 64>();
+  if (P == 128 && N == 128) t = smem_pn<128, 128>();
+  return s > t ? s : t;
+}
+
+// a refused tensor map returns kEncodeError + its CUresult, apart from
+// the cudaError_t codes
+constexpr int kEncodeError = 100000;
+
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// A bfloat16 tensor map over `ptr` with dims[0] contiguous and strides[k]
+// elements between steps of dims[k + 1], boxes of 64 columns and box[1 ..]
+// more, 128-byte swizzle and zeros out of bounds.
+int encode(CUtensorMap* map, const void* ptr, int rank, const long long* dims,
+           const long long* strides, const int* box) {
+  PFN_cuTensorMapEncodeTiled_v12000 fn = encode_fn();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  cuuint64_t d[4], st[3];
+  cuuint32_t bx[4], unit[4];
+  for (int k = 0; k < rank; ++k) {
+    d[k] = static_cast<cuuint64_t>(dims[k]);
+    bx[k] = static_cast<cuuint32_t>(box[k]);
+    unit[k] = 1;
+    if (k + 1 < rank) st[k] = static_cast<cuuint64_t>(strides[k]) * 2;
+  }
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), d,
+      st, bx, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
+}
+
+// (B, S, heads, cols) with the given strides: 64 columns of 64 steps of
+// one head of one batch row a box.
+int encode_steps(CUtensorMap* map, const void* ptr, int cols, int heads,
+                 int S, int B, long long s_h, long long s_s, long long s_b) {
+  const long long dims[4] = {cols, heads, S, B}, strides[3] = {s_h, s_s, s_b};
+  const int box[4] = {64, 1, kRows, 1};
+  return encode(map, ptr, 4, dims, strides, box);
+}
+
+// The kept states' bf16 hi, lo planes (B, nc, H, 2, P, N) as N columns of
+// B nc H 2 P rows: 64 columns of one (P, N) plane a box.
+template <int P, int N>
+int encode_planes(CUtensorMap* map, const void* ptr, const Params& p) {
+  const long long dims[2] = {N, 2LL * p.Bsz * p.nc * p.H * P},
+                  strides[1] = {N};
+  const int box[2] = {64, P};
+  return encode(map, ptr, 2, dims, strides, box);
+}
+
+template <int P, int N>
+int launch_pn(const Params& p, int BH, cudaStream_t st) {
+  CUtensorMap xm, dym, bm, cm, gm, em;
+  const long long HP = static_cast<long long>(p.H) * P;
+  int res = encode_steps(&xm, p.x, P, p.H, p.S, p.Bsz, p.xs_h, p.xs_s,
+                         p.xs_b);
+  if (res == 0)
+    res = encode_steps(&dym, p.dy, P, p.H, p.S, p.Bsz, P, HP, HP * p.S);
+  if (res == 0)
+    res = encode_steps(&bm, p.Bm, N, p.G, p.S, p.Bsz, p.bs_g, p.bs_s, p.bs_b);
+  if (res == 0)
+    res = encode_steps(&cm, p.Cm, N, p.G, p.S, p.Bsz, p.cs_g, p.cs_s, p.cs_b);
+  if (res == 0) res = encode_planes<P, N>(&gm, p.Gs, p);
+  if (res == 0) res = encode_planes<P, N>(&em, p.enter, p);
+  if (res != 0) return res;
+  ssd_bwd_states_mma<<<dim3(p.nc, P / kRows * (N / kRows), BH), kThreads,
+                       states_smem(), st>>>(p);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return err;
+  ssd_bwd_pass<true><<<dim3(p.nblk, BH), kPassThreads, 0, st>>>(p);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return err;
+  const int nq = p.Qp / kRows;
+  ssd_bwd_scores<N><<<dim3(nq, p.nc, p.Bsz * p.G), kThreads, scores_smem(N),
+                      st>>>(p);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return err;
+  // the tile index is the slowest grid axis, so the blocks that walk the
+  // most tiles (key tile 0, the last query tile) start first
+  const dim3 tiles(p.nc, p.Bsz * p.nsplit, nq);
+  ssd_bwd_keys_wgmma<P, N>
+      <<<tiles, kWgThreads, KeysLayout<P, N>::kBytes, st>>>(xm, dym, bm, cm,
+                                                              gm, p);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return err;
+  ssd_bwd_queries_wgmma<P, N>
+      <<<tiles, kWgThreads, QueriesLayout<P, N>::kBytes, st>>>(xm, dym, bm,
+                                                                 cm, em, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const Params& p, int BH, cudaStream_t st) {
   if (p.P == 64 && p.N == 64) return launch_pn<64, 64>(p, BH, st);
   if (p.P == 64 && p.N == 128) return launch_pn<64, 128>(p, BH, st);
   if (p.P == 128 && p.N == 64) return launch_pn<128, 64>(p, BH, st);
   if (p.P == 128 && p.N == 128) return launch_pn<128, 128>(p, BH, st);
-  return cudaErrorInvalidValue;
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace tc
@@ -1720,13 +2572,16 @@ cudaError_t launch(const Params& p, int BH, cudaStream_t st) {
 // The workspace's parts, in floats, each rounded up to 64 floats (256
 // bytes) so that every part starts 16-byte aligned.
 struct Workspace {
-  long long cum, U, Gs, gdot, dcum, tj, dbp, dcp, dDp, dAp, total;
+  long long cum, U, Gs, gdot, dcum, tj, dbp, dcp, dDp, dAp, sc, sct, total;
   Workspace(int B, int S, int H, int G, int P, int N, int Q) {
     auto up = [](long long n) { return (n + 63) / 64 * 64; };
     const long long nc = (S + Q - 1) / Q, Qp = (Q + kRows - 1) / kRows * kRows;
     const long long BH = static_cast<long long>(B) * H, PN = P * N;
     const long long nsplit = H / heads_per_split(H / G);
     const long long nblk = (PN + kPassThreads - 1) / kPassThreads;
+    const long long nq = Qp / kRows;
+    const long long pairs = static_cast<long long>(B) * nc * G * nq *
+                            (nq + 1) / 2 * kRows * kRows;
     long long at = 0;
     auto take = [&](long long n) {
       const long long here = at;
@@ -1743,6 +2598,8 @@ struct Workspace {
     dcp = take(static_cast<long long>(B) * S * nsplit * N);
     dDp = take(BH * nc * (Qp / kRows));
     dAp = take(BH * nc);
+    sc = take(pairs);
+    sct = take(pairs);
     total = at;
   }
 };
@@ -1775,7 +2632,7 @@ long long ssd_bwd_workspace(int B, int S, int H, int G, int P, int N, int Q) {
 int ssd_bwd_smem(int instance, int P, int N) {
   if (instance == 1) {
     if ((P != 64 && P != 128) || (N != 64 && N != 128)) return 0;
-    return static_cast<int>(tc::tiles_smem(P, N));
+    return tc::max_smem(P, N);
   }
   if ((P != 16 && P != 32 && P != 64 && P != 128) || N <= 0 || N % 16 ||
       N > kMaxN)
@@ -1800,8 +2657,9 @@ int ssd_bwd_init(int device) {
   return err == cudaSuccess ? bytes : -static_cast<int>(err);
 }
 
-// The backward, its seven kernels on `stream`.  instance: 0 = simt, 1 =
-// mma (bfloat16 only; the entering states as bf16 hi, lo planes).  dtype:
+// The backward on `stream`: seven kernels (simt), eight (mma: the scores
+// pass too).  instance: 0 = simt, 1 = mma (bfloat16 only; the entering
+// states as bf16 hi, lo planes).  dtype:
 // 0 = float32, 1 = bfloat16 (x, Bm, Cm, dy, dx, dB and dC); dt, A, D, the
 // states and ddt, dA, dD, dinit are float32.  enter_f32: the entering
 // states are float32 (else bf16 hi, lo); has_init: the forward had an
@@ -1858,6 +2716,8 @@ int ssd_bwd_launch(int device, int instance, int dtype, const void* x,
   p.dcp = base + w.dcp;
   p.dDp = base + w.dDp;
   p.dAp = base + w.dAp;
+  p.sc = base + w.sc;
+  p.sct = base + w.sct;
   p.Bsz = B;
   p.S = S;
   p.H = H;
@@ -1867,7 +2727,14 @@ int ssd_bwd_launch(int device, int instance, int dtype, const void* x,
   p.Q = Q;
   p.Qp = (Q + kRows - 1) / kRows * kRows;
   p.nc = nc;
-  p.Hs = heads_per_split(H / G);
+  // The split: a block walks Hs heads of one group, from the shapes alone.
+  // More heads a block write fewer dB and dC partials (each B S (H / Hs) N
+  // floats) and open fewer blocks; fewer keep more blocks for the card's
+  // 132 SMs.  The tensor-core passes take up to 16 (mamba2 at 8 x 512: 256
+  // blocks a pass, one block an SM, 8.4 MB of partials each; 16 against 8
+  // was measured faster on an H100), the SIMT ones up to 8.  The
+  // workspace holds the SIMT split's partials, the larger.
+  p.Hs = heads_per_split(H / G, instance == 1 ? kMaxSplitTc : kMaxSplit);
   p.nsplit = H / p.Hs;
   p.nblk = (P * N + kPassThreads - 1) / kPassThreads;
   p.has_init = has_init;
@@ -1882,11 +2749,13 @@ int ssd_bwd_launch(int device, int instance, int dtype, const void* x,
   p.cs_s = cs_s;
   p.cs_g = cs_g;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int code;
+  if (instance == 1) code = tc::launch(p, static_cast<int>(BH), st);
+  else if (dtype == 0)
+    code = static_cast<int>(simt::launch<float>(p, static_cast<int>(BH), st));
+  else code = static_cast<int>(simt::launch<bf16>(p, static_cast<int>(BH), st));
+  if (code != 0) return code;
   cudaError_t err;
-  if (instance == 1) err = tc::launch(p, static_cast<int>(BH), st);
-  else if (dtype == 0) err = simt::launch<float>(p, static_cast<int>(BH), st);
-  else err = simt::launch<bf16>(p, static_cast<int>(BH), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
   ssd_bwd_dcum<<<dim3(nc, static_cast<unsigned>(BH)), kMaxQ, 0, st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1902,6 +2771,7 @@ int ssd_bwd_launch(int device, int instance, int dtype, const void* x,
 }
 
 const char* ssd_bwd_error_string(int err) {
+  if (err >= tc::kEncodeError) return "tensor map encoding failed";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

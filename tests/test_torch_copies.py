@@ -55,7 +55,7 @@ PORT_OWN = {
     "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
     "kernels/flash_attention/study.py",
     "kernels/ssd/__init__.py", "kernels/ssd/ops.py", "kernels/ssd/ref.py",
-    "kernels/ssd/study.py",
+    "kernels/ssd/study.py", "kernels/ssd/bwd_study.py",
     "kernels/moe_gmm/ops.py", "kernels/moe_gmm/ref.py",
     "models/param.py", "models/layers.py", "models/attention.py",
     "models/transformer.py", "models/model.py", "models/ssm.py",

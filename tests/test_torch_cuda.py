@@ -108,7 +108,8 @@ from chip_smoke import (  # noqa: E402
     FLASH_BWD_CASES, FLASH_BWD_TIMED, FLASH_BWD_TOL, LSE_TOL, check_flash_bwd,
     check_lse, check_ssd_bwd, flash_bwd_inputs, flash_bwd_route,
     FLASH_CASES, FLASH_TOL, FLASH_WGMMA_CASES, GMM_CASES, GMM_RAGGED,
-    GMM_TC_CASES, GMM_TOL, SSD_BWD_DFINAL, SSD_CASES, SSD_TC_CASES, SSD_TOL,
+    GMM_TC_CASES, GMM_TOL, SSD_BWD_DFINAL, SSD_BWD_TC_CASES, SSD_CASES,
+    SSD_TC_CASES, SSD_TOL,
     attention_inputs, bitwise_equal, check_fully_masked_rows, fused_deltas,
     guard_problem,
     check_rolling_window, flash_route, flash_wgmma_inputs, gmm_arrays,
@@ -1027,6 +1028,17 @@ def test_ssd_backward_tensor_cores_take_edge_cases(cuda, case):
     views of one projection."""
     check_ssd_bwd(f"bwd-tc{case}", ssd_ops, case, 6, torch.bfloat16, cuda,
                   inputs=ssd_tc_inputs(case, cuda), dfinal=True)
+
+
+@pytest.mark.parametrize("case", SSD_BWD_TC_CASES)
+def test_ssd_backward_tensor_core_pass_edges(cuda, case):
+    """The key and query passes' own edges: two splits a group (the
+    scores read by group), a short last key tile, S under one tile, P 64
+    with N 64 and 128, an odd split (the second warpgroup idle), P 128
+    (one head a stage), an initial state with a final-state gradient;
+    two calls bitwise."""
+    check_ssd_bwd(f"bwd-tc-edge{case}", ssd_ops, case, 9, torch.bfloat16,
+                  cuda, dfinal=case[7])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

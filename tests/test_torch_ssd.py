@@ -43,7 +43,7 @@ from repro.kernels.ssd.ops import ssd_decode_step as ref_decode_step
 from repro.kernels.ssd.ref import ssd_reference as ref_oracle
 from repro_torch.kernels.build import launch_counts
 from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_decode_step
-from repro_torch.kernels.ssd import study
+from repro_torch.kernels.ssd import bwd_study, study
 from repro_torch.kernels.ssd.ops import (
     SSDFn, bwd_route, bwd_route_counts, route, route_counts, ssd_backward,
     ssd_forward,
@@ -496,6 +496,15 @@ def test_ssdfn_gradcheck(init):
         return SSDFn.apply(*ts[:6], ts[6] if init else None, 4)
 
     assert torch.autograd.gradcheck(fn, leaves, eps=1e-6, atol=1e-7)
+
+
+def test_bwd_study_needs_a_card(monkeypatch, capsys):
+    """The backward study times device work only: without a CUDA device
+    it prints why and returns 1, timing nothing."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert bwd_study.main([]) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
 
 
 def test_cpu_backward_entry_points_are_the_plain_versions():
