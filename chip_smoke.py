@@ -5,7 +5,7 @@ Run from the repository root on a machine with the card:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package.  Phases, run
-in the order 1, 2, 5-13, 15, 3, 4, 14 (the water-fill's last: once its
+in the order 1, 2, 5-13, 15-17, 3, 4, 14 (the water-fill's last: once its
 tier-1m case has run, `torch.profiler` reads no device events in the
 same process -- `repro_torch.kernels.waterfill.study` finds where -- so
 every phase that reads the profiler runs first); any failure raises and
@@ -14,8 +14,8 @@ to a plain version):
 
   1. the card: name and power limit as nvidia-smi reports them;
   2. build every kernel from the checkout's CUDA sources, one nvcc per
-     source, all started together (water-fill, flash attention and its
-     backward, SSD, grouped matmul), with ptxas' register and
+     source, all started together (water-fill, flash attention, SSD and
+     grouped matmul, each with its backward), with ptxas' register and
      shared-memory report;
   3. the water-fill kernel against its plain PyTorch version on the card,
      on the matchmaking tiers (10k/100k/1m jobs), a fractional-request
@@ -187,12 +187,36 @@ to a plain version):
      peak memory, and step 2 profiled, outside steps 3-6 (busy share,
      the backward's and the optimizer's shares; qwen2's run already
      checks the resume);
+ 17. training jamba: the grouped matmul's backward kernel (`gmm_bwd.cu`)
+     against the plain backward (`gmm_backward_reference`) on the
+     reference suite's cases and the ragged ones in both dtypes (1e-4 and
+     2e-2 of each gradient's max), the tensor-core edge cases in bfloat16
+     and `GMM_BWD_STAGE_CASES` (groups ending inside drhs's 64-row
+     stages) in both, each on the instance `gmm_route` names, two calls
+     bitwise equal, the padding rows' dlhs and the empty groups' drhs
+     exactly 0; then timed at jamba's training products (8 x 512 tokens:
+     10,240 rows in 16 groups; gate/up and down, bfloat16 in, float32
+     dout): CUDA events and device time of the whole backward, of dlhs
+     and of drhs alone, beside each one's bound, the plain backward and
+     `torch.bmm` (a yardstick); one full-width MoE layer of 4096 tokens,
+     forward and backward, kernels against autograd through the plain
+     version in float32 (1e-4) and bfloat16 (2.5e-2) with the auxiliary
+     loss equal and two backward passes bitwise; jamba at full width cut
+     to one period (8 layers, bfloat16, 13.3e9 parameters): `loss_fn`
+     and its backward with every kernel (exact launches of the six
+     kernels and their instances), the gradients moved to host memory,
+     then the plain versions with the routes pinned to the kernels side's
+     (`GATE_PERIOD_LOSS`, `GATE_PERIOD_GRAD`; each side's peak memory);
+     then the main path: `run_fixed` on the reduced jamba (float32, head
+     dim 32) for 6 steps of 8 x 512 with checkpoints at steps 3 and 6,
+     each step's launches and instances exact, the resume from step 3,
+     and steps 4-6 on the CPU from that checkpoint within 1e-5;
  14. a JSON line per kernel (the water-fill's with its launches by
      instance and by entry point and the host breakdown; flash's, the
      SSD's and gmm's with their launches by instance and ptxas' report of
-     their instances; the flash backward's and the SSD backward's with
-     their launches by instance and their training shapes),
-     the card line, and the result line.
+     their instances; the flash backward's, the SSD backward's and the
+     grouped matmul backward's with their launches by instance and their
+     training shapes), the card line, and the result line.
 """
 from __future__ import annotations
 
@@ -1231,6 +1255,23 @@ def device_ms_by(fn, reps: int, match: str, names) -> dict:
     return ms
 
 
+def device_ms_per_launch(fn, reps: int, names) -> tuple[dict, dict]:
+    """Device time of one call of ``fn``, every kernel of which runs once
+    a call: each kernel's time over the launches the profiler read of it
+    (a session late in a long process can miss some: run 23d's summed
+    over 20 calls read about 13 calls' worth), in total (``"all"``) and
+    for the kernels whose name holds each of ``names``; and the launches
+    read of each of ``names`` in ``reps`` calls."""
+    kernels = device_kernels(fn, reps)
+    per = {e.key: e.self_device_time_total / e.count / 1e3 for e in kernels}
+    ms = {"all": sum(per.values())}
+    ms.update({name: sum(v for k, v in per.items() if name in k)
+               for name in names})
+    read = {name: sum(e.count for e in kernels if name in e.key)
+            for name in names}
+    return ms, read
+
+
 def device_kernels(fn, reps: int, match: str | None = None) -> list:
     """The profiler's kernels (`key_averages` entries) of ``reps`` calls
     of ``fn``, after one warm call; ``match`` keeps only kernels whose
@@ -2084,10 +2125,42 @@ def plain_gmm():
     return swapped(moe_mod, "gmm", gmm_plain)
 
 
+class PlainGmmFn(torch.autograd.Function):
+    """The grouped matmul's plain version with its plain backward
+    (`gmm_plain`, `ref.gmm_backward_reference`), saving lhs and rhs as
+    they are: autograd through `gmm_plain` would keep a float32 copy of
+    every bfloat16 expert weight (11.3 GB a jamba MoE layer, 45 GB for
+    one period's four), which the one-period gradient cannot hold beside
+    its 26.5 GB of parameters and 26.5 GB of gradients."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes, out_dtype):
+        from repro_torch.kernels.moe_gmm.ops import gmm_plain
+        ctx.save_for_backward(lhs, rhs, group_sizes)
+        return gmm_plain(lhs, rhs, group_sizes, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels.moe_gmm.ref import gmm_backward_reference
+        grads = gmm_backward_reference(*ctx.saved_tensors, dout)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
+
+
+def plain_gmm_fn():
+    """The MoE's expert products through `PlainGmmFn`."""
+    from repro_torch.models import moe as moe_mod
+    return swapped(moe_mod, "gmm",
+                   lambda lhs, rhs, gs, *, out_dtype=None:
+                   PlainGmmFn.apply(lhs, rhs, gs, out_dtype))
+
+
 @contextlib.contextmanager
-def plain_kernels():
-    """Every kernel of the model through its plain version."""
-    with plain_attention(), plain_ssd(), plain_gmm():
+def plain_kernels(gmm=plain_gmm):
+    """Every kernel of the model through its plain version (the grouped
+    matmul's through ``gmm``)."""
+    with plain_attention(), plain_ssd(), gmm():
         yield
 
 
@@ -2111,6 +2184,31 @@ class Routes:
         moe_mod._router_topk = recorded
         try:
             yield self
+        finally:
+            moe_mod._router_topk = topk
+
+    @contextlib.contextmanager
+    def pinned(self):
+        """The MoE layer calls route, call by call, to the experts
+        recorded here, with their gates gathered from their own router
+        probabilities (so the gates keep their gradient).  Yields a list
+        that gets, per call, the number of tokens whose own top-k experts
+        differ from the pinned ones."""
+        from repro_torch.models import moe as moe_mod
+        topk = moe_mod._router_topk
+        calls, moved = iter(self.calls), []
+
+        def pinned(logits, k):
+            probs, _, own = topk(logits, k)
+            idx = next(calls)
+            moved.append(int((own.sort(dim=-1).values != idx).any(-1).sum()))
+            gates = torch.gather(probs, -1, idx)
+            gates = gates / gates.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+            return probs, gates, idx
+
+        moe_mod._router_topk = pinned
+        try:
+            yield moved
         finally:
             moe_mod._router_topk = topk
 
@@ -2257,13 +2355,23 @@ def routed_bf16_phase(cfg, device, *, prompt_len=320, seed=0):
     return params
 
 
-def moe_layer_phase(cfg, device, tokens=1024, seed=0):
+def moe_layer_phase(cfg, device, tokens=1024, seed=0, *, train=False):
     """One full-width MoE layer, kernel against plain, on the same input
     in float32 and in bfloat16: routing is identical by construction, so
-    y is held to the model gates and the auxiliary loss must be equal."""
+    y is held to the model gates and the auxiliary loss must be equal.
+    With ``train``, also the backward of sum(y * dy) + aux for a seeded
+    float32 dy: y and the gradients of x, router, gate, up and down
+    against autograd through the plain version (`plain_gmm`), each on
+    max |diff| / max |plain| at `GATE_TRAIN_GRAD` (float32) and
+    `GATE_TRAIN_BF16_GRAD` (bfloat16), and two backward passes of the
+    kernels' graph bitwise equal.  Returns the rows."""
+    from repro_torch.kernels.build import launch_counts
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.param import Init
-    for dtype, limit in (("float32", GATE_F32), ("bfloat16", GATE_BF16)):
+    limits = ((("float32", GATE_TRAIN_GRAD), ("bfloat16", GATE_TRAIN_BF16_GRAD))
+              if train else (("float32", GATE_F32), ("bfloat16", GATE_BF16)))
+    rows = []
+    for dtype, limit in limits:
         c = dataclasses.replace(cfg, param_dtype=dtype,
                                 activation_dtype=dtype)
         gen = torch.Generator(device=device)
@@ -2271,18 +2379,60 @@ def moe_layer_phase(cfg, device, tokens=1024, seed=0):
         p = moe_mod.init_moe(Init(gen, device), c)
         h = torch.randn((1, tokens, c.d_model), generator=gen,
                         device=device).to(p["gate"].dtype)
-        y, aux = moe_mod.moe_forward_dense(p, c, h)
+        dy = torch.randn((1, tokens, c.d_model), generator=gen,
+                         device=device)
+        names = ("x", "router", "gate", "up", "down")
+
+        def run(p, h):
+            if not train:
+                with torch.no_grad():
+                    return (*moe_mod.moe_forward_dense(p, c, h), None)
+            leaves = [h.detach().requires_grad_()] + [
+                p[k].detach().requires_grad_() for k in names[1:]]
+            q = dict(p, **dict(zip(names[1:], leaves[1:])))
+            y, aux = moe_mod.moe_forward_dense(q, c, leaves[0])
+            loss = (y.float() * dy).sum() + aux
+            grads = torch.autograd.grad(loss, leaves, retain_graph=True)
+            again = torch.autograd.grad(loss, leaves)
+            for name, a, b in zip(names, grads, again):
+                if not bitwise_equal(a.float(), b.float()):
+                    raise AssertionError(f"MoE layer {dtype}: two backward "
+                                         f"passes differ in d{name}")
+            return y.detach(), aux.detach(), grads
+
+        before = dict(launch_counts)
+        y, aux, grads = run(p, h)
+        launched = {k: launch_counts[k] - before[k] for k in before}
         with plain_gmm():
-            y_plain, aux_plain = moe_mod.moe_forward_dense(p, c, h)
+            y_plain, aux_plain, grads_plain = run(p, h)
+        if launched["gmm"] != 3 or launched["gmm_bwd"] != 6 * train:
+            raise AssertionError(f"MoE layer {dtype}: launches {launched}")
         if not bool(torch.isfinite(y).all()) or y.dtype != h.dtype:
             raise AssertionError(f"MoE layer {dtype}: output {y.dtype}, "
                                  f"finite {bool(torch.isfinite(y).all())}")
         if not torch.equal(aux, aux_plain):
             raise AssertionError(f"MoE layer {dtype}: aux loss differs")
-        gate(f"{cfg.name} MoE layer {dtype}, {tokens} tokens: kernel vs "
-             f"plain", rel_err(y, y_plain), limit)
-        del p, h, y, y_plain
-    torch.cuda.empty_cache()
+        what = "forward and backward" if train else "kernel vs plain"
+        gate(f"{cfg.name} MoE layer {dtype}, {tokens} tokens: {what}, y",
+             rel_err(y, y_plain), limit)
+        row = {"moe_layer": dtype, "tokens": tokens, "train": train,
+               "y": rel_err(y, y_plain)}
+        if train:
+            for name, g, g_plain, t in zip(names, grads, grads_plain,
+                                           [h] + [p[k] for k in names[1:]]):
+                if g.dtype != t.dtype or not bool(
+                        torch.isfinite(g.float()).all()):
+                    raise AssertionError(f"MoE layer {dtype}: d{name} is "
+                                         f"{g.dtype}, finite "
+                                         f"{bool(torch.isfinite(g).all())}")
+                row[f"d{name}"] = rel_err(g, g_plain)
+                gate(f"{cfg.name} MoE layer {dtype}, {tokens} tokens: "
+                     f"d{name}, kernels vs plain", row[f"d{name}"], limit)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del p, h, y, y_plain, grads, grads_plain
+        torch.cuda.empty_cache()
+    return rows
 
 
 def make_requests(cfg, n, prompt, new, seed):
@@ -2486,7 +2636,7 @@ def expected_launches(cfg, engine) -> dict:
     calls = engine.prefill_calls + engine.decode_ticks
     return {"waterfill": 0, "flash_attention": attn * calls,
             "ssd": ssm * engine.prefill_calls, "gmm": 3 * moe * calls,
-            "flash_attention_bwd": 0, "ssd_bwd": 0}
+            "flash_attention_bwd": 0, "ssd_bwd": 0, "gmm_bwd": 0}
 
 
 def expected_flash_routes(cfg, engine) -> dict:
@@ -2950,19 +3100,21 @@ def profile_summary(prof, wall_ms, kernel="flash_bwd_"):
                              "calls": e.count} for e in top]}
 
 
-def train_phase(cfg, device, launch_counts, routes, bwd_routes, *,
-                kernels=("flash_attention", "flash_attention_bwd"),
-                instances=("wgmma", "wgmma"), resume=True):
-    """The main path of training: `run_fixed` on qwen2-1.5b (or
-    mamba2-1.3b) at full width (`TRAIN`), with every count set to 0 just
-    before and read just after, and per step: each step must launch the
-    forward kernel and its backward (``kernels``) once per layer, each on
-    its tensor-core instance (``instances``: `routes` and `bwd_routes`
-    count them), and nothing else.  Every loss finite; checkpoints at
-    steps 3 and 6.  With ``resume`` the step-3 checkpoint restored into a
-    fresh state then retakes steps 4-6 (one of them profiled) with the
-    first run's losses within `RESUME_TOL`; without, step 2 of the first
-    run is profiled (outside steps 3-6, whose median stays unprofiled)."""
+def train_phase(cfg, device, launch_counts, routes, *, per_step,
+                resume=True, profile_kernel="flash_bwd_", cpu_tol=None):
+    """The main path of training: `run_fixed` on cfg (qwen2-1.5b,
+    mamba2-1.3b at full width, the reduced jamba) at `TRAIN`, with every
+    count set to 0 just before and read just after, and per step: each
+    step must launch each kernel of ``per_step`` that many times and
+    nothing else, each launch on the instance ``routes`` names ({kernel:
+    (its counts by instance, the instance)}).  Every loss finite;
+    checkpoints at steps 3 and 6.  With ``resume`` the step-3 checkpoint
+    restored into a fresh state then retakes steps 4-6 (one of them
+    profiled) with the first run's losses within `RESUME_TOL`; without,
+    step 2 of the first run is profiled (outside steps 3-6, whose median
+    stays unprofiled).  With ``cpu_tol`` steps 4-6 retaken on the CPU
+    (the plain versions) from the step-3 checkpoint must give every loss
+    within that relative difference of the card's."""
     import shutil
     import tempfile
 
@@ -2970,7 +3122,6 @@ def train_phase(cfg, device, launch_counts, routes, bwd_routes, *,
 
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.launch import train as launch_train
-    layers = cfg.n_layers
     build = ROOT / "build" / "repro_torch"
     build.mkdir(parents=True, exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=build)
@@ -2981,10 +3132,12 @@ def train_phase(cfg, device, launch_counts, routes, bwd_routes, *,
     prof = (None if resume
             else profiled([ProfilerActivity.CPU, ProfilerActivity.CUDA]))
 
+    def by_instance():
+        return {name: dict(c) for name, (c, _) in routes.items()}
+
     def on_step(i, state, metrics, seconds):
         steps.append({"step": i, "seconds": seconds,
-                      "counts": dict(launch_counts), "routes": dict(routes),
-                      "bwd_routes": dict(bwd_routes),
+                      "counts": dict(launch_counts), "routes": by_instance(),
                       "loss": float(metrics["loss"]),
                       "grad_norm": float(metrics["grad_norm"])})
         if i == 2 and resume:
@@ -3025,39 +3178,34 @@ def train_phase(cfg, device, launch_counts, routes, bwd_routes, *,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for counter in (launch_counts, routes, bwd_routes):
+        for counter in (launch_counts, *(c for c, _ in routes.values())):
             for name in counter:
                 counter[name] = 0
         losses = launch_train.run_fixed(cfg, ckpt_every=TRAIN["ckpt_every"],
                                         on_step=on_step, **kw)
-        counts, routed = dict(launch_counts), dict(routes)
-        bwd_routed = dict(bwd_routes)
+        counts, routed = dict(launch_counts), by_instance()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         if len(losses) != TRAIN["steps"] or not all(
                 math.isfinite(x) for x in losses):
             raise AssertionError(f"training {cfg.name}: losses {losses}")
+        want = {k: per_step.get(k, 0) for k in counts}
+        want_via = {name: {k: per_step[name] * (k == inst) for k in c}
+                    for name, (c, inst) in routes.items()}
         prev = {"counts": {k: 0 for k in counts},
-                "routes": {k: 0 for k in routed},
-                "bwd_routes": {k: 0 for k in bwd_routed}}
+                "routes": {name: {k: 0 for k in c}
+                           for name, c in routed.items()}}
         for s in steps:
             delta = {k: s["counts"][k] - prev["counts"][k] for k in counts}
-            via = {k: s["routes"][k] - prev["routes"][k] for k in routed}
-            bwd_via = {k: s["bwd_routes"][k] - prev["bwd_routes"][k]
-                       for k in bwd_routed}
-            want = {"waterfill": 0, "flash_attention": 0, "ssd": 0,
-                    "gmm": 0, "flash_attention_bwd": 0, "ssd_bwd": 0}
-            want.update({name: layers for name in kernels})
-            want_via = {k: layers * (k == instances[0]) for k in routed}
-            want_bwd = {k: layers * (k == instances[1]) for k in bwd_routed}
-            if delta != want or via != want_via or bwd_via != want_bwd:
+            via = {name: {k: s["routes"][name][k] - prev["routes"][name][k]
+                          for k in c} for name, c in routed.items()}
+            if delta != want or via != want_via:
                 raise AssertionError(
                     f"training {cfg.name}, step {s['step']}: launches "
-                    f"{delta} by instance {via}, backward {bwd_via}, "
-                    f"expected {want}, every forward on {instances[0]} "
-                    f"and every backward on {instances[1]}")
+                    f"{delta} by instance {via}, expected {want} by "
+                    f"instance {want_via}")
             prev = s
-        if counts[kernels[1]] != layers * TRAIN["steps"]:
+        if any(counts[k] != n * TRAIN["steps"] for k, n in per_step.items()):
             raise AssertionError(f"training {cfg.name}: {counts}")
         committed = CheckpointManager(ckpt).all_steps()
         if committed != [3, 6]:
@@ -3069,14 +3217,27 @@ def train_phase(cfg, device, launch_counts, routes, bwd_routes, *,
         if resume:
             again, worst, profile = resume_run(cfg, losses, kw,
                                                check_restored,
-                                               restored_checked)
+                                               restored_checked,
+                                               profile_kernel)
         else:
             again = worst = None
             profile = profile_summary(prof, 1e3 * steps[1]["seconds"],
-                                      kernel=kernels[1] + "_")
+                                      kernel=profile_kernel)
+        cpu = cpu_worst = None
+        if cpu_tol is not None:
+            # the same steps on the CPU from the same state: the weights a
+            # seed gives differ between the two devices' generators
+            cpu = launch_train.run_fixed(
+                cfg, ckpt_every=10 ** 9, resume_from=3,
+                **dict(kw, device=torch.device("cpu")))
+            cpu_worst = max(abs(a - b) / abs(b)
+                            for a, b in zip(cpu, losses[3:]))
+            gate(f"training {cfg.name}: steps 4-6 on the CPU from the "
+                 f"card's step-3 checkpoint, losses vs the card's",
+                 cpu_worst, cpu_tol)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    row = {"train": cfg.name, "layers": layers, "d_model": cfg.d_model,
+    row = {"train": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "dtype": cfg.param_dtype, "batch": TRAIN["batch"],
            "seq": TRAIN["seq"], "steps": TRAIN["steps"], "losses": losses,
            "grad_norms": [s["grad_norm"] for s in steps],
@@ -3085,13 +3246,15 @@ def train_phase(cfg, device, launch_counts, routes, bwd_routes, *,
            "tokens_per_s": tokens / (step_ms / 1e3),
            "max_memory_allocated_gb": peak / 1e9, "wall_s": wall,
            "launch_counts": counts, "routes": routed,
-           "bwd_routes": bwd_routed, "resumed_losses": again,
-           "resume_worst_rel": worst, "profiled_step": profile}
+           "resumed_losses": again, "resume_worst_rel": worst,
+           "cpu_losses": cpu, "cpu_worst_rel": cpu_worst,
+           "profiled_step": profile}
     print(json.dumps({"train_run": row}), flush=True)
     return row
 
 
-def resume_run(cfg, losses, kw, check_restored, restored_checked):
+def resume_run(cfg, losses, kw, check_restored, restored_checked,
+               profile_kernel):
     """The step-3 checkpoint of ``kw["ckpt_dir"]`` into a fresh state
     (``check_restored`` checks it); steps 4-6 retaken with step 5 (i = 4)
     profiled and no checkpoint written; the losses against the first
@@ -3119,7 +3282,8 @@ def resume_run(cfg, losses, kw, check_restored, restored_checked):
     worst = max(abs(a - b) / abs(b) for a, b in zip(again, losses[3:]))
     gate(f"training {cfg.name}: steps 4-6 resumed from the step-3 "
          f"checkpoint, losses vs the first run", worst, RESUME_TOL)
-    return again, worst, profile_summary(prof, 1e3 * resumed[1][1])
+    return again, worst, profile_summary(prof, 1e3 * resumed[1][1],
+                                         kernel=profile_kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -3362,6 +3526,360 @@ def ssd_bwd_phase(so, device):
     return timed, max(r["max_abs_err"] for r in rows + timed)
 
 
+# ---------------------------------------------------------------------------
+# Training jamba: the grouped matmul's backward, jamba's MoE layer and
+# period, the reduced jamba through run_fixed
+# ---------------------------------------------------------------------------
+
+# gates on max |kernel - plain| / max |plain| of each gradient (0 where
+# both are exactly 0): float32 sums in another order; the tensor-core
+# instance rounds the float32 cotangent to bfloat16 once, and bfloat16
+# gradients round once to 8 bits
+GMM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# groups that end inside drhs's 64-row stages, beside empty ones, an
+# unaligned start and a tail (E, K, N, sizes, tail)
+GMM_BWD_STAGE_CASES = [(5, 192, 256, [100, 37, 0, 130, 64], 11),
+                       (3, 64, 136, [1, 63, 65], 0)]
+# jamba's training expert products: 8 x 512 tokens, top-2, capacity factor
+# 1.25, so C = 640 and 10,240 rows in 16 groups
+MOE_TRAIN_TOKENS = TRAIN["batch"] * TRAIN["seq"]
+#: the backward's kernels, by the name each holds
+GMM_BWD_KERNELS = ("gmm_bwd_dlhs", "gmm_bwd_drhs")
+# gates of jamba's one period (8 layers) in bfloat16, kernels against the
+# plain versions on the same weights with the routes pinned: the loss,
+# and the worst gradient leaf on max |diff| / max |plain|.  Read on an
+# H100 (every kernel deterministic, so every run reads the same): the
+# loss 3.97e-5, the leaves 5.7e-3 to 4.35e-2 (slot 2's A_log; the MoE
+# leaves 1.1e-2 to 2.7e-2); the limits are 10x the loss's and 2x the
+# worst leaf's, that one cut to GATE_BF16
+GATE_PERIOD_LOSS, GATE_PERIOD_GRAD = 4e-4, GATE_BF16
+# the reduced jamba's losses on the card against the same steps on the
+# CPU from the same checkpoint
+GATE_CPU_LOSSES = 1e-5
+
+
+def gmm_bwd_inputs(seed, E, K, N, sizes, tail, dtype, device):
+    """`gmm_inputs` and a unit-normal float32 output gradient (the MoE
+    layer's products are float32)."""
+    lhs, rhs, gs = gmm_inputs(seed, E, K, N, sizes, tail, dtype, device)
+    dout = np.random.default_rng(seed + 100).standard_normal(
+        (lhs.shape[0], N)).astype(np.float32)
+    return lhs, rhs, gs, torch.tensor(dout, device=device)
+
+
+def check_gmm_bwd(label, gm, lhs, rhs, gs, dout):
+    """The backward kernel against the plain backward on the card: two
+    calls (bitwise equal) through the instance `gmm_route` names, each
+    gradient in its input's dtype, finite, within `GMM_BWD_TOL` of its
+    max; the padding rows' dlhs and the empty groups' drhs exactly 0.
+    Returns the row."""
+    from repro_torch.kernels.build import launch_counts
+    from repro_torch.kernels.moe_gmm.ref import gmm_backward_reference
+    E, K, N = rhs.shape
+    want = gmm_route(lhs.dtype, K, N)
+    before, launched = dict(gm.bwd_route_counts), launch_counts["gmm_bwd"]
+    got = gm.gmm_backward(lhs, rhs, gs, dout)
+    again = gm.gmm_backward(lhs, rhs, gs, dout)
+    plain = gmm_backward_reference(lhs, rhs, gs, dout)
+    torch.cuda.synchronize()
+    routed = {k: gm.bwd_route_counts[k] - before[k] for k in before}
+    if (routed != {k: 2 * (k == want) for k in routed}
+            or launch_counts["gmm_bwd"] != launched + 2):
+        raise AssertionError(f"{label}: backward routed {routed}, expected "
+                             f"two calls on {want}")
+    sizes = gs.tolist()
+    errs, worst_abs = {}, 0.0
+    for name, g, g2, p, x in zip(("dlhs", "drhs"), got, again, plain,
+                                 (lhs, rhs)):
+        if g.dtype != x.dtype or g.shape != x.shape:
+            raise AssertionError(f"{label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}, input {x.dtype} "
+                                 f"{tuple(x.shape)}")
+        if not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"{label}: {name} is not finite")
+        if not bitwise_equal(g.float(), g2.float()):
+            raise AssertionError(f"{label}: two calls differ in {name}")
+        errs[name] = rel_err(g, p)
+        worst_abs = max(worst_abs, float((g.float() - p.float()).abs().max()))
+    if bool(got[0][min(sum(sizes), lhs.shape[0]):].any()) or any(
+            bool(got[1][e].any()) for e, n in enumerate(sizes) if n == 0):
+        raise AssertionError(f"{label}: a padding row's dlhs or an empty "
+                             f"group's drhs is not 0")
+    tol = GMM_BWD_TOL[lhs.dtype]
+    bad = {k: v for k, v in errs.items() if not v <= tol}
+    if bad:
+        raise AssertionError(f"{label}: gradients {bad} differ from the "
+                             f"plain backward by more than {tol} of their "
+                             f"max")
+    row = {"gmm_bwd_case": label, "instance": want,
+           "dtype": str(lhs.dtype).split(".")[1],
+           "shape": [lhs.shape[0], K, N, E], "sizes": sizes,
+           "max_rel_err": max(errs.values()), "max_abs_err": worst_abs,
+           "errs": errs, "tol": tol}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def gmm_bwd_bound(lhs, rhs, group_sizes, dout, which):
+    """`gmm_bound`'s rule for one gradient (``which``: "dlhs" or "drhs"):
+    its inputs once in (dout as given, float32; rhs of the non-empty
+    groups for dlhs, lhs for drhs; the group sizes) and its output once
+    out, at the HBM rate, against 2 x K x N FLOPs per row in a group at
+    the tensor-core bf16 rate (float32 at the vector rate).  Returns (ms,
+    bound by, bytes, FLOPs)."""
+    E, K, N = rhs.shape
+    sizes = group_sizes.tolist()
+    rows = min(sum(max(g, 0) for g in sizes), lhs.shape[0])
+    live = sum(1 for g in sizes if g > 0)
+    weights = live * K * N * rhs.element_size()
+    nbytes = dout.numel() * dout.element_size() + 4 * E + (
+        weights + lhs.numel() * lhs.element_size() if which == "dlhs"
+        else lhs.numel() * lhs.element_size()
+        + E * K * N * rhs.element_size())
+    flops = 2 * rows * K * N
+    rate = BF16_OPS_PER_S if lhs.dtype == torch.bfloat16 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+    if t_bytes >= t_ops:
+        return 1e3 * t_bytes, "bytes", nbytes, flops
+    return 1e3 * t_ops, "operations", nbytes, flops
+
+
+def moe_training_shapes():
+    """jamba's expert products in a training step of `TRAIN`'s batch
+    (label, rows E x C, K, N): gate/up (d -> f) and down (f -> d)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import capacity
+    cfg = get_config(MOE_ARCH)
+    E, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    rows = E * capacity(cfg, MOE_TRAIN_TOKENS)
+    return [(f"train-{MOE_TRAIN_TOKENS}-{what}", rows, K, N)
+            for what, K, N in (("gate", d, f), ("down", f, d))]
+
+
+def time_gmm_bwd(gm, label, rows, K, N, device):
+    """The backward at one of jamba's training products (bfloat16 lhs and
+    rhs, float32 dout), checked against the plain backward, then timed:
+    CUDA events (median of KERNEL_REPS) of the whole backward and of dlhs
+    and drhs alone, device time by kernel (`device_ms_per_launch`; the
+    cast of dout to bfloat16 is the rest), beside each gradient's bound,
+    the plain backward and
+    `torch.bmm` of the same products on the bfloat16-rounded dout (a
+    yardstick only: the groups are equal)."""
+    from repro_torch.kernels.moe_gmm.ref import gmm_backward_reference
+    lhs, rhs, gs = moe_serving_inputs(rows, K, N, torch.bfloat16, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    dout = torch.randn((rows, N), generator=gen, device=device)
+    row = check_gmm_bwd(label, gm, lhs, rhs, gs, dout)
+    E = rhs.shape[0]
+    C = rows // E
+
+    def kernel(need=(True, True)):
+        return gm.gmm_backward(lhs, rhs, gs, dout, need=need)
+
+    def library(which=("dlhs", "drhs")):
+        d = dout.bfloat16().view(E, C, N)
+        out = []
+        if "dlhs" in which:
+            out.append(torch.bmm(d, rhs.transpose(1, 2)))
+        if "drhs" in which:
+            out.append(torch.bmm(lhs.view(E, C, K).transpose(1, 2), d))
+        return out
+
+    by, read = device_ms_per_launch(kernel, KERNEL_REPS, GMM_BWD_KERNELS)
+    total = by.pop("all")
+    row.update(
+        gmm_bwd_case=label, shape=[rows, K, N, E],
+        ms=cuda_ms(kernel, KERNEL_REPS), device_ms=total,
+        kernels_device_ms=by, profiler_launches_read=read,
+        cast_device_ms=total - sum(by.values()),
+        plain_ms=cuda_ms(lambda: gmm_backward_reference(lhs, rhs, gs, dout),
+                         KERNEL_REPS),
+        library_ms=cuda_ms(library, KERNEL_REPS))
+    nbytes = flops = 0
+    for which, need in (("dlhs", (True, False)), ("drhs", (False, True))):
+        b_ms, b_by, b_bytes, b_flops = gmm_bwd_bound(lhs, rhs, gs, dout,
+                                                     which)
+        ms = cuda_ms(lambda: kernel(need), KERNEL_REPS)
+        row[which] = {
+            "ms": ms, "device_ms": by[f"gmm_bwd_{which}"],
+            "library_ms": cuda_ms(lambda: library((which,)), KERNEL_REPS),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": b_bytes,
+            "flops": b_flops, "bound_share": b_ms / ms,
+            "device_bound_share": b_ms / by[f"gmm_bwd_{which}"]}
+        nbytes, flops = nbytes + b_bytes, flops + b_flops
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
+    bound, bound_by = ((1e3 * t_bytes, "bytes") if t_bytes >= t_ops
+                       else (1e3 * t_ops, "operations"))
+    row.update(bound_ms=bound, bound_by=bound_by, bytes=nbytes, flops=flops,
+               bound_share=bound / row["ms"],
+               device_bound_share=bound / row["device_ms"])
+    print(json.dumps(row), flush=True)
+    del lhs, rhs, dout
+    torch.cuda.empty_cache()
+    return row
+
+
+def gmm_bwd_phase(gm, device):
+    """The backward kernel against the plain backward on every case of
+    the reference suite in both dtypes, the ragged cases in both, the
+    tensor-core edge cases in bfloat16 and `GMM_BWD_STAGE_CASES` in both,
+    each through the instance `gmm_route` names, bitwise on two calls;
+    then timed at jamba's training products.  Returns (the timed rows,
+    the largest absolute error of any check)."""
+    rows = []
+    both = (torch.float32, torch.bfloat16)
+    cases = ([(f"bwd-case{(E, K, N, sizes, tail)}", (E, K, N, sizes, tail),
+               both) for E, K, N, _bt, sizes, tail in GMM_CASES]
+             + [(f"bwd-ragged{case}", case, both) for case in GMM_RAGGED]
+             + [(f"bwd-tc{case}", case, (torch.bfloat16,))
+                for case in GMM_TC_CASES]
+             + [(f"bwd-stages{case}", case, both)
+                for case in GMM_BWD_STAGE_CASES])
+    for label, case, dtypes in cases:
+        for dtype in dtypes:
+            rows.append(check_gmm_bwd(
+                f"{label}-{str(dtype).split('.')[1]}", gm,
+                *gmm_bwd_inputs(12, *case, dtype, device)))
+    print(json.dumps({"gmm_bwd_ptxas": ptxas_report(gm.bwd_build_log,
+                                                    "gmm_bwd_")}), flush=True)
+    timed = [time_gmm_bwd(gm, *shape, device)
+             for shape in moe_training_shapes()]
+    return timed, max(r["max_abs_err"] for r in rows + timed)
+
+
+def training_launches(cfg) -> dict:
+    """The launches one `loss_fn` and its backward make (remat "none"),
+    by kernel: flash attention and its backward once per attention
+    layer, the SSD scan and its backward once per Mamba layer, the
+    grouped matmul and its backward three times per MoE layer."""
+    mixers = [cfg.mixer_kind(i) for i in range(cfg.n_layers)]
+    ffns = [cfg.ffn_kind(i) for i in range(cfg.n_layers)]
+    fwd = {"flash_attention": mixers.count("attn"),
+           "ssd": mixers.count("ssm"), "gmm": 3 * ffns.count("moe")}
+    return {**fwd, **{f"{k}_bwd": n for k, n in fwd.items()}}
+
+
+def period_grad_phase(cfg, device, launch_counts, routes):
+    """jamba at full width, one period (8 layers: 7 Mamba, 1 attention, 4
+    MoE FFNs) in bfloat16: `loss_fn` and its backward on `TRAIN_F32`'s
+    batch with every kernel (every count set to 0 just before and read
+    just after: each kernel of the path and its backward launched once a
+    layer that runs it, the grouped matmul's three times, each on the
+    instance ``routes`` names), the gradients finite and in their
+    parameters' dtype, then moved to host memory; then the same with
+    every kernel through its plain version (the grouped matmul through
+    `PlainGmmFn`) and the routes pinned to the kernels side's, held to
+    `GATE_PERIOD_LOSS` and `GATE_PERIOD_GRAD`.  Prints each side's peak
+    memory and the routes the plain side would have chosen otherwise."""
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import param_count, tree_leaves
+    cfg = dataclasses.replace(cfg, n_layers=cfg.period)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model_lib.init_model(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = SyntheticTokenPipeline(
+        cfg.vocab_size, TRAIN_F32["seq"], TRAIN_F32["batch"]).torch_batch_at(
+        0, device)
+    per_call = training_launches(cfg)
+    for counter in (launch_counts, *(c for c, _ in routes.values())):
+        for name in counter:
+            counter[name] = 0
+    t0 = time.perf_counter()
+    with Routes().on() as kernel_routes:
+        loss, grads = loss_and_grads(model_lib, params, cfg, batch)
+    torch.cuda.synchronize()
+    kernels_s = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    routed = {name: dict(c) for name, (c, _) in routes.items()}
+    want = {k: per_call.get(k, 0) for k in counts}
+    want_via = {name: {k: per_call[name] * (k == inst) for k in c}
+                for name, (c, inst) in routes.items()}
+    if counts != want or routed != want_via:
+        raise AssertionError(f"{cfg.name} one period: launches {counts} by "
+                             f"instance {routed}, expected {want} by "
+                             f"instance {want_via}")
+    leaves = tree_leaves(params)
+    if any(g.dtype != t.dtype for g, t in zip(grads, leaves)):
+        raise AssertionError(f"{cfg.name} one period: a gradient is not in "
+                             f"its parameter's dtype")
+    if not bool(torch.isfinite(loss)) or not all(
+            bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError(f"{cfg.name} one period: loss or gradients not "
+                             f"finite")
+    peak_kernels = torch.cuda.max_memory_allocated()
+    host = [g.to("cpu") for g in grads]
+    del grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with plain_kernels(gmm=plain_gmm_fn), kernel_routes.pinned() as moved:
+        loss_plain, grads_plain = loss_and_grads(model_lib, params, cfg,
+                                                 batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    peak_plain = torch.cuda.max_memory_allocated()
+    n_params = param_count(params)
+    names = [path for path, _ in state_items(params)]
+    del params, leaves
+    torch.cuda.empty_cache()
+    errs = {name: rel_err(g.to(device), g_plain)
+            for name, g, g_plain in zip(names, host, grads_plain)}
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(float(loss) - float(loss_plain)) / abs(float(loss_plain))
+    row = {"period_grad": cfg.name, "layers": cfg.n_layers,
+           "dtype": cfg.param_dtype, "batch": TRAIN_F32["batch"],
+           "seq": TRAIN_F32["seq"], "params": n_params, "init_s": init_s,
+           "loss": float(loss), "loss_plain": float(loss_plain),
+           "loss_rel": loss_rel, "worst_leaf": worst,
+           "worst_leaf_err": errs[worst], "leaf_errs": errs,
+           "kernels_s": kernels_s, "plain_s": plain_s,
+           "peak_gb_kernels": peak_kernels / 1e9,
+           "peak_gb_plain": peak_plain / 1e9,
+           "routes_moved_per_call": moved, "moe_calls": len(moved),
+           "launch_counts": counts, "routes": routed}
+    print(json.dumps(row), flush=True)
+    gate(f"{cfg.name} one period bf16: loss, kernels vs plain, routes "
+         f"pinned", loss_rel, GATE_PERIOD_LOSS)
+    gate(f"{cfg.name} one period bf16: worst gradient leaf, kernels vs "
+         f"plain, routes pinned", errs[worst], GATE_PERIOD_GRAD)
+    del host, grads_plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def jamba_train_phase(device, launch_counts, fa, so, gm):
+    """The main path of training jamba: `run_fixed` on the reduced jamba
+    (`reduced_config`'s widths and depth, float32, its head dim raised
+    from 16 to 32: attention's kernel takes 32, 64 and 128) at `TRAIN`,
+    with the resume and steps 4-6 on the CPU (`GATE_CPU_LOSSES`); each
+    step launches every kernel of the path and its backward once a layer
+    that runs it (the grouped matmul's three times), each on the
+    instance its route names for the config's dtype and shapes."""
+    from repro_torch.configs import reduced_config
+    cfg = dataclasses.replace(reduced_config(MOE_ARCH), d_head=32)
+    dtype = getattr(torch, cfg.param_dtype)
+    m, s = cfg.moe, cfg.ssm
+    flash = flash_route(dtype, TRAIN["seq"], cfg.n_heads, cfg.n_kv_heads,
+                        cfg.d_head)
+    ssd = ssd_route(dtype, s.head_dim, s.d_state, s.chunk)
+    gmm = gmm_route(dtype, cfg.d_model, m.d_ff_expert)
+    routes = {"flash_attention": (fa.route_counts, flash),
+              "flash_attention_bwd": (fa.bwd_route_counts,
+                                      flash_bwd_route(dtype, cfg.d_head)),
+              "ssd": (so.route_counts, ssd),
+              "ssd_bwd": (so.bwd_route_counts, ssd),
+              "gmm": (gm.route_counts, gmm),
+              "gmm_bwd": (gm.bwd_route_counts, gmm)}
+    return train_phase(cfg, device, launch_counts, routes,
+                       per_step=training_launches(cfg),
+                       profile_kernel="gmm_bwd_", cpu_tol=GATE_CPU_LOSSES)
+
+
 def build_all(modules) -> None:
     """Builds every kernel at once, one nvcc per source (a module's
     `build`, and its `build_backward` where it has one), and prints each
@@ -3391,6 +3909,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    started = time.perf_counter()
+
+    def phase_done(phase):
+        """The command time at the end of a phase: the smoke's time limit
+        stays while it grows, so each phase's share is printed."""
+        print(json.dumps({"phase_done": phase,
+                          "at_s": time.perf_counter() - started}), flush=True)
+
     # phase 1: the card
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -3409,6 +3935,7 @@ def main() -> int:
     # phase 2: build every kernel from the checkout's sources
     build_all([ops, fa, so, gm])
 
+    phase_done("2")
     # phase 5: flash attention against its plain version, timed at the
     # serving shapes
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3416,6 +3943,7 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     shapes = flash_phase(fa, dev)
 
+    phase_done("5")
     # phase 6: qwen2-1.5b at full width
     cfg = get_config(ARCH)
     f32_cfg, f32_params, params = model_phase(cfg, dev)
@@ -3423,6 +3951,7 @@ def main() -> int:
     del f32_params
     torch.cuda.empty_cache()
 
+    phase_done("6")
     # phase 7: serving qwen2, its main path, then the spot reclaim
     served = serve_phase(cfg, params, launch_counts,
                          routes={"flash_attention": fa.route_counts})
@@ -3455,10 +3984,12 @@ def main() -> int:
             "library_ms", "library_device_ms", "max_abs_err")}
             for r in shapes]}
 
+    phase_done("7")
     # phase 8: the SSD scan against its plain version and the oracle,
     # timed at mamba2's and jamba's serving shapes on both instances
     ssd_timed, ssd_rows = ssd_phase(so, dev)
 
+    phase_done("8")
     # phase 9: mamba2-1.3b at full width
     cfg = get_config(SSD_ARCH)
     f32_cfg, f32_params, params = model_phase(cfg, dev, plain=plain_ssd,
@@ -3468,6 +3999,7 @@ def main() -> int:
     del f32_params
     torch.cuda.empty_cache()
 
+    phase_done("9")
     # phase 10: serving mamba2, its main path: the scan runs once per
     # layer and prefill, every one on the tensor cores, and decode runs
     # the plain one-token update
@@ -3500,12 +4032,14 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    phase_done("10")
     # phase 11: the grouped matmul against its plain version, timed at
     # jamba's serving products; one full-width MoE layer
     gmm_timed = gmm_phase(gm, dev)
     cfg = get_config(MOE_ARCH)
     moe_layer_phase(cfg, dev)
 
+    phase_done("11")
     # phase 12: jamba at full width, one period (8 layers) in float32;
     # freed before the 16-layer model is made
     f32_cfg, f32_params, _ = model_phase(
@@ -3516,6 +4050,7 @@ def main() -> int:
     del f32_params
     torch.cuda.empty_cache()
 
+    phase_done("12")
     # phase 13: jamba at full width, two periods (16 layers) in bfloat16:
     # the routed gate, then serving, its main path
     cfg = dataclasses.replace(cfg, n_layers=MOE_SERVE_LAYERS)
@@ -3553,6 +4088,7 @@ def main() -> int:
             "gmm_case", "route", "shape", "ms", "stream_ms", "plain_ms",
             "bound_ms", "bound_by", "bound_share", "library_ms",
             "max_abs_err")} for r in gmm_timed]}
+    phase_done("13")
     # phase 15: training -- flash attention's backward kernel against
     # its plain version, timed at qwen2's training shapes; the float32
     # and bfloat16 2-layer gates; then qwen2-1.5b at full width through run_fixed, its
@@ -3561,8 +4097,11 @@ def main() -> int:
     bwd_timed, bwd_err = flash_bwd_phase(fa, dev)
     train_f32_gate(cfg, dev, launch_counts)
     train_bf16_gate(cfg, dev, launch_counts)
-    trained = train_phase(cfg, dev, launch_counts, fa.route_counts,
-                          fa.bwd_route_counts)
+    trained = train_phase(
+        cfg, dev, launch_counts,
+        {"flash_attention": (fa.route_counts, "wgmma"),
+         "flash_attention_bwd": (fa.bwd_route_counts, "wgmma")},
+        per_step=training_launches(cfg))
     main_shape = bwd_timed[FLASH_BWD_TIMED.index(
         (TRAIN["batch"], TRAIN["seq"]))]
     bwd_line = {
@@ -3584,7 +4123,7 @@ def main() -> int:
                      "query tiles and K/V tiles on TMA rings, P and dS in "
                      "registers",
             "simt": "float32, and Dh 32: f32 FMAs from shared memory"},
-        "launches_by_instance": trained["bwd_routes"],
+        "launches_by_instance": trained["routes"]["flash_attention_bwd"],
         "kernels_of_a_call": {
             "dot": "D = dO . O per row and head (both instances)",
             "dkdv": "dk, dv per 64 keys over the group's heads",
@@ -3594,6 +4133,7 @@ def main() -> int:
         "train_step_ms": trained["step_ms_median_3_6"],
         "train_tokens_per_s": trained["tokens_per_s"]}
 
+    phase_done("15")
     # phase 16: training mamba2 -- the SSD scan's backward kernel against
     # its plain version, timed at mamba2's and jamba's training shapes;
     # the float32 and bfloat16 2-layer gates; then mamba2-1.3b at full
@@ -3605,10 +4145,12 @@ def main() -> int:
     train_f32_gate(cfg, dev, launch_counts, **ssd_kernels)
     train_bf16_gate(cfg, dev, launch_counts, limits=(
         GATE_SSD_TRAIN_BF16_LOSS, GATE_SSD_TRAIN_BF16_GRAD), **ssd_kernels)
-    ssd_trained = train_phase(cfg, dev, launch_counts, so.route_counts,
-                              so.bwd_route_counts,
-                              kernels=ssd_kernels["kernels"],
-                              instances=("mma", "mma"), resume=False)
+    ssd_trained = train_phase(
+        cfg, dev, launch_counts,
+        {"ssd": (so.route_counts, "mma"), "ssd_bwd": (so.bwd_route_counts,
+                                                      "mma")},
+        per_step=training_launches(cfg),
+        resume=False, profile_kernel="ssd_bwd_")
     main_shape = next(r for r in ssd_bwd_timed if r["ssd_bwd_case"] ==
                       f"mamba2-train-{TRAIN['batch']}x{TRAIN['seq']}")
     ssd_bwd_line = {
@@ -3630,7 +4172,7 @@ def main() -> int:
                    "head a warpgroup, tiles staged by TMA",
             "simt": "float32, and the shapes mma does not take: f32 FMAs "
                     "from shared memory"},
-        "launches_by_instance": ssd_trained["bwd_routes"],
+        "launches_by_instance": ssd_trained["routes"]["ssd_bwd"],
         "kernels_of_a_call": {
             "states": "U_c = sum exp(cum) dy^T C per chunk, and cum",
             "pass": "the state's gradient G_c walked back over the chunks",
@@ -3647,15 +4189,71 @@ def main() -> int:
         "train_tokens_per_s": ssd_trained["tokens_per_s"],
         "train_peak_gb": ssd_trained["max_memory_allocated_gb"]}
 
+    phase_done("16")
+    # phase 17: training jamba -- the grouped matmul's backward kernel
+    # against its plain version, timed at jamba's training products; one
+    # full-width MoE layer forward and backward; one full-width period's
+    # gradient in bfloat16 with the routes pinned; then the reduced jamba
+    # through run_fixed, its main path (before the water-fill: the
+    # profiler reads it)
+    gmm_bwd_timed, gmm_bwd_err = gmm_bwd_phase(gm, dev)
+    cfg = get_config(MOE_ARCH)
+    moe_layer_phase(cfg, dev, tokens=MOE_TRAIN_TOKENS, train=True)
+    period = period_grad_phase(cfg, dev, launch_counts, {
+        "gmm": (gm.route_counts, "wgmma"),
+        "gmm_bwd": (gm.bwd_route_counts, "wgmma"),
+        "flash_attention": (fa.route_counts, "wgmma"),
+        "flash_attention_bwd": (fa.bwd_route_counts, "wgmma"),
+        "ssd": (so.route_counts, "mma"),
+        "ssd_bwd": (so.bwd_route_counts, "mma")})
+    jamba_trained = jamba_train_phase(dev, launch_counts, fa, so, gm)
+    main_shape = gmm_bwd_timed[0]                   # gate/up
+    gmm_bwd_line = {
+        "name": "gmm_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/moe_gmm/gmm_bwd.cu",
+        "replaces": "the gradient of src/repro/kernels/moe_gmm/ops.py:15 "
+                    "(ragged_dot's VJP, no Pallas backward)",
+        "launches": jamba_trained["launch_counts"]["gmm_bwd"],
+        "max_abs_err": gmm_bwd_err,
+        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": main_shape["bound_by"],
+        "library_ms": main_shape["library_ms"],
+        "device_ms": main_shape["device_ms"],
+        "kernels_device_ms": main_shape["kernels_device_ms"],
+        "instances": {
+            "wgmma": "bfloat16 with K, N multiples of 8: dlhs on the "
+                     "forward's ragged row tiles with the weights read "
+                     "K-major in place, drhs one block per (expert, 128 K, "
+                     "128 N) over the group's rows; TMA rings, wgmma; dout "
+                     "rounded to bfloat16 once",
+            "simt": "float32, and bfloat16 TMA cannot take: f32 FMAs from "
+                    "shared memory, dout float32"},
+        "launches_by_instance": jamba_trained["routes"]["gmm_bwd"],
+        "launches_by_instance_period": period["routes"]["gmm_bwd"],
+        "kernels_of_a_call": {
+            "dlhs": "dout rhs[e]^T per row tile (when lhs needs a gradient)",
+            "drhs": "lhs[rows]^T dout[rows] per expert (when rhs needs one)"},
+        "ptxas": ptxas_report(gm.bwd_build_log, "gmm_bwd_"),
+        "shapes": gmm_bwd_timed,
+        "train_step_ms": jamba_trained["step_ms_median_3_6"],
+        "train_tokens_per_s": jamba_trained["tokens_per_s"],
+        "train_peak_gb": jamba_trained["max_memory_allocated_gb"],
+        "period_peak_gb": [period["peak_gb_kernels"],
+                           period["peak_gb_plain"]]}
+
+    phase_done("17")
     # phases 3 and 4, run last: the water-fill's cases, cycles and
     # candidates, then the days through run_policy (once the tier-1m
     # case has run the profiler reads no device events in this process,
     # so every phase that reads it runs first; these time device work by
     # queued_ms)
     waterfill_line = run_waterfill_phase()
+    phase_done("3, 4")
     print(json.dumps({"profiler_sessions": profiler_sessions}), flush=True)
     print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
-                                  gmm_line, bwd_line, ssd_bwd_line]}),
+                                  gmm_line, bwd_line, ssd_bwd_line,
+                                  gmm_bwd_line]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

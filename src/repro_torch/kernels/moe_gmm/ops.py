@@ -20,17 +20,29 @@ bfloat16; the SIMT instance (``"simt"``) for float32 inputs (FP32 FMAs:
 TF32 would miss the 1e-4 tolerance) and for the bfloat16 shapes TMA
 cannot take.  `launch_counts["gmm"]` counts both; `route_counts` counts
 each.  On a CPU tensor, and only there, `gmm` runs `gmm_plain`, a loop of
-one matmul per group.  The kernel has no backward yet (ROADMAP Queue 1
-item 12c): a CUDA call that autograd would record raises.
+one matmul per group.
+
+A CUDA call that autograd records goes through `GmmFn`, whose backward
+(`gmm_backward`) launches `gmm_bwd.cu` (its own library: `build_backward`,
+`bwd_build_log`): dlhs = dout rhs[e]^T over the forward's ragged row
+tiles, drhs[e] = lhs[rows of e]^T dout[rows of e] one block per (expert,
+K tile, N tile), only the gradients autograd asks for.  `bwd_route` names
+its instance by the forward's rules: the tensor cores (``"wgmma"``) take
+the output gradient rounded once to bfloat16 (one cast pass here, as a
+TPU's default-precision product rounds a float32 operand), the SIMT
+instance keeps it float32.  `launch_counts["gmm_bwd"]` counts each
+backward call (one launch of the library, one or two kernels),
+`bwd_route_counts` each instance.  On CPU tensors `GmmFn` and
+`gmm_backward` run `gmm_plain` and `ref.gmm_backward_reference`.
 
 `tile_expert_map` is the reference kernel's row-tile-to-expert map for
 groups aligned to the row tile (``kernel.py:63``); the CUDA kernel walks
 the general (expert, tile-within-group) pairs of ragged groups itself.
 
-The CUDA source is built at first use by `repro_torch.kernels.build`
+The CUDA sources are built at first use by `repro_torch.kernels.build`
 (nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch headers;
 the tensor-map encoder is looked up through the CUDA runtime, so no
-``-lcuda``).
+``-lcuda``), each into a library of its own.
 """
 from __future__ import annotations
 
@@ -40,9 +52,12 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import build_library, launch_counts
-from repro_torch.kernels.moe_gmm.ref import expert_of_row, gmm_reference
+from repro_torch.kernels.moe_gmm.ref import (
+    expert_of_row, gmm_backward_reference, gmm_reference,
+)
 
 SOURCE = Path(__file__).with_name("gmm.cu")
+BWD_SOURCE = Path(__file__).with_name("gmm_bwd.cu")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
@@ -59,10 +74,14 @@ _INT32_MAX = 2 ** 31 - 1
 #: launches by instance since the count was last reset; only the CUDA
 #: branch of `gmm` adds to it, once per launch, beside launch_counts["gmm"]
 route_counts = {"wgmma": 0, "simt": 0}
+#: the backward's calls by instance, beside launch_counts["gmm_bwd"]
+bwd_route_counts = {"wgmma": 0, "simt": 0}
 _lib: ctypes.CDLL | None = None
+_bwd_lib: ctypes.CDLL | None = None
 #: nvcc's output (ptxas register and shared-memory report) of the build
 #: this process loaded, or None before the first build.
 build_log: str | None = None
+bwd_build_log: str | None = None
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +148,33 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def build_backward() -> Path:
+    """Compile `gmm_bwd.cu` unless this source and these flags were built
+    before; returns the shared library's path."""
+    global bwd_build_log
+    out, log = build_library(BWD_SOURCE, NVCC_FLAGS)
+    if log is not None:
+        bwd_build_log = log
+    return out
+
+
+def _bwd_library() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = ctypes.CDLL(str(build_backward()))
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.gmm_bwd_launch.argtypes = [i, i, i, vp, vp, vp, vp, vp, vp, i, i,
+                                       i, i, vp]
+        lib.gmm_bwd_launch.restype = i
+        lib.gmm_bwd_wgmma_launch.argtypes = [i, i, vp, vp, vp, vp, vp, vp, i,
+                                             i, i, i, vp]
+        lib.gmm_bwd_wgmma_launch.restype = i
+        lib.gmm_bwd_error_string.argtypes = [i]
+        lib.gmm_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
+
+
 def row_tile(T: int, E: int) -> int:
     """Rows per tile for ``T`` rows in ``E`` groups: a shape, not a
     group size, so choosing needs nothing from the device."""
@@ -157,6 +203,14 @@ def route(lhs: torch.Tensor, rhs: torch.Tensor, out: torch.Tensor) -> str:
     return "simt"
 
 
+def bwd_route(lhs: torch.Tensor, rhs: torch.Tensor,
+              dout: torch.Tensor) -> str:
+    """The instance a backward launch takes: `route`'s rules on lhs, rhs
+    and the output gradient (which the backward reads where the forward
+    writes its output)."""
+    return route(lhs, rhs, dout)
+
+
 def wgmma_smem_bytes(bm: int) -> int:
     """Dynamic shared memory of one tensor-core block of ``bm``-row tiles
     (builds the kernel if need be)."""
@@ -175,37 +229,45 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, device):
         raise ValueError(f"gmm: {name} must be contiguous")
 
 
-def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
-        out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Grouped matmul (see the module docstring): lhs (T, K) sorted by
-    expert, rhs (E, K, N), group_sizes (E,) int32 -> (T, N) in
-    ``out_dtype`` (default lhs.dtype)."""
-    if lhs.device.type == "cpu":
-        return gmm_plain(lhs, rhs, group_sizes, out_dtype=out_dtype)
-    if lhs.device.type != "cuda":
-        raise ValueError(f"gmm: no kernel for device {lhs.device}")
-    if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
-        raise NotImplementedError(
-            "gmm: the grouped matmul has no backward kernel yet (ROADMAP "
-            "Queue 1 item 12c); on cuda it runs under torch.no_grad() only")
+def _checked(name: str, lhs: torch.Tensor, rhs: torch.Tensor,
+             group_sizes: torch.Tensor) -> tuple[int, int, int, int]:
+    """Checks what a launch of either library reads of lhs, rhs and the
+    group sizes; returns (T, K, N, E)."""
     dev, dtype = lhs.device, lhs.dtype
     if dtype not in _DTYPES:
-        raise TypeError(f"gmm: float32 or bfloat16 only, got {dtype}")
-    out_dtype = out_dtype or dtype
-    if out_dtype not in (torch.float32, dtype):
-        raise TypeError(f"gmm: out_dtype must be float32 or {dtype}, got "
-                        f"{out_dtype}")
+        raise TypeError(f"{name}: float32 or bfloat16 only, got {dtype}")
     _check("lhs", lhs, dtype, 2, dev)
     _check("rhs", rhs, dtype, 3, dev)
     _check("group_sizes", group_sizes, torch.int32, 1, dev)
     (T, K), (E, K2, N) = lhs.shape, rhs.shape
     if K2 != K:
-        raise ValueError(f"gmm: lhs has K={K} columns, rhs K={K2} rows")
+        raise ValueError(f"{name}: lhs has K={K} columns, rhs K={K2} rows")
     if group_sizes.shape[0] != E:
-        raise ValueError(f"gmm: group_sizes must have shape ({E},), got "
+        raise ValueError(f"{name}: group_sizes must have shape ({E},), got "
                          f"{tuple(group_sizes.shape)}")
     if min(T, N, E) <= 0:
-        raise ValueError(f"gmm: empty shapes T={T} N={N} E={E}")
+        raise ValueError(f"{name}: empty shapes T={T} N={N} E={E}")
+    return T, K, N, E
+
+
+def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
+        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Grouped matmul (see the module docstring): lhs (T, K) sorted by
+    expert, rhs (E, K, N), group_sizes (E,) int32 -> (T, N) in
+    ``out_dtype`` (default lhs.dtype).  A CUDA call that autograd records
+    goes through `GmmFn`."""
+    if lhs.device.type == "cpu":
+        return gmm_plain(lhs, rhs, group_sizes, out_dtype=out_dtype)
+    if lhs.device.type != "cuda":
+        raise ValueError(f"gmm: no kernel for device {lhs.device}")
+    if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
+        return GmmFn.apply(lhs, rhs, group_sizes, out_dtype)
+    dev, dtype = lhs.device, lhs.dtype
+    out_dtype = out_dtype or dtype
+    if dtype in _DTYPES and out_dtype not in (torch.float32, dtype):
+        raise TypeError(f"gmm: out_dtype must be float32 or {dtype}, got "
+                        f"{out_dtype}")
+    T, K, N, E = _checked("gmm", lhs, rhs, group_sizes)
     lib = _library()
     out = torch.empty((T, N), dtype=out_dtype, device=dev)
     instance = route(lhs, rhs, out)
@@ -234,6 +296,90 @@ def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
     return out
 
 
+def gmm_backward(lhs: torch.Tensor, rhs: torch.Tensor,
+                 group_sizes: torch.Tensor, dout: torch.Tensor, *,
+                 need: tuple[bool, bool] = (True, True)
+                 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """(dlhs, drhs) of `gmm` for the output gradient ``dout`` (T, N), in
+    lhs's and rhs's dtypes.  On CUDA tensors it checks dtype, shape,
+    device and contiguity (``dout`` made contiguous first: autograd may
+    hand over a view) and launches the instance `bwd_route` names on the
+    current stream for the gradients ``need`` asks for (None for the
+    others; nothing at all, and no count, when it asks for neither), or
+    raises; on CPU tensors, and only there, it runs
+    `ref.gmm_backward_reference`."""
+    if lhs.device.type == "cpu":
+        return gmm_backward_reference(lhs, rhs, group_sizes, dout)
+    if lhs.device.type != "cuda":
+        raise ValueError(f"gmm_backward: no kernel for device {lhs.device}")
+    T, K, N, E = _checked("gmm_backward", lhs, rhs, group_sizes)
+    dout = dout.contiguous()
+    if dout.dtype not in (torch.float32, lhs.dtype):
+        raise TypeError(f"gmm_backward: dout must be float32 or "
+                        f"{lhs.dtype}, got {dout.dtype}")
+    _check("dout", dout, dout.dtype, 2, lhs.device)
+    if tuple(dout.shape) != (T, N):
+        raise ValueError(f"gmm_backward: dout must have shape {(T, N)}, got "
+                         f"{tuple(dout.shape)}")
+    if not any(need):
+        return None, None
+    instance = bwd_route(lhs, rhs, dout)
+    k_tiles, n_tiles = -(-K // 128), -(-N // 128)
+    if instance == "wgmma":
+        bt = tc_tile(T, E)
+        too_big = max((-(-T // bt) + E + 1) * k_tiles,
+                      E * k_tiles * n_tiles) > _INT32_MAX
+    else:
+        bt = row_tile(T, E)
+        too_big = max(k_tiles, n_tiles, E) > _MAX_COL_TILES
+    if too_big:
+        raise ValueError(f"gmm_backward: shapes T={T} K={K} N={N} E={E} "
+                         f"exceed the kernel's grid")
+    # the one rounding of the cotangent: bfloat16 for the tensor cores,
+    # float32 for the SIMT instance (a no-op when it already is)
+    dout = dout.to(torch.bfloat16 if instance == "wgmma" else torch.float32)
+    dlhs = torch.empty_like(lhs) if need[0] else None
+    drhs = torch.empty_like(rhs) if need[1] else None
+    ptrs = (dout.data_ptr(), lhs.data_ptr(), rhs.data_ptr(),
+            group_sizes.data_ptr(), None if dlhs is None else dlhs.data_ptr(),
+            None if drhs is None else drhs.data_ptr())
+    lib = _bwd_library()
+    dev = lhs.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if instance == "wgmma":
+        err = lib.gmm_bwd_wgmma_launch(dev.index, bt, *ptrs, T, K, N, E,
+                                       stream)
+    else:
+        err = lib.gmm_bwd_launch(dev.index, _DTYPES[lhs.dtype], bt, *ptrs, T,
+                                 K, N, E, stream)
+    if err != 0:
+        raise RuntimeError(f"gmm_backward kernel launch failed ({instance}): "
+                           + lib.gmm_bwd_error_string(err).decode())
+    launch_counts["gmm_bwd"] += 1
+    bwd_route_counts[instance] += 1
+    return dlhs, drhs
+
+
+class GmmFn(torch.autograd.Function):
+    """`gmm` with a gradient: the forward is `gmm` (the routed kernel, or
+    `gmm_plain` on CPU tensors), and it saves lhs, rhs and the group
+    sizes; the backward is `gmm_backward` (the backward kernel, or
+    `ref.gmm_backward_reference` on CPU tensors) for the gradients
+    autograd asks for."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes, out_dtype):
+        ctx.save_for_backward(lhs, rhs, group_sizes)
+        return gmm(lhs, rhs, group_sizes, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        lhs, rhs, group_sizes = ctx.saved_tensors
+        need = tuple(ctx.needs_input_grad[:2])
+        grads = gmm_backward(lhs, rhs, group_sizes, dout, need=need)
+        return (*(g if n else None for g, n in zip(grads, need)), None, None)
+
+
 def stream_floor(lhs: torch.Tensor, rhs: torch.Tensor,
                  group_sizes: torch.Tensor) -> torch.Tensor:
     """Launches the tensor-core instance with its products taken out: the
@@ -260,5 +406,7 @@ def stream_floor(lhs: torch.Tensor, rhs: torch.Tensor,
 
 
 __all__ = ["gmm", "gmm_plain", "gmm_reference", "expert_of_row",
+           "gmm_backward", "gmm_backward_reference", "GmmFn",
            "tile_expert_map", "row_tile", "tc_tile", "route", "stream_floor",
-           "wgmma_smem_bytes", "build", "launch_counts", "route_counts"]
+           "bwd_route", "bwd_route_counts", "wgmma_smem_bytes", "build",
+           "build_backward", "launch_counts", "route_counts"]

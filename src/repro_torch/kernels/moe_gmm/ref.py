@@ -12,6 +12,13 @@ activation matrix.
 out[t] = lhs[t] @ rhs[e(t)] where e(t) is the expert owning row t, i.e. the
 unique e with  offsets[e] <= t < offsets[e+1],  offsets = cumsum(group_sizes).
 Padding rows (t >= sum(group_sizes)) produce zeros.
+
+The gradient (`gmm_backward_reference`, the plain backward that
+`gmm_bwd.cu` is held against) is that of ``jax.vjp`` of the JAX
+package's ``ops.gmm`` (``lax.ragged_dot``):
+
+  dlhs[t] = dout[t] @ rhs[e(t)]^T            (zero for padding rows)
+  drhs[e] = lhs[rows of e]^T @ dout[rows of e]   (zero for an empty group)
 """
 from __future__ import annotations
 
@@ -39,4 +46,26 @@ def gmm_reference(lhs: torch.Tensor, rhs: torch.Tensor,
     return out.to(lhs.dtype)
 
 
-__all__ = ["expert_of_row", "gmm_reference"]
+def gmm_backward_reference(lhs: torch.Tensor, rhs: torch.Tensor,
+                           group_sizes: torch.Tensor, dout: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dlhs, drhs) of ``gmm(lhs, rhs, group_sizes)`` for the output
+    gradient ``dout`` (T, N): one float32 product pair per group, no
+    gather; padding rows' dlhs and an empty group's drhs are zero, and a
+    group reaching past row T is cut there, as ``ops.gmm_plain`` cuts it.
+    The gradients come back in lhs's and rhs's dtypes."""
+    T = lhs.shape[0]
+    dlhs = torch.zeros(lhs.shape, dtype=torch.float32, device=lhs.device)
+    drhs = torch.zeros(rhs.shape, dtype=torch.float32, device=rhs.device)
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        end = min(start + max(int(size), 0), T)
+        if end > start:
+            d = dout[start:end].float()
+            dlhs[start:end] = d @ rhs[g].float().T
+            drhs[g] = lhs[start:end].float().T @ d
+        start = end
+    return dlhs.to(lhs.dtype), drhs.to(rhs.dtype)
+
+
+__all__ = ["expert_of_row", "gmm_reference", "gmm_backward_reference"]

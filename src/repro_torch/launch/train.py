@@ -3,11 +3,13 @@
 The port of the JAX package's ``launch/train.py`` fixed mode: build the
 state -> step loop over the synthetic pipeline's batches -> asynchronous
 checkpoints.  It runs on cuda unless ``device="cpu"`` (``--device cpu``),
-where every kernel runs its plain version.  On cuda, attention's and the
-SSD scan's forward and backward are the port's kernels, so the dense
-models and mamba2 train there; the models that run the grouped matmul
-(jamba, the llama4 MoE models) refuse to until its backward kernel is in
-(ROADMAP Queue 1 item 12c).
+where every kernel runs its plain version.  On cuda, the forward and
+backward of attention, the SSD scan and the grouped matmul are the
+port's kernels, so every family trains there: the dense models, mamba2,
+and the MoE models (jamba, the llama4 models).  One H100 holds jamba's
+training state (AdamW) only at reduced widths, and attention's kernel
+takes head dims 32, 64 and 128, not `reduced_config`'s 16: chip_smoke.py
+trains the reduced jamba on the card with its head dim raised to 32.
 
 `run_fixed` can also resume: ``resume_from=n`` restores the committed
 checkpoint of step n into the freshly built state and runs the steps
@@ -23,6 +25,8 @@ Usage:
       --steps 6 --batch 8 --seq 512
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --steps 6 --batch 8 --seq 512
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
+      --reduced --device cpu --steps 4 --batch 2 --seq 32
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --reduced --device cpu --steps 4 --batch 2 --seq 32
 """

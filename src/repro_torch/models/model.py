@@ -14,11 +14,10 @@ other entry points follow the parameters' device.
 
 `forward` and `loss_fn` are differentiable (parameters that require
 grad get gradients; serving's do not, so no graph is built there).  On a
-CUDA device, training runs attention's and the SSD scan's backward
-kernels; the grouped matmul has no backward kernel yet, so `loss_fn`
-refuses to differentiate a model that runs it there (ROADMAP Queue 1
-item 12c) before any forward work.  On the CPU every family trains
-through the plain versions.
+CUDA device, training runs the backward kernels of attention, the SSD
+scan and the grouped matmul (the MoE layer's expert products), so every
+family trains there; on the CPU every family trains through the plain
+versions.
 
 Not on this slice: the encoder of enc-dec models and the VLM patch
 prefix (item 11).
@@ -151,31 +150,6 @@ def forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
     return _forward(params, cfg, batch, remat=remat, unroll=unroll)[0]
 
 
-#: the kernels without a backward yet, and the ROADMAP item of each
-_NO_BACKWARD = {"gmm": ("the grouped matmul", "12c")}
-
-
-def _kernels_without_backward(cfg: ModelConfig) -> list[str]:
-    ffns = [cfg.ffn_kind(s) for s in range(cfg.period)]
-    return ["gmm"] if "moe" in ffns else []
-
-
-def check_trainable(params: PyTree, cfg: ModelConfig):
-    """Raises NotImplementedError when autograd would differentiate, on a
-    CUDA device, a kernel that has no backward kernel yet."""
-    if params_device(params).type != "cuda" or not torch.is_grad_enabled():
-        return
-    missing = _kernels_without_backward(cfg)
-    if missing:
-        named = "; ".join(
-            f"{_NO_BACKWARD[k][0]} ({k}: ROADMAP Queue 1 item "
-            f"{_NO_BACKWARD[k][1]})" for k in missing)
-        raise NotImplementedError(
-            f"{cfg.name}: training on cuda needs a backward kernel for "
-            f"{named}, which is not ported yet; train on device='cpu' "
-            f"(the plain versions), or run the model under torch.no_grad()")
-
-
 def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict, *,
             remat: str = "full", z_loss: float = 1e-4,
             unroll: bool = False) -> tuple[torch.Tensor, dict]:
@@ -183,7 +157,6 @@ def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict, *,
     the mean squared log-normaliser and the MoE auxiliary loss times its
     weight.  Returns (loss, metrics) with the reference's metrics
     (``loss``, ``ce``, ``z_loss``, ``moe_aux``, ``tokens``), float32."""
-    check_trainable(params, cfg)
     logits, aux = _forward(params, cfg, batch, remat=remat, unroll=unroll)
     labels = batch["labels"].to(logits.device)
     valid = labels >= 0
@@ -247,5 +220,4 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens_t: torch.Tensor,
 
 
 __all__ = ["init_model", "init_cache", "forward", "loss_fn", "prefill",
-           "decode_step", "resolve_device", "params_device", "sinusoidal",
-           "check_trainable"]
+           "decode_step", "resolve_device", "params_device", "sinusoidal"]

@@ -21,6 +21,16 @@ place holds at most one token, and a token's k gated expert outputs are
 summed in float32 and rounded once to the activation dtype, as the
 combine einsum does.
 
+The layer is differentiable as it stands.  The expert products' gradient
+is `gmm`'s (`moe_gmm.ops.GmmFn`: the backward kernel on CUDA tensors, its
+float32 cotangent rounded once to bfloat16 for the tensor cores, the plain
+backward on CPU tensors); autograd differentiates the rest: the index
+write and the gather, ``repeat_interleave``, the float32 ``silu`` product
+and the router's float32 softmax and top-k.  The gather's backward
+accumulates with duplicate indices only into the overflow row ``E·C``,
+whose gradient is discarded, so nothing the model uses depends on the
+order of those atomic adds: two backward passes give the same bits.
+
 The expert-parallel all-to-all path (``moe_forward_ep``) belongs to the
 reference's ``parallel/`` work and is not ported (ROADMAP Queue 1 item
 14).

@@ -65,10 +65,20 @@ gradient case, and the SIMT instance on the tensor-core forward's
 states; autograd through `ssd` launching one forward and one backward,
 counted by instance; the wrapper refusing missing or mismatched states.
 
-Training: jamba refuses to train on cuda, naming its missing backward
-kernel (ROADMAP Queue 1 item 12c), before any kernel runs;
-`matmul_f32`'s gradient; a small dense model's and a small mamba2's loss
-and gradients on the card against the same model on the CPU.
+Grouped-matmul backward: chip_smoke's `check_gmm_bwd` (the backward
+kernel against the plain backward, each gradient within 1e-4 (f32) / 2e-2
+(bf16) of its max, in its input's dtype, the padding rows' dlhs and the
+empty groups' drhs exactly 0, on the instance `gmm_route` names, two calls
+bitwise) on the reference suite's, the ragged, the tensor-core edge and
+the stage-edge cases; autograd through `gmm` launching one forward and
+one backward, counted by instance, and only the gradients asked for; the
+wrapper refusing what it does not take; serving's calls under
+`torch.no_grad()` launching no backward.
+
+Training: `matmul_f32`'s gradient; a small dense model's, a small
+mamba2's and small jamba's and llama4-scout's (head dim 32: attention's
+kernel takes 32, 64 and 128) loss and gradients on the card against the
+same model on the CPU.
 
 The cases, inputs and checks are chip_smoke.py's own, so the two cannot
 drift apart.
@@ -89,6 +99,7 @@ from repro_torch.kernels.flash_attention.ops import (
     route_counts as flash_routes,
 )
 from repro_torch.kernels.flash_attention.ref import attention_reference
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ops import (
     gmm, gmm_plain, route_counts, stream_floor,
 )
@@ -106,7 +117,8 @@ from repro_torch.kernels.waterfill.ref import (
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
     FLASH_BWD_CASES, FLASH_BWD_TIMED, FLASH_BWD_TOL, LSE_TOL, check_flash_bwd,
-    check_lse, check_ssd_bwd, flash_bwd_inputs, flash_bwd_route,
+    check_gmm_bwd, check_lse, check_ssd_bwd, flash_bwd_inputs,
+    flash_bwd_route, GMM_BWD_STAGE_CASES, gmm_bwd_inputs,
     FLASH_CASES, FLASH_TOL, FLASH_WGMMA_CASES, GMM_CASES, GMM_RAGGED,
     GMM_TC_CASES, GMM_TOL, SSD_BWD_DFINAL, SSD_BWD_TC_CASES, SSD_CASES,
     SSD_TC_CASES, SSD_TOL,
@@ -912,35 +924,6 @@ def test_flash_backward_wrapper_refuses_a_bad_lse(cuda):
     assert launch_counts == before
 
 
-@pytest.mark.parametrize("arch,items", [("jamba-v0.1-52b", ["12c"])])
-def test_training_without_backward_kernels_is_refused(cuda, arch, items):
-    import dataclasses
-
-    from repro_torch.configs import reduced_config
-    from repro_torch.models import model as model_lib
-    cfg = dataclasses.replace(reduced_config(arch), d_head=32)
-    params = model_lib.init_model(cfg, device=cuda)
-    batch = {"tokens": torch.zeros((1, 16), dtype=torch.int32),
-             "labels": torch.zeros((1, 16), dtype=torch.int32)}
-    before = dict(launch_counts)
-    with pytest.raises(NotImplementedError) as err:
-        model_lib.loss_fn(params, cfg, batch)
-    for item in items:
-        assert f"ROADMAP Queue 1 item {item}" in str(err.value)
-    assert "item 12b" not in str(err.value)   # the SSD scan has one
-    assert launch_counts == before            # no forward work
-    with torch.no_grad():
-        loss, _ = model_lib.loss_fn(params, cfg, batch)
-    assert bool(torch.isfinite(loss))
-
-
-def test_kernels_without_backward_refuse_recorded_calls(cuda):
-    lhs = torch.zeros((8, 16), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        gmm(lhs, torch.zeros((2, 16, 8), device=cuda),
-            torch.tensor([4, 4], dtype=torch.int32, device=cuda))
-
-
 def test_matmul_f32_gradient(cuda):
     """bfloat16 operands: the forward accumulates in float32 (unchanged),
     the backward's products take the cotangent rounded to bfloat16 and
@@ -1128,6 +1111,140 @@ def test_mamba2_gradients_on_the_card_match_the_cpu(cuda):
     loss, g = grads(params, cuda)
     assert launch_counts["ssd"] == before["ssd"] + cfg.n_layers
     assert launch_counts["ssd_bwd"] == before["ssd_bwd"] + cfg.n_layers
+    loss_cpu, g_cpu = grads(params, "cpu")
+    assert abs(float(loss) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
+    for a, b in zip(g, g_cpu):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max().clamp(min=1e-30))
+
+
+# ---------------------------------------------------------------------------
+# the grouped matmul's backward
+# ---------------------------------------------------------------------------
+
+GMM_BWD_CASES = ([(E, K, N, sizes, tail) for E, K, N, _bt, sizes, tail
+                  in GMM_CASES] + GMM_RAGGED + GMM_BWD_STAGE_CASES)
+
+
+@pytest.mark.parametrize("case", GMM_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_backward_equals_plain_version(cuda, case, dtype):
+    check_gmm_bwd(f"bwd{case}", gmm_ops, *gmm_bwd_inputs(12, *case, dtype,
+                                                         cuda))
+
+
+@pytest.mark.parametrize("case", GMM_TC_CASES)
+def test_gmm_backward_tensor_cores_take_edge_cases(cuda, case):
+    check_gmm_bwd(f"bwd-tc{case}", gmm_ops,
+                  *gmm_bwd_inputs(12, *case, torch.bfloat16, cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_recorded_call_launches_the_backward(cuda, dtype):
+    """Autograd through `gmm` on CUDA tensors: one forward and one
+    backward launch on the routed instance, the gradients those of the
+    plain backward, and only the gradients autograd asks for."""
+    from repro_torch.kernels.moe_gmm.ref import gmm_backward_reference
+    E, K, N, sizes, tail = GMM_RAGGED[1]
+    lhs, rhs, gs, dout = gmm_bwd_inputs(13, E, K, N, sizes, tail, dtype,
+                                        cuda)
+    want = gmm_route(dtype, K, N)
+    before, routed = dict(launch_counts), dict(gmm_ops.bwd_route_counts)
+    lr, rr = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+    out = gmm(lr, rr, gs, out_dtype=torch.float32)
+    assert out.grad_fn is not None
+    dl, dr = torch.autograd.grad(out, (lr, rr), dout)
+    assert launch_counts["gmm"] == before["gmm"] + 1
+    assert launch_counts["gmm_bwd"] == before["gmm_bwd"] + 1
+    assert {k: gmm_ops.bwd_route_counts[k] - routed[k] for k in routed} == {
+        k: int(k == want) for k in routed}
+    plain = gmm_backward_reference(lhs, rhs, gs, dout)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, p in zip((dl, dr), plain):
+        assert g.dtype == dtype
+        assert float((g.float() - p.float()).abs().max()) <= tol * float(
+            p.float().abs().max())
+    (dl_only,) = torch.autograd.grad(gmm(lr, rhs, gs), lr,
+                                     torch.ones(lhs.shape[0], N,
+                                                dtype=dtype, device=cuda))
+    assert dl_only.shape == lhs.shape
+    only = gmm_ops.gmm_backward(lhs, rhs, gs, dout, need=(False, True))
+    assert only[0] is None and torch.equal(only[1], dr)
+
+
+def test_gmm_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    lhs, rhs, gs, dout = gmm_bwd_inputs(14, 2, 16, 8, [3, 5], 0,
+                                        torch.float32, cuda)
+    bwd = gmm_ops.gmm_backward
+    before = dict(launch_counts)
+    with pytest.raises(TypeError, match="dout"):
+        bwd(lhs, rhs, gs, dout.half())
+    with pytest.raises(ValueError, match="dout must have shape"):
+        bwd(lhs, rhs, gs, dout[:, :4])
+    with pytest.raises(ValueError, match="dout is on cpu"):
+        bwd(lhs, rhs, gs, dout.cpu())
+    with pytest.raises(TypeError, match="rhs"):
+        bwd(lhs, rhs.bfloat16(), gs, dout)
+    with pytest.raises(TypeError, match="group_sizes"):
+        bwd(lhs, rhs, gs.long(), dout)
+    assert bwd(lhs, rhs, gs, dout, need=(False, False)) == (None, None)
+    assert launch_counts == before
+
+
+def test_moe_serving_launches_no_backward(cuda):
+    """The MoE layer under `torch.no_grad()` (serving), with parameters
+    that require grad: the three expert products launch as before, on
+    the tensor cores in bfloat16, and nothing records a graph."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.param import Init
+    cfg = dataclasses.replace(reduced_config("jamba-v0.1-52b"),
+                              param_dtype="bfloat16",
+                              activation_dtype="bfloat16")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = {k: v.requires_grad_() if k != "shared" else v
+         for k, v in moe_mod.init_moe(Init(gen, cuda), cfg).items()}
+    x = torch.randn((2, 32, cfg.d_model), generator=gen,
+                    device=cuda).bfloat16()
+    before, routed = dict(launch_counts), dict(route_counts)
+    with torch.no_grad():
+        y, _ = moe_mod.moe_forward_dense(p, cfg, x)
+    assert y.grad_fn is None
+    assert {k: launch_counts[k] - before[k] for k in before} == {
+        k: 3 * (k == "gmm") for k in before}
+    assert {k: route_counts[k] - routed[k] for k in routed} == {
+        "wgmma": 3, "simt": 0}
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "llama4-scout-17b-a16e"])
+def test_moe_model_gradients_on_the_card_match_the_cpu(cuda, arch):
+    """Small jamba and llama4-scout (float32, head dim 32): loss and
+    gradients with the kernels on the card (three `gmm` launches and three
+    `gmm_bwd` launches an MoE layer) against the plain versions on the
+    CPU."""
+    import dataclasses
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import tree_leaves, tree_map
+    cfg = dataclasses.replace(reduced_config(arch), d_head=32)
+    params = model_lib.init_model(cfg, device="cpu")
+    tok = torch.tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 65)), dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+    def grads(ps, device):
+        req = tree_map(lambda p: p.to(device).requires_grad_(), ps)
+        loss, _ = model_lib.loss_fn(req, cfg, batch, remat="none")
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(req))
+
+    before = dict(launch_counts)
+    loss, g = grads(params, cuda)
+    moe = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers))
+    assert launch_counts["gmm"] == before["gmm"] + 3 * moe
+    assert launch_counts["gmm_bwd"] == before["gmm_bwd"] + 3 * moe
     loss_cpu, g_cpu = grads(params, "cpu")
     assert abs(float(loss) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
     for a, b in zip(g, g_cpu):

@@ -16,7 +16,17 @@ every bfloat16 case whose K and N are multiples of 8, and each of
 jamba's bfloat16 expert products, goes to the tensor cores; float32
 calls, bfloat16 with K = 100 and misaligned tensors go to the SIMT
 instance.
+
+The backward: `ref.gmm_backward_reference` and `GmmFn` (whose backward
+on CPU tensors is that plain backward) against ``jax.vjp`` of the
+reference's ``ops.gmm`` (``lax.ragged_dot``'s VJP), the oracle of the
+backward kernel, on the reference, ragged and tensor-core edge cases and
+on random ragged groups: float32 within 1e-5 of each gradient's max;
+bfloat16 inputs give bfloat16 gradients within 5e-2 of its max; the
+padding rows' dlhs and an empty group's drhs are exactly 0.  The
+backward's instance (`bwd_route`) is the forward's `route`.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,10 +39,14 @@ from repro.kernels.moe_gmm.ops import gmm as ref_gmm
 from repro.kernels.moe_gmm.ref import expert_of_row as ref_expert_of_row
 from repro.kernels.moe_gmm.ref import gmm_reference as ref_oracle
 from repro_torch.kernels.build import launch_counts
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ops import (
-    gmm, gmm_plain, route, route_counts, row_tile, tc_tile, tile_expert_map,
+    GmmFn, bwd_route, gmm, gmm_backward, gmm_plain, route, route_counts,
+    row_tile, tc_tile, tile_expert_map,
 )
-from repro_torch.kernels.moe_gmm.ref import expert_of_row, gmm_reference
+from repro_torch.kernels.moe_gmm.ref import (
+    expert_of_row, gmm_backward_reference, gmm_reference,
+)
 from test_kernel_moe_gmm import CASES
 from test_torch_cuda import (
     GMM_CASES, GMM_RAGGED, GMM_TC_CASES, gmm_arrays, moe_serving_shapes,
@@ -226,3 +240,171 @@ def test_tensor_core_tile_holds_the_mean_group():
     assert tc_tile(2560, 16) == 192
     assert tc_tile(16 * 30, 16) == 64
     assert tc_tile(100_000, 4) == 192
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+#: the backward's float32 gate on max |port - jax| / max |jax| of each
+#: gradient (float32 sums in another order), and bfloat16's (both sides
+#: round each gradient once to bfloat16)
+BWD_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
+BWD_CASES = ([(E, K, N, sizes, tail) for E, K, N, _bt, sizes, tail in CASES]
+             + GMM_RAGGED + EXTRA_RAGGED + GMM_TC_CASES)
+
+
+def cotangent(T, N, seed=5):
+    return np.random.default_rng(seed).standard_normal((T, N)).astype(
+        np.float32)
+
+
+def jax_vjp(jl, jr, jg, dout):
+    """``jax.vjp`` of the reference's ``ops.gmm`` at (lhs, rhs): the
+    gradients (dlhs, drhs) for ``dout``."""
+    _, pullback = jax.vjp(lambda a, b: ref_gmm(a, b, jg), jl, jr)
+    return pullback(dout)
+
+
+def rel_close(got, want, tol):
+    got, want = as_f32(got), as_f32(want)
+    assert got.shape == want.shape
+    scale = max(float(np.abs(want).max()), 1e-30)
+    assert float(np.abs(got - want).max()) <= tol * scale
+
+
+def grads_of_gmm_fn(lhs, rhs, gs, dout):
+    lr, rr = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+    out = GmmFn.apply(lr, rr, gs, None)
+    return torch.autograd.grad(out, (lr, rr), dout)
+
+
+@pytest.mark.parametrize("E,K,N,sizes,tail", BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_matches_jax_vjp(E, K, N, sizes, tail, dtype):
+    """The plain backward and `GmmFn`'s backward against ``jax.vjp`` of
+    the reference's ``gmm``, in the inputs' dtype: float32 within 1e-5 of
+    each gradient's max, bfloat16 within 5e-2, each gradient in its
+    input's dtype; the padding rows' dlhs and the empty groups' drhs are
+    exactly 0."""
+    (lhs, rhs, gs), (jl, jr, jg) = both(gmm_arrays(3, E, K, N, sizes, tail),
+                                        dtype)
+    d = cotangent(lhs.shape[0], N)
+    dout, jdout = torch.from_numpy(d).to(TORCH[dtype]), jnp.asarray(
+        d, JAX[dtype])
+    want = jax_vjp(jl, jr, jg, jdout)
+    for got in (gmm_backward_reference(lhs, rhs, gs, dout),
+                grads_of_gmm_fn(lhs, rhs, gs, dout)):
+        for g, w, x in zip(got, want, (lhs, rhs)):
+            assert g.dtype == x.dtype and g.shape == x.shape
+            rel_close(g, w, BWD_TOL[dtype])
+        dlhs, drhs = got
+        assert not dlhs[sum(sizes):].any()
+        for e, size in enumerate(sizes):
+            if size == 0:
+                assert not drhs[e].any()
+
+
+@pytest.mark.parametrize("E,K,N,sizes,tail", GMM_RAGGED + GMM_TC_CASES)
+def test_backward_of_float32_output(E, K, N, sizes, tail):
+    """The MoE layer's call: bfloat16 inputs, float32 output, so a float32
+    cotangent; the gradients come back in bfloat16, within bfloat16's
+    rounding of the float32 gradients of the widened inputs."""
+    (lhs, rhs, gs), _ = both(gmm_arrays(4, E, K, N, sizes, tail), "bfloat16")
+    dout = torch.from_numpy(cotangent(lhs.shape[0], N, 6))
+    lr, rr = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+    out = GmmFn.apply(lr, rr, gs, torch.float32)
+    assert out.dtype == torch.float32
+    dlhs, drhs = torch.autograd.grad(out, (lr, rr), dout)
+    assert dlhs.dtype == drhs.dtype == torch.bfloat16
+    _, pullback = jax.vjp(lambda a, b: ref_gmm(a, b, jnp.asarray(gs.numpy())),
+                          jnp.asarray(lhs.float().numpy()),
+                          jnp.asarray(rhs.float().numpy()))
+    for g, w in zip((dlhs, drhs), pullback(jnp.asarray(dout.numpy()))):
+        rel_close(g, w, 2 ** -8)
+
+
+@settings(max_examples=25, deadline=None)
+@given(sizes=st.lists(st.integers(0, 6), min_size=4, max_size=4),
+       seed=st.integers(0, 2 ** 16))
+def test_backward_property_over_ragged_groups(sizes, seed):
+    """Random group sizes (empty ones, and any tail up to 24 rows) over 24
+    rows: the plain backward equals ``jax.vjp`` of the reference's
+    ``gmm`` within 1e-5, with every padding row's dlhs and every empty
+    group's drhs exactly 0."""
+    T, K, N = 24, 16, 24
+    rng = np.random.default_rng(seed)
+    lhs = rng.standard_normal((T, K)).astype(np.float32)
+    rhs = rng.standard_normal((4, K, N)).astype(np.float32)
+    d = rng.standard_normal((T, N)).astype(np.float32)
+    gs = np.asarray(sizes, np.int32)
+    dlhs, drhs = gmm_backward_reference(
+        torch.from_numpy(lhs), torch.from_numpy(rhs), torch.from_numpy(gs),
+        torch.from_numpy(d))
+    want = jax_vjp(jnp.asarray(lhs), jnp.asarray(rhs), jnp.asarray(gs),
+                   jnp.asarray(d))
+    rel_close(dlhs, want[0], BWD_TOL["float32"])
+    rel_close(drhs, want[1], BWD_TOL["float32"])
+    assert not dlhs[sum(sizes):].any()
+    assert all(not drhs[e].any() for e, g in enumerate(sizes) if g == 0)
+
+
+def test_gmm_fn_equals_autograd_of_the_plain_version():
+    """On CPU tensors `GmmFn` is `gmm_plain` with the plain backward: the
+    same output and, to float32 rounding, the gradients autograd takes
+    through `gmm_plain`."""
+    E, K, N, sizes, tail = GMM_RAGGED[1]
+    (lhs, rhs, gs), _ = both(gmm_arrays(7, E, K, N, sizes, tail), "float32")
+    dout = torch.from_numpy(cotangent(lhs.shape[0], N, 8))
+    lr, rr = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+    out = gmm_plain(lr, rr, gs)
+    want = torch.autograd.grad(out, (lr, rr), dout)
+    assert torch.equal(GmmFn.apply(lhs, rhs, gs, None), out.detach())
+    for g, w in zip(grads_of_gmm_fn(lhs, rhs, gs, dout), want):
+        rel_close(g, w, 1e-6)
+
+
+def test_gmm_fn_asks_only_for_the_gradients_autograd_needs(monkeypatch):
+    """`GmmFn` passes ``needs_input_grad`` to `gmm_backward` and returns
+    None for an input that needs no gradient."""
+    asked = []
+
+    def recorded(lhs, rhs, gs, dout, *, need=(True, True)):
+        asked.append(need)
+        return gmm_backward_reference(lhs, rhs, gs, dout)
+
+    monkeypatch.setattr(gmm_ops, "gmm_backward", recorded)
+    (lhs, rhs, gs), _ = both(gmm_arrays(9, 3, 16, 24, [5, 0, 7], 2),
+                             "float32")
+    lr, rr = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+    GmmFn.apply(lr, rhs, gs, None).sum().backward()
+    GmmFn.apply(lhs, rr, gs, None).sum().backward()
+    assert asked == [(True, False), (False, True)]
+    assert lr.grad is not None and rr.grad is not None
+
+
+def test_cpu_backward_launches_nothing():
+    before = dict(launch_counts)
+    routed = dict(gmm_ops.bwd_route_counts)
+    (lhs, rhs, gs), _ = both(gmm_arrays(9, 3, 16, 24, [5, 0, 7], 2),
+                             "bfloat16")
+    dl, dr = gmm_backward(lhs, rhs, gs, torch.ones(14, 24))
+    assert dl.dtype == dr.dtype == torch.bfloat16
+    assert launch_counts == before and gmm_ops.bwd_route_counts == routed
+
+
+@pytest.mark.parametrize("E,K,N,sizes,tail", BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cotangent_dtype", ["float32", "input"])
+def test_bwd_route_is_the_forward_route(E, K, N, sizes, tail, dtype,
+                                        cotangent_dtype):
+    """The backward's instance is the one the forward took for the same
+    lhs and rhs, whatever the cotangent's dtype (float32 from the MoE
+    layer's float32 output, or the input's)."""
+    (lhs, rhs, _), _ = both(gmm_arrays(1, E, K, N, sizes, tail), dtype)
+    out_dtype = torch.float32 if cotangent_dtype == "float32" else lhs.dtype
+    out = torch.empty(lhs.shape[0], N, dtype=out_dtype)
+    assert bwd_route(lhs, rhs, torch.empty_like(out)) == route(lhs, rhs, out)
+    assert bwd_route(lhs, rhs, out) == ("wgmma" if dtype == "bfloat16"
+                                        and K % 8 == 0 and N % 8 == 0
+                                        else "simt")

@@ -47,8 +47,9 @@ def test_every_port_module_imports_without_jax_or_reference():
         "('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps({'bad': bad, 'launches': build.launch_counts, "
         "'built': [wf.build_log, fa.build_log, fa.bwd_build_log, "
-        "so.build_log, so.bwd_build_log, gm.build_log, wf._lib, fa._lib, "
-        "fa._bwd_lib, so._lib, so._bwd_lib, gm._lib] != [None] * 12}))\n")
+        "so.build_log, so.bwd_build_log, gm.build_log, gm.bwd_build_log, "
+        "wf._lib, fa._lib, fa._bwd_lib, so._lib, so._bwd_lib, gm._lib, "
+        "gm._bwd_lib] != [None] * 14}))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -59,7 +60,7 @@ def test_every_port_module_imports_without_jax_or_reference():
                                            "flash_attention": 0, "ssd": 0,
                                            "gmm": 0,
                                            "flash_attention_bwd": 0,
-                                           "ssd_bwd": 0},
+                                           "ssd_bwd": 0, "gmm_bwd": 0},
                    "built": False}
     assert len(mods) >= 63
 

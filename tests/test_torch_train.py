@@ -11,12 +11,15 @@ sums:
     leaf: max |diff| <= 1e-4 x max |g_ref| of that leaf; the port's
     ``remat="full"`` and ``"dots"`` against its own ``"none"``, the same;
     mamba2 with its scans through `SSDFn` (the plain backward of the SSD
-    kernel's closed forms) against the reference, the same;
+    kernel's closed forms) against the reference, the same; jamba and
+    llama4-scout with their expert products through `GmmFn` (the plain
+    backward of the grouped matmul), the same;
   * `adamw_update` on identical numpy inputs: 1e-6 (both state policies,
     the clip active);
   * `lr_schedule`: relative 1e-6;
   * three `make_train_step` steps against the reference's on a 1 x 1
-    mesh: loss and grad_norm within relative 1e-4 each step.
+    mesh, for qwen2 and for llama4-scout (MoE on every layer): loss and
+    grad_norm within relative 1e-4 each step.
 
 Updated parameters are compared only where the reference's gradient is
 large: AdamW's first step moves each element by about lr * sign(g), so an
@@ -65,7 +68,8 @@ from repro_torch.train.schedule import lr_schedule
 from repro_torch.train.train_step import init_train_state, make_train_step
 from test_torch_matchmaker import one_torch_thread  # noqa: F401
 
-FAMILIES = ["qwen2-1.5b", "granite-8b", "mamba2-1.3b", "jamba-v0.1-52b"]
+FAMILIES = ["qwen2-1.5b", "granite-8b", "mamba2-1.3b", "jamba-v0.1-52b",
+            "llama4-scout-17b-a16e"]
 LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4      # x max |g_ref| of the leaf
 OPT_TOL = 1e-6
@@ -166,6 +170,44 @@ def test_gradients_match_reference(reference_runs, arch):
     errs = leaf_errors([g.numpy() for g in grads], ref_leaves)
     worst = max(range(len(errs)), key=errs.__getitem__)
     assert errs[worst] <= GRAD_TOL, (names[worst], errs[worst])
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "llama4-scout-17b-a16e"])
+def test_moe_models_through_the_gmm_function_match_reference(reference_runs,
+                                                             monkeypatch,
+                                                             arch):
+    """jamba and llama4-scout with every expert product forced through
+    `GmmFn` on the CPU (`gmm_plain` forward and the plain backward whose
+    closed forms the backward kernel computes, instead of autograd through
+    `gmm_plain`): three products and three backward calls per MoE layer,
+    and loss and gradients against jax.value_and_grad of the
+    reference's."""
+    from repro_torch.kernels.moe_gmm import ops as gmm_ops
+    from repro_torch.models import moe as moe_mod
+    cfg = reduced_config(arch)
+    calls = {"forward": 0, "backward": 0}
+    backward = gmm_ops.gmm_backward
+
+    def through_fn(lhs, rhs, group_sizes, *, out_dtype=None):
+        calls["forward"] += 1
+        return gmm_ops.GmmFn.apply(lhs, rhs, group_sizes, out_dtype)
+
+    def counted(*args, **kw):
+        calls["backward"] += 1
+        return backward(*args, **kw)
+
+    monkeypatch.setattr(moe_mod, "gmm", through_fn)
+    monkeypatch.setattr(gmm_ops, "gmm_backward", counted)
+    ref = reference_runs(arch)
+    loss, _, grads = port_grads(carried(ref["params"]), cfg,
+                                to_torch(ref["batch"]))
+    moe_layers = sum(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers))
+    assert moe_layers > 0
+    assert calls == {"forward": 3 * moe_layers, "backward": 3 * moe_layers}
+    assert rel(loss, ref["loss"]) <= LOSS_TOL
+    errs = leaf_errors([g.numpy() for g in grads],
+                       jax.tree_util.tree_leaves(ref["grads"]))
+    assert max(errs) <= GRAD_TOL
 
 
 def test_mamba2_through_the_ssd_function_matches_reference(reference_runs,
@@ -277,34 +319,6 @@ def test_unknown_remat_and_unroll_are_refused():
         model_lib.loss_fn(params, cfg, batch, remat="some")
     with pytest.raises(NotImplementedError, match="item 15"):
         model_lib.loss_fn(params, cfg, batch, unroll=True)
-
-
-@pytest.mark.parametrize("arch,items", [
-    ("qwen2-1.5b", []), ("granite-8b", []), ("mamba2-1.3b", []),
-    ("jamba-v0.1-52b", ["12c"])])
-def test_cuda_training_refusal_names_the_missing_backward(monkeypatch, arch,
-                                                          items):
-    """What `loss_fn` refuses on a CUDA device (the check itself, with
-    the parameters' device faked: tests/test_torch_cuda.py runs it on
-    the card), and that it does so before any forward work."""
-    cfg = reduced_config(arch)
-    params = model_lib.init_model(cfg, device="cpu")
-    monkeypatch.setattr(model_lib, "params_device",
-                        lambda p: torch.device("cuda", 0))
-    forwards = []
-    monkeypatch.setattr(model_lib, "_forward",
-                        lambda *a, **k: forwards.append(1))
-    if not items:
-        model_lib.check_trainable(params, cfg)
-        return
-    with pytest.raises(NotImplementedError) as err:
-        model_lib.loss_fn(params, cfg, to_torch(batch_of(cfg)))
-    for item in items:
-        assert f"ROADMAP Queue 1 item {item}" in str(err.value)
-    assert "item 12b" not in str(err.value)     # the SSD scan has one
-    assert not forwards
-    with torch.no_grad():
-        model_lib.check_trainable(params, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +445,16 @@ def updated_params_agree(port_params, ref_params, ref_grads, tol=1e-5):
 def test_three_train_steps_match_reference(reference_runs):
     """make_train_step against the reference's on a 1 x 1 mesh, with no
     warmup, so the first step moves every parameter."""
-    arch = "qwen2-1.5b"
+    train_steps_match(reference_runs, "qwen2-1.5b")
+
+
+def test_moe_train_steps_match_reference(reference_runs):
+    """The same for llama4-scout (an MoE FFN on every layer, top-1, a
+    shared expert, chunked attention)."""
+    train_steps_match(reference_runs, "llama4-scout-17b-a16e")
+
+
+def train_steps_match(reference_runs, arch):
     ref = reference_runs(arch)
     cfg, pcfg = ref_reduced_config(arch), reduced_config(arch)
     lr_kwargs = dict(peak=1e-3, warmup_steps=0, total_steps=10)
