@@ -190,18 +190,22 @@ to a plain version):
  17. training jamba: the grouped matmul's backward kernel (`gmm_bwd.cu`)
      against the plain backward (`gmm_backward_reference`) on the
      reference suite's cases and the ragged ones in both dtypes (1e-4 and
-     2e-2 of each gradient's max), the tensor-core edge cases in bfloat16
-     and `GMM_BWD_STAGE_CASES` (groups ending inside drhs's 64-row
-     stages) in both, each on the instance `gmm_route` names, two calls
-     bitwise equal, the padding rows' dlhs and the empty groups' drhs
-     exactly 0; then timed at jamba's training products (8 x 512 tokens:
-     10,240 rows in 16 groups; gate/up and down, bfloat16 in, float32
-     dout): CUDA events and device time of the whole backward, of dlhs
-     and of drhs alone, beside each one's bound, the plain backward and
-     `torch.bmm` (a yardstick); one full-width MoE layer of 4096 tokens,
-     forward and backward, kernels against autograd through the plain
-     version in float32 (1e-4) and bfloat16 (2.5e-2) with the auxiliary
-     loss equal and two backward passes bitwise; jamba at full width cut
+     2e-2 of each gradient's max), the tensor-core edge cases in bfloat16,
+     `GMM_BWD_STAGE_CASES` (groups ending inside drhs's 64-row stages)
+     and `GMM_BWD_TILE_CASES` (the 128 x 256 tiles and their clusters at
+     the edges of groups, K and N) in both, each on the instance
+     `gmm_route` names, two calls bitwise equal, the padding rows' dlhs
+     and the empty groups' drhs exactly 0; ptxas' report and the
+     clusters of drhs's persistent grid; then timed at jamba's training
+     products (8 x 512 tokens: 10,240 rows in 16 groups; gate/up and
+     down, bfloat16 in, float32 dout): CUDA events and device time of the
+     whole backward, of dlhs and of drhs alone, beside each one's bound,
+     its floor probe (the kernel without its products), the plain
+     backward and `torch.bmm` (a yardstick); one full-width MoE layer of
+     4096 tokens, forward and backward, kernels against autograd through
+     the plain version in float32 (1e-4) and bfloat16 (2.5e-2) with the
+     auxiliary loss equal and two backward passes bitwise, the second
+     timed; jamba at full width cut
      to one period (8 layers, bfloat16, 13.3e9 parameters): `loss_fn`
      and its backward with every kernel (exact launches of the six
      kernels and their instances), the gradients moved to host memory,
@@ -2364,7 +2368,8 @@ def moe_layer_phase(cfg, device, tokens=1024, seed=0, *, train=False):
     against autograd through the plain version (`plain_gmm`), each on
     max |diff| / max |plain| at `GATE_TRAIN_GRAD` (float32) and
     `GATE_TRAIN_BF16_GRAD` (bfloat16), and two backward passes of the
-    kernels' graph bitwise equal.  Returns the rows."""
+    kernels' graph bitwise equal, the second timed by CUDA events
+    (``backward_ms``).  Returns the rows."""
     from repro_torch.kernels.build import launch_counts
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.param import Init
@@ -2386,25 +2391,30 @@ def moe_layer_phase(cfg, device, tokens=1024, seed=0, *, train=False):
         def run(p, h):
             if not train:
                 with torch.no_grad():
-                    return (*moe_mod.moe_forward_dense(p, c, h), None)
+                    return (*moe_mod.moe_forward_dense(p, c, h), None, None)
             leaves = [h.detach().requires_grad_()] + [
                 p[k].detach().requires_grad_() for k in names[1:]]
             q = dict(p, **dict(zip(names[1:], leaves[1:])))
             y, aux = moe_mod.moe_forward_dense(q, c, leaves[0])
             loss = (y.float() * dy).sum() + aux
             grads = torch.autograd.grad(loss, leaves, retain_graph=True)
+            start, stop = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+            start.record()
             again = torch.autograd.grad(loss, leaves)
+            stop.record()
+            stop.synchronize()
             for name, a, b in zip(names, grads, again):
                 if not bitwise_equal(a.float(), b.float()):
                     raise AssertionError(f"MoE layer {dtype}: two backward "
                                          f"passes differ in d{name}")
-            return y.detach(), aux.detach(), grads
+            return y.detach(), aux.detach(), grads, start.elapsed_time(stop)
 
         before = dict(launch_counts)
-        y, aux, grads = run(p, h)
+        y, aux, grads, backward_ms = run(p, h)
         launched = {k: launch_counts[k] - before[k] for k in before}
         with plain_gmm():
-            y_plain, aux_plain, grads_plain = run(p, h)
+            y_plain, aux_plain, grads_plain, _ = run(p, h)
         if launched["gmm"] != 3 or launched["gmm_bwd"] != 6 * train:
             raise AssertionError(f"MoE layer {dtype}: launches {launched}")
         if not bool(torch.isfinite(y).all()) or y.dtype != h.dtype:
@@ -2418,6 +2428,9 @@ def moe_layer_phase(cfg, device, tokens=1024, seed=0, *, train=False):
         row = {"moe_layer": dtype, "tokens": tokens, "train": train,
                "y": rel_err(y, y_plain)}
         if train:
+            # CUDA events around the second backward pass of the kernels'
+            # graph (the first one's launches are warm by then)
+            row["backward_ms"] = backward_ms
             for name, g, g_plain, t in zip(names, grads, grads_plain,
                                            [h] + [p[k] for k in names[1:]]):
                 if g.dtype != t.dtype or not bool(
@@ -3540,6 +3553,16 @@ GMM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # unaligned start and a tail (E, K, N, sizes, tail)
 GMM_BWD_STAGE_CASES = [(5, 192, 256, [100, 37, 0, 130, 64], 11),
                        (3, 64, 136, [1, 63, 65], 0)]
+# the tensor-core backward's tiling (128 x 256 tiles, clusters of two
+# blocks): groups ending inside a 128-row tile, a 256-column tile and a
+# 64-row stage; an odd count of row tiles (300, 333, 191: 3 each); a
+# pair's second tile wholly past K (K 200, 120) or partly (K 520), drhs's
+# second block of K rows past K (K 120) and dout boxes past N (N 136,
+# 264); empty groups, a tail, E = 1 (E, K, N, sizes, tail)
+GMM_BWD_TILE_CASES = [(4, 200, 136, [300, 0, 129, 64], 7),
+                      (1, 520, 264, [333], 0),
+                      (3, 120, 512, [64, 65, 191], 5),
+                      (6, 264, 392, [0, 256, 1, 0, 127, 384], 130)]
 # jamba's training expert products: 8 x 512 tokens, top-2, capacity factor
 # 1.25, so C = 640 and 10,240 rows in 16 groups
 MOE_TRAIN_TOKENS = TRAIN["batch"] * TRAIN["seq"]
@@ -3664,7 +3687,9 @@ def time_gmm_bwd(gm, label, rows, K, N, device):
     cast of dout to bfloat16 is the rest), beside each gradient's bound,
     the plain backward and
     `torch.bmm` of the same products on the bfloat16-rounded dout (a
-    yardstick only: the groups are equal)."""
+    yardstick only: the groups are equal), and each gradient's floor
+    probe (`ops.bwd_stream_floor`: its kernel without the products, on
+    the rounded dout), events and device time."""
     from repro_torch.kernels.moe_gmm.ref import gmm_backward_reference
     lhs, rhs, gs = moe_serving_inputs(rows, K, N, torch.bfloat16, device)
     gen = torch.Generator(device=device)
@@ -3697,16 +3722,24 @@ def time_gmm_bwd(gm, label, rows, K, N, device):
                          KERNEL_REPS),
         library_ms=cuda_ms(library, KERNEL_REPS))
     nbytes = flops = 0
+    rounded = dout.bfloat16()
     for which, need in (("dlhs", (True, False)), ("drhs", (False, True))):
         b_ms, b_by, b_bytes, b_flops = gmm_bwd_bound(lhs, rhs, gs, dout,
                                                      which)
         ms = cuda_ms(lambda: kernel(need), KERNEL_REPS)
+        name = f"gmm_bwd_{which}"
+
+        def floor():
+            return gm.bwd_stream_floor(lhs, rhs, gs, rounded, which)
+        floor_by, _ = device_ms_per_launch(floor, KERNEL_REPS, (name,))
         row[which] = {
-            "ms": ms, "device_ms": by[f"gmm_bwd_{which}"],
+            "ms": ms, "device_ms": by[name],
+            "floor_ms": cuda_ms(floor, KERNEL_REPS),
+            "floor_device_ms": floor_by[name],
             "library_ms": cuda_ms(lambda: library((which,)), KERNEL_REPS),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": b_bytes,
             "flops": b_flops, "bound_share": b_ms / ms,
-            "device_bound_share": b_ms / by[f"gmm_bwd_{which}"]}
+            "device_bound_share": b_ms / by[name]}
         nbytes, flops = nbytes + b_bytes, flops + b_flops
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
     bound, bound_by = ((1e3 * t_bytes, "bytes") if t_bytes >= t_ops
@@ -3715,7 +3748,7 @@ def time_gmm_bwd(gm, label, rows, K, N, device):
                bound_share=bound / row["ms"],
                device_bound_share=bound / row["device_ms"])
     print(json.dumps(row), flush=True)
-    del lhs, rhs, dout
+    del lhs, rhs, dout, rounded
     torch.cuda.empty_cache()
     return row
 
@@ -3723,10 +3756,11 @@ def time_gmm_bwd(gm, label, rows, K, N, device):
 def gmm_bwd_phase(gm, device):
     """The backward kernel against the plain backward on every case of
     the reference suite in both dtypes, the ragged cases in both, the
-    tensor-core edge cases in bfloat16 and `GMM_BWD_STAGE_CASES` in both,
-    each through the instance `gmm_route` names, bitwise on two calls;
-    then timed at jamba's training products.  Returns (the timed rows,
-    the largest absolute error of any check)."""
+    tensor-core edge cases in bfloat16, `GMM_BWD_STAGE_CASES` and
+    `GMM_BWD_TILE_CASES` in both, each through the instance `gmm_route`
+    names, bitwise on two calls; then ptxas' report and the clusters of
+    drhs's persistent grid, and the timings at jamba's training products.
+    Returns (the timed rows, the largest absolute error of any check)."""
     rows = []
     both = (torch.float32, torch.bfloat16)
     cases = ([(f"bwd-case{(E, K, N, sizes, tail)}", (E, K, N, sizes, tail),
@@ -3735,14 +3769,18 @@ def gmm_bwd_phase(gm, device):
              + [(f"bwd-tc{case}", case, (torch.bfloat16,))
                 for case in GMM_TC_CASES]
              + [(f"bwd-stages{case}", case, both)
-                for case in GMM_BWD_STAGE_CASES])
+                for case in GMM_BWD_STAGE_CASES]
+             + [(f"bwd-tiles{case}", case, both)
+                for case in GMM_BWD_TILE_CASES])
     for label, case, dtypes in cases:
         for dtype in dtypes:
             rows.append(check_gmm_bwd(
                 f"{label}-{str(dtype).split('.')[1]}", gm,
                 *gmm_bwd_inputs(12, *case, dtype, device)))
     print(json.dumps({"gmm_bwd_ptxas": ptxas_report(gm.bwd_build_log,
-                                                    "gmm_bwd_")}), flush=True)
+                                                    "gmm_bwd_"),
+                      "gmm_bwd_drhs_clusters": gm.drhs_clusters(device)}),
+          flush=True)
     timed = [time_gmm_bwd(gm, *shape, device)
              for shape in moe_training_shapes()]
     return timed, max(r["max_abs_err"] for r in rows + timed)
@@ -4221,12 +4259,17 @@ def main() -> int:
         "library_ms": main_shape["library_ms"],
         "device_ms": main_shape["device_ms"],
         "kernels_device_ms": main_shape["kernels_device_ms"],
+        "floor_device_ms": {w: main_shape[w]["floor_device_ms"]
+                            for w in ("dlhs", "drhs")},
         "instances": {
-            "wgmma": "bfloat16 with K, N multiples of 8: dlhs on the "
-                     "forward's ragged row tiles with the weights read "
-                     "K-major in place, drhs one block per (expert, 128 K, "
-                     "128 N) over the group's rows; TMA rings, wgmma; dout "
-                     "rounded to bfloat16 once",
+            "wgmma": "bfloat16 with K, N multiples of 8: 128 x 256 "
+                     "tiles on wgmma m64n256k16, clusters of two blocks "
+                     "sharing one operand by TMA multicast, experts "
+                     "slowest: dlhs a cluster per (expert, 128-row tile, "
+                     "pair of K tiles) with the weights read K-major in "
+                     "place, drhs a persistent grid walking (expert, pair "
+                     "of K tiles, N tile) over the group's rows, TMA "
+                     "stores; dout rounded to bfloat16 once",
             "simt": "float32, and bfloat16 TMA cannot take: f32 FMAs from "
                     "shared memory, dout float32"},
         "launches_by_instance": jamba_trained["routes"]["gmm_bwd"],

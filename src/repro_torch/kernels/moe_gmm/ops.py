@@ -24,9 +24,16 @@ one matmul per group.
 
 A CUDA call that autograd records goes through `GmmFn`, whose backward
 (`gmm_backward`) launches `gmm_bwd.cu` (its own library: `build_backward`,
-`bwd_build_log`): dlhs = dout rhs[e]^T over the forward's ragged row
-tiles, drhs[e] = lhs[rows of e]^T dout[rows of e] one block per (expert,
-K tile, N tile), only the gradients autograd asks for.  `bwd_route` names
+`bwd_build_log`) for only the gradients autograd asks for.  Its
+tensor-core instance runs clusters of two blocks on 128 x 256 output
+tiles (`BWD_TILE`, `BWD_CLUSTER`): dlhs = dout rhs[e]^T one cluster per
+(expert, 128-row tile within its group, pair of column tiles), the pair
+sharing the dout rows; drhs[e] = lhs[rows of e]^T dout[rows of e] on a
+persistent grid of as many clusters as fit on the card (`drhs_clusters`)
+walking (expert, pair of K tiles, N tile) experts slowest, the pair
+sharing the dout rows.  `dlhs_tile` and `drhs_walk` are those walks in
+plain Python, for the tests.  `bwd_stream_floor` is its floor probe (the
+rings without the products).  `bwd_route` names
 its instance by the forward's rules: the tensor cores (``"wgmma"``) take
 the output gradient rounded once to bfloat16 (one cast pass here, as a
 TPU's default-precision product rounds a float32 operand), the SIMT
@@ -69,6 +76,9 @@ BIG_TILE, SMALL_TILE, SMALL_GROUP = 64, 8, 16
 #: or 3 sharing each weight stage, or 8 lhs rows a stage for the decode's
 #: groups of a few rows
 TC_TILES = (8, 64, 128, 192)
+#: the tensor-core backward's output tile (rows, columns) of a block and
+#: the blocks of a cluster (`gmm_bwd.cu`'s kTcRows, kTcCols, kCluster)
+BWD_TILE, BWD_CLUSTER = (128, 256), 2
 _MAX_COL_TILES = 65535          # the SIMT grid's y axis, 128 columns each
 _INT32_MAX = 2 ** 31 - 1
 #: launches by instance since the count was last reset; only the CUDA
@@ -169,6 +179,8 @@ def _bwd_library() -> ctypes.CDLL:
         lib.gmm_bwd_wgmma_launch.argtypes = [i, i, vp, vp, vp, vp, vp, vp, i,
                                              i, i, i, vp]
         lib.gmm_bwd_wgmma_launch.restype = i
+        lib.gmm_bwd_drhs_clusters.argtypes = [i]
+        lib.gmm_bwd_drhs_clusters.restype = i
         lib.gmm_bwd_error_string.argtypes = [i]
         lib.gmm_bwd_error_string.restype = ctypes.c_char_p
         _bwd_lib = lib
@@ -209,6 +221,67 @@ def bwd_route(lhs: torch.Tensor, rhs: torch.Tensor,
     and the output gradient (which the backward reads where the forward
     writes its output)."""
     return route(lhs, rhs, dout)
+
+
+def dlhs_pairs(K: int) -> int:
+    """Pairs of column tiles (one a block of a cluster) across dlhs's K
+    output columns."""
+    return (-(-K // BWD_TILE[1]) + 1) // 2
+
+
+def dlhs_clusters(T: int, K: int, E: int) -> int:
+    """Clusters in dlhs's grid: an upper bound on the row tiles of E
+    ragged groups and the zero tail (each may end in a partial tile)
+    times the column pairs."""
+    return (-(-T // BWD_TILE[0]) + E + 1) * dlhs_pairs(K)
+
+
+def dlhs_tile(q: int, sizes, T: int, K: int) -> tuple[int, int, int, int]:
+    """`find_dlhs_tile` of `gmm_bwd.cu` in plain Python: cluster q's
+    (expert, r0, r1, column pair), experts slowest, then column pairs,
+    then the expert's 128-row tiles; expert -1 for a tile of the zero
+    tail past the groups, -2 past the end."""
+    bm, pairs, start = BWD_TILE[0], dlhs_pairs(K), 0
+    for e in range(len(sizes) + 1):
+        g = (min(max(int(sizes[e]), 0), T - start) if e < len(sizes)
+             else T - start)
+        nt = -(-g // bm)
+        if q < nt * pairs:
+            r0 = start + (q % nt) * bm
+            return (e if e < len(sizes) else -1, r0, min(start + g, r0 + bm),
+                    q // nt)
+        q -= nt * pairs
+        start += g
+    return -2, 0, 0, 0
+
+
+def drhs_tiles(E: int, K: int, N: int) -> int:
+    """drhs's tiles of a cluster: (expert, pair of 128-row tiles of K,
+    256-column tile of N)."""
+    return E * -(-K // BWD_TILE[1]) * -(-N // BWD_TILE[1])
+
+
+def drhs_walk(cluster: int, clusters: int, E: int, K: int,
+              N: int) -> list[tuple[int, int, int]]:
+    """The tiles (expert, first row of K of the pair, first column of N)
+    that cluster ``cluster`` of a persistent grid of ``clusters`` visits
+    in `gmm_bwd.cu`'s drhs, in order: every ``clusters``-th tile from its
+    own, experts slowest."""
+    n_k, n_n = -(-K // BWD_TILE[1]), -(-N // BWD_TILE[1])
+    return [(q // (n_k * n_n), (q % (n_k * n_n)) // n_n * BWD_TILE[1],
+             q % n_n * BWD_TILE[1])
+            for q in range(cluster, drhs_tiles(E, K, N), clusters)]
+
+
+def drhs_clusters(device: torch.device) -> int:
+    """The clusters of drhs's persistent grid on ``device``: as many as
+    fit on it at once (builds the kernel if need be)."""
+    lib = _bwd_library()
+    n = lib.gmm_bwd_drhs_clusters(device.index)
+    if n <= 0:
+        raise RuntimeError("gmm_backward: no cluster of drhs fits: "
+                           + lib.gmm_bwd_error_string(-n).decode())
+    return n
 
 
 def wgmma_smem_bytes(bm: int) -> int:
@@ -324,14 +397,12 @@ def gmm_backward(lhs: torch.Tensor, rhs: torch.Tensor,
     if not any(need):
         return None, None
     instance = bwd_route(lhs, rhs, dout)
-    k_tiles, n_tiles = -(-K // 128), -(-N // 128)
     if instance == "wgmma":
-        bt = tc_tile(T, E)
-        too_big = max((-(-T // bt) + E + 1) * k_tiles,
-                      E * k_tiles * n_tiles) > _INT32_MAX
+        too_big = max(BWD_CLUSTER * dlhs_clusters(T, K, E),
+                      drhs_tiles(E, K, N)) > _INT32_MAX
     else:
         bt = row_tile(T, E)
-        too_big = max(k_tiles, n_tiles, E) > _MAX_COL_TILES
+        too_big = max(-(-K // 128), -(-N // 128), E) > _MAX_COL_TILES
     if too_big:
         raise ValueError(f"gmm_backward: shapes T={T} K={K} N={N} E={E} "
                          f"exceed the kernel's grid")
@@ -347,7 +418,7 @@ def gmm_backward(lhs: torch.Tensor, rhs: torch.Tensor,
     dev = lhs.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     if instance == "wgmma":
-        err = lib.gmm_bwd_wgmma_launch(dev.index, bt, *ptrs, T, K, N, E,
+        err = lib.gmm_bwd_wgmma_launch(dev.index, 1, *ptrs, T, K, N, E,
                                        stream)
     else:
         err = lib.gmm_bwd_launch(dev.index, _DTYPES[lhs.dtype], bt, *ptrs, T,
@@ -405,8 +476,45 @@ def stream_floor(lhs: torch.Tensor, rhs: torch.Tensor,
     return out
 
 
+def bwd_stream_floor(lhs: torch.Tensor, rhs: torch.Tensor,
+                     group_sizes: torch.Tensor, dout: torch.Tensor,
+                     which: str) -> torch.Tensor:
+    """Launches the tensor-core backward's kernel of one gradient
+    (``which``: "dlhs" or "drhs") with its products taken out: the same
+    grid, TMA rings, multicasts and barriers, nothing stored (the
+    returned tensor holds no values).  Its time is the floor the design's
+    loads put under that gradient; it is a probe, counted nowhere.
+    ``dout`` must be bfloat16 (no cast runs); takes what `bwd_route`
+    sends to ``"wgmma"``."""
+    if lhs.device.type != "cuda":
+        raise ValueError("bwd_stream_floor: a probe of the CUDA kernel")
+    if which not in ("dlhs", "drhs"):
+        raise ValueError(f"bwd_stream_floor: which is dlhs or drhs, got "
+                         f"{which!r}")
+    T, K, N, E = _checked("bwd_stream_floor", lhs, rhs, group_sizes)
+    if (dout.dtype != torch.bfloat16 or tuple(dout.shape) != (T, N)
+            or not dout.is_contiguous()
+            or bwd_route(lhs, rhs, dout) != "wgmma"):
+        raise ValueError("bwd_stream_floor: inputs the tensor-core "
+                         "instance does not take")
+    out = torch.empty_like(lhs if which == "dlhs" else rhs)
+    lib = _bwd_library()
+    grads = (out.data_ptr(), None) if which == "dlhs" else (None,
+                                                            out.data_ptr())
+    err = lib.gmm_bwd_wgmma_launch(
+        lhs.device.index, 0, dout.data_ptr(), lhs.data_ptr(), rhs.data_ptr(),
+        group_sizes.data_ptr(), *grads, T, K, N, E,
+        torch.cuda.current_stream(lhs.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("backward floor probe launch failed: "
+                           + lib.gmm_bwd_error_string(err).decode())
+    return out
+
+
 __all__ = ["gmm", "gmm_plain", "gmm_reference", "expert_of_row",
            "gmm_backward", "gmm_backward_reference", "GmmFn",
            "tile_expert_map", "row_tile", "tc_tile", "route", "stream_floor",
-           "bwd_route", "bwd_route_counts", "wgmma_smem_bytes", "build",
+           "bwd_route", "bwd_route_counts", "bwd_stream_floor",
+           "dlhs_tile", "drhs_walk", "drhs_clusters", "wgmma_smem_bytes",
+           "build",
            "build_backward", "launch_counts", "route_counts"]

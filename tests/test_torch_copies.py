@@ -57,6 +57,7 @@ PORT_OWN = {
     "kernels/ssd/__init__.py", "kernels/ssd/ops.py", "kernels/ssd/ref.py",
     "kernels/ssd/study.py", "kernels/ssd/bwd_study.py",
     "kernels/moe_gmm/ops.py", "kernels/moe_gmm/ref.py",
+    "kernels/moe_gmm/bwd_study.py",
     "models/param.py", "models/layers.py", "models/attention.py",
     "models/transformer.py", "models/model.py", "models/ssm.py",
     "models/moe.py",

@@ -69,8 +69,10 @@ Grouped-matmul backward: chip_smoke's `check_gmm_bwd` (the backward
 kernel against the plain backward, each gradient within 1e-4 (f32) / 2e-2
 (bf16) of its max, in its input's dtype, the padding rows' dlhs and the
 empty groups' drhs exactly 0, on the instance `gmm_route` names, two calls
-bitwise) on the reference suite's, the ragged, the tensor-core edge and
-the stage-edge cases; autograd through `gmm` launching one forward and
+bitwise) on the reference suite's, the ragged, the tensor-core edge, the
+stage-edge and the tile-edge cases (`GMM_BWD_TILE_CASES`: 128 x 256 tiles
+in clusters of two at the edges of groups, K and N); its floor probe
+counting nothing; autograd through `gmm` launching one forward and
 one backward, counted by instance, and only the gradients asked for; the
 wrapper refusing what it does not take; serving's calls under
 `torch.no_grad()` launching no backward.
@@ -118,7 +120,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (  # noqa: E402
     FLASH_BWD_CASES, FLASH_BWD_TIMED, FLASH_BWD_TOL, LSE_TOL, check_flash_bwd,
     check_gmm_bwd, check_lse, check_ssd_bwd, flash_bwd_inputs,
-    flash_bwd_route, GMM_BWD_STAGE_CASES, gmm_bwd_inputs,
+    flash_bwd_route, GMM_BWD_STAGE_CASES, GMM_BWD_TILE_CASES,
+    gmm_bwd_inputs,
     FLASH_CASES, FLASH_TOL, FLASH_WGMMA_CASES, GMM_CASES, GMM_RAGGED,
     GMM_TC_CASES, GMM_TOL, SSD_BWD_DFINAL, SSD_BWD_TC_CASES, SSD_CASES,
     SSD_TC_CASES, SSD_TOL,
@@ -1123,7 +1126,8 @@ def test_mamba2_gradients_on_the_card_match_the_cpu(cuda):
 # ---------------------------------------------------------------------------
 
 GMM_BWD_CASES = ([(E, K, N, sizes, tail) for E, K, N, _bt, sizes, tail
-                  in GMM_CASES] + GMM_RAGGED + GMM_BWD_STAGE_CASES)
+                  in GMM_CASES] + GMM_RAGGED + GMM_BWD_STAGE_CASES
+                 + GMM_BWD_TILE_CASES)
 
 
 @pytest.mark.parametrize("case", GMM_BWD_CASES)
@@ -1170,6 +1174,35 @@ def test_gmm_recorded_call_launches_the_backward(cuda, dtype):
     assert dl_only.shape == lhs.shape
     only = gmm_ops.gmm_backward(lhs, rhs, gs, dout, need=(False, True))
     assert only[0] is None and torch.equal(only[1], dr)
+
+
+@pytest.mark.parametrize("which", ["dlhs", "drhs"])
+def test_gmm_backward_floor_probe_counts_nothing(cuda, which):
+    """The backward's floor probe runs one gradient's kernel without its
+    products: a launch, no count on the main path's counts, and it
+    refuses a float32 cotangent and inputs the tensor cores do not
+    take."""
+    E, K, N, sizes, tail = GMM_BWD_TILE_CASES[0]
+    lhs, rhs, gs, dout = gmm_bwd_inputs(15, E, K, N, sizes, tail,
+                                        torch.bfloat16, cuda)
+    before, routed = dict(launch_counts), dict(gmm_ops.bwd_route_counts)
+    out = gmm_ops.bwd_stream_floor(lhs, rhs, gs, dout.bfloat16(), which)
+    torch.cuda.synchronize()
+    assert out.shape == (lhs if which == "dlhs" else rhs).shape
+    assert launch_counts == before and gmm_ops.bwd_route_counts == routed
+    with pytest.raises(ValueError, match="tensor-core"):
+        gmm_ops.bwd_stream_floor(lhs, rhs, gs, dout, which)
+    with pytest.raises(TypeError, match="rhs"):
+        gmm_ops.bwd_stream_floor(lhs, rhs.float(), gs, dout.bfloat16(),
+                                 which)
+
+
+def test_gmm_backward_drhs_grid_fits_the_card(cuda):
+    """drhs's persistent grid: at least one cluster of two blocks, at
+    most one block an SM."""
+    n = gmm_ops.drhs_clusters(cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert 1 <= n and 2 * n <= sms
 
 
 def test_gmm_backward_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -24,7 +24,14 @@ backward kernel, on the reference, ragged and tensor-core edge cases and
 on random ragged groups: float32 within 1e-5 of each gradient's max;
 bfloat16 inputs give bfloat16 gradients within 5e-2 of its max; the
 padding rows' dlhs and an empty group's drhs are exactly 0.  The
-backward's instance (`bwd_route`) is the forward's `route`.
+backward's instance (`bwd_route`) is the forward's `route`.  The
+tensor-core backward's tile walks, in their plain-Python models
+(`ops.dlhs_tile`, `ops.drhs_walk`): dlhs's clusters cover every
+(row, 256-column tile) of dlhs exactly once, each row with its own
+expert or the zero tail, experts never decreasing; drhs's persistent
+clusters cover every (expert, pair of K tiles, N tile) exactly once,
+each cluster's experts never decreasing; on `GMM_BWD_TILE_CASES`,
+`GMM_BWD_STAGE_CASES` and jamba's training products.
 """
 import jax
 import jax.numpy as jnp
@@ -49,7 +56,8 @@ from repro_torch.kernels.moe_gmm.ref import (
 )
 from test_kernel_moe_gmm import CASES
 from test_torch_cuda import (
-    GMM_CASES, GMM_RAGGED, GMM_TC_CASES, gmm_arrays, moe_serving_shapes,
+    GMM_BWD_STAGE_CASES, GMM_BWD_TILE_CASES, GMM_CASES, GMM_RAGGED,
+    GMM_TC_CASES, gmm_arrays, moe_serving_shapes,
 )
 from test_torch_matchmaker import one_torch_thread  # noqa: F401
 
@@ -251,7 +259,7 @@ def test_tensor_core_tile_holds_the_mean_group():
 #: round each gradient once to bfloat16)
 BWD_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 BWD_CASES = ([(E, K, N, sizes, tail) for E, K, N, _bt, sizes, tail in CASES]
-             + GMM_RAGGED + EXTRA_RAGGED + GMM_TC_CASES)
+             + GMM_RAGGED + EXTRA_RAGGED + GMM_TC_CASES + GMM_BWD_TILE_CASES)
 
 
 def cotangent(T, N, seed=5):
@@ -408,3 +416,73 @@ def test_bwd_route_is_the_forward_route(E, K, N, sizes, tail, dtype,
     assert bwd_route(lhs, rhs, out) == ("wgmma" if dtype == "bfloat16"
                                         and K % 8 == 0 and N % 8 == 0
                                         else "simt")
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core backward's tile walks
+# ---------------------------------------------------------------------------
+
+#: (E, K, N, sizes, T): the tile and stage cases, a group cut at row T,
+#: and jamba's training products (16 groups of 640 rows)
+WALK_CASES = ([(E, K, N, sizes, sum(sizes) + tail)
+               for E, K, N, sizes, tail
+               in GMM_BWD_TILE_CASES + GMM_BWD_STAGE_CASES]
+              + [(3, 64, 64, [100, 50, 80], 160),
+                 (16, 4096, 14336, [640] * 16, 10240),
+                 (16, 14336, 4096, [640] * 16, 10240)])
+
+
+@pytest.mark.parametrize("E,K,N,sizes,T", WALK_CASES)
+def test_dlhs_walk_covers_every_output_tile_once(E, K, N, sizes, T):
+    """Every cluster of dlhs's grid, both blocks: each (row, 256-column
+    tile of K) of dlhs is computed by exactly one block, a tile's rows
+    all of its expert (the zero tail's past the groups), at most 128 of
+    them; a pair's second tile past K is only a partner; clusters past
+    the tiles leave; experts never decrease along the grid."""
+    n_col = -(-K // gmm_ops.BWD_TILE[1])
+    owner = expert_of_row(torch.tensor(sizes, dtype=torch.int32), T).numpy()
+    owner = np.where(owner >= E, -1, owner)
+    seen = np.zeros((T, n_col), np.int64)
+    order, done = [], False
+    for q in range(gmm_ops.dlhs_clusters(T, K, E)):
+        e, r0, r1, pair = gmm_ops.dlhs_tile(q, sizes, T, K)
+        if e == -2:
+            done = True
+            continue
+        assert not done, "a tile after the end of the walk"
+        assert 0 < r1 - r0 <= gmm_ops.BWD_TILE[0]
+        assert (owner[r0:r1] == e).all()
+        for rank in range(gmm_ops.BWD_CLUSTER):
+            col = gmm_ops.BWD_CLUSTER * pair + rank
+            if col < n_col:
+                seen[r0:r1, col] += 1
+            else:
+                assert rank == 1 and col == n_col
+        order.append(E if e == -1 else e)
+    assert (seen == 1).all()
+    assert order == sorted(order)
+
+
+@pytest.mark.parametrize("E,K,N,sizes,T", WALK_CASES)
+@pytest.mark.parametrize("clusters", [1, 7, 66, 100_000])
+def test_drhs_walk_covers_every_tile_once(E, K, N, sizes, T, clusters):
+    """drhs's persistent grid of ``clusters`` (cut to the tiles, as the
+    launch cuts it): every (expert, pair of 128-row tiles of K, 256
+    columns of N) exactly once, each cluster's experts never
+    decreasing, and the clusters' tiles spread evenly (no cluster walks
+    more than one tile beyond another)."""
+    n_k = -(-K // gmm_ops.BWD_TILE[1])
+    n_n = -(-N // gmm_ops.BWD_TILE[1])
+    clusters = min(clusters, gmm_ops.drhs_tiles(E, K, N))
+    walks = [gmm_ops.drhs_walk(c, clusters, E, K, N)
+             for c in range(clusters)]
+    for walk in walks:
+        experts = [t[0] for t in walk]
+        assert experts == sorted(experts)
+    tiles = [t for walk in walks for t in walk]
+    assert sorted(tiles) == [(e, k * gmm_ops.BWD_TILE[1],
+                              n * gmm_ops.BWD_TILE[1])
+                             for e in range(E) for k in range(n_k)
+                             for n in range(n_n)]
+    lengths = [len(w) for w in walks]
+    assert max(lengths) - min(lengths) <= 1
