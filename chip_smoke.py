@@ -5,7 +5,7 @@ Run from the repository root on a machine with the card:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package.  Phases, run
-in the order 1, 2, 5-13, 15-17, 3, 4, 14 (the water-fill's last: once its
+in the order 1, 2, 5-13, 15-20, 3, 4, 14 (the water-fill's last: once its
 tier-1m case has run, `torch.profiler` reads no device events in the
 same process -- `repro_torch.kernels.waterfill.study` finds where -- so
 every phase that reads the profiler runs first); any failure raises and
@@ -64,6 +64,14 @@ to a plain version):
      2048-slot cache) in float32 and in bfloat16, the bfloat16 calls
      timed (CUDA events, and the kernels' device time from the profiler)
      beside their bound, the plain version and SDPA (a yardstick only);
+     the decode split at G = 1 against a 1500-slot cache without a
+     causal mask (twice, bitwise); then whisper-medium's and
+     llava-next-mistral-7b's calls (`MODAL_FLASH_CALLS`: whisper's
+     encoder, cross prefill and cross tick, its decoder's prefill and
+     tick, llava's prefix prefill and tick) in both dtypes, each on the
+     instance the serving gates count it on, four of them timed in
+     bfloat16 (`MODAL_FLASH_TIMED`) beside their bound and SDPA with its
+     own mask;
   6. qwen2-1.5b at full width (28 layers, random weights from a seeded
      generator): forward logits with the kernel against the same model
      with attention forced through the plain version, in float32 and in
@@ -150,7 +158,9 @@ to a plain version):
      training shapes (B = 8, S = 512 and B = 2, S = 2048; the routed
      instance and the SIMT one at the same shape: CUDA events, device
      time in all and by kernel (`dot`, `dkdv`, `dq`), the bound, the
-     plain backward, SDPA's backward as a yardstick); qwen2 at
+     plain backward, SDPA's backward as a yardstick), and at whisper's
+     encoder's (B = 8, 1500 x 1500, 16 heads of 64, no causal mask);
+     qwen2 at
      full width cut to 2 layers in float32: loss and every gradient leaf
      with the kernels against attention through the plain version; the
      same 2 layers in bfloat16 with the kernels against the float32
@@ -215,6 +225,37 @@ to a plain version):
      dim 32) for 6 steps of 8 x 512 with checkpoints at steps 3 and 6,
      each step's launches and instances exact, the resume from step 3,
      and steps 4-6 on the CPU from that checkpoint within 1e-5;
+ 18. whisper-medium at full width (24 encoder and 24 decoder layers,
+     16 heads of 64, 1500 frames from `stub_modality_inputs`, random
+     weights from a seeded generator): phase 6's gates (float32 and
+     bfloat16 forward, kernel against plain attention; float32 prefill of
+     256 tokens then decode against the forward); the float32 serving
+     loop (`serve_loop`: `ServeEngine` takes tokens alone) gives the same
+     greedy tokens with the kernel as with the plain version; then the
+     main path, the bfloat16 loop over 8 requests of 48-224 prompt tokens
+     (numpy seed 11), each with its own frames, 32 new tokens each:
+     every prefill launches 72 flash calls on the tensor cores (24
+     encoder, 24 decoder, 24 cross), every tick 48 on the decode split
+     (24 decoder, 24 cross against the read-only cross cache), nothing
+     else launched; prefill ms, decode ms a tick, tokens/s, and a
+     profiled tick's device busy time and flash share;
+ 19. llava-next-mistral-7b at full width (32 layers, 32 / 8 heads of
+     128, the 576-position patch prefix from 1024-wide patches): the same
+     gates (float32 at full width, 29 GB of weights), with prompts of
+     64-448 text tokens after the prefix: 32 tensor-core calls a prefill,
+     32 split calls a tick;
+ 20. training whisper (its encoder's backward, B 8, 1500 x 1500 without
+     a causal mask, is timed in phase 15 beside qwen2's shapes): the
+     2-layer gates with 2 encoder layers (float32
+     kernels against plain, each leaf 1e-4; bfloat16 against the float32
+     plain model, the loss within `GATE_WHISPER_TRAIN_BF16_LOSS`, the
+     leaves within qwen2's limit; a key bias, whose gradient is 0 in exact
+     arithmetic without RoPE, against the largest gradient: `leaf_errors`;
+     every encoder leaf a nonzero gradient, through the cross-attention's
+     dk and dv), then the main path: `run_fixed` at full depth, 6 steps of
+     8 x 224 text tokens and 8 x 1500 frames, each step 72 flash forward
+     and 72 backward launches, all on the tensor cores; step time,
+     tokens/s, peak memory, step 2 profiled;
  14. a JSON line per kernel (the water-fill's with its launches by
      instance and by entry point and the host breakdown; flash's, the
      SSD's and gmm's with their launches by instance and ptxas' report of
@@ -278,7 +319,11 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # empty.  Sq and Skv ending inside a tile, Sq > Skv, G = 6 (qwen2: 10
 # positions and 4 idle rows a warpgroup) and G = 3, a window, a softcap,
 # no causal mask, an empty batch row; the blocks of one consumer
-# warpgroup (fewer than 132 blocks of two) and, for Sq = 1000, of two
+# warpgroup (fewer than 132 blocks of two) and, for Sq = 1000, of two;
+# then whisper-medium's shapes (16 heads of 64, G = 1, 1500 encoder
+# frames: a tail of 92 keys in the last 128-key tile, no causal mask):
+# a cross prefill of 37 tokens, the encoder's self-attention, and a
+# cross prefill of 200 tokens with an empty batch row
 FLASH_WGMMA_CASES = [
     (1, 300, 100, 4, 1, 64, True, None, None, False),
     (1, 77, 333, 12, 2, 128, True, None, None, False),
@@ -286,18 +331,25 @@ FLASH_WGMMA_CASES = [
     (1, 200, 200, 12, 2, 128, False, None, 20.0, False),
     (2, 100, 100, 12, 2, 128, True, None, None, True),
     (2, 1000, 1000, 12, 2, 128, True, None, None, False),
+    (2, 37, 1500, 16, 16, 64, False, None, None, False),
+    (1, 1500, 1500, 16, 16, 64, False, None, None, False),
+    (2, 200, 1500, 16, 16, 64, False, None, None, True),
 ]
 # the backward kernel's cases: the reference suite's eight, then G = 6 at
 # Dh 128 with Sq < Skv, a shape the forward routes to the decode split (Sq
 # * G <= 32), G = 6 with a window and a softcap, G = 1 at Dh 32, and G = 4
 # without causal masking; the last field is the number of leading query
-# rows that see no key at all (their cache slots emptied)
+# rows that see no key at all (their cache slots emptied); then
+# whisper-medium's cross-attention (40 queries over 1500 frames) and its
+# encoder's self-attention (1500 x 1500), G = 1 at Dh 64, no causal mask
 FLASH_BWD_CASES = [(*case, 0) for case in FLASH_CASES] + [
     (2, 40, 72, 12, 2, 128, True, None, None, 0),
     (1, 4, 50, 24, 4, 64, True, None, None, 0),
     (2, 100, 100, 12, 2, 64, True, 24, 20.0, 5),
     (1, 70, 70, 6, 6, 32, True, None, None, 3),
     (1, 64, 130, 16, 4, 128, False, None, None, 0),
+    (2, 40, 1500, 16, 16, 64, False, None, None, 0),
+    (1, 1500, 1500, 16, 16, 64, False, None, None, 0),
 ]
 # gates on max |kernel - plain| / max |plain| of each gradient: float32
 # sums in another order; bfloat16 gradients round once to 8 bits
@@ -309,6 +361,42 @@ FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LSE_TOL = 1e-4
 # qwen2-1.5b's attention at its training shapes (B, S), timed
 FLASH_BWD_TIMED = [(8, 512), (2, 2048)]
+# whisper-medium and llava-next-mistral-7b (the enc-dec and VLM families)
+WHISPER_ARCH, VLM_ARCH = "whisper-medium", "llava-next-mistral-7b"
+# their attention calls: label, B, Sq, Skv, Hq, Hkv, Dh, causal, and the
+# instance `flash_route` names in bfloat16.  whisper (16 heads of 64, G =
+# 1, 1500 frames): the encoder's self-attention, a cross prefill at the
+# longest serving prompt (224), a decode tick's cross call of the 8 slots
+# against the read-only cross cache, the decoder's self-attention over the
+# shortest serving prompt (48) and a tick against its cache; a prompt of
+# 32 at G = 1 has Sq * G = 32, a decode-sized call.  llava (32 heads over
+# 8 of 128): a prefill of the 576-patch prefix and 448 text tokens, and a
+# tick against the serving cache.  The first four rows, and llava's
+# prefill, are timed in bfloat16
+MODAL_FLASH_CALLS = [
+    ("whisper-encoder", 1, 1500, 1500, 16, 16, 64, False, "wgmma"),
+    ("whisper-cross-prefill", 1, 224, 1500, 16, 16, 64, False, "wgmma"),
+    ("whisper-cross-decode", 8, 1, 1500, 16, 16, 64, False, "split"),
+    ("llava-prefill", 1, 1024, 1024, 32, 8, 128, True, "wgmma"),
+    ("whisper-self-prefill", 1, 48, 48, 16, 16, 64, True, "wgmma"),
+    ("whisper-self-decode", 8, 1, 256, 16, 16, 64, True, "split"),
+    ("whisper-self-prefill-32", 1, 32, 32, 16, 16, 64, True, "split"),
+    ("llava-decode", 8, 1, 1056, 32, 8, 128, True, "split"),
+]
+MODAL_FLASH_TIMED = ("whisper-encoder", "whisper-cross-prefill",
+                     "whisper-cross-decode", "llava-prefill")
+# whisper's encoder backward at its training batch (B, frames), timed in
+# phase 15 beside qwen2's shapes
+WHISPER_BWD_TIMED = (8, 1500)
+# the serving loops: slots, requests, prompt lengths (text tokens; llava's
+# 576-position prefix comes before them) and new tokens per request
+MODAL_SERVE = {WHISPER_ARCH: dict(slots=8, requests=8, prompt=(48, 224),
+                                  new=32),
+               VLM_ARCH: dict(slots=8, requests=8, prompt=(64, 448),
+                              new=32)}
+# whisper's training run: all 24 + 24 layers, bfloat16, 8 x 224 text
+# tokens (and 8 x 1500 frames), no checkpoints (qwen2's run checks them)
+WHISPER_TRAIN = dict(steps=6, batch=8, seq=224, ckpt_every=None)
 ARCH = "qwen2-1.5b"
 # the serving run: slots, cache capacity, requests, prompt lengths, and
 # new tokens per request
@@ -1309,10 +1397,12 @@ def check_flash(label, fa, q, k, v, qp, kp, *, timed=False,
     """Kernel vs plain version (float32) on the card, at the reference
     suite's tolerance, through the instance `flash_route` names; with
     ``timed``, CUDA-event medians of the kernel, the plain version and
-    SDPA (a yardstick only; with ``causal_library`` its own causal mask
-    in place of the positions' boolean mask, the same function where
-    q_pos = kv_pos = 0..S-1) beside the bound, the kernel's and SDPA's
-    device time from the profiler, and two calls bitwise equal."""
+    SDPA (a yardstick only; with ``causal_library`` its own mask -- the
+    causal one, or none for a call without a causal mask -- in place of
+    the positions' boolean mask, the same function where no slot is empty
+    and, for a causal call, q_pos = kv_pos = 0..S-1) beside the bound,
+    the kernel's and SDPA's device time from the profiler, and two calls
+    bitwise equal."""
     from repro_torch.kernels.flash_attention.ref import (
         attention_mask, attention_reference,
     )
@@ -1354,7 +1444,8 @@ def check_flash(label, fa, q, k, v, qp, kp, *, timed=False,
         def library():
             if causal_library:
                 return torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                    qt, kt, vt, is_causal=kw.get("causal", True),
+                    enable_gqa=True)
             return torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True)
 
@@ -1421,6 +1512,40 @@ def serving_shapes():
     return [(f"prefill-{Sq}", 4, 1, Sq, Sq, None) for Sq in (512, 2048)] + [
         (f"decode-{SERVE['slots']}x{SERVE['max_seq']}", 6, SERVE["slots"], 1,
          SERVE["max_seq"], lengths.tolist())]
+
+
+def modal_flash_inputs(call, dtype, device):
+    """A `MODAL_FLASH_CALLS` call's inputs: a prompt or an encoder's
+    frames (no empty slot), or a decode tick against a cache whose rows
+    are full; returns (label, inputs, options, the bfloat16 instance)."""
+    label, B, Sq, Skv, Hq, Hkv, Dh, causal, want = call
+    lengths = [Skv] * B if Sq == 1 else None
+    inputs = attention_inputs(13, B, Sq, Skv, Hq, Hkv, Dh, dtype, device,
+                              lengths=lengths, dense=True)
+    return label, inputs, dict(causal=causal), want
+
+
+def modal_flash_phase(fa, device):
+    """whisper's and llava's attention calls against the plain version in
+    float32 and bfloat16, each through the instance `flash_route` names
+    (checked against the call's own); the `MODAL_FLASH_TIMED` ones timed
+    in bfloat16 beside their bound and SDPA with its own mask.  Returns
+    the timed rows."""
+    rows = []
+    for call in MODAL_FLASH_CALLS:
+        for dtype in (torch.float32, torch.bfloat16):
+            label, inputs, kw, want = modal_flash_inputs(call, dtype, device)
+            _, _, Sq, _, Hq, Hkv, Dh, _, _ = call
+            got = flash_route(dtype, Sq, Hq, Hkv, Dh)
+            if dtype == torch.bfloat16 and got != want:
+                raise AssertionError(f"{label}: flash_route names {got}, "
+                                     f"the call's own is {want}")
+            timed = dtype == torch.bfloat16 and label in MODAL_FLASH_TIMED
+            row = check_flash(label, fa, *inputs, timed=timed,
+                              causal_library=True, **kw)
+            if timed:
+                rows.append(row)
+    return rows
 
 
 def flash_wgmma_inputs(case, device):
@@ -1560,6 +1685,14 @@ def flash_phase(fa, device):
         inputs, kw = flash_wgmma_inputs(case, device)
         check_flash(f"wgmma{case}", fa, *inputs, **kw)
         check_flash_deterministic(f"wgmma{case}", fa, *inputs, **kw)
+    # the decode split at G = 1 (one live row of the block's 32) against a
+    # 1500-slot cross cache, no causal mask: every slot in some split
+    for dtype in (torch.float32, torch.bfloat16):
+        inputs = attention_inputs(9, 8, 1, 1500, 16, 16, 64, dtype, device,
+                                  lengths=[1500] * 8)
+        check_flash("split-cross-8x1500", fa, *inputs, causal=False)
+        check_flash_deterministic("split-cross-8x1500", fa, *inputs,
+                                  causal=False)
 
     rows = []
     for label, seed, B, Sq, Skv, lengths in serving_shapes():
@@ -2251,17 +2384,32 @@ def gate(label, value, limit):
         raise AssertionError(f"{label}: {value:.3g} > {limit:.3g}")
 
 
+def modality_inputs(cfg, batch, device, seed=0) -> dict:
+    """An enc-dec model's frames or a VLM's patches for ``batch`` rows
+    (`stub_modality_inputs`, float32), on ``device``; {} for the rest."""
+    from repro_torch.data.pipeline import stub_modality_inputs
+    return {k: torch.from_numpy(v).to(device) for k, v in
+            stub_modality_inputs(cfg, batch, rng_seed=seed).items()}
+
+
+def prefix_len(cfg) -> int:
+    """Positions a VLM's patches take before the text (0 otherwise)."""
+    return cfg.frontend.n_prefix if cfg.frontend is not None else 0
+
+
 def model_phase(cfg, device, *, plain=plain_attention, what="attention",
                 prompt_len=320, n_pre=256, seed=0, bf16=True):
     """Kernel vs plain version (``plain``, of the model's ``what``) in
     the whole model at cfg's widths, and prefill+decode vs forward (with
-    `no_drops`' capacity for an MoE model); returns the float32 config
-    and parameters for the engine check, and, with ``bf16``, the
-    bfloat16 parameters."""
+    `no_drops`' capacity for an MoE model; with the frames or patches of
+    an enc-dec or VLM model, whose text follows the patches); returns the
+    float32 config and parameters for the engine check, and, with
+    ``bf16``, the bfloat16 parameters."""
     from repro_torch.models import model as model_lib
     toks = torch.tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, prompt_len)), device=device)
-    batch = {"tokens": toks}
+    extra = modality_inputs(cfg, 1, device, seed)
+    batch = {"tokens": toks, **extra}
     f32 = dataclasses.replace(cfg, param_dtype="float32",
                               activation_dtype="float32")
     from repro_torch.models.param import param_count
@@ -2290,9 +2438,10 @@ def model_phase(cfg, device, *, plain=plain_attention, what="attention",
     full = no_drops(f32)
     if full is not f32:
         logits = model_lib.forward(params, full, batch)
-    cache = model_lib.init_cache(full, 1, prompt_len + 16, device=device)
+    cache = model_lib.init_cache(full, 1, prefix_len(cfg) + prompt_len + 16,
+                                 device=device)
     step, cache, lengths = model_lib.prefill(
-        params, full, {"tokens": toks[:, :n_pre]}, cache)
+        params, full, {"tokens": toks[:, :n_pre], **extra}, cache)
     worst = rel_err(step, logits[:, n_pre - 1])
     for s in range(n_pre, prompt_len):
         step, cache, lengths = model_lib.decode_step(
@@ -2796,6 +2945,200 @@ def reclaim_phase(cfg, params):
 
 
 # ---------------------------------------------------------------------------
+# The enc-dec and VLM families: whisper-medium and llava-next-mistral-7b
+# ---------------------------------------------------------------------------
+
+def modal_launches(cfg) -> tuple[int, int]:
+    """flash attention's launches per prefill and per decode tick of an
+    enc-dec or VLM model: the decoder's attention layers, and for an
+    enc-dec model the encoder's (prefill only) and a cross call per
+    decoder layer (both)."""
+    attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    if cfg.encoder is None:
+        return attn, attn
+    enc = sum(cfg.mixer_kind(i) == "attn"
+              for i in range(cfg.encoder.n_layers))
+    return attn + enc + cfg.n_layers, attn + cfg.n_layers
+
+
+def serve_loop(cfg, params, reqs, extra, *, slots):
+    """The serving engine's loop for an enc-dec or VLM model, which
+    `ServeEngine` does not take (it passes tokens alone, as the JAX
+    package's does): each request prefilled alone, with its own frames or
+    patches (row i of ``extra``), into a fresh one-row cache spliced into
+    its slot of the batch's cache; then decode ticks over every slot,
+    greedy, until each request has its tokens.  Every request is admitted
+    at once (at most ``slots``).  Goes through `model.prefill` and
+    `model.decode_step` as module attributes, so `TimedModel` times
+    them.  Returns ({rid: tokens}, prefill calls, decode ticks, the
+    cache, the lengths and the last tokens after the last tick)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import _splice_row
+    if len(reqs) > slots:
+        raise ValueError(f"serve_loop: {len(reqs)} requests, {slots} slots")
+    dev = model_lib.params_device(params)
+    max_seq = prefix_len(cfg) + max(len(r.prompt) for r in reqs) + max(
+        r.max_new_tokens for r in reqs)
+    cache = model_lib.init_cache(cfg, slots, max_seq, device=dev)
+    lengths = torch.zeros((slots,), dtype=torch.int32, device=dev)
+    last = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
+    out = {}
+    for i, r in enumerate(reqs):
+        row = model_lib.init_cache(cfg, 1, max_seq, device=dev)
+        batch = {"tokens": torch.as_tensor(r.prompt.astype(np.int64),
+                                           device=dev)[None],
+                 **{k: v[i:i + 1] for k, v in extra.items()}}
+        logits, row, row_len = model_lib.prefill(params, cfg, batch, row)
+        _splice_row(cache, row, i)
+        lengths[i] = row_len[0]
+        last[i, 0] = torch.argmax(logits[0])
+        out[r.rid] = [int(last[i, 0])]
+    ticks = 0
+    while any(len(out[r.rid]) < r.max_new_tokens for r in reqs):
+        logits, cache, lengths = model_lib.decode_step(params, cfg, last,
+                                                       cache, lengths)
+        ticks += 1
+        last = torch.argmax(logits, dim=-1)[:, None]
+        host = last[:, 0].tolist()
+        for i, r in enumerate(reqs):
+            if len(out[r.rid]) < r.max_new_tokens:
+                out[r.rid].append(host[i])
+    return out, len(reqs), ticks, cache, lengths, last
+
+
+def modal_requests(cfg, device, seed=11):
+    """`MODAL_SERVE`'s requests for cfg (prompt lengths from numpy seed
+    ``seed``) and their frames or patches, one row each."""
+    spec = MODAL_SERVE[cfg.name]
+    reqs = make_requests(cfg, spec["requests"], spec["prompt"], spec["new"],
+                         seed=seed)
+    return reqs, modality_inputs(cfg, len(reqs), device, seed)
+
+
+def modal_greedy_phase(cfg, params, device):
+    """The float32 serving loop gives the same greedy tokens with the
+    kernel as with attention through the plain version."""
+    reqs, extra = modal_requests(cfg, device)
+    slots = MODAL_SERVE[cfg.name]["slots"]
+    runs = []
+    for use_plain in (False, True):
+        with plain_attention() if use_plain else contextlib.nullcontext():
+            runs.append(serve_loop(cfg, params, reqs, extra, slots=slots)[0])
+    if runs[0] != runs[1]:
+        differ = [rid for rid in runs[0] if runs[0][rid] != runs[1][rid]]
+        raise AssertionError(f"{cfg.name} float32 serving loop: greedy "
+                             f"tokens differ between the kernel and the "
+                             f"plain version in requests {differ}")
+    print(json.dumps({"f32_engine_greedy_equal": True, "model": cfg.name,
+                      "requests": len(reqs),
+                      "tokens": sum(len(o) for o in runs[0].values())}),
+          flush=True)
+
+
+def modal_serve_phase(cfg, params, launch_counts, routes):
+    """The main path of serving an enc-dec or VLM model: `serve_loop` in
+    bfloat16 over `MODAL_SERVE`'s requests, every count (and flash's
+    instances, ``routes``) set to 0 just before and read just after:
+    flash attention launched `modal_launches`' count a prefill on the
+    tensor cores and a tick on the decode split, nothing else launched.
+    Prefill ms a request (the encoder included), decode ms a tick,
+    tokens/s; then a profiler pass over 4 ticks at the last tick's
+    lengths (off the main path): the device's busy time a tick and the
+    flash kernel's share."""
+    from repro_torch.models import model as model_lib
+    spec = MODAL_SERVE[cfg.name]
+    reqs, extra = modal_requests(cfg, model_lib.params_device(params))
+    timer = TimedModel(model_lib)
+    torch.cuda.synchronize()
+    with timer.on():
+        for counter in (launch_counts, routes):
+            for name in counter:
+                counter[name] = 0
+        t0 = time.perf_counter()
+        out, prefills, ticks, cache, lengths, last = serve_loop(
+            cfg, params, reqs, extra, slots=spec["slots"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, routed = dict(launch_counts), dict(routes)
+    per_prefill, per_tick = modal_launches(cfg)
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = per_prefill * prefills + per_tick * ticks
+    want_routes = {"wgmma": per_prefill * prefills,
+                   "split": per_tick * ticks, "simt": 0}
+    if len(out) != len(reqs) or any(len(o) != spec["new"]
+                                    for o in out.values()):
+        raise AssertionError(f"serving {cfg.name}: not every request "
+                             f"finished with {spec['new']} tokens")
+    if counts != want or routed != want_routes:
+        raise AssertionError(
+            f"serving {cfg.name}: launches {counts} by instance {routed}, "
+            f"expected {want} by instance {want_routes} ({prefills} "
+            f"prefills of {per_prefill}, {ticks} ticks of {per_tick})")
+
+    def tick():
+        return model_lib.decode_step(params, cfg, last, cache, lengths)
+
+    kernels = device_kernels(tick, 4)
+    busy = sum(e.self_device_time_total for e in kernels) / 4 / 1e3
+    flash = sum(e.self_device_time_total for e in kernels
+                if "flash_attention" in e.key) / 4 / 1e3
+    tokens = sum(len(o) for o in out.values())
+    decode_ms = 1e3 * statistics.median(timer.decode_s)
+    row = {"serve": cfg.name, "slots": spec["slots"], "requests": len(reqs),
+           "prompt_tokens": sum(len(r.prompt) for r in reqs),
+           "prefix": prefix_len(cfg), "new_tokens": tokens,
+           "prefill_calls": prefills, "decode_ticks": ticks,
+           "launch_counts": counts, "routes": routed,
+           "launches_per_prefill": per_prefill, "launches_per_tick": per_tick,
+           "wall_s": wall, "tokens_per_s": tokens / wall,
+           "prefill_ms_per_request": 1e3 * statistics.mean(timer.prefill_s),
+           "prefill_ms_max": 1e3 * max(timer.prefill_s),
+           "prefill_s_total": sum(timer.prefill_s),
+           "decode_ms_per_tick": decode_ms,
+           "decode_s_total": sum(timer.decode_s),
+           "tick_device_busy_ms": busy, "tick_flash_ms": flash,
+           "tick_device_busy_share": busy / decode_ms,
+           "tick_flash_share_of_busy": flash / busy if busy else None}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def modal_model_phase(cfg, device, launch_counts, fa):
+    """An enc-dec or VLM model at full width: `model_phase`'s gates
+    (float32 and bfloat16 forward, kernel against plain attention; float32
+    prefill of 256 tokens then decode against the forward), the float32
+    serving loop's greedy tokens with the kernel and without, then the
+    bfloat16 serving loop, the main path.  Returns its row."""
+    f32_cfg, f32_params, params = model_phase(cfg, device)
+    modal_greedy_phase(f32_cfg, f32_params, device)
+    del f32_params
+    torch.cuda.empty_cache()
+    row = modal_serve_phase(cfg, params, launch_counts, fa.route_counts)
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def whisper_train_phase(cfg, device, launch_counts, fa):
+    """Training whisper-medium: the float32 and bfloat16 gates at full
+    width with 2 encoder and 2 decoder layers (kernels against plain
+    attention under autograd; the encoder's leaves get their gradient
+    through the cross-attention's dk and dv), then `run_fixed` at full
+    depth, its main path: `WHISPER_TRAIN`, each step 72 flash forward and
+    72 backward launches (24 encoder, 24 decoder, 24 cross), all on the
+    tensor cores."""
+    train_f32_gate(cfg, device, launch_counts, seq=WHISPER_TRAIN["seq"])
+    train_bf16_gate(cfg, device, launch_counts, seq=WHISPER_TRAIN["seq"],
+                    limits=(GATE_WHISPER_TRAIN_BF16_LOSS,
+                            GATE_TRAIN_BF16_GRAD))
+    return train_phase(
+        cfg, device, launch_counts,
+        {"flash_attention": (fa.route_counts, "wgmma"),
+         "flash_attention_bwd": (fa.bwd_route_counts, "wgmma")},
+        per_step=training_launches(cfg), resume=False, train=WHISPER_TRAIN)
+
+
+# ---------------------------------------------------------------------------
 # Training: flash attention's backward, qwen2-1.5b through run_fixed
 # ---------------------------------------------------------------------------
 
@@ -2816,6 +3159,14 @@ GATE_TRAIN_LOSS, GATE_TRAIN_GRAD = 1e-5, 1e-4
 # 1.30e-2; the limits are 10x and 2x those.  A dropped or miscast
 # operand gradient moves a leaf by its own size.
 GATE_TRAIN_BF16_LOSS, GATE_TRAIN_BF16_GRAD = 1e-5, 2.5e-2
+# whisper-medium's bf16 loss gate (its leaves take qwen2's).  Read on an
+# H100 (run 25b, 2 + 2 layers, 2 x 224 tokens and 2 x 1500 frames): the
+# loss 4.18e-5 of 702.2 nats, the leaves up to 1.96e-2 (final_norm's
+# bias); the limit is 10x the loss's reading, as mamba2's.  The same
+# bfloat16 model with the plain attention reads 3.12e-5
+# (`loss_rel_plain_bf16`; qwen2's 2.3e-6): the bfloat16 roundings outside
+# attention set most of it
+GATE_WHISPER_TRAIN_BF16_LOSS = 4.2e-4
 # the resumed steps' losses against the first run's: the restored state
 # is checked bit for bit first, and the steps are deterministic (the
 # resumed losses equal the first run's bit for bit in every run so far);
@@ -2847,53 +3198,60 @@ def flash_bwd_bound(q, k, q_pos, kv_pos, mask):
 BWD_KERNELS = ("dot", "dkdv", "dq")
 
 
-def time_flash_bwd(fa, B, S, device):
-    """The backward at qwen2-1.5b's training shape (12 query heads over 2
-    kv heads of 128, bfloat16, causal, no empty slot), checked against the
-    plain backward on the routed instance and on the SIMT one
-    (`ops._backward_instance`), then both timed: CUDA events (median of
-    KERNEL_REPS) and device time in all and by kernel (`BWD_KERNELS`),
-    beside the bound, the plain backward and SDPA's backward (causal, the
-    kv heads expanded to 12; a yardstick only, its forward not timed)."""
+def time_flash_bwd(fa, B, S, device, *, heads=(12, 2, 128), causal=True,
+                   label=None):
+    """The backward at a training shape, by default qwen2-1.5b's (12
+    query heads over 2 kv heads of 128, causal; whisper's encoder passes
+    16 over 16 of 64, no causal mask), bfloat16, no empty slot, checked
+    against the plain backward on the routed instance and on the SIMT
+    one (`ops._backward_instance`), then both timed: CUDA events (median
+    of KERNEL_REPS) and device time in all and by kernel
+    (`BWD_KERNELS`), beside the bound, the plain backward and SDPA's
+    backward (its own mask, the kv heads expanded to the query heads; a
+    yardstick only, its forward not timed)."""
     from repro_torch.kernels.flash_attention.ref import (
         attention_backward_reference, attention_mask,
     )
-    case = (B, S, S, 12, 2, 128, True, None, None, 0)
-    label = f"qwen2-train-{B}x{S}"
+    Hq, Hkv, Dh = heads
+    case = (B, S, S, Hq, Hkv, Dh, causal, None, None, 0)
+    label = label or f"qwen2-train-{B}x{S}"
     inputs, kw, dout = flash_bwd_inputs(case, torch.bfloat16, device,
                                         dense=True)
     (q, k, v, qp, kp) = inputs
     _, rel, err, lse_err = check_flash_bwd(label, fa, inputs, kw, dout)
     _, simt_rel, simt_err, _ = check_flash_bwd(f"{label}-simt", fa, inputs,
                                                kw, dout, instance="simt")
-    out, lse = fa.flash_attention_forward(q, k, v, qp, kp)
+    out, lse = fa.flash_attention_forward(q, k, v, qp, kp, **kw)
     G = q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).detach().requires_grad_()
     kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1).detach()
               .requires_grad_() for x in (k, v))
     lib_out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True)
+        qt, kt, vt, is_causal=causal)
     lib_dout = dout.transpose(1, 2)
 
     def kernel():
-        return fa.flash_attention_backward(q, k, v, out, dout, lse, qp, kp)
+        return fa.flash_attention_backward(q, k, v, out, dout, lse, qp, kp,
+                                           **kw)
 
     def simt():
-        return fa._backward_instance("simt", q, k, v, out, dout, lse, qp, kp)
+        return fa._backward_instance("simt", q, k, v, out, dout, lse, qp, kp,
+                                     **kw)
 
     def plain():
-        return attention_backward_reference(q, k, v, out, dout, lse, qp, kp)
+        return attention_backward_reference(q, k, v, out, dout, lse, qp, kp,
+                                            **kw)
 
     def library():
         return torch.autograd.grad(lib_out, (qt, kt, vt), lib_dout,
                                    retain_graph=True)
 
-    mask = attention_mask(qp, kp, causal=True, window=None).expand(B, S, S)
+    mask = attention_mask(qp, kp, causal=causal, window=None).expand(B, S, S)
     bound_ms, bound_by, nbytes, flops = flash_bwd_bound(q, k, qp, kp, mask)
     by = device_ms_by(kernel, KERNEL_REPS, "flash_bwd_", BWD_KERNELS)
     simt_by = device_ms_by(simt, KERNEL_REPS, "flash_bwd_", BWD_KERNELS)
     row = {"flash_bwd_case": label, "route": fa.bwd_route(q, k, v),
-           "shape": [B, S, 12, 128, S, 2], "dtype": "bfloat16",
+           "shape": [B, S, Hq, Dh, S, Hkv], "dtype": "bfloat16",
            "ms": cuda_ms(kernel, KERNEL_REPS),
            "device_ms": by.pop("all"), "kernels_device_ms": by,
            "simt_ms": cuda_ms(simt, KERNEL_REPS),
@@ -2921,8 +3279,9 @@ def flash_bwd_phase(fa, device):
     `FLASH_BWD_CASES` case in both dtypes (each forward instance's
     log-sum-exp against the plain one; the backward through the instance
     `flash_bwd_route` names; two calls bitwise equal), then timed at
-    qwen2-1.5b's training shapes.  Returns (the timed rows, the largest
-    absolute error of any check)."""
+    qwen2-1.5b's training shapes and at whisper-medium's encoder's (early
+    in the process, where the profiler reads every launch).  Returns (the
+    timed rows, the largest absolute error of any check)."""
     worst = 0.0
     for case in FLASH_BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2946,6 +3305,10 @@ def flash_bwd_phase(fa, device):
                 "lse_max_abs_err": lse_err,
                 "tol": FLASH_BWD_TOL[dtype]}), flush=True)
     rows = [time_flash_bwd(fa, B, S, device) for B, S in FLASH_BWD_TIMED]
+    B, S = WHISPER_BWD_TIMED
+    rows.append(time_flash_bwd(fa, B, S, device, heads=(16, 16, 64),
+                               causal=False,
+                               label=f"whisper-encoder-train-{B}x{S}"))
     return rows, max([worst] + [r["max_abs_err"] for r in rows])
 
 
@@ -2970,31 +3333,83 @@ def loss_and_grads(model_lib, params, cfg, batch):
     return loss.detach(), torch.autograd.grad(loss, tree_leaves(req))
 
 
+def cut_layers(cfg, n: int):
+    """cfg cut to ``n`` layers (and an encoder's to ``n`` too)."""
+    enc = cfg.encoder
+    if enc is not None:
+        enc = dataclasses.replace(enc, n_layers=n)
+    return dataclasses.replace(cfg, n_layers=n, encoder=enc)
+
+
+def gate_batch(cfg, device, seq):
+    """`TRAIN_F32`'s batch of the synthetic pipeline at ``seq`` tokens,
+    with an enc-dec model's frames or a VLM's patches (`make_batch`)."""
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch.train import make_batch
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, seq, TRAIN_F32["batch"])
+    return make_batch(cfg, pipe, 0, TRAIN_F32["batch"], device)
+
+
+def check_gate_launches(label, cfg, launch_counts, before, kernels):
+    """Each of ``kernels`` launched as often as one `loss_fn` and its
+    backward launch it (`training_launches`)."""
+    want = training_launches(cfg)
+    for name in kernels:
+        if launch_counts[name] - before[name] != want[name]:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launch_counts[name] - before[name]} "
+                                 f"times, not {want[name]}")
+
+
+def zero_grad_leaf(cfg, path: str) -> bool:
+    """Whether a leaf's gradient is 0 in exact arithmetic: without RoPE an
+    attention key bias adds q . b to every logit of a query, which the
+    softmax cancels (whisper's self- and cross-attention)."""
+    return not cfg.rope and path.endswith("wk/b")
+
+
+def leaf_errors(cfg, names, grads, want) -> dict:
+    """max |diff| / max |want| of each gradient leaf; a `zero_grad_leaf`'s
+    own max is rounding noise, so its difference is taken against the
+    largest max |want| of any leaf instead."""
+    scale = max(float(b.float().abs().max()) for b in want)
+    return {name: (float((a.float() - b.float()).abs().max()) / scale
+                   if zero_grad_leaf(cfg, name) else rel_err(a, b))
+            for name, a, b in zip(names, grads, want)}
+
+
+def check_encoder_grads(label, cfg, names, grads):
+    """An enc-dec model's encoder leaves all get a nonzero gradient: the
+    encoder reaches the loss only through the decoder's cross-attention
+    keys and values (the backward's dk and dv)."""
+    enc = [name for name, g in zip(names, grads) if name.startswith(
+        "encoder/") and not zero_grad_leaf(cfg, name) and not bool(
+        g.float().abs().max() > 0)]
+    if cfg.encoder is not None and enc:
+        raise AssertionError(f"{label}: encoder leaves with no gradient: "
+                             f"{enc}")
+
+
 def train_f32_gate(cfg, device, launch_counts, *,
                    kernels=("flash_attention", "flash_attention_bwd"),
-                   plain=plain_attention):
-    """qwen2-1.5b (or mamba2-1.3b) at full width cut to `TRAIN_F32`'s
-    layers, float32: one `loss_fn` and backward with the kernels (each of
-    ``kernels``, a forward and its backward, once per layer) against the
-    same with the kernel through the plain version (``plain``), which
-    autograd differentiates."""
-    from repro_torch.data.pipeline import SyntheticTokenPipeline
+                   plain=plain_attention, seq=TRAIN_F32["seq"]):
+    """qwen2-1.5b (mamba2-1.3b, whisper-medium) at full width cut to
+    `TRAIN_F32`'s layers (an encoder's too), float32: one `loss_fn` and
+    backward with the kernels (each of ``kernels``, a forward and its
+    backward, as often as `training_launches` counts) against the same
+    with the kernel through the plain version (``plain``), which autograd
+    differentiates.  Each leaf on `leaf_errors`."""
     from repro_torch.models import model as model_lib
-    f32 = dataclasses.replace(cfg, n_layers=TRAIN_F32["layers"],
+    f32 = dataclasses.replace(cut_layers(cfg, TRAIN_F32["layers"]),
                               param_dtype="float32",
                               activation_dtype="float32")
     params = model_lib.init_model(f32, seed=0, device=device)
-    batch = SyntheticTokenPipeline(
-        f32.vocab_size, TRAIN_F32["seq"], TRAIN_F32["batch"]).torch_batch_at(
-        0, device)
+    batch = gate_batch(f32, device, seq)
 
     before = dict(launch_counts)
     loss, grads = loss_and_grads(model_lib, params, f32, batch)
-    for name in kernels:
-        if launch_counts[name] - before[name] != f32.n_layers:
-            raise AssertionError(f"f32 training gate: {name} launched "
-                                 f"{launch_counts[name] - before[name]} "
-                                 f"times, not {f32.n_layers}")
+    check_gate_launches("f32 training gate", f32, launch_counts, before,
+                        kernels)
     with plain():
         loss_plain, grads_plain = loss_and_grads(model_lib, params, f32,
                                                  batch)
@@ -3002,12 +3417,18 @@ def train_f32_gate(cfg, device, launch_counts, *,
             bool(torch.isfinite(g).all()) for g in grads):
         raise AssertionError("f32 training gate: loss or gradients not "
                              "finite")
+    names = [path for path, _ in state_items(params)]
+    check_encoder_grads("f32 training gate", f32, names, grads)
+    leaves = leaf_errors(f32, names, grads, grads_plain)
+    worst = max(leaves, key=leaves.get)
+    print(json.dumps({"train_f32_gate": {"model": cfg.name,
+                                         "worst_leaf": worst,
+                                         "leaves": leaves}}), flush=True)
     gate(f"{cfg.name} f32 {f32.n_layers} layers: loss, kernels vs plain",
          abs(float(loss) - float(loss_plain)) / abs(float(loss_plain)),
          GATE_TRAIN_LOSS)
     gate(f"{cfg.name} f32 {f32.n_layers} layers: worst gradient leaf, "
-         f"kernels vs plain", max(rel_err(a, b) for a, b in
-                                 zip(grads, grads_plain)), GATE_TRAIN_GRAD)
+         f"kernels vs plain", leaves[worst], GATE_TRAIN_GRAD)
     del params, grads, grads_plain
     torch.cuda.empty_cache()
 
@@ -3015,35 +3436,33 @@ def train_f32_gate(cfg, device, launch_counts, *,
 def train_bf16_gate(cfg, device, launch_counts, *,
                     kernels=("flash_attention", "flash_attention_bwd"),
                     plain=plain_attention,
-                    limits=(GATE_TRAIN_BF16_LOSS, GATE_TRAIN_BF16_GRAD)):
-    """qwen2-1.5b (or mamba2-1.3b) at full width cut to `TRAIN_F32`'s
-    layers in its own bfloat16: one `loss_fn` and backward with the
-    kernels (each of ``kernels`` once per layer), whose MLP and
-    unembedding products differentiate through `layers._MatmulF32`,
-    against the float32 model of the same weights (the bfloat16 ones
-    widened) with the kernel through the plain version (``plain``), held
-    to ``limits`` (the loss, the worst leaf).  Prints the readings, each
-    leaf's max |diff| / max |f32| among them."""
-    from repro_torch.data.pipeline import SyntheticTokenPipeline
+                    limits=(GATE_TRAIN_BF16_LOSS, GATE_TRAIN_BF16_GRAD),
+                    seq=TRAIN_F32["seq"]):
+    """qwen2-1.5b (mamba2-1.3b, whisper-medium) at full width cut to
+    `TRAIN_F32`'s layers (an encoder's too) in its own bfloat16: one
+    `loss_fn` and backward with the kernels (each of ``kernels`` as often
+    as `training_launches` counts), whose MLP and unembedding products
+    differentiate through `layers._MatmulF32`, against the float32 model
+    of the same weights (the bfloat16 ones widened) with the kernel
+    through the plain version (``plain``), held to ``limits`` (the loss,
+    the worst leaf on `leaf_errors`).  Prints the readings, each leaf's
+    max |diff| / max |f32| among them, and the loss of the bfloat16
+    model with the plain version against the float32 one's (how far the
+    roundings outside the kernels move it)."""
     from repro_torch.models import model as model_lib
     from repro_torch.models.param import tree_map
-    bf16 = dataclasses.replace(cfg, n_layers=TRAIN_F32["layers"])
+    bf16 = cut_layers(cfg, TRAIN_F32["layers"])
     if bf16.param_dtype != "bfloat16":
         raise AssertionError(f"bf16 training gate: {cfg.name} is "
                              f"{bf16.param_dtype}")
     f32 = dataclasses.replace(bf16, param_dtype="float32",
                               activation_dtype="float32")
     params = model_lib.init_model(bf16, seed=0, device=device)
-    batch = SyntheticTokenPipeline(
-        bf16.vocab_size, TRAIN_F32["seq"], TRAIN_F32["batch"]).torch_batch_at(
-        0, device)
+    batch = gate_batch(bf16, device, seq)
     before = dict(launch_counts)
     loss, grads = loss_and_grads(model_lib, params, bf16, batch)
-    for name in kernels:
-        if launch_counts[name] - before[name] != bf16.n_layers:
-            raise AssertionError(f"bf16 training gate: {name} launched "
-                                 f"{launch_counts[name] - before[name]} "
-                                 f"times, not {bf16.n_layers}")
+    check_gate_launches("bf16 training gate", bf16, launch_counts, before,
+                        kernels)
     from repro_torch.models.param import tree_leaves
     if any(g.dtype != t.dtype for g, t in zip(grads, tree_leaves(params))):
         raise AssertionError("bf16 training gate: a gradient is not in its "
@@ -3051,18 +3470,26 @@ def train_bf16_gate(cfg, device, launch_counts, *,
     with plain():
         loss_ref, grads_ref = loss_and_grads(
             model_lib, tree_map(lambda p: p.float(), params), f32, batch)
+        with torch.no_grad():
+            loss_plain_bf16 = model_lib.loss_fn(params, bf16, batch,
+                                                remat="none")[0]
     if not bool(torch.isfinite(loss)) or not all(
             bool(torch.isfinite(g).all()) for g in grads):
         raise AssertionError("bf16 training gate: loss or gradients not "
                              "finite")
     names = [path for path, _ in state_items(params)]
-    leaves = {path: rel_err(a, b) for path, a, b in
-              zip(names, grads, grads_ref)}
+    check_encoder_grads("bf16 training gate", bf16, names, grads)
+    leaves = leaf_errors(bf16, names, grads, grads_ref)
     loss_rel = abs(float(loss) - float(loss_ref)) / abs(float(loss_ref))
+    plain_rel = abs(float(loss_plain_bf16) - float(loss_ref)) / abs(
+        float(loss_ref))
     print(json.dumps({"train_bf16_gate": {"model": cfg.name,
                                           "loss": float(loss),
                                           "loss_f32": float(loss_ref),
                                           "loss_rel": loss_rel,
+                                          "loss_plain_bf16": float(
+                                              loss_plain_bf16),
+                                          "loss_rel_plain_bf16": plain_rel,
                                           "leaves": leaves}}), flush=True)
     gate(f"{cfg.name} bf16 {bf16.n_layers} layers: loss, kernels vs f32 "
          f"plain", loss_rel, limits[0])
@@ -3114,14 +3541,17 @@ def profile_summary(prof, wall_ms, kernel="flash_bwd_"):
 
 
 def train_phase(cfg, device, launch_counts, routes, *, per_step,
-                resume=True, profile_kernel="flash_bwd_", cpu_tol=None):
+                resume=True, profile_kernel="flash_bwd_", cpu_tol=None,
+                train=TRAIN):
     """The main path of training: `run_fixed` on cfg (qwen2-1.5b,
-    mamba2-1.3b at full width, the reduced jamba) at `TRAIN`, with every
-    count set to 0 just before and read just after, and per step: each
-    step must launch each kernel of ``per_step`` that many times and
-    nothing else, each launch on the instance ``routes`` names ({kernel:
-    (its counts by instance, the instance)}).  Every loss finite;
-    checkpoints at steps 3 and 6.  With ``resume`` the step-3 checkpoint
+    mamba2-1.3b and whisper-medium at full width, the reduced jamba) at
+    ``train`` (`TRAIN` unless given), with every count set to 0 just
+    before and read just after, and per step: each step must launch each
+    kernel of ``per_step`` that many times and nothing else, each launch
+    on the instance ``routes`` names ({kernel: (its counts by instance,
+    the instance)}).  Every loss finite; checkpoints at steps 3 and 6
+    (none where ``train["ckpt_every"]`` is None, which takes no
+    ``resume`` and no ``cpu_tol``).  With ``resume`` the step-3 checkpoint
     restored into a fresh state then retakes steps 4-6 (one of them
     profiled) with the first run's losses within `RESUME_TOL`; without,
     step 2 of the first run is profiled (outside steps 3-6, whose median
@@ -3137,7 +3567,11 @@ def train_phase(cfg, device, launch_counts, routes, *, per_step,
     from repro_torch.launch import train as launch_train
     build = ROOT / "build" / "repro_torch"
     build.mkdir(parents=True, exist_ok=True)
-    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=build)
+    saves = train["ckpt_every"] is not None
+    if not saves and (resume or cpu_tol is not None):
+        raise ValueError("train_phase: a resume needs checkpoints")
+    ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=build) if saves \
+        else None
     steps = []
 
     at_3 = {}           # the state after step 3, in host memory
@@ -3184,7 +3618,7 @@ def train_phase(cfg, device, launch_counts, routes, *, per_step,
             "bytes": sum(t.numel() * t.element_size()
                          for t in got.values())}}), flush=True)
 
-    kw = dict(steps=TRAIN["steps"], batch=TRAIN["batch"], seq=TRAIN["seq"],
+    kw = dict(steps=train["steps"], batch=train["batch"], seq=train["seq"],
               ckpt_dir=ckpt, log_every=1, device=device)
     try:
         torch.cuda.synchronize()
@@ -3194,12 +3628,13 @@ def train_phase(cfg, device, launch_counts, routes, *, per_step,
         for counter in (launch_counts, *(c for c, _ in routes.values())):
             for name in counter:
                 counter[name] = 0
-        losses = launch_train.run_fixed(cfg, ckpt_every=TRAIN["ckpt_every"],
-                                        on_step=on_step, **kw)
+        losses = launch_train.run_fixed(
+            cfg, ckpt_every=train["ckpt_every"] or 10 ** 9, on_step=on_step,
+            **kw)
         counts, routed = dict(launch_counts), by_instance()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
-        if len(losses) != TRAIN["steps"] or not all(
+        if len(losses) != train["steps"] or not all(
                 math.isfinite(x) for x in losses):
             raise AssertionError(f"training {cfg.name}: losses {losses}")
         want = {k: per_step.get(k, 0) for k in counts}
@@ -3218,15 +3653,15 @@ def train_phase(cfg, device, launch_counts, routes, *, per_step,
                     f"{delta} by instance {via}, expected {want} by "
                     f"instance {want_via}")
             prev = s
-        if any(counts[k] != n * TRAIN["steps"] for k, n in per_step.items()):
+        if any(counts[k] != n * train["steps"] for k, n in per_step.items()):
             raise AssertionError(f"training {cfg.name}: {counts}")
-        committed = CheckpointManager(ckpt).all_steps()
-        if committed != [3, 6]:
+        committed = CheckpointManager(ckpt).all_steps() if saves else None
+        if saves and committed != [3, 6]:
             raise AssertionError(f"training {cfg.name}: checkpoints "
                                  f"{committed}, expected [3, 6]")
         timed = [s["seconds"] for s in steps[2:]]       # steps 3-6
         step_ms = 1e3 * statistics.median(timed)
-        tokens = TRAIN["batch"] * TRAIN["seq"]
+        tokens = train["batch"] * train["seq"]
         if resume:
             again, worst, profile = resume_run(cfg, losses, kw,
                                                check_restored,
@@ -3249,10 +3684,11 @@ def train_phase(cfg, device, launch_counts, routes, *, per_step,
                  f"card's step-3 checkpoint, losses vs the card's",
                  cpu_worst, cpu_tol)
     finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+        if saves:
+            shutil.rmtree(ckpt, ignore_errors=True)
     row = {"train": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "dtype": cfg.param_dtype, "batch": TRAIN["batch"],
-           "seq": TRAIN["seq"], "steps": TRAIN["steps"], "losses": losses,
+           "dtype": cfg.param_dtype, "batch": train["batch"],
+           "seq": train["seq"], "steps": train["steps"], "losses": losses,
            "grad_norms": [s["grad_norm"] for s in steps],
            "step_seconds": [s["seconds"] for s in steps],
            "step_ms_median_3_6": step_ms,
@@ -3789,11 +4225,15 @@ def gmm_bwd_phase(gm, device):
 def training_launches(cfg) -> dict:
     """The launches one `loss_fn` and its backward make (remat "none"),
     by kernel: flash attention and its backward once per attention
-    layer, the SSD scan and its backward once per Mamba layer, the
-    grouped matmul and its backward three times per MoE layer."""
-    mixers = [cfg.mixer_kind(i) for i in range(cfg.n_layers)]
-    ffns = [cfg.ffn_kind(i) for i in range(cfg.n_layers)]
-    fwd = {"flash_attention": mixers.count("attn"),
+    layer (an encoder's included) and once more per decoder layer of an
+    enc-dec model (its cross-attention), the SSD scan and its backward
+    once per Mamba layer, the grouped matmul and its backward three times
+    per MoE layer."""
+    layers = cfg.n_layers + (cfg.encoder.n_layers if cfg.encoder else 0)
+    mixers = [cfg.mixer_kind(i) for i in range(layers)]
+    ffns = [cfg.ffn_kind(i) for i in range(layers)]
+    cross = cfg.n_layers if cfg.encoder is not None else 0
+    fwd = {"flash_attention": mixers.count("attn") + cross,
            "ssd": mixers.count("ssm"), "gmm": 3 * ffns.count("moe")}
     return {**fwd, **{f"{k}_bwd": n for k, n in fwd.items()}}
 
@@ -3980,6 +4420,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     shapes = flash_phase(fa, dev)
+    modal_shapes = modal_flash_phase(fa, dev)
 
     phase_done("5")
     # phase 6: qwen2-1.5b at full width
@@ -4286,6 +4727,41 @@ def main() -> int:
                            period["peak_gb_plain"]]}
 
     phase_done("17")
+    # phase 18: whisper-medium at full width (24 + 24 layers): the model
+    # gates, the float32 loop's greedy tokens, then serving, its main path
+    whisper = get_config(WHISPER_ARCH)
+    whisper_served = modal_model_phase(whisper, dev, launch_counts, fa)
+    flash_line["launches_whisper"] = whisper_served["launch_counts"][
+        "flash_attention"]
+    flash_line["launches_by_instance_whisper"] = whisper_served["routes"]
+
+    phase_done("18")
+    # phase 19: llava-next-mistral-7b at full width (32 layers, the
+    # 576-position patch prefix): the same
+    llava_served = modal_model_phase(get_config(VLM_ARCH), dev,
+                                     launch_counts, fa)
+    flash_line["launches_llava"] = llava_served["launch_counts"][
+        "flash_attention"]
+    flash_line["launches_by_instance_llava"] = llava_served["routes"]
+    flash_line["modal_shapes"] = [{k: r[k] for k in (
+        "flash_case", "instance", "shape", "ms", "device_ms", "plain_ms",
+        "bound_ms", "bound_by", "bound_share", "device_bound_share",
+        "library_ms", "library_device_ms", "max_abs_err")}
+        for r in modal_shapes]
+
+    phase_done("19")
+    # phase 20: training whisper -- the 2 + 2-layer gates, then run_fixed
+    # at full depth, its main path (its encoder's backward is timed in
+    # phase 15)
+    whisper_trained = whisper_train_phase(whisper, dev, launch_counts, fa)
+    bwd_line["launches_whisper"] = whisper_trained["launch_counts"][
+        "flash_attention_bwd"]
+    bwd_line["launches_by_instance_whisper"] = whisper_trained["routes"][
+        "flash_attention_bwd"]
+    bwd_line["whisper_train_step_ms"] = whisper_trained["step_ms_median_3_6"]
+    bwd_line["whisper_train_tokens_per_s"] = whisper_trained["tokens_per_s"]
+
+    phase_done("20")
     # phases 3 and 4, run last: the water-fill's cases, cycles and
     # candidates, then the days through run_policy (once the tier-1m
     # case has run the profiler reads no device events in this process,

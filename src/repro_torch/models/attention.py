@@ -1,10 +1,11 @@
 """GQA attention block: projections, RoPE, QK-norm, KV caches, windows.
 
-The port of the JAX package's ``models/attention.py`` for self-attention.
-The (q, k, v) -> o core is `kernels.flash_attention.flash_attention`:
-the Hopper kernel on CUDA tensors, the plain version on CPU tensors.
-Everything is position-driven, so the same code covers the full-sequence
-forward, prefill and rolling-window decode.
+The port of the JAX package's ``models/attention.py``.  The (q, k, v) ->
+o core is `kernels.flash_attention.flash_attention`: the Hopper kernel on
+CUDA tensors, the plain version on CPU tensors.  Everything is
+position-driven, so the same code covers the full-sequence forward,
+prefill, rolling-window decode and cross-attention over an encoder's
+output (keys at positions 0..F-1, no RoPE, no causal mask).
 
 KV cache layout per attention layer (stacked over the scan axis by the
 stack):
@@ -16,11 +17,12 @@ Rolling-window layers write slot = position % C; global layers slot =
 position.  RoPE is applied before caching, so cached keys never need
 re-rotation.  Unlike the reference, whose arrays are immutable,
 `cache_fill` writes the cache in place (and returns it), which saves a
-copy of the whole cache per layer and token.
+copy of the whole cache per layer and token.  A cross-attention cache
+holds the encoder output's keys and values: the prefill writes it once,
+and a decode step only reads it.
 
-Not ported here: cross-attention (whisper; ROADMAP Queue 1 item 11's
-encoder-decoder part) and sequence-parallel attention under a mesh
-(Queue 1 item 14).
+Not ported here: sequence-parallel attention under a mesh (Queue 1 item
+14).
 """
 from __future__ import annotations
 
@@ -32,10 +34,6 @@ from repro_torch.models.layers import (
     apply_linear, apply_rmsnorm, apply_rope, init_linear,
 )
 from repro_torch.models.param import Init, torch_dtype
-
-_NO_CROSS = ("cross-attention is not ported yet (ROADMAP Queue 1 item 11: "
-             "the encoder-decoder model comes with a later slice)")
-
 
 def init_attention(init: Init, cfg: ModelConfig) -> dict:
     d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -82,18 +80,24 @@ def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                  causal: bool = True, positions: torch.Tensor | None = None,
                  kv_ctx: torch.Tensor | None = None,
                  return_kv: bool = False):
-    """Full-sequence self-attention (forward / prefill).  With
-    return_kv=True returns (out, (k, v)) for cache filling -- k is
+    """Full-sequence attention (training / prefill / encoder / cross).
+    With ``kv_ctx`` (the encoder's output, (B, F, d_model)) it is
+    cross-attention: keys and values projected from ``kv_ctx`` at
+    positions 0..F-1, no RoPE, no causal mask.
+    With return_kv=True returns (out, (k, v)) for cache filling -- k is
     post-RoPE, matching the decode path's cache convention."""
-    if kv_ctx is not None:
-        raise NotImplementedError(_NO_CROSS)
     B, S, _ = x.shape
     if positions is None:
         positions = default_positions(B, S, x.device)
     positions = positions.to(torch.int32).contiguous()
-    q, k, v = _project_qkv(p, cfg, x, x, rope_on=rope_on,
-                           q_positions=positions, kv_positions=positions)
-    o = flash_attention(q, k, v, positions, positions, causal=causal,
+    if kv_ctx is None:                              # self-attention
+        xkv, kv_positions = x, positions
+    else:                                           # over the encoder output
+        xkv, causal, rope_on = kv_ctx, False, False
+        kv_positions = default_positions(B, xkv.shape[1], x.device)
+    q, k, v = _project_qkv(p, cfg, x, xkv, rope_on=rope_on,
+                           q_positions=positions, kv_positions=kv_positions)
+    o = flash_attention(q, k, v, positions, kv_positions, causal=causal,
                         window=window, softcap=cfg.attn_logit_softcap)
     out = apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.d_head))
     if return_kv:
@@ -141,11 +145,21 @@ def attn_decode(p: dict, cfg: ModelConfig, x_t: torch.Tensor, cache: dict,
                 lengths: torch.Tensor, *, rope_on: bool = True,
                 window: int | None = None, cross: bool = False):
     """One decode step: x_t (B, 1, d_model) at positions ``lengths``
-    (B,).  Returns (out, cache), the cache updated in place."""
-    if cross:
-        raise NotImplementedError(_NO_CROSS)
+    (B,).  Returns (out, cache), the cache updated in place.  With
+    ``cross`` the cache is the encoder output's, read and never written:
+    q alone is projected, and attends every filled slot with no causal
+    mask and no window."""
     B = x_t.shape[0]
     q_positions = lengths[:, None].to(torch.int32).contiguous()
+    if cross:
+        H, Dh = cfg.n_heads, cfg.d_head
+        q = apply_linear(p["wq"], x_t).reshape(B, 1, H, Dh)
+        if cfg.qk_norm:
+            q = apply_rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        o = flash_attention(q, cache["k"], cache["v"], q_positions,
+                            cache["pos"], causal=False, window=None,
+                            softcap=cfg.attn_logit_softcap)
+        return apply_linear(p["wo"], o.reshape(B, 1, H * Dh)), cache
     q, k_t, v_t = _project_qkv(p, cfg, x_t, x_t, rope_on=rope_on,
                                q_positions=q_positions,
                                kv_positions=q_positions)

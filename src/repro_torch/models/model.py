@@ -1,11 +1,21 @@
 """Top-level model: embeddings + stack + prefill/decode entry points.
 
-The port of the JAX package's ``models/model.py`` for token-only
-decoders (the dense, Mamba2, MoE and hybrid families).  Batch conventions:
-  tokens : (B, S)     token ids (int)
+The port of the JAX package's ``models/model.py``: the dense, Mamba2, MoE
+and hybrid decoders, the encoder-decoder family (whisper) and the VLM
+family (llava).  Batch conventions:
+  tokens : (B, S_text)         token ids (int)
+  labels : (B, S_text)         next-token targets; -1 = ignore
+  frames : (B, F, d_model)     [encdec] precomputed frame embeddings (stub)
+  patches: (B, P, d_input)     [vlm]    precomputed patch embeddings (stub)
 
-Models without RoPE (mamba2) add sinusoidal absolute position embeddings
-at the input, in float32, as the reference does.
+For VLM archs the model sequence is [projected patches ++ token embeds]
+and logits (and the loss) cover the text positions only; the positions
+run over prefix and text, so decode starts at P + S_text.  For enc-dec
+the encoder (a non-causal stack over ``frames``) runs once per forward
+or prefill and the decoder cross-attends to its output.  Models without
+RoPE (mamba2, whisper) add sinusoidal absolute position embeddings at
+the input (and whisper's encoder at its frames), in float32, as the
+reference does.
 
 The model's parameters live on one device, chosen when they are made:
 `init_model` defaults to cuda and raises without a GPU unless the caller
@@ -18,9 +28,6 @@ CUDA device, training runs the backward kernels of attention, the SSD
 scan and the grouped matmul (the MoE layer's expert products), so every
 family trains there; on the CPU every family trains through the plain
 versions.
-
-Not on this slice: the encoder of enc-dec models and the VLM patch
-prefix (item 11).
 """
 from __future__ import annotations
 
@@ -31,8 +38,8 @@ import torch
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
-    apply_embedding, apply_norm, apply_unembed, init_embedding, init_norm,
-    matmul_f32,
+    apply_embedding, apply_linear, apply_norm, apply_unembed, init_embedding,
+    init_linear, init_norm, matmul_f32,
 )
 from repro_torch.models.param import Init, PyTree, torch_dtype
 
@@ -53,13 +60,6 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return dev
 
 
-def _check_family(cfg: ModelConfig):
-    if cfg.encoder is not None or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder and the VLM prefix are not ported yet "
-            f"(ROADMAP Queue 1 item 11)")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -67,21 +67,32 @@ def _check_family(cfg: ModelConfig):
 def init_model(cfg: ModelConfig, *, seed: int = 0,
                device: str | torch.device | None = None) -> PyTree:
     """Random parameters drawn from a ``torch.Generator`` seeded with
-    ``seed`` on ``device`` (cuda by default)."""
-    _check_family(cfg)
+    ``seed`` on ``device`` (cuda by default): the reference's tree, with
+    ``encoder.{stack,final_norm}`` for enc-dec archs and the patch
+    ``projector`` for VLM archs."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     init = Init(gen, dev)
+    cross = cfg.encoder is not None
     p = {
         "embed": init_embedding(init, cfg.vocab_size, cfg.d_model,
                                 cfg.param_dtype),
-        "stack": tfm.init_stack(init, cfg),
+        "stack": tfm.init_stack(init, cfg, cross=cross),
         "final_norm": init_norm(init, cfg.norm, cfg.d_model, cfg.param_dtype),
     }
     if not cfg.tie_embeddings:
         p["unembed"] = {"w": init.dense((cfg.d_model, cfg.vocab_size),
                                         cfg.param_dtype)}
+    if cross:
+        p["encoder"] = {
+            "stack": tfm.init_stack(init, cfg, n_layers=cfg.encoder.n_layers),
+            "final_norm": init_norm(init, cfg.norm, cfg.d_model,
+                                    cfg.param_dtype),
+        }
+    if cfg.frontend is not None:
+        p["projector"] = init_linear(init, cfg.frontend.d_input, cfg.d_model,
+                                     cfg.param_dtype)
     return p
 
 
@@ -116,13 +127,41 @@ def _unembed(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return matmul_f32(x, params["unembed"]["w"])
 
 
+def _encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor, *,
+            remat: str = "none", unroll: bool = False) -> torch.Tensor:
+    """The encoder over ``frames`` (B, F, d_model): sinusoidal positions
+    added in float32, a non-causal stack, its final norm."""
+    frames = frames.to(params_device(params))
+    B, F, _ = frames.shape
+    pos = torch.arange(F, dtype=torch.int32,
+                       device=frames.device).expand(B, F).contiguous()
+    x = (frames.float() + sinusoidal(pos, cfg.d_model)).to(
+        torch_dtype(cfg.activation_dtype))
+    x, _ = tfm.stack_forward(params["encoder"]["stack"], cfg, x,
+                             positions=pos, causal=False, remat=remat,
+                             unroll=unroll)
+    return apply_norm(cfg.norm, params["encoder"]["final_norm"], x,
+                      cfg.norm_eps)
+
+
+def _enc_out(params: PyTree, cfg: ModelConfig, batch: dict, *,
+             remat: str = "none", unroll: bool = False):
+    """The encoder's output for an enc-dec batch, None otherwise."""
+    if cfg.encoder is None:
+        return None
+    return _encode(params, cfg, batch["frames"], remat=remat, unroll=unroll)
+
+
 def _input_embeds(params: PyTree, cfg: ModelConfig, batch: dict
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x (B,S,d), positions (B,S)) for a token-only batch."""
-    _check_family(cfg)
+    """Returns (x (B,S,d), positions (B,S)); prepends the projected
+    patches for VLM archs."""
     tokens = batch["tokens"].to(params_device(params))
-    B, S = tokens.shape
     x = apply_embedding(params["embed"], tokens)
+    if cfg.frontend is not None:
+        patches = batch["patches"].to(device=x.device, dtype=x.dtype)
+        x = torch.cat([apply_linear(params["projector"], patches), x], dim=1)
+    B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S).contiguous()
     x = _maybe_abs_pos(cfg, x, positions)
@@ -135,18 +174,22 @@ def _input_embeds(params: PyTree, cfg: ModelConfig, batch: dict
 
 def _forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
              remat: str, unroll: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """(logits (B, S, vocab) float32, the MoE auxiliary loss)."""
+    """(logits (B, S_text, vocab) float32, the MoE auxiliary loss)."""
+    enc_out = _enc_out(params, cfg, batch, remat=remat, unroll=unroll)
     x, positions = _input_embeds(params, cfg, batch)
     x, aux = tfm.stack_forward(params["stack"], cfg, x, positions=positions,
-                               causal=True, remat=remat, unroll=unroll)
+                               causal=True, cross=enc_out is not None,
+                               enc_out=enc_out, remat=remat, unroll=unroll)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    if cfg.frontend is not None:        # only text positions produce logits
+        x = x[:, cfg.frontend.n_prefix:, :]
     return _unembed(params, cfg, x), aux
 
 
 def forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
             remat: str = "none", unroll: bool = False) -> torch.Tensor:
-    """Returns logits (B, S, vocab) float32.  (The MoE auxiliary loss that
-    the stack returns beside them goes to `loss_fn`.)"""
+    """Returns logits (B, S_text, vocab) float32.  (The MoE auxiliary loss
+    that the stack returns beside them goes to `loss_fn`.)"""
     return _forward(params, cfg, batch, remat=remat, unroll=unroll)[0]
 
 
@@ -180,20 +223,27 @@ def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict, *,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                device: str | torch.device | None = None) -> PyTree:
-    _check_family(cfg)
+    """``seq_len`` counts every position of the decoder's sequence (a VLM
+    prefix included); enc-dec archs add a cross cache of the encoder's
+    frames."""
+    n_enc = cfg.encoder.n_frames if cfg.encoder is not None else 0
     return tfm.init_stack_cache(cfg, batch, seq_len,
                                 torch_dtype(cfg.activation_dtype),
-                                device=resolve_device(device))
+                                device=resolve_device(device),
+                                cross=cfg.encoder is not None, n_enc=n_enc)
 
 
 @torch.no_grad()
 def prefill(params: PyTree, cfg: ModelConfig, batch: dict, cache: PyTree
             ) -> tuple[torch.Tensor, PyTree, torch.Tensor]:
-    """Processes the prompt, fills the cache (in place).  Returns
-    (last_logits (B, V) float32, cache, lengths (B,) int32)."""
+    """Processes the prompt (and ``frames`` or ``patches``), fills the
+    cache (in place).  Returns (last_logits (B, V) float32, cache,
+    lengths (B,) int32: the positions filled, a VLM prefix included)."""
+    enc_out = _enc_out(params, cfg, batch)
     x, positions = _input_embeds(params, cfg, batch)
     x, cache = tfm.stack_prefill(params["stack"], cfg, x, cache,
-                                 positions=positions)
+                                 positions=positions,
+                                 cross=enc_out is not None, enc_out=enc_out)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = _unembed(params, cfg, x[:, -1, :])
     lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
@@ -206,14 +256,15 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens_t: torch.Tensor,
                 cache: PyTree, lengths: torch.Tensor
                 ) -> tuple[torch.Tensor, PyTree, torch.Tensor]:
     """One token per sequence.  tokens_t: (B, 1).  Returns (logits (B, V)
-    float32, cache (updated in place), new lengths)."""
-    _check_family(cfg)
+    float32, cache (updated in place; a cross cache is only read), new
+    lengths)."""
     dev = params_device(params)
     lengths = lengths.to(dev)
     x = apply_embedding(params["embed"], tokens_t.to(dev))
     x = _maybe_abs_pos(cfg, x, lengths[:, None])
     x = x.to(torch_dtype(cfg.activation_dtype))
-    x, cache = tfm.stack_decode(params["stack"], cfg, x, cache, lengths)
+    x, cache = tfm.stack_decode(params["stack"], cfg, x, cache, lengths,
+                                cross=cfg.encoder is not None)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = _unembed(params, cfg, x[:, 0, :])
     return logits, cache, lengths + 1

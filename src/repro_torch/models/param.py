@@ -122,7 +122,11 @@ def params_from_reference(tree: PyTree, *,
     dt_bias,norm_scale,out_proj.w}}`` for Mamba2 blocks,
     ``stack.slot{s}.ffn.{router,gate,up,down,shared.{up,gate,down}}`` for
     MoE FFNs (the router float32 whatever the parameter dtype, the
-    experts (E, d, f) and (E, f, d)), ``final_norm``),
+    experts (E, d, f) and (E, f, d)), ``final_norm``; for enc-dec
+    models ``stack.slot{s}.{norm_ca,cross.{wq,wk,wv,wo}.{w,b}}`` (the
+    decoder's cross-attention) and ``encoder.{stack,final_norm}`` (the
+    encoder's blocks, the decoder's paths without cross-attention); for
+    VLM models ``projector.w``, (d_input, d_model)),
     and so are the layouts: each stack leaf keeps its leading ``n_scan``
     axis, linear weights stay (d_in, d_out) and the conv taps (d_conv,
     channels), which are the layouts the port's layers read, so nothing

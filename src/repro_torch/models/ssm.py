@@ -106,10 +106,13 @@ def _conv_window(xbc_raw: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def ssm_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                initial_state: torch.Tensor | None = None,
                 return_state: bool = False):
-    """Full-sequence Mamba2 block. x: (B, S, d_model).  With
-    return_state=True returns (out, {"ssm", "conv"}), the decode-ready
-    state."""
+    """Full-sequence Mamba2 block. x: (B, S, d_model).  ``initial_state``
+    (B, H, P, N) float32 is the scan's entering state (a state carried
+    from an earlier chunk of the sequence; the conv starts from zeros, as
+    the reference's does).  With return_state=True returns (out, {"ssm",
+    "conv"}), the decode-ready state."""
     s, di, H, _ = _dims(cfg)
     proj = apply_linear(p["in_proj"], x)
     z, xbc_raw, dt = _split_proj(cfg, proj)
@@ -118,7 +121,8 @@ def ssm_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, state = ssd(xs, dt, A, B, C, p["D"], chunk=s.chunk)
+    y, state = ssd(xs, dt, A, B, C, p["D"], chunk=s.chunk,
+                   initial_state=initial_state)
     y = y.reshape(*y.shape[:-2], di)
     y = _gated_norm(p, y, z, cfg.norm_eps)
     out = apply_linear(p["out_proj"], y)

@@ -3,8 +3,11 @@
 The port of the JAX package's ``models/transformer.py`` for the dense
 family (mixer ``attn``, ffn ``dense``), the Mamba2 family (mixer
 ``ssm``, ffn ``none``: a Mamba2 block has no separate FFN), the MoE
-family (ffn ``moe``) and the jamba hybrid (Mamba slots and one attention
-slot per period, dense and MoE FFNs alternating).  Parameters keep the
+family (ffn ``moe``), the jamba hybrid (Mamba slots and one attention
+slot per period, dense and MoE FFNs alternating), and the encoder-decoder
+family: an encoder stack (`init_stack` with its own ``n_layers``, run
+without a causal mask) and decoder blocks whose cross-attention
+sub-block (``norm_ca``, ``cross``) follows the mixer.  Parameters keep the
 reference's structure, ``{"slot0": stacked, ..., "slot{p-1}": stacked}``
 with each leaf stacked over ``n_scan = n_layers // p``, and the
 reference's ``lax.scan`` over depth becomes a Python loop over the stack
@@ -12,8 +15,10 @@ axis.
 
 Decode and prefill thread per-layer caches the same way (attention slots
 carry {"self": {k, v, pos}}, SSM slots {"ssm": {conv, ssm}}, side by side
-in one tree for the hybrid); here the caches are written in place, layer
-by layer, through views of the stacked cache tensors.  `stack_forward`
+in one tree for the hybrid, and cross-attention slots add {"crosskv": {k,
+v, pos}} of the encoder's length, filled by the prefill and only read by
+decode); here the caches are written in place, layer by layer, through
+views of the stacked cache tensors.  `stack_forward`
 returns the MoE layers' summed auxiliary loss beside the activations, as
 the reference does.
 
@@ -26,9 +31,8 @@ products with no batch axis, as ``checkpoint_dots_with_no_batch_dims``
 keeps the reference's) and recomputes the rest; ``"none"`` keeps
 everything.
 
-Not on this slice, and refused with NotImplementedError: cross-attention
-(ROADMAP Queue 1 item 11), and ``unroll``, which only matters to the
-dry-run's cost analysis (item 15).
+Not on this slice, and refused with NotImplementedError: ``unroll``, which
+only matters to the dry-run's cost analysis (ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -82,11 +86,7 @@ class SlotSpec:
 
 
 def slot_specs(cfg: ModelConfig, *, cross: bool = False) -> list[SlotSpec]:
-    """The period's slot specs; raises for cross-attention, which this
-    slice does not run."""
-    if cross:
-        raise _not_ported("cross-attention", "11")
-    return [SlotSpec(cfg, s) for s in range(cfg.period)]
+    return [SlotSpec(cfg, s, cross=cross) for s in range(cfg.period)]
 
 
 REMAT_POLICIES = ("none", "full", "dots")
@@ -143,6 +143,9 @@ def init_block(init: Init, cfg: ModelConfig, spec: SlotSpec) -> dict:
         p["mixer"] = attn.init_attention(init, cfg)
     else:
         p["mixer"] = ssm_mod.init_ssm(init, cfg)
+    if spec.cross:
+        p["norm_ca"] = init_norm(init, cfg.norm, d, dt)
+        p["cross"] = attn.init_attention(init, cfg)
     if spec.ffn == "dense":
         p["norm2"] = init_norm(init, cfg.norm, d, dt)
         p["ffn"] = init_mlp(init, d, cfg.d_ff, dt, gated=cfg.gated_mlp)
@@ -165,8 +168,21 @@ def _ffn(p: dict, cfg: ModelConfig, spec: SlotSpec,
     return x + apply_mlp(p["ffn"], h, gated=cfg.gated_mlp, act=cfg.act), None
 
 
+def _cross(p: dict, cfg: ModelConfig, x: torch.Tensor,
+           enc_out: torch.Tensor, return_kv: bool = False):
+    """The cross-attention sub-block with its residual over the encoder's
+    output; with ``return_kv`` also its (k, v) for the cross cache."""
+    h = apply_norm(cfg.norm, p["norm_ca"], x, cfg.norm_eps)
+    y = attn.attn_forward(p["cross"], cfg, h, kv_ctx=enc_out,
+                          return_kv=return_kv)
+    if return_kv:
+        return x + y[0], y[1]
+    return x + y
+
+
 def apply_block(p: dict, cfg: ModelConfig, spec: SlotSpec, x: torch.Tensor,
-                *, positions: torch.Tensor, causal: bool
+                *, positions: torch.Tensor, causal: bool,
+                enc_out: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Full-sequence block.  Returns (x, MoE aux or None)."""
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
@@ -176,18 +192,26 @@ def apply_block(p: dict, cfg: ModelConfig, spec: SlotSpec, x: torch.Tensor,
                                 positions=positions)
     else:
         mix = ssm_mod.ssm_forward(p["mixer"], cfg, h)
-    return _ffn(p, cfg, spec, x + mix)
+    x = x + mix
+    if spec.cross:
+        x = _cross(p, cfg, x, enc_out)
+    return _ffn(p, cfg, spec, x)
 
 
 # ---------------------------------------------------------------------------
 # Stack init
 # ---------------------------------------------------------------------------
 
-def init_stack(init: Init, cfg: ModelConfig) -> dict:
-    """Stacked params: {"slotS": leaf(n_scan, ...)}."""
-    stacked = init.stacked(cfg.n_scan)
+def init_stack(init: Init, cfg: ModelConfig, *, n_layers: int | None = None,
+               cross: bool = False) -> dict:
+    """Stacked params: {"slotS": leaf(n_scan, ...)}, over ``n_layers``
+    (cfg's by default; an encoder's own)."""
+    n_layers = cfg.n_layers if n_layers is None else n_layers
+    if n_layers % cfg.period:
+        raise ValueError((n_layers, cfg.period))
+    stacked = init.stacked(n_layers // cfg.period)
     return {f"slot{spec.slot}": init_block(stacked, cfg, spec)
-            for spec in slot_specs(cfg)}
+            for spec in slot_specs(cfg, cross=cross)}
 
 
 def _n_scan(params: dict) -> int:
@@ -201,9 +225,11 @@ def _n_scan(params: dict) -> int:
 
 def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                   positions: torch.Tensor | None = None, causal: bool = True,
-                  cross: bool = False, remat: str = "none",
+                  cross: bool = False, enc_out: torch.Tensor | None = None,
+                  remat: str = "none",
                   unroll: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (x, the MoE layers' summed auxiliary loss, float32)."""
+    """Returns (x, the MoE layers' summed auxiliary loss, float32).  With
+    ``cross`` each block attends ``enc_out`` after its mixer."""
     _check_modes(remat=remat, unroll=unroll)
     B, S, _ = x.shape
     if positions is None:
@@ -215,7 +241,8 @@ def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec in specs:
             x, aux_l = apply_block(slices[f"slot{spec.slot}"], cfg, spec, x,
-                                   positions=positions, causal=causal)
+                                   positions=positions, causal=causal,
+                                   enc_out=enc_out)
             if aux_l is not None:
                 aux = aux + aux_l
         return x, aux
@@ -233,22 +260,29 @@ def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, *,
-                     device: torch.device, cross: bool = False) -> dict:
+                     device: torch.device, cross: bool = False,
+                     n_enc: int = 0) -> dict:
     """Cache tree matching the stacked params; each leaf has a leading
-    n_scan axis."""
+    n_scan axis.  With ``cross`` each slot also holds a ``crosskv``
+    cache of ``n_enc`` slots (the encoder's length)."""
     n_scan = cfg.n_scan
     out = {}
     for spec in slot_specs(cfg, cross=cross):
+        slot = {}
         if spec.mixer == "attn":
             cap = spec.cache_capacity(cfg, seq_len)
-            kind = "self"
-            base = attn.init_kv_cache(cfg, batch, cap, dtype, device=device)
+            slot["self"] = attn.init_kv_cache(cfg, batch, cap, dtype,
+                                              device=device)
         else:
-            kind = "ssm"
-            base = ssm_mod.init_ssm_state(cfg, batch, dtype, device=device)
-        out[f"slot{spec.slot}"] = {kind: {
-            k: t[None].repeat(n_scan, *([1] * t.dim()))
-            for k, t in base.items()}}
+            slot["ssm"] = ssm_mod.init_ssm_state(cfg, batch, dtype,
+                                                 device=device)
+        if spec.cross:
+            slot["crosskv"] = attn.init_kv_cache(cfg, batch, n_enc, dtype,
+                                                 device=device)
+        out[f"slot{spec.slot}"] = {
+            kind: {k: t[None].repeat(n_scan, *([1] * t.dim()))
+                   for k, t in base.items()}
+            for kind, base in slot.items()}
     return out
 
 
@@ -261,7 +295,13 @@ def apply_block_decode(p: dict, cfg: ModelConfig, spec: SlotSpec,
                                   rope_on=spec.rope_on, window=spec.window)
     else:
         mix, _ = ssm_mod.ssm_decode(p["mixer"], cfg, h, cache["ssm"])
-    return _ffn(p, cfg, spec, x_t + mix)[0]
+    x_t = x_t + mix
+    if spec.cross:
+        h = apply_norm(cfg.norm, p["norm_ca"], x_t, cfg.norm_eps)
+        y, _ = attn.attn_decode(p["cross"], cfg, h, cache["crosskv"],
+                                lengths, cross=True)
+        x_t = x_t + y
+    return _ffn(p, cfg, spec, x_t)[0]
 
 
 def stack_decode(params: dict, cfg: ModelConfig, x_t: torch.Tensor,
@@ -285,7 +325,8 @@ def stack_decode(params: dict, cfg: ModelConfig, x_t: torch.Tensor,
 
 def apply_block_prefill(p: dict, cfg: ModelConfig, spec: SlotSpec,
                         x: torch.Tensor, cache: dict, *,
-                        positions: torch.Tensor) -> torch.Tensor:
+                        positions: torch.Tensor,
+                        enc_out: torch.Tensor | None = None) -> torch.Tensor:
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
         mix, (k, v) = attn.attn_forward(
@@ -296,13 +337,18 @@ def apply_block_prefill(p: dict, cfg: ModelConfig, spec: SlotSpec,
         mix, state = ssm_mod.ssm_forward(p["mixer"], cfg, h,
                                          return_state=True)
         ssm_mod.ssm_fill(cache["ssm"], state)
-    return _ffn(p, cfg, spec, x + mix)[0]
+    x = x + mix
+    if spec.cross:
+        x, (xk, xv) = _cross(p, cfg, x, enc_out, return_kv=True)
+        attn.cache_fill(cache["crosskv"], xk, xv, attn.default_positions(
+            xk.shape[0], xk.shape[1], xk.device))
+    return _ffn(p, cfg, spec, x)[0]
 
 
 def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
                   cache: dict, *, positions: torch.Tensor | None = None,
-                  cross: bool = False, unroll: bool = False
-                  ) -> tuple[torch.Tensor, dict]:
+                  cross: bool = False, enc_out: torch.Tensor | None = None,
+                  unroll: bool = False) -> tuple[torch.Tensor, dict]:
     _check_modes(unroll=unroll)
     B, S, _ = x.shape
     if positions is None:
@@ -313,7 +359,7 @@ def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
         for spec in specs:
             key = f"slot{spec.slot}"
             x = apply_block_prefill(p[key], cfg, spec, x, c[key],
-                                    positions=positions)
+                                    positions=positions, enc_out=enc_out)
     return x, cache
 
 

@@ -123,6 +123,7 @@ from chip_smoke import (  # noqa: E402
     flash_bwd_route, GMM_BWD_STAGE_CASES, GMM_BWD_TILE_CASES,
     gmm_bwd_inputs,
     FLASH_CASES, FLASH_TOL, FLASH_WGMMA_CASES, GMM_CASES, GMM_RAGGED,
+    MODAL_FLASH_CALLS, modal_flash_inputs,
     GMM_TC_CASES, GMM_TOL, SSD_BWD_DFINAL, SSD_BWD_TC_CASES, SSD_CASES,
     SSD_TC_CASES, SSD_TOL,
     attention_inputs, bitwise_equal, check_fully_masked_rows, fused_deltas,
@@ -447,6 +448,16 @@ def test_flash_kernel_at_qwen2_serving_shapes(cuda, label, seed, B, Sq, Skv,
     q, k, v, qp, kp = attention_inputs(seed, B, Sq, Skv, 12, 2, 128, dtype,
                                        cuda, lengths=lengths)
     assert_kernel_matches_plain(q, k, v, qp, kp, causal=True)
+
+
+@pytest.mark.parametrize("call", MODAL_FLASH_CALLS, ids=lambda c: c[0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_modal_calls(cuda, call, dtype):
+    """whisper-medium's encoder, cross and decoder calls (G = 1 at Dh 64,
+    1500 frames, no causal mask on the encoder and cross calls) and
+    llava's prefix prefill and tick."""
+    _, inputs, kw, _ = modal_flash_inputs(call, dtype, cuda)
+    assert_kernel_matches_plain(*inputs, **kw)
 
 
 def test_flash_fully_masked_rows_give_zero(cuda):

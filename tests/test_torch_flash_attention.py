@@ -57,8 +57,8 @@ from repro_torch.kernels.flash_attention.ref import (
 from test_kernel_flash_attention import CASES
 from test_torch_cuda import (
     FLASH_BWD_CASES, FLASH_BWD_TIMED, FLASH_BWD_TOL, FLASH_CASES,
-    FLASH_WGMMA_CASES, check_fully_masked_rows, check_rolling_window,
-    flash_bwd_inputs, flash_bwd_route, flash_route,
+    FLASH_WGMMA_CASES, MODAL_FLASH_CALLS, check_fully_masked_rows,
+    check_rolling_window, flash_bwd_inputs, flash_bwd_route, flash_route,
 )
 from test_torch_matchmaker import one_torch_thread  # noqa: F401
 
@@ -190,6 +190,22 @@ def test_route_of_the_wgmma_edge_cases():
         assert route(q, k, v) == "wgmma"
 
 
+@pytest.mark.parametrize("call", MODAL_FLASH_CALLS, ids=lambda c: c[0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_of_the_modal_calls(call, dtype):
+    """whisper's encoder, decoder and cross calls and llava's: each takes
+    the instance the smoke's launch gates count it on in bfloat16 (the
+    decode split for a tick, the tensor cores for every prefill, the
+    encoder and a prompt of 48 tokens at G = 1; a prompt of 32 at G = 1
+    is a decode-sized call), and in float32 the split or SIMT."""
+    label, B, Sq, Skv, Hq, Hkv, Dh, causal, want = call
+    q = empty((B, Sq, Hq, Dh), dtype)
+    k, v = empty((B, Skv, Hkv, Dh), dtype), empty((B, Skv, Hkv, Dh), dtype)
+    if dtype == "float32" and want == "wgmma":
+        want = "simt"
+    assert route(q, k, v) == want == flash_route(q.dtype, Sq, Hq, Hkv, Dh)
+
+
 def test_route_sends_a_misaligned_view_to_simt():
     """TMA needs 16-byte aligned tensors: a view 2 bytes into its storage
     goes to the SIMT instance (whose wrapper then refuses it on the card,
@@ -215,7 +231,8 @@ def test_route_caps_the_tensor_cores_keys():
 PLANS = [(B, Sq, Skv, Hkv, G) for B, Sq, Skv, Hkv, G in (
     (8, 1, 2048, 2, 6), (8, 1, 2048, 8, 4), (1, 1, 256, 4, 2),
     (1, 1, 100_000, 1, 32), (64, 1, 2048, 8, 4), (300, 1, 64, 8, 1),
-    (1, 4, 37, 2, 8), (2, 2, 33, 1, 16), (1, 1, 1, 1, 1), (4, 3, 999, 3, 5))]
+    (1, 4, 37, 2, 8), (2, 2, 33, 1, 16), (1, 1, 1, 1, 1), (4, 3, 999, 3, 5),
+    (8, 1, 1500, 16, 1), (8, 1, 1056, 8, 4))]
 
 
 @pytest.mark.parametrize("B,Sq,Skv,Hkv,G", PLANS)
@@ -268,6 +285,27 @@ def test_split_and_merge_matches_pallas_and_oracle(
         for ref in (pallas, oracle):
             np.testing.assert_allclose(as_f32(out), as_f32(ref), atol=tol,
                                        rtol=tol)
+
+
+def test_split_and_merge_of_a_cross_decode(rng):
+    """whisper's cross-attention tick: one query row a kv head (G = 1)
+    against a full 1500-slot cache, no causal mask, cut as the decode
+    instance cuts it for 8 slots of 16 heads (a 220-key tail in the last
+    split): every slot counted once, as the oracle counts it."""
+    B, Skv, H, Dh = 2, 1500, 3, 64
+    plan = split_plan(8, 1, Skv, 16, 1)
+    assert plan.n_splits * plan.keys_per_split >= Skv > (
+        plan.n_splits - 1) * plan.keys_per_split
+    q, k, v, _, _ = inputs(rng, B, 1, Skv, H, H, Dh, "float32")
+    qp = np.full((B, 1), 7, np.int32)      # before every key: no mask
+    kp = np.broadcast_to(np.arange(Skv, dtype=np.int32), (B, Skv)).copy()
+    out = attention_split_reference(*map(to_torch, (q, k, v, qp, kp)),
+                                    keys_per_split=plan.keys_per_split,
+                                    causal=False)
+    want = attention_reference(*map(jnp.asarray, (q, k, v, qp, kp)),
+                               causal=False)
+    np.testing.assert_allclose(as_f32(out), as_f32(want), atol=2e-5,
+                               rtol=2e-5)
 
 
 def test_split_and_merge_of_fully_masked_rows_and_splits(rng):

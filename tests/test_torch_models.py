@@ -1,4 +1,5 @@
-"""The port's dense models against the JAX package's, on the CPU.
+"""The port's dense, encoder-decoder (whisper) and VLM (llava) models
+against the JAX package's, on the CPU.
 
 Weights are the reference's own (``materialize`` with a JAX key),
 carried across by `params_from_reference`; inputs are made with numpy.
@@ -234,11 +235,210 @@ def test_cache_fill_rolls_over_a_window():
     assert cache["k"][0, :, 0, 0].tolist() == [4.0, 5.0, 2.0, 3.0]
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("whisper-medium", "item 11"), ("llava-next-mistral-7b", "item 11")])
-def test_other_families_are_refused_with_their_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        model_lib.init_model(reduced_config(arch), device="cpu")
+# ---------------------------------------------------------------------------
+# the encoder-decoder (whisper) and VLM (llava) families
+# ---------------------------------------------------------------------------
+
+def modal(rng, cfg, B):
+    """numpy frames (enc-dec) or patches (VLM) for a batch of B."""
+    out = {}
+    if cfg.encoder is not None:
+        out["frames"] = rng.standard_normal(
+            (B, cfg.encoder.n_frames, cfg.d_model)).astype(np.float32)
+    if cfg.frontend is not None:
+        out["patches"] = rng.standard_normal(
+            (B, cfg.frontend.n_prefix, cfg.frontend.d_input)).astype(
+            np.float32)
+    return out
+
+
+def both(batch):
+    """The same numpy batch as the reference's and the port's."""
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: t(v) for k, v in batch.items()})
+
+
+def leaf_shapes(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaf_shapes(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = tuple(v.shape)
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_init_model_tree_is_the_carried_tree(arch):
+    """`init_model`'s paths and shapes are those `params_from_reference`
+    carries (the encoder, the cross-attention and the projector
+    included), so the reference's weights load unchanged."""
+    cfg = ref_reduced_config(arch)
+    want = leaf_shapes(carried(ref_params(cfg)))
+    got = leaf_shapes(model_lib.init_model(reduced_config(arch),
+                                           device="cpu"))
+    assert got == want
+    assert ("encoder.final_norm.scale" in got) == (cfg.encoder is not None)
+    assert ("projector.w" in got) == (cfg.frontend is not None)
+
+
+@pytest.mark.parametrize("B,S", [(2, 12), (1, 1)])
+def test_cross_attention_block(rng, B, S):
+    """whisper's cross-attention over an encoder output: keys at 0..F-1,
+    no RoPE, no causal mask; (k, v) for the cross cache."""
+    cfg = ref_reduced_config("whisper-medium")
+    p = jax.tree_util.tree_map(lambda a: a[0],
+                               ref_params(cfg)["stack"]["slot0"]["cross"])
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((B, cfg.encoder.n_frames,
+                               cfg.d_model)).astype(np.float32)
+    ref_out, (ref_k, ref_v) = ref_attn.attn_forward(
+        p, cfg, jnp.asarray(x), kv_ctx=jnp.asarray(enc), return_kv=True)
+    out, (k, v) = attn.attn_forward(carried(p), reduced_config(
+        "whisper-medium"), t(x), kv_ctx=t(enc), return_kv=True)
+    close(out, ref_out, LAYER_TOL)
+    close(k, ref_k, LAYER_TOL)
+    close(v, ref_v, LAYER_TOL)
+
+
+def test_cross_attention_decode(rng):
+    """One decode step against a cross cache (its empty slots masked):
+    the output as the reference's, and the cache not written."""
+    cfg, pcfg = ref_reduced_config("whisper-medium"), reduced_config(
+        "whisper-medium")
+    p = jax.tree_util.tree_map(lambda a: a[0],
+                               ref_params(cfg)["stack"]["slot0"]["cross"])
+    F = cfg.encoder.n_frames
+    cache = {k: rng.standard_normal((3, F, cfg.n_kv_heads, cfg.d_head))
+             .astype(np.float32) for k in ("k", "v")}
+    cache["pos"] = np.tile(np.arange(F, dtype=np.int32), (3, 1))
+    cache["pos"][1, F - 5:] = -1
+    x = rng.standard_normal((3, 1, cfg.d_model)).astype(np.float32)
+    lengths = np.array([4, 9, 30], np.int32)
+    ref_out, _ = ref_attn.attn_decode(
+        p, cfg, jnp.asarray(x), {k: jnp.asarray(v) for k, v in cache.items()},
+        jnp.asarray(lengths), cross=True)
+    port_cache = {k: t(v.copy()) for k, v in cache.items()}
+    out, back = attn.attn_decode(carried(p), pcfg, t(x), port_cache,
+                                 t(lengths), cross=True)
+    close(out, ref_out, LAYER_TOL)
+    assert back is port_cache
+    for k, v in cache.items():
+        np.testing.assert_array_equal(port_cache[k].numpy(), v)
+
+
+def test_encoder_matches_reference(rng):
+    cfg = ref_reduced_config("whisper-medium")
+    params = ref_params(cfg)
+    frames = modal(rng, cfg, 2)["frames"]
+    want = ref_model._encode(params, cfg, jnp.asarray(frames), remat="none")
+    got = model_lib._encode(carried(params), reduced_config("whisper-medium"),
+                            t(frames))
+    close(got, want, LAYER_TOL)
+
+
+MODAL = ["whisper-medium", "llava-next-mistral-7b"]
+
+
+@pytest.mark.parametrize("arch", MODAL)
+def test_modal_forward_matches_reference(rng, arch):
+    """Logits for the text positions only (llava's prefix produces none),
+    with the frames or patches of the batch."""
+    cfg = ref_reduced_config(arch)
+    params = ref_params(cfg)
+    ref_b, port_b = both({"tokens": tokens(rng, cfg, 2, 20),
+                          **modal(rng, cfg, 2)})
+    ref_logits, _ = ref_model.forward(params, cfg, ref_b, remat="none")
+    logits = model_lib.forward(carried(params), reduced_config(arch), port_b)
+    assert logits.shape == (2, 20, cfg.vocab_size)
+    close(logits, ref_logits, MODEL_TOL)
+
+
+@pytest.mark.parametrize("arch", MODAL)
+def test_modal_prefill_and_decode_match_reference(rng, arch):
+    """The port's prefill and decode steps against the reference's, step
+    by step; ``lengths`` count a VLM prefix, as the reference's do, and
+    the cross cache holds the encoder's keys at positions 0..F-1."""
+    cfg, pcfg = ref_reduced_config(arch), reduced_config(arch)
+    params = ref_params(cfg, seed=1)
+    port = carried(params)
+    toks = tokens(rng, cfg, 2, 16)
+    extra = modal(rng, cfg, 2)
+    ref_b, port_b = both({"tokens": toks[:, :10], **extra})
+    ref_cache = ref_model.init_cache(cfg, 2, 40)
+    cache = model_lib.init_cache(pcfg, 2, 40, device="cpu")
+    ref_logits, ref_cache, ref_len = ref_model.prefill(params, cfg, ref_b,
+                                                       ref_cache)
+    logits, cache, lengths = model_lib.prefill(port, pcfg, port_b, cache)
+    close(logits, ref_logits, MODEL_TOL)
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(ref_len))
+    prefix = cfg.frontend.n_prefix if cfg.frontend is not None else 0
+    assert lengths.tolist() == [prefix + 10] * 2
+    for s in range(10, 16):
+        ref_logits, ref_cache, ref_len = ref_model.decode_step(
+            params, cfg, jnp.asarray(toks[:, s:s + 1]), ref_cache, ref_len)
+        logits, cache, lengths = model_lib.decode_step(
+            port, pcfg, t(toks[:, s:s + 1]), cache, lengths)
+        close(logits, ref_logits, MODEL_TOL)
+    np.testing.assert_array_equal(lengths.numpy(), np.asarray(ref_len))
+    for kind in ref_cache["slot0"]:
+        close(cache["slot0"][kind]["k"], ref_cache["slot0"][kind]["k"],
+              LAYER_TOL)
+        np.testing.assert_array_equal(
+            cache["slot0"][kind]["pos"].numpy(),
+            np.asarray(ref_cache["slot0"][kind]["pos"]))
+    assert set(cache["slot0"]) == set(ref_cache["slot0"])
+
+
+@pytest.mark.parametrize("arch", MODAL)
+def test_modal_prefill_decode_matches_forward(rng, arch):
+    """Prefill of a prefix, then token-by-token decode of the rest with
+    the ground-truth tokens, against the teacher-forced forward; decode
+    leaves the cross cache as the prefill wrote it."""
+    cfg = reduced_config(arch)
+    params = model_lib.init_model(cfg, device="cpu")
+    S, n_pre = 24, 12
+    toks = t(tokens(rng, cfg, 1, S))
+    extra = {k: t(v) for k, v in modal(rng, cfg, 1).items()}
+    full = model_lib.forward(params, cfg, {"tokens": toks, **extra})
+    prefix = cfg.frontend.n_prefix if cfg.frontend is not None else 0
+    cache = model_lib.init_cache(cfg, 1, prefix + S + 8, device="cpu")
+    logits, cache, lengths = model_lib.prefill(
+        params, cfg, {"tokens": toks[:, :n_pre], **extra}, cache)
+    crosskv = {k: v.clone() for k, v in cache["slot0"].get(
+        "crosskv", {}).items()}
+    close(logits, full[:, n_pre - 1], ATOL)
+    for s in range(n_pre, S):
+        logits, cache, lengths = model_lib.decode_step(
+            params, cfg, toks[:, s:s + 1], cache, lengths)
+        close(logits, full[:, s], ATOL)
+    assert int(lengths[0]) == prefix + S
+    for k, v in crosskv.items():
+        assert torch.equal(cache["slot0"]["crosskv"][k], v)
+    if cfg.encoder is not None:
+        assert cache["slot0"]["crosskv"]["pos"].tolist()[0][0] == list(
+            range(cfg.encoder.n_frames))
+
+
+@pytest.mark.parametrize("arch", MODAL)
+def test_modal_forward_is_differentiable(arch):
+    """Every leaf gets a gradient, the encoder's and the projector's
+    included (the encoder's only through the cross-attention's keys and
+    values)."""
+    from repro_torch.models.param import tree_leaves, tree_map
+    cfg = reduced_config(arch)
+    params = tree_map(lambda p: p.requires_grad_(),
+                      model_lib.init_model(cfg, device="cpu"))
+    rng = np.random.default_rng(2)
+    batch = {"tokens": t(tokens(rng, cfg, 2, 8)),
+             **{k: t(v) for k, v in modal(rng, cfg, 2).items()}}
+    logits = model_lib.forward(params, cfg, batch)
+    grads = torch.autograd.grad(logits.square().mean(), tree_leaves(params),
+                                allow_unused=True)
+    side = params.get("encoder", params.get("projector"))
+    for g in grads[-len(tree_leaves(side)):]:
+        assert g is not None and bool(g.abs().max() > 0)
+    assert all(g is not None for g in grads)
 
 
 def test_full_width_qwen2_shapes():

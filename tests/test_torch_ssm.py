@@ -53,6 +53,65 @@ def test_ssm_block_forward_matches_reference(rng):
     close(state["conv"], ref_state["conv"], LAYER_TOL)
 
 
+def test_ssm_block_with_an_initial_state_matches_reference(rng):
+    """``initial_state``: the scan enters from a carried state, as the
+    reference's does; output and final state within the block's
+    tolerance."""
+    cfg = ref_reduced_config(ARCH)
+    p0 = first_layer(ref_params(cfg, seed=2)["stack"]["slot0"]["mixer"])
+    s = cfg.ssm
+    H = s.n_heads(cfg.d_model)
+    x = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    init = (rng.standard_normal((2, H, s.head_dim, s.d_state)) * 0.3).astype(
+        np.float32)
+    ref_out, ref_state = ref_ssm.ssm_forward(
+        p0, cfg, jnp.asarray(x), initial_state=jnp.asarray(init),
+        return_state=True)
+    out, state = ssm.ssm_forward(carried(p0), reduced_config(ARCH), t(x),
+                                 initial_state=t(init), return_state=True)
+    close(out, ref_out, LAYER_TOL)
+    close(state["ssm"], ref_state["ssm"], LAYER_TOL)
+
+
+@pytest.mark.parametrize("split", [32, 19])
+def test_chunked_prefill_with_a_carried_state_is_one_prefill(rng, split):
+    """The block's scan over a prompt in two pieces, the second entering
+    from the first's final state, gives the whole prompt's outputs and
+    final state (a cut at a chunk boundary and inside a chunk).  The
+    block's conv starts each piece from zeros, as the reference's does,
+    so the pieces are cut after the conv: the scan's inputs are the
+    whole prompt's."""
+    from repro_torch.models.ssm import ssd
+    cfg = reduced_config(ARCH)
+    p = jax.tree_util.tree_map(
+        lambda a: a[0], ref_params(ref_reduced_config(ARCH), seed=4)[
+            "stack"]["slot0"]["mixer"])
+    p = carried(p)
+    x = t(rng.standard_normal((2, 50, cfg.d_model)).astype(np.float32))
+    scans = []
+
+    def recorded(xs, dt, A, Bm, Cm, D, *, chunk, initial_state=None):
+        scans.append((xs, dt, A, Bm, Cm, D, chunk))
+        return ssd(xs, dt, A, Bm, Cm, D, chunk=chunk,
+                   initial_state=initial_state)
+
+    ssm.ssd, saved = recorded, ssm.ssd
+    try:
+        _, whole = ssm.ssm_forward(p, cfg, x, return_state=True)
+    finally:
+        ssm.ssd = saved
+    xs, dt, A, Bm, Cm, D, chunk = scans[0]
+    y, final = ssd(xs, dt, A, Bm, Cm, D, chunk=chunk)
+    cut = [a[:, :split] for a in (xs, dt, Bm, Cm)]
+    rest = [a[:, split:] for a in (xs, dt, Bm, Cm)]
+    y1, s1 = ssd(cut[0], cut[1], A, cut[2], cut[3], D, chunk=chunk)
+    y2, s2 = ssd(rest[0], rest[1], A, rest[2], rest[3], D, chunk=chunk,
+                 initial_state=s1)
+    close(torch.cat([y1, y2], dim=1), y.numpy(), LAYER_TOL)
+    close(s2, final.numpy(), LAYER_TOL)
+    close(s2, whole["ssm"].numpy(), LAYER_TOL)
+
+
 def test_ssm_block_decode_matches_reference(rng):
     cfg, pcfg = ref_reduced_config(ARCH), reduced_config(ARCH)
     p0 = first_layer(ref_params(cfg, seed=3)["stack"]["slot0"]["mixer"])
