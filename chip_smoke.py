@@ -5,7 +5,7 @@ Run from the repository root on a machine with the card:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package.  Phases, run
-in the order 1, 2, 5-13, 15-20, 3, 4, 14 (the water-fill's last: once its
+in the order 1, 2, 5-13, 15-24, 3, 4, 25, 14 (the water-fill's last: once its
 tier-1m case has run, `torch.profiler` reads no device events in the
 same process -- `repro_torch.kernels.waterfill.study` finds where -- so
 every phase that reads the profiler runs first); any failure raises and
@@ -71,7 +71,13 @@ to a plain version):
      tick, llava's prefix prefill and tick) in both dtypes, each on the
      instance the serving gates count it on, four of them timed in
      bfloat16 (`MODAL_FLASH_TIMED`) beside their bound and SDPA with its
-     own mask;
+     own mask; the group sizes of phases 21-24 (`FLASH_GROUP_CASES`: G =
+     9, 8 and 5 at Dh 128 on the tensor cores, Sq ending inside a packed
+     tile, an empty batch row; `FLASH_GROUP_DECODE`: a tick of 8 slots on
+     the split), each twice, bitwise; and each of those configurations'
+     1024-token prefill and decode tick (`CONFIG_FLASH_CALLS`) in both
+     dtypes, timed in bfloat16 like the modal calls (a tick's SDPA takes
+     the positions' mask: its own causal mask is aligned top-left);
   6. qwen2-1.5b at full width (28 layers, random weights from a seeded
      generator): forward logits with the kernel against the same model
      with attention forced through the plain version, in float32 and in
@@ -256,10 +262,43 @@ to a plain version):
      8 x 224 text tokens and 8 x 1500 frames, each step 72 flash forward
      and 72 backward launches, all on the tensor cores; step time,
      tokens/s, peak memory, step 2 profiled;
+ 21-24. granite-8b (36 layers), starcoder2-7b (32), qwen3-32b (64) and
+     llama4-scout-17b-a16e (8 of its 48: two periods of three chunked
+     layers and a global NoPE one) at full width (`CONFIGS`,
+     `config_phase`): phase 6's gates at 2 layers (llama4: one period of
+     4, every kernel against its plain version, no bfloat16 gate there),
+     the float32 engine's greedy tokens with the kernels and without;
+     for llama4 then `window_phase` (a 9,216-token prompt through its
+     8,192-key chunked window: prefill of 9,200 tokens and 16 decodes
+     through the wrapping rolling cache against the forward, at a
+     capacity that drops nothing), its expert products (16 experts, 5120
+     <-> 8192, a 1024-token prefill and a tick) against the plain version
+     and timed beside `torch.bmm`, and the routed bfloat16 gate at 8
+     layers; then serving in bfloat16 like phase 7 with exact launches
+     and routes (llama4: every gmm launch on the tensor cores), the tick
+     and prefill profiles, the serving peak memory; granite-8b also runs
+     the spot reclaim;
+ 25. the pool service (`service_phase`): `python -m repro_torch.service
+     smoke`'s sequence on the standard federation with ``[provision]
+     matchmaker = torch`` (a 2,000-job diurnal day at seed 7 submitted at
+     trace times over HTTP, the spot provider drained at t = 30,000 s, a
+     snapshot once the clock passes 10,000 s, the service shut down, a
+     new one resumed from the snapshot and run until drained) against the
+     uninterrupted run on the NumPy backend: completed stats, summary and
+     series equal, jobs and core- and GPU-seconds conserved, spot
+     detached, the /metrics, /metrics.prom and /trace surfaces complete;
+     the water-fill's launches in the live run equal the matchmaker's
+     calls of `match`, `match_cycles` and `preview_many`, more than 0;
+     then the command line itself, `serve --ini ... --as-fast --start` in
+     a process of its own driven by `submit`, `status` until drained,
+     `snapshot` and `shutdown`, each exiting 0; a `{"service": ...}`
+     line;
  14. a JSON line per kernel (the water-fill's with its launches by
      instance and by entry point and the host breakdown; flash's, the
      SSD's and gmm's with their launches by instance and ptxas' report of
-     their instances; the flash backward's, the SSD backward's and the
+     their instances, flash's and gmm's with their launches in each of
+     phases 21-24 and the new timed shapes; the water-fill's with the
+     service's launches; the flash backward's, the SSD backward's and the
      grouped matmul backward's with their launches by instance and their
      training shapes), the card line, and the result line.
 """
@@ -270,6 +309,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -397,6 +437,47 @@ MODAL_SERVE = {WHISPER_ARCH: dict(slots=8, requests=8, prompt=(48, 224),
 # whisper's training run: all 24 + 24 layers, bfloat16, 8 x 224 text
 # tokens (and 8 x 1500 frames), no checkpoints (qwen2's run checks them)
 WHISPER_TRAIN = dict(steps=6, batch=8, seq=224, ckpt_every=None)
+# the published configurations that no earlier phase ran, served at
+# full width in this order: name, the depth of the float32 gates and the
+# bfloat16 serving depth (None: every layer).  llama4-scout's period is
+# four layers (a global NoPE layer after three chunked ones), so its
+# gates take one period, and it serves 8 of its 48 layers: all 48 are
+# 107.8e9 parameters, about 216 GB in bfloat16
+CONFIGS = [("granite-8b", 2, None), ("starcoder2-7b", 2, None),
+           ("qwen3-32b", 2, None), ("llama4-scout-17b-a16e", 4, 8)]
+LLAMA4_ARCH = "llama4-scout-17b-a16e"
+# llama4's expert products are checked and timed at a 1024-token prefill
+# beside a decode tick of the 8 slots
+LLAMA4_PREFILLS = (1024,)
+# llama4's window binding: a prompt longer than its chunked layers'
+# 8,192-key window, prefilled but for its last 16 tokens, which decode
+# through the rolling cache as it wraps
+WINDOW_PROMPT, WINDOW_DECODE = 9216, 16
+# the group sizes of those configurations that no earlier case took, on
+# the tensor cores at Dh 128 (`FLASH_WGMMA_CASES`' fields): G = 9
+# (starcoder2-7b, 36 / 4: 7 positions and 1 idle row a warpgroup), G = 8
+# (qwen3-32b, 64 / 8: 8 positions, none idle) and G = 5 (llama4-scout,
+# 40 / 8: 12 positions and 4 idle rows); for each a prefill whose Sq
+# (333) ends inside a packed tile and whose Skv ends inside a 128-key
+# tile, and one with an empty batch row
+FLASH_GROUP_CASES = [
+    (B, Sq, Skv, Hq, Hkv, 128, True, None, None, empty)
+    for Hq, Hkv in ((36, 4), (64, 8), (40, 8))
+    for B, Sq, Skv, empty in ((1, 333, 333, False), (2, 200, 260, True))]
+# and at each of those group sizes a decode tick of the 8 slots on the
+# split (Sq * G = 9, 8 and 5 rows) against the serving cache (Hq, Hkv)
+FLASH_GROUP_DECODE = [(36, 4), (64, 8), (40, 8)]
+# each configuration's attention at its serving shapes (label, B, Sq,
+# Skv, Hq, Hkv, Dh, causal, the bfloat16 instance), all timed in
+# bfloat16 as `MODAL_FLASH_TIMED`'s: a 1024-token prefill, and a decode
+# tick of the 8 slots against rows of 1056 keys (the longest prompt and
+# its new tokens)
+CONFIG_FLASH_CALLS = [
+    (f"{name}-{kind}", B, Sq, Skv, Hq, Hkv, 128, True, want)
+    for name, Hq, Hkv in (("granite-8b", 32, 8), ("starcoder2-7b", 36, 4),
+                          ("qwen3-32b", 64, 8), (LLAMA4_ARCH, 40, 8))
+    for kind, B, Sq, Skv, want in (("prefill", 1, 1024, 1024, "wgmma"),
+                                   ("decode", 8, 1, 1056, "split"))]
 ARCH = "qwen2-1.5b"
 # the serving run: slots, cache capacity, requests, prompt lengths, and
 # new tokens per request
@@ -1525,24 +1606,28 @@ def modal_flash_inputs(call, dtype, device):
     return label, inputs, dict(causal=causal), want
 
 
-def modal_flash_phase(fa, device):
-    """whisper's and llava's attention calls against the plain version in
-    float32 and bfloat16, each through the instance `flash_route` names
-    (checked against the call's own); the `MODAL_FLASH_TIMED` ones timed
-    in bfloat16 beside their bound and SDPA with its own mask.  Returns
-    the timed rows."""
+def modal_flash_phase(fa, device, calls=MODAL_FLASH_CALLS,
+                      timed_labels=MODAL_FLASH_TIMED):
+    """whisper's and llava's attention calls (or ``calls``) against the
+    plain version in float32 and bfloat16, each through the instance
+    `flash_route` names (checked against the call's own); the
+    ``timed_labels`` ones timed in bfloat16 beside their bound and SDPA
+    with its own mask.  Returns the timed rows."""
     rows = []
-    for call in MODAL_FLASH_CALLS:
+    for call in calls:
         for dtype in (torch.float32, torch.bfloat16):
             label, inputs, kw, want = modal_flash_inputs(call, dtype, device)
-            _, _, Sq, _, Hq, Hkv, Dh, _, _ = call
+            _, _, Sq, Skv, Hq, Hkv, Dh, _, _ = call
             got = flash_route(dtype, Sq, Hq, Hkv, Dh)
             if dtype == torch.bfloat16 and got != want:
                 raise AssertionError(f"{label}: flash_route names {got}, "
                                      f"the call's own is {want}")
-            timed = dtype == torch.bfloat16 and label in MODAL_FLASH_TIMED
+            timed = dtype == torch.bfloat16 and label in timed_labels
+            # SDPA's causal mask is aligned top-left: for a tick (Sq 1 <
+            # Skv) it is not the cache's, so SDPA takes the positions' mask
             row = check_flash(label, fa, *inputs, timed=timed,
-                              causal_library=True, **kw)
+                              causal_library=Sq == Skv or not kw["causal"],
+                              **kw)
             if timed:
                 rows.append(row)
     return rows
@@ -1558,6 +1643,30 @@ def flash_wgmma_inputs(case, device):
         kp[-1] = -1
     return (q, k, v, qp, kp), dict(causal=causal, window=window,
                                    softcap=softcap)
+
+
+def flash_group_phase(fa, device):
+    """The group sizes G = 9, 8 and 5: `FLASH_GROUP_CASES` on the tensor
+    cores and `FLASH_GROUP_DECODE`'s ticks on the split in both dtypes,
+    each against the plain version and twice, bitwise equal."""
+    for case in FLASH_GROUP_CASES:
+        inputs, kw = flash_wgmma_inputs(case, device)
+        check_flash(f"group{case}", fa, *inputs, **kw)
+        check_flash_deterministic(f"group{case}", fa, *inputs, **kw)
+    for Hq, Hkv in FLASH_GROUP_DECODE:
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs = flash_group_decode_inputs(Hq, Hkv, dtype, device)
+            label = f"group-decode-G{Hq // Hkv}"
+            check_flash(label, fa, *inputs)
+            check_flash_deterministic(label, fa, *inputs)
+
+
+def flash_group_decode_inputs(Hq, Hkv, dtype, device):
+    """A `FLASH_GROUP_DECODE` tick: the serving run's 8 slots against its
+    2048-slot cache, rows filled to qwen2's decode shape's lengths."""
+    label, seed, B, Sq, Skv, lengths = serving_shapes()[-1]
+    return attention_inputs(seed, B, Sq, Skv, Hq, Hkv, 128, dtype, device,
+                            lengths=lengths)
 
 
 def flash_bwd_inputs(case, dtype, device, seed=11, dense=False):
@@ -1685,6 +1794,7 @@ def flash_phase(fa, device):
         inputs, kw = flash_wgmma_inputs(case, device)
         check_flash(f"wgmma{case}", fa, *inputs, **kw)
         check_flash_deterministic(f"wgmma{case}", fa, *inputs, **kw)
+    flash_group_phase(fa, device)
     # the decode split at G = 1 (one live row of the block's 32) against a
     # 1500-slot cross cache, no causal mask: every slot in some split
     for dtype in (torch.float32, torch.bfloat16):
@@ -1997,29 +2107,29 @@ def gmm_inputs(seed, E, K, N, sizes, tail, dtype, device):
             torch.tensor(gs, device=device))
 
 
-def moe_serving_shapes():
-    """jamba's expert products at the serving run's shapes (16 experts,
-    d_model 4096, d_ff 14336, C rows each): label, rows (E x C), K and
-    N, for the gate/up product (d -> f) and the down product (f -> d),
-    at the prefill lengths and at a decode tick."""
+def moe_serving_shapes(arch=MOE_ARCH, prefills=MOE_PREFILLS):
+    """jamba's (or ``arch``'s) expert products at the serving run's shapes
+    (jamba: 16 experts, d_model 4096, d_ff 14336, C rows each): label,
+    rows (E x C), K and N, for the gate/up product (d -> f) and the down
+    product (f -> d), at the prefill lengths and at a decode tick."""
     from repro_torch.configs import get_config
     from repro_torch.models.moe import capacity
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(arch)
     E, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
-    calls = [(f"prefill-{S}", S) for S in MOE_PREFILLS] + [
+    calls = [(f"prefill-{S}", S) for S in prefills] + [
         (f"decode-{SERVE['slots']}", SERVE["slots"])]
     return [(f"{label}-{what}", E * capacity(cfg, T), K, N)
             for label, T in calls
             for what, K, N in (("gate", d, f), ("down", f, d))]
 
 
-def moe_serving_inputs(rows, K, N, dtype, device, seed=0):
-    """Unit-normal activations (rows, K), jamba's E expert weights
-    (E, K, N) drawn as the model draws them (`Init.dense`, fan-in K), and
-    E equal groups."""
+def moe_serving_inputs(rows, K, N, dtype, device, seed=0, arch=MOE_ARCH):
+    """Unit-normal activations (rows, K), jamba's (or ``arch``'s) E
+    expert weights (E, K, N) drawn as the model draws them (`Init.dense`,
+    fan-in K), and E equal groups."""
     from repro_torch.configs import get_config
     from repro_torch.models.param import Init
-    E = get_config(MOE_ARCH).moe.n_experts
+    E = get_config(arch).moe.n_experts
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     rhs = Init(gen, device).dense((E, K, N), dtype, fan_in=K)
@@ -2213,10 +2323,21 @@ def gmm_phase(gm, device):
             label = f"tc{(E, K, N, sizes, tail)}"
             check_gmm(label, gm, *inputs, out_dtype)
             check_gmm_deterministic(label, gm, *inputs, out_dtype)
+    return gmm_serving_phase(gm, device)
+
+
+def gmm_serving_phase(gm, device, arch=MOE_ARCH, prefills=MOE_PREFILLS):
+    """``arch``'s expert products at its serving shapes
+    (`moe_serving_shapes`) in float32 and in bfloat16 with float32
+    output (the MoE's call), the bfloat16 calls timed; labels carry the
+    arch where it is not jamba's.  Returns the timed rows."""
     timed = []
-    for label, rows, K, N in moe_serving_shapes():
+    for label, rows, K, N in moe_serving_shapes(arch, prefills):
+        if arch != MOE_ARCH:
+            label = f"{arch}-{label}"
         for dtype in (torch.float32, torch.bfloat16):
-            lhs, rhs, gs = moe_serving_inputs(rows, K, N, dtype, device)
+            lhs, rhs, gs = moe_serving_inputs(rows, K, N, dtype, device,
+                                              arch=arch)
             row = check_gmm(label, gm, lhs, rhs, gs, torch.float32,
                             timed=dtype == torch.bfloat16)
             del lhs, rhs
@@ -2435,21 +2556,8 @@ def model_phase(cfg, device, *, plain=plain_attention, what="attention",
          rel_err(logits, logits_plain), GATE_F32)
     del logits_plain
 
-    full = no_drops(f32)
-    if full is not f32:
-        logits = model_lib.forward(params, full, batch)
-    cache = model_lib.init_cache(full, 1, prefix_len(cfg) + prompt_len + 16,
-                                 device=device)
-    step, cache, lengths = model_lib.prefill(
-        params, full, {"tokens": toks[:, :n_pre], **extra}, cache)
-    worst = rel_err(step, logits[:, n_pre - 1])
-    for s in range(n_pre, prompt_len):
-        step, cache, lengths = model_lib.decode_step(
-            params, full, toks[:, s:s + 1], cache, lengths)
-        worst = max(worst, rel_err(step, logits[:, s]))
-    gate(f"{cfg.name} f32 prefill({n_pre}) + decode({prompt_len - n_pre}) "
-         f"vs forward", worst, GATE_F32)
-    del logits, cache
+    prefill_decode_gate(f32, params, batch, n_pre, logits=logits)
+    del logits
     if not bf16:
         return f32, params, None
 
@@ -2464,12 +2572,39 @@ def model_phase(cfg, device, *, plain=plain_attention, what="attention",
     return f32, params, bf
 
 
-def routed_bf16_phase(cfg, device, *, prompt_len=320, seed=0):
-    """The bfloat16 model (cfg's depth) with every kernel against every
-    plain version, over the positions before the first one whose experts
-    differ in any MoE layer: the model is causal and an expert's
-    capacity rank counts only earlier tokens, so those positions saw the
-    same routing on both sides.  Returns the parameters."""
+def prefill_decode_gate(cfg, params, batch, n_pre, *, logits=None):
+    """Prefill of the first ``n_pre`` tokens of ``batch`` (and its frames
+    or patches), then one-token decodes to its end, against the
+    teacher-forced forward's logits at each position (``logits``: the
+    forward's at cfg's capacity, computed here when None or when an MoE
+    model needs `no_drops`' capacity), within `GATE_F32`."""
+    from repro_torch.models import model as model_lib
+    toks = batch["tokens"]
+    extra = {k: v for k, v in batch.items() if k != "tokens"}
+    prompt_len = toks.shape[1]
+    full = no_drops(cfg)
+    if logits is None or full is not cfg:
+        logits = model_lib.forward(params, full, batch)
+    # the positions read below, before the cache takes their memory
+    logits = logits[:, n_pre - 1:].clone()
+    device = toks.device
+    cache = model_lib.init_cache(full, 1, prefix_len(cfg) + prompt_len + 16,
+                                 device=device)
+    step, cache, lengths = model_lib.prefill(
+        params, full, {"tokens": toks[:, :n_pre], **extra}, cache)
+    worst = rel_err(step, logits[:, 0])
+    for s in range(n_pre, prompt_len):
+        step, cache, lengths = model_lib.decode_step(
+            params, full, toks[:, s:s + 1], cache, lengths)
+        worst = max(worst, rel_err(step, logits[:, s - n_pre + 1]))
+    gate(f"{cfg.name} f32 prefill({n_pre}) + decode({prompt_len - n_pre}) "
+         f"vs forward", worst, GATE_F32)
+    return worst
+
+
+def init_logged(cfg, device, seed=0):
+    """The model's parameters at cfg's depth and dtype, from a seed; prints
+    their count, the memory allocated and the time taken."""
     from repro_torch.models import model as model_lib
     from repro_torch.models.param import param_count
     t0 = time.perf_counter()
@@ -2481,6 +2616,17 @@ def routed_bf16_phase(cfg, device, *, prompt_len=320, seed=0):
                       "memory_allocated_gb": torch.cuda.memory_allocated()
                       / 1e9, "init_s": time.perf_counter() - t0}),
           flush=True)
+    return params
+
+
+def routed_bf16_phase(cfg, device, *, prompt_len=320, seed=0):
+    """The bfloat16 model (cfg's depth) with every kernel against every
+    plain version, over the positions before the first one whose experts
+    differ in any MoE layer: the model is causal and an expert's
+    capacity rank counts only earlier tokens, so those positions saw the
+    same routing on both sides.  Returns the parameters."""
+    from repro_torch.models import model as model_lib
+    params = init_logged(cfg, device, seed)
     batch = {"tokens": torch.tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, prompt_len)), device=device)}
     with Routes().on() as kernel_routes:
@@ -3117,6 +3263,93 @@ def modal_model_phase(cfg, device, launch_counts, fa):
     del params
     torch.cuda.empty_cache()
     return row
+
+
+def window_phase(cfg, params, device, seed=0):
+    """llama4's chunked layers with their window binding: a prompt of
+    `WINDOW_PROMPT` tokens, longer than the window, through
+    `prefill_decode_gate` (prefill but for the last `WINDOW_DECODE`
+    tokens, then one-token decodes, whose rolling cache of ``window``
+    slots wraps) against the teacher-forced forward, at `no_drops`'
+    capacity.  Returns its row."""
+    chunked = [i for i in range(cfg.n_layers)
+               if not cfg.layer_uses_global_attn(i)]
+    if not chunked or cfg.attn_window >= WINDOW_PROMPT - WINDOW_DECODE:
+        raise AssertionError(f"{cfg.name}: no chunked layer whose window "
+                             f"{cfg.attn_window} a {WINDOW_PROMPT}-token "
+                             f"prompt binds")
+    toks = torch.tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, WINDOW_PROMPT)), device=device)
+    t0 = time.perf_counter()
+    worst = prefill_decode_gate(cfg, params, {"tokens": toks},
+                                WINDOW_PROMPT - WINDOW_DECODE)
+    row = {"window_binding": cfg.name, "prompt": WINDOW_PROMPT,
+           "decoded": WINDOW_DECODE, "window": cfg.attn_window,
+           "chunked_layers": chunked, "rel_err": worst, "limit": GATE_F32,
+           "wall_s": time.perf_counter() - t0}
+    print(json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+def config_phase(name, gate_layers, serve_layers, device, launch_counts,
+                 fa, gm):
+    """One of `CONFIGS` at full width: `model_phase`'s gates at
+    ``gate_layers`` (float32: kernels against the plain versions, prefill
+    + decode against the forward; a dense model's bfloat16 forward too),
+    the float32 engine's greedy tokens with the kernels and without; for
+    an MoE model (llama4-scout) then `window_phase`, its expert products
+    against the plain version and timed (`gmm_serving_phase`) and the
+    routed bfloat16 gate at the serving depth; then serving in bfloat16
+    at ``serve_layers`` (None: every layer), the main path, with exact
+    launches and routes (every gmm launch on the tensor cores), and for
+    granite-8b the spot reclaim of examples/spot_serving.py.  Returns
+    the serving row (with the peak memory from the bfloat16 model's
+    making on), with the window and gmm rows of an MoE model."""
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    moe = cfg.moe is not None
+    plain, what = ((plain_kernels, "kernels") if moe
+                   else (plain_attention, "attention"))
+    f32_cfg, f32_params, bf = model_phase(cut_layers(cfg, gate_layers),
+                                          device, plain=plain, what=what,
+                                          bf16=not moe)
+    del bf
+    engine_equal_phase(f32_cfg, f32_params, plain=plain)
+    extra = {}
+    if moe:
+        extra["window"] = window_phase(f32_cfg, f32_params, device)
+    del f32_params
+    torch.cuda.empty_cache()
+    if moe:
+        extra["gmm"] = gmm_serving_phase(gm, device, name, LLAMA4_PREFILLS)
+    if serve_layers is not None:
+        cfg = cut_layers(cfg, serve_layers)
+    kernels, routes = ("flash_attention",), {
+        "flash_attention": fa.route_counts}
+    torch.cuda.reset_peak_memory_stats()
+    if moe:
+        params = routed_bf16_phase(cfg, device)
+        kernels, routes = kernels + ("gmm",), dict(routes,
+                                                   gmm=gm.route_counts)
+    else:
+        params = init_logged(cfg, device)
+    served = serve_phase(cfg, params, launch_counts, kernels=kernels,
+                         profile_kernel="gmm_kernel" if moe else
+                         "flash_attention_kernel", routes=routes)
+    if moe and served["routes"]["gmm"]["wgmma"] != \
+            served["launch_counts"]["gmm"]:
+        raise AssertionError(f"serving {name} in bfloat16: gmm routes "
+                             f"{served['routes']['gmm']}, not every launch "
+                             f"on the tensor cores")
+    served["serving_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({"serving_peak_gb": served["serving_peak_gb"],
+                      "model": name, "layers": cfg.n_layers}), flush=True)
+    if name == "granite-8b":
+        reclaim_phase(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return {**served, **extra}
 
 
 def whisper_train_phase(cfg, device, launch_counts, fa):
@@ -4358,6 +4591,283 @@ def jamba_train_phase(device, launch_counts, fa, so, gm):
                        profile_kernel="gmm_bwd_", cpu_tol=GATE_CPU_LOSSES)
 
 
+# ---------------------------------------------------------------------------
+# The pool service: `python -m repro_torch.service smoke`'s sequence on the
+# water-fill kernel, and the command line itself
+# ---------------------------------------------------------------------------
+
+# the service smoke's day: the command line's defaults (a diurnal day at
+# seed 7, the spot provider drained at t = 30,000 s, a snapshot at t =
+# 10,000 s) but 2,000 jobs, not 10,000: on an H100 80GB HBM3 at 700 W
+# the 10k day took 71 s on torch and 47 s on numpy, which would bring the
+# smoke to about 970 s of its 1200; the command line's own round trip
+# serves the same day
+SERVICE_DAY = dict(jobs=2_000, seed=7, t_drain=30_000.0, t_snap=10_000.0,
+                   max_t=5e6)
+SERVICE_DIR = ROOT / "build" / "repro_torch" / "service"
+
+
+def service_ini(matchmaker: str | None = None) -> str:
+    """The service's standard 3-provider federation, with ``[provision]
+    matchmaker = `` naming the negotiation backend (None: the default,
+    numpy)."""
+    from repro_torch.service.__main__ import STANDARD_INI
+    if matchmaker is None:
+        return STANDARD_INI
+    return STANDARD_INI.replace("[provision]\n", "[provision]\nmatchmaker = "
+                                f"{matchmaker}\n", 1)
+
+
+@contextlib.contextmanager
+def counted_calls(cls, names=("match", "match_cycles", "preview_many")):
+    """Counts the calls of ``cls``'s methods ``names`` (the matchmaker's
+    entry points, each one water-fill launch) while it is on; yields the
+    counts by name."""
+    calls = dict.fromkeys(names, 0)
+    saved = {name: cls.__dict__[name] for name in names}
+
+    def counted(name, fn):
+        def call(self, *a, **kw):
+            calls[name] += 1
+            return fn(self, *a, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(cls, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+
+
+def service_sequence(api, ini, trace, snap_path, *, t_drain, t_snap, kw,
+                     budget_s=3600.0):
+    """`_cmd_smoke`'s live run (src/repro_torch/service/__main__.py) on
+    ``api`` (a package's PoolService, serve_in_thread and RemoteClient):
+    a service over HTTP gets the trace at trace times and the spot drain
+    at ``t_drain``, runs as fast as it can, is snapshotted once its clock
+    passes ``t_snap`` and shut down; a service resumed from the snapshot
+    runs until drained; its /metrics, /metrics.prom and /trace must carry
+    what `_cmd_smoke` checks.  Returns (the resumed service, the
+    snapshot's reply, its last status)."""
+    PoolService, serve_in_thread, RemoteClient = api
+    svc = PoolService(ini, **kw)
+    server, url = serve_in_thread(svc)
+    rc = RemoteClient(url, timeout=120.0)
+    if not rc.healthz().get("ok"):
+        raise AssertionError("service: healthz not ok")
+    r = rc.submit([rec.to_obj() for rec in trace.records],
+                  at_trace_times=True, at=0.0)
+    if r.get("scheduled") != len(trace.records):
+        raise AssertionError(f"service: submit scheduled {r} != "
+                             f"{len(trace.records)}")
+    rc.drain_backend("spot", at=t_drain)
+    rc.start(None)                      # as fast as possible
+    while True:
+        st = rc.status()
+        if st["t"] >= t_snap or st["drained"]:
+            break
+        time.sleep(0.02)
+    saved = rc.snapshot(str(snap_path))
+    rc.shutdown()                       # the first service is gone
+    server.server_close()
+
+    svc2 = PoolService.resume(str(snap_path), speed=None)
+    server2, url2 = serve_in_thread(svc2)
+    rc2 = RemoteClient(url2, timeout=120.0)
+    rc2.start(None)
+    deadline = time.time() + budget_s
+    while True:
+        st = rc2.status()
+        if st["drained"]:
+            break
+        if time.time() > deadline:
+            raise AssertionError(f"service: the resumed run is not drained "
+                                 f"in {budget_s} s (t={st['t']})")
+        time.sleep(0.02)
+    svc2.stop()
+    check_service_surfaces(rc2)
+    rc2.shutdown()
+    server2.server_close()
+    if st["detached_backends"] != ["spot"]:
+        raise AssertionError(f"service: spot not detached: "
+                             f"{st['detached_backends']}")
+    return svc2, saved, st
+
+
+def check_service_surfaces(rc):
+    """`_cmd_smoke`'s checks of a drained service's telemetry: /metrics
+    carries the gauges, backends and the Fig 2/3 series, /metrics.prom
+    the pool's gauges and histograms, /trace well-formed events with the
+    jobs' run spans."""
+    m = rc.metrics()
+    for key in ("gauges", "backends", "series"):
+        if key not in m:
+            raise AssertionError(f"service: /metrics missing {key!r}")
+    for key in ("idle_jobs", "running_jobs", "provisioned_cores",
+                "cost_rate"):
+        if key not in m["series"] or key not in m["gauges"]:
+            raise AssertionError(f"service: /metrics missing {key!r}")
+    prom = rc.metrics_prom()
+    for needle in ("# TYPE repro_pool_idle_jobs gauge",
+                   "# TYPE repro_job_wait_seconds histogram",
+                   "# TYPE repro_cycle_phase_seconds histogram",
+                   "repro_job_spans_total"):
+        if needle not in prom:
+            raise AssertionError(f"service: /metrics.prom missing "
+                                 f"{needle!r}")
+    evs = rc.trace().get("traceEvents")
+    if not isinstance(evs, list) or not evs:
+        raise AssertionError("service: /trace has no traceEvents")
+    if any(not {"name", "ph", "pid"} <= set(e)
+           or (e["ph"] != "M" and "ts" not in e) for e in evs):
+        raise AssertionError("service: /trace events missing required keys")
+    if not any(e.get("ph") == "X" and e.get("cat") == "job,run"
+               for e in evs):
+        raise AssertionError("service: /trace has no job run spans")
+
+
+def check_service_equal(svc, ref, trace):
+    """The resumed service's completed jobs, summary and Fig 2/3 series
+    equal the uninterrupted run ``ref``'s exactly (the float64 plan
+    contract), and its jobs, core-seconds and GPU-seconds are the
+    trace's."""
+    got, want = svc.completed_stats().state_dict(), \
+        ref.completed_stats().state_dict()
+    if got != want:
+        raise AssertionError(f"service: completed stats diverge:\n ref "
+                             f"{want}\n got {got}")
+    if json.dumps(ref.summary(), sort_keys=True, default=str) != \
+            json.dumps(svc.summary(), sort_keys=True, default=str):
+        raise AssertionError("service: summary() diverges from the "
+                             "uninterrupted run's")
+    if svc.metrics()["series"] != ref.metrics()["series"]:
+        raise AssertionError("service: the Fig 2/3 series diverge from the "
+                             "uninterrupted run's")
+    stats = trace.stats()
+    if got["n"] != stats["n"]:
+        raise AssertionError(f"service: completed {got['n']} != trace "
+                             f"{stats['n']}")
+    for key in ("core_seconds", "gpu_seconds"):
+        x, y = got[key], stats[key]
+        if abs(x - y) > 1e-6 * max(1.0, abs(x), abs(y)):
+            raise AssertionError(f"service: {key} not conserved: {x} != {y}")
+
+
+def service_phase(launch_counts, *, matchmaker="torch"):
+    """The pool service on the card: `service_sequence` with ``[provision]
+    matchmaker = torch`` (`service_ini`) against the uninterrupted run of
+    the same day on the NumPy backend (the CLI's `_smoke_reference`),
+    equal by `check_service_equal`; the water-fill's launches are set to
+    0 just before the live run and read just after, and must equal the
+    calls of the matchmaker's three entry points (`counted_calls`), more
+    than 0; then `service_cli_phase`.  Returns the row."""
+    from repro_torch.core.matchmaker import TorchMatchmaker
+    from repro_torch.service import PoolService, RemoteClient
+    from repro_torch.service.__main__ import SMOKE_KW, _smoke_reference
+    from repro_torch.service.http import serve_in_thread
+    from repro_torch.workload.generators import generate_preset
+    day = SERVICE_DAY
+    trace = generate_preset("diurnal", day["jobs"], seed=day["seed"])
+    t0 = time.perf_counter()
+    ref = _smoke_reference(service_ini(), trace, day["t_drain"],
+                           day["max_t"])
+    wall_numpy = time.perf_counter() - t0
+    SERVICE_DIR.mkdir(parents=True, exist_ok=True)
+    with counted_calls(TorchMatchmaker) as calls:
+        launch_counts["waterfill"] = 0
+        t0 = time.perf_counter()
+        svc, saved, _ = service_sequence(
+            (PoolService, serve_in_thread, RemoteClient),
+            service_ini(matchmaker), trace, SERVICE_DIR / "pool_snap.json",
+            t_drain=day["t_drain"], t_snap=day["t_snap"], kw=SMOKE_KW)
+        wall_torch = time.perf_counter() - t0
+        launches = launch_counts["waterfill"]
+        calls = dict(calls)
+    check_service_equal(svc, ref, trace)
+    if matchmaker == "torch" and not 0 < launches == sum(calls.values()):
+        raise AssertionError(f"service: {launches} water-fill launches for "
+                             f"the matchmaker's calls {calls}")
+    row = {"jobs": day["jobs"], "wall_s_torch": wall_torch,
+           "wall_s_numpy": wall_numpy, "waterfill_launches": launches,
+           "equal": True, "matchmaker_calls": calls,
+           "snapshot_t": saved["t"], "drained_t": svc.sim.now,
+           "cli": service_cli_phase(matchmaker, day["jobs"], day["seed"])}
+    print(json.dumps({"service": row}), flush=True)
+    return row
+
+
+def service_cli_phase(matchmaker, jobs, seed, timeout_s=600.0):
+    """`python -m repro_torch.service` itself: `serve --ini (matchmaker
+    named) --as-fast --port P --start` in a process of its own, then, each
+    in its own process, `submit` of a ``jobs``-job diurnal day at trace
+    times, `status` until drained with every job completed, `snapshot`
+    and `shutdown`; every command must exit 0, the server too.  Returns
+    its row."""
+    import socket
+    SERVICE_DIR.mkdir(parents=True, exist_ok=True)
+    ini = SERVICE_DIR / f"{matchmaker}.ini"
+    ini.write_text(service_ini(matchmaker))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + ([path] if path else [])))
+    cli = [sys.executable, "-m", "repro_torch.service"]
+    url = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    server = subprocess.Popen(
+        cli + ["serve", "--ini", str(ini), "--as-fast", "--port", str(port),
+               "--start"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    commands = 0
+
+    def run(verb, *args):
+        nonlocal commands
+        done = subprocess.run(cli + [verb, "--url", url, *args], env=env,
+                              capture_output=True, text=True, timeout=120)
+        commands += 1
+        if done.returncode != 0:
+            raise AssertionError(f"service CLI: {verb} exited "
+                                 f"{done.returncode}: {done.stderr[-2000:]}")
+        return json.loads(done.stdout)
+
+    try:
+        while not (line := server.stdout.readline()).startswith(
+                "pool service on"):
+            if not line:
+                raise AssertionError(f"service CLI: serve exited "
+                                     f"{server.wait()} before listening")
+        submitted = run("submit", "--preset", "diurnal", "--jobs", str(jobs),
+                        "--seed", str(seed), "--at-trace-times")
+        if submitted.get("scheduled") != jobs:
+            raise AssertionError(f"service CLI: submit {submitted}")
+        deadline = time.perf_counter() + timeout_s
+        while not (st := run("status"))["drained"]:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"service CLI: not drained in "
+                                     f"{timeout_s} s (t={st['t']})")
+            time.sleep(2.0)
+        if st["completed"] != jobs:
+            raise AssertionError(f"service CLI: {st['completed']} of {jobs} "
+                                 f"jobs completed")
+        saved = run("snapshot", "--path", str(SERVICE_DIR / "cli_snap.json"))
+        run("shutdown")
+        code = server.wait(timeout=60)
+        if code != 0:
+            raise AssertionError(f"service CLI: serve exited {code}")
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+        server.stdout.close()
+    return {"jobs": jobs, "matchmaker": matchmaker, "commands": commands + 1,
+            "drained_t": st["t"], "snapshot_t": saved["t"],
+            "wall_s": time.perf_counter() - t0}
+
+
 def build_all(modules) -> None:
     """Builds every kernel at once, one nvcc per source (a module's
     `build`, and its `build_backward` where it has one), and prints each
@@ -4421,6 +4931,8 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     shapes = flash_phase(fa, dev)
     modal_shapes = modal_flash_phase(fa, dev)
+    config_shapes = modal_flash_phase(
+        fa, dev, CONFIG_FLASH_CALLS, [c[0] for c in CONFIG_FLASH_CALLS])
 
     phase_done("5")
     # phase 6: qwen2-1.5b at full width
@@ -4762,6 +5274,32 @@ def main() -> int:
     bwd_line["whisper_train_tokens_per_s"] = whisper_trained["tokens_per_s"]
 
     phase_done("20")
+    # phases 21-24: granite-8b, starcoder2-7b, qwen3-32b and llama4-scout
+    # (8 of its 48 layers) at full width: the 2-layer (llama4: 4-layer)
+    # gates, the float32 engine's greedy tokens, llama4's window binding
+    # and expert products, then serving, their main path
+    for phase, (name, gate_layers, serve_layers) in enumerate(CONFIGS, 21):
+        served = config_phase(name, gate_layers, serve_layers, dev,
+                              launch_counts, fa, gm)
+        flash_line[f"launches_{name}"] = served["launch_counts"][
+            "flash_attention"]
+        flash_line[f"launches_by_instance_{name}"] = served["routes"][
+            "flash_attention"]
+        if "gmm" in served:
+            gmm_line[f"launches_{name}"] = served["launch_counts"]["gmm"]
+            gmm_line[f"launches_by_instance_{name}"] = served["routes"][
+                "gmm"]
+            gmm_line[f"shapes_{name}"] = [{k: r[k] for k in (
+                "gmm_case", "route", "shape", "ms", "stream_ms", "plain_ms",
+                "bound_ms", "bound_by", "bound_share", "library_ms",
+                "max_abs_err")} for r in served["gmm"]]
+        phase_done(str(phase))
+    flash_line["config_shapes"] = [{k: r[k] for k in (
+        "flash_case", "instance", "shape", "ms", "device_ms", "plain_ms",
+        "bound_ms", "bound_by", "bound_share", "device_bound_share",
+        "library_ms", "library_device_ms", "max_abs_err")}
+        for r in config_shapes]
+
     # phases 3 and 4, run last: the water-fill's cases, cycles and
     # candidates, then the days through run_policy (once the tier-1m
     # case has run the profiler reads no device events in this process,
@@ -4769,6 +5307,11 @@ def main() -> int:
     # queued_ms)
     waterfill_line = run_waterfill_phase()
     phase_done("3, 4")
+    # phase 25: the pool service on the water-fill kernel, and its command
+    # line (no profiler: it may run after the water-fill's phases)
+    service = service_phase(launch_counts)
+    waterfill_line["launches_service"] = service["waterfill_launches"]
+    phase_done("25")
     print(json.dumps({"profiler_sessions": profiler_sessions}), flush=True)
     print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
                                   gmm_line, bwd_line, ssd_bwd_line,

@@ -42,6 +42,12 @@ def torch_dtype(name: str | torch.dtype) -> torch.dtype:
     return _DTYPES[name]
 
 
+#: the most values `Init.dense` draws as one float32 tensor (8 GiB): every
+#: weight of the models served before qwen3-32b and starcoder2-7b, whose
+#: stacked MLP weights are larger and are drawn a leading index at a time
+DENSE_DRAW_MAX = 2 ** 31
+
+
 @dataclasses.dataclass(frozen=True)
 class Init:
     """Draws parameters of shape ``lead + shape`` on ``device`` from
@@ -61,15 +67,28 @@ class Init:
 
     def dense(self, shape: tuple[int, ...], dtype, *,
               fan_in: int | None = None) -> torch.Tensor:
-        """Truncated-normal matmul weight with 1/sqrt(fan_in) scaling."""
+        """Truncated-normal matmul weight with 1/sqrt(fan_in) scaling.  A
+        stack of at most `DENSE_DRAW_MAX` values is drawn whole in
+        float32; a larger one one leading (layer, expert) index at a time,
+        each rounded into the output, so that the float32 temporary is one
+        ``shape``'s (qwen3-32b's stacked MLP weight is 8.4 G values, whose
+        float32 copy does not fit beside the model on one card)."""
         if fan_in is None:
             fan_in = shape[0]
         stddev = 1.0 / math.sqrt(max(fan_in, 1))
-        w = torch.nn.init.trunc_normal_(self._empty(shape), 0.0, 1.0, -2.0,
-                                        2.0, generator=self.generator)
-        # scaled in place: a full-width MoE expert stack is ~2 G values,
-        # and one float32 temporary of it is enough
-        return w.mul_(stddev).to(torch_dtype(dtype))
+        if math.prod(self.lead) * math.prod(shape) <= DENSE_DRAW_MAX:
+            w = torch.nn.init.trunc_normal_(self._empty(shape), 0.0, 1.0,
+                                            -2.0, 2.0,
+                                            generator=self.generator)
+            return w.mul_(stddev).to(torch_dtype(dtype))
+        out = torch.empty((*self.lead, *shape), dtype=torch_dtype(dtype),
+                          device=self.device)
+        for part in out.view(-1, *shape):
+            w = torch.nn.init.trunc_normal_(
+                torch.empty(shape, dtype=torch.float32, device=self.device),
+                0.0, 1.0, -2.0, 2.0, generator=self.generator)
+            part.copy_(w.mul_(stddev))
+        return out
 
     def embed(self, shape: tuple[int, ...], dtype) -> torch.Tensor:
         w = self._empty(shape).normal_(generator=self.generator)

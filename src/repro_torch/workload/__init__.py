@@ -3,8 +3,8 @@ replay, and the policy-comparison harness.
 
 This package is the single source of DEMAND for simulations, benchmarks,
 and examples — the control plane under test lives in `repro_torch.core`; what
-flows through it is defined here.  The command-line front end
-(``generate|replay|compare``) is not part of this package yet.
+flows through it is defined here.  CLI: ``python -m repro_torch.workload
+generate|replay|compare`` (see __main__.py).
 """
 from repro_torch.workload.trace import (
     FIELDS, Trace, TraceError, TraceRecord, iter_jsonl, open_trace_stream,

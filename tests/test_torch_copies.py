@@ -22,8 +22,10 @@ COPIES = [
     "core/matchmaker/numpy_backend.py", "core/matchmaker/scan_backend.py",
     *(f"observability/{m}.py"
       for m in ("__init__", "registry", "spans", "profiler")),
-    *(f"workload/{m}.py" for m in ("trace", "generators", "replay",
-                                   "compare")),
+    *(f"workload/{m}.py" for m in ("__init__", "__main__", "trace",
+                                   "generators", "replay", "compare")),
+    *(f"service/{m}.py" for m in ("__init__", "__main__", "driver", "http",
+                                  "pool")),
     "models/__init__.py", "models/config.py",
     "train/__init__.py", "checkpoint/__init__.py",
     "kernels/flash_attention/__init__.py", "kernels/moe_gmm/__init__.py",
@@ -37,8 +39,6 @@ COPIES = [
 DIFFERING = {
     "core/__init__.py": "exports TorchMatchmaker instead of the JAX "
                         "backends",
-    "workload/__init__.py": "docstring: the command-line front end is not "
-                            "ported yet",
     "core/matchmaker/base.py": "adds problem_from_reference at the end",
     "configs/__init__.py": "no ShapeDtypeStruct input specs (only the "
                            "dry-run reads them, and it is not ported)",

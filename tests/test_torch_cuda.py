@@ -16,7 +16,10 @@ guard leaving zero chunk minima out.
 
 Flash attention: the reference suite's eight cases, the fully masked
 rows and the rolling-window permutation, qwen2-1.5b's serving shapes and
-the tensor-core instance's edge cases, each against the plain version in
+the tensor-core instance's edge cases, the group sizes G = 9, 8 and 5
+(prefills on the tensor cores, decode ticks on the split) and
+granite-8b's, starcoder2-7b's, qwen3-32b's and llama4-scout's prefill
+and tick, each against the plain version in
 float32 on the same CUDA tensors, at the reference's tolerances (2e-5 for
 float32 inputs, 2e-2 for bfloat16), each through the instance
 `flash_route` names (the decode split for at most 32 query rows per kv
@@ -37,8 +40,8 @@ the same bits.
 Grouped matmul: the reference suite's four cases, ragged groups (empty,
 unaligned, a tail), the tensor-core edge cases (one group holding every
 row, a short group between long ones, N and K ending inside a tile) and
-jamba-v0.1-52b's decode and prefill expert products (16 experts, 4096 x
-14336), in float32 and bfloat16 and with float32 output, against the
+jamba-v0.1-52b's and llama4-scout's decode and prefill expert products
+(16 experts, 4096 x 14336 and 5120 x 8192), in float32 and bfloat16 and with float32 output, against the
 plain version on the same CUDA tensors at the reference's tolerances
 (1e-4 and 5e-2), each through the instance `gmm_route` names (tensor
 cores for bfloat16 with K and N multiples of 8, SIMT otherwise); two
@@ -124,6 +127,8 @@ from chip_smoke import (  # noqa: E402
     gmm_bwd_inputs,
     FLASH_CASES, FLASH_TOL, FLASH_WGMMA_CASES, GMM_CASES, GMM_RAGGED,
     MODAL_FLASH_CALLS, modal_flash_inputs,
+    CONFIG_FLASH_CALLS, FLASH_GROUP_CASES, FLASH_GROUP_DECODE, LLAMA4_ARCH,
+    LLAMA4_PREFILLS, flash_group_decode_inputs,
     GMM_TC_CASES, GMM_TOL, SSD_BWD_DFINAL, SSD_BWD_TC_CASES, SSD_CASES,
     SSD_TC_CASES, SSD_TOL,
     attention_inputs, bitwise_equal, check_fully_masked_rows, fused_deltas,
@@ -493,6 +498,37 @@ def test_flash_tensor_cores_take_edge_cases(cuda, case):
         assert not bool(out[-1].any())
 
 
+@pytest.mark.parametrize("case", FLASH_GROUP_CASES)
+def test_flash_tensor_cores_take_the_new_group_sizes(cuda, case):
+    """G = 9, 8 and 5 at Dh 128 (starcoder2-7b, qwen3-32b, llama4-scout):
+    7, 8 and 12 positions a warpgroup, Sq ending inside a packed tile,
+    an empty batch row; two calls bitwise equal."""
+    inputs, kw = flash_wgmma_inputs(case, cuda)
+    out = assert_kernel_matches_plain(*inputs, **kw)
+    if case[-1]:                    # the empty row attends nothing: zeros
+        assert not bool(out[-1].any())
+    assert bitwise_equal(out, flash_attention(*inputs, **kw))
+
+
+@pytest.mark.parametrize("Hq,Hkv", FLASH_GROUP_DECODE)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_split_takes_the_new_group_sizes(cuda, Hq, Hkv, dtype):
+    """A decode tick of 8 slots at G = 9, 8 and 5 on the split: 9, 8 and
+    5 live rows of a block's 32; two calls bitwise equal."""
+    inputs = flash_group_decode_inputs(Hq, Hkv, dtype, cuda)
+    out = assert_kernel_matches_plain(*inputs, causal=True)
+    assert bitwise_equal(out, flash_attention(*inputs, causal=True))
+
+
+@pytest.mark.parametrize("call", CONFIG_FLASH_CALLS, ids=lambda c: c[0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_the_config_calls(cuda, call, dtype):
+    """granite-8b's, starcoder2-7b's, qwen3-32b's and llama4-scout's
+    1024-token prefill and decode tick."""
+    _, inputs, kw, _ = modal_flash_inputs(call, dtype, cuda)
+    assert_kernel_matches_plain(*inputs, **kw)
+
+
 def flash_instance_inputs(instance, device):
     """A call of each instance: qwen2's decode tick (split), its 512-token
     prefill in bfloat16 (wgmma) and in float32 (simt)."""
@@ -704,6 +740,40 @@ def test_gmm_kernel_takes_ragged_groups(cuda, case, dtype, out_dtype):
 @pytest.mark.parametrize("label,rows,K,N", moe_serving_shapes())
 def test_gmm_kernel_at_jamba_serving_shapes(cuda, label, rows, K, N):
     lhs, rhs, gs = moe_serving_inputs(rows, K, N, torch.bfloat16, cuda)
+    assert gmm_route(lhs.dtype, K, N) == "wgmma"
+    assert_gmm_matches_plain(lhs, rhs, gs, torch.float32)
+
+
+def test_stacked_dense_init_holds_one_layer_in_float32(cuda, monkeypatch):
+    """A stacked bfloat16 weight over `DENSE_DRAW_MAX` values is drawn a
+    layer at a time: the peak over the output is one layer's float32 draw
+    and trunc_normal_'s own temporaries of it, not the stack's float32
+    copy (qwen3-32b's MLP weights could not be made on one card that
+    way)."""
+    from repro_torch.models import param
+    from repro_torch.models.param import Init
+    monkeypatch.setattr(param, "DENSE_DRAW_MAX", 1024 * 4096)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    layers, shape = 16, (1024, 4096)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    w = Init(gen, cuda).stacked(layers).dense(shape, "bfloat16")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    layer_f32 = shape[0] * shape[1] * 4
+    assert w.shape == (layers, *shape) and w.dtype == torch.bfloat16
+    assert peak <= w.numel() * 2 + 4 * layer_f32 < layers * layer_f32
+
+
+@pytest.mark.parametrize("label,rows,K,N",
+                         moe_serving_shapes(LLAMA4_ARCH, LLAMA4_PREFILLS))
+def test_gmm_kernel_at_llama4_serving_shapes(cuda, label, rows, K, N):
+    """llama4-scout's expert products (16 experts, 5120 <-> 8192, top-1
+    at capacity 1.25) at a 1024-token prefill and a decode tick."""
+    lhs, rhs, gs = moe_serving_inputs(rows, K, N, torch.bfloat16, cuda,
+                                      arch=LLAMA4_ARCH)
     assert gmm_route(lhs.dtype, K, N) == "wgmma"
     assert_gmm_matches_plain(lhs, rhs, gs, torch.float32)
 

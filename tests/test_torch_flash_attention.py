@@ -60,6 +60,9 @@ from test_torch_cuda import (
     FLASH_WGMMA_CASES, MODAL_FLASH_CALLS, check_fully_masked_rows,
     check_rolling_window, flash_bwd_inputs, flash_bwd_route, flash_route,
 )
+from chip_smoke import (
+    CONFIG_FLASH_CALLS, CONFIGS, FLASH_GROUP_CASES, FLASH_GROUP_DECODE,
+)
 from test_torch_matchmaker import one_torch_thread  # noqa: F401
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -199,6 +202,62 @@ def test_route_of_the_modal_calls(call, dtype):
     encoder and a prompt of 48 tokens at G = 1; a prompt of 32 at G = 1
     is a decode-sized call), and in float32 the split or SIMT."""
     label, B, Sq, Skv, Hq, Hkv, Dh, causal, want = call
+    q = empty((B, Sq, Hq, Dh), dtype)
+    k, v = empty((B, Skv, Hkv, Dh), dtype), empty((B, Skv, Hkv, Dh), dtype)
+    if dtype == "float32" and want == "wgmma":
+        want = "simt"
+    assert route(q, k, v) == want == flash_route(q.dtype, Sq, Hq, Hkv, Dh)
+
+
+# the group sizes of starcoder2-7b (G = 9), qwen3-32b (8) and
+# llama4-scout (5) at the reference suite's widths: a prefill whose Sq
+# is not a multiple of the packed positions, and a decode call
+GROUP_CASES = [(B, Sq, Skv, Hq, Hkv, 64, True, window, None)
+               for Hq, Hkv in ((9, 1), (16, 2), (10, 2))
+               for B, Sq, Skv, window in ((2, 37, 100, None),
+                                          (1, 1, 90, 32))]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,Dh,causal,window,softcap",
+                         GROUP_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_port_matches_pallas_at_the_new_group_sizes(
+        rng, B, Sq, Skv, Hq, Hkv, Dh, causal, window, softcap, dtype):
+    test_port_matches_pallas_and_oracle(rng, B, Sq, Skv, Hq, Hkv, Dh, causal,
+                                        window, softcap, dtype)
+
+
+def test_group_cases_take_the_configs_group_sizes():
+    """The card's cases at G = 9, 8 and 5 are the new configurations'
+    (heads over kv heads), each a prefill ending inside a packed tile of
+    floor(64 / G) positions and one with an empty batch row, on the
+    tensor cores; their decode ticks on the split."""
+    from repro_torch.configs import get_config
+    groups = {get_config(name).n_heads // get_config(name).n_kv_heads
+              for name, *_ in CONFIGS} - {4}          # granite's G = 4
+    assert {Hq // Hkv for _, _, _, Hq, Hkv, *_ in FLASH_GROUP_CASES} == \
+        {Hq // Hkv for Hq, Hkv in FLASH_GROUP_DECODE} == groups == {9, 8, 5}
+    for B, Sq, Skv, Hq, Hkv, Dh, *_, empty_row in FLASH_GROUP_CASES:
+        q = empty((B, Sq, Hq, Dh), "bfloat16")
+        k = v = empty((B, Skv, Hkv, Dh), "bfloat16")
+        assert route(q, k, v) == "wgmma"
+        assert Sq % (64 // (Hq // Hkv)) != 0 or empty_row
+    assert any(case[-1] for case in FLASH_GROUP_CASES)
+    for Hq, Hkv in FLASH_GROUP_DECODE:
+        q = empty((8, 1, Hq, 128), "bfloat16")
+        k = v = empty((8, 2048, Hkv, 128), "bfloat16")
+        assert route(q, k, v) == "split"
+
+
+@pytest.mark.parametrize("call", CONFIG_FLASH_CALLS, ids=lambda c: c[0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_of_the_config_calls(call, dtype):
+    """Each configuration's timed prefill and tick carry its heads and
+    take the instance its serving gates count them on."""
+    from repro_torch.configs import get_config
+    label, B, Sq, Skv, Hq, Hkv, Dh, causal, want = call
+    cfg = get_config(label.rsplit("-", 1)[0])
+    assert (Hq, Hkv, Dh) == (cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
     q = empty((B, Sq, Hq, Dh), dtype)
     k, v = empty((B, Skv, Hkv, Dh), dtype), empty((B, Skv, Hkv, Dh), dtype)
     if dtype == "float32" and want == "wgmma":

@@ -137,6 +137,37 @@ def test_init_draws_the_reference_distributions():
     assert torch.equal(init.ones((4,), "float32"), torch.ones(3, 4))
 
 
+def test_stacked_dense_draws_one_layer_at_a_time(monkeypatch):
+    """A stack over `DENSE_DRAW_MAX` values is its layers drawn one after
+    another, each as an unstacked draw of the same generator (a float32
+    temporary of one layer, never of the stack), rounded once to the
+    output's dtype; a stack within it is drawn whole, as before."""
+    from repro_torch.models import param
+
+    def draws(lead, dtype):
+        gen = torch.Generator().manual_seed(3)
+        init = Init(gen, torch.device("cpu"))
+        if lead:
+            return init.stacked(lead[-1]).stacked(lead[0]).dense(
+                (48, 80), dtype)
+        return torch.stack([init.dense((48, 80), dtype) for _ in range(6)])
+
+    whole = draws((2, 3), "float32")
+    gen = torch.Generator().manual_seed(3)
+    assert torch.equal(whole, torch.nn.init.trunc_normal_(
+        torch.empty(2, 3, 48, 80), 0.0, 1.0, -2.0, 2.0,
+        generator=gen).mul_(1 / 48 ** 0.5))
+    monkeypatch.setattr(param, "DENSE_DRAW_MAX", 48 * 80)
+    for dtype in ("float32", "bfloat16"):
+        stacked = draws((2, 3), dtype)
+        assert stacked.shape == (2, 3, 48, 80)
+        assert stacked.dtype == getattr(torch, dtype)
+        assert torch.equal(stacked.reshape(6, 48, 80), draws((), dtype))
+    assert not torch.equal(draws((2, 3), "float32"), whole)
+    assert torch.equal(draws((2, 3), "bfloat16"),
+                       draws((2, 3), "float32").to(torch.bfloat16))
+
+
 # ---------------------------------------------------------------------------
 # attention block and whole models, with the reference's weights
 # ---------------------------------------------------------------------------
