@@ -5,7 +5,7 @@ Run from the repository root on a machine with the card:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package.  Phases, run
-in the order 1, 2, 5-13, 15-24, 3, 4, 25, 14 (the water-fill's last: once its
+in the order 1, 2, 5-13, 15-24, 3, 4, 25, 26, 14 (the water-fill's last: once its
 tier-1m case has run, `torch.profiler` reads no device events in the
 same process -- `repro_torch.kernels.waterfill.study` finds where -- so
 every phase that reads the profiler runs first); any failure raises and
@@ -43,12 +43,12 @@ to a plain version):
      standard 3-provider federation with ``[provision] matchmaker=torch``
      against the same run on the NumPy backend (equal jobs, pods, cost
      and Fig 2/3 series, every job completed), then a 2k-job 3-schedd
-     fair-share day the same way, then the 10k day at ``negotiation_batch
-     =8`` at the live-fusion cadence (negotiate every 20 s inside a 60 s
-     tick and metrics grid: the standard grid leaves no window to fuse
-     in), where fused batches must occur and each must be one "cycles"
-     launch, and the same day at batch 1 (its launches, and whether the
-     blocks are equal: not a gate).  The kernel's launches in all, by
+     fair-share day the same way, then a `FUSION_JOBS` (5k) day at
+     ``negotiation_batch=8`` at the live-fusion cadence (negotiate every
+     20 s inside a 60 s tick and metrics grid: the standard grid leaves
+     no window to fuse in), where fused batches must occur and each must
+     be one "cycles" launch, and the same day at batch 1 (its launches,
+     and whether the blocks are equal: not a gate).  The kernel's launches in all, by
      entry point and by instance, are read from each run; then the
      largest problem of the 10k day is timed and `match()` broken down
      on the host clock (prep, copy in, kernel and wait, copy out and
@@ -293,6 +293,25 @@ to a plain version):
      a process of its own driven by `submit`, `status` until drained,
      `snapshot` and `shutdown`, each exiting 0; a `{"service": ...}`
      line;
+ 26. `repro_torch.parallel` on one world of 8 ranks spawned on card 0
+     (gloo; every rank builds nothing: the kernels are phase 2's), meshes
+     of different shapes over the same ranks (`parallel_phase`,
+     `PARALLEL_PLAN`): jamba-v0.1-52b's MoE layer at full width,
+     expert-parallel on (data 4, model 2), 1024 tokens a "data" rank, at
+     a capacity that drops nothing on either side, forward and backward in
+     bfloat16 and forward in float32, against rank 0's one-device dense
+     dispatch over the gathered tokens (y, dx, drouter, rank 0's expert
+     shards and every expert gradient's norm, aux); qwen2-1.5b at full
+     width (4 layers) sequence-parallel on (1, 8): loss_fn and its
+     gradient in float32 (loss 1e-4, each leaf 1e-4 of its max), then in
+     bfloat16 (loss 4.2e-4 of itself, each leaf's |diff| / |g| 2.5e-2); its sharded zero3 step on (4, 2), 3 steps of
+     8 x 512 in float32, against rank 0's one-device step (loss 1e-4 of
+     itself, parameters 2e-2); its int8-compressed step on (2, 2, 2) under base
+     against the exact one (loss 1e-5, parameters 5e-2), each pod group's
+     bits equal, the compressed mean within amax/127 (bfloat16).  Each rank's
+     launches on each part's main path equal `parallel_launches`; a
+     `{"parallel": ...}` line with each part's wall time per rank, each
+     rank's peak memory and rank 0's launches by instance;
  14. a JSON line per kernel (the water-fill's with its launches by
      instance and by entry point and the host breakdown; flash's, the
      SSD's and gmm's with their launches by instance and ptxas' report of
@@ -339,6 +358,11 @@ KERNEL_REPS = 20
 # which a staged cycle may wait for the next (tests/test_live_fusion.py)
 FUSION_CADENCE = {"tick_s": 60.0, "negotiate_interval_s": 20.0,
                   "metrics_interval_s": 60.0}
+#: jobs of the two live-fusion-cadence days (batch 8 and batch 1): 10,000
+#: until phase 26 joined the smoke; the smoke's 1200 s then did not hold a
+#: slower host's host-bound days (1305 s in all, the 10k pair 307 s), and
+#: 5,000 still fuse (109 batches on the CPU's torch backend)
+FUSION_JOBS = 5_000
 
 # the cases of tests/test_kernel_flash_attention.py: B, Sq, Skv, Hq, Hkv,
 # Dh, causal, window, softcap
@@ -1245,20 +1269,21 @@ def waterfill_phase(mods, MatchProblem, TorchMatchmaker, NumpyMatchmaker,
     # the live-fusion cadence: the standard 30/60/300 s grid leaves no
     # window in which a staged cycle may wait, so batch=8 fuses nothing
     # there; at 20 s inside a 60 s grid it does
+    fused_label = f"diurnal-{FUSION_JOBS // 1000}k-batch8"
     fused_row, fused_block, _ = run_e2e(
-        "diurnal-10k-batch8", diurnal_day(10_000, seed=7), e2e, batch=8,
+        fused_label, diurnal_day(FUSION_JOBS, seed=7), e2e, batch=8,
         cadence=FUSION_CADENCE)
     add(fused_row)
     if fused_row["fused_batches"] == 0:
-        raise AssertionError("diurnal-10k-batch8: no batch was fused")
+        raise AssertionError(f"{fused_label}: no batch was fused")
     if fused_row["launches_by_kind"]["cycles"] != fused_row["fused_batches"]:
-        raise AssertionError(f"diurnal-10k-batch8: "
+        raise AssertionError(f"{fused_label}: "
                              f"{fused_row['launches_by_kind']['cycles']} "
                              f"cycles launches for "
                              f"{fused_row['fused_batches']} fused batches")
     one_row, one_block, _ = run_e2e(
-        "diurnal-10k-batch1-fusion-cadence", diurnal_day(10_000, seed=7),
-        e2e, cadence=FUSION_CADENCE)
+        f"diurnal-{FUSION_JOBS // 1000}k-batch1-fusion-cadence",
+        diurnal_day(FUSION_JOBS, seed=7), e2e, cadence=FUSION_CADENCE)
     add(one_row)
     fused_row["equals_batch1"] = comparable(fused_block) == comparable(
         one_block)
@@ -4868,6 +4893,688 @@ def service_cli_phase(matchmaker, jobs, seed, timeout_s=600.0):
             "wall_s": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: parallel/ on a world of ranks that share the card
+# ---------------------------------------------------------------------------
+
+#: ranks of phase 26's world, all on card 0 (gloo: NCCL refuses two ranks
+#: on one device), and the world's timeout
+PARALLEL_RANKS = 8
+PARALLEL_TIMEOUT_S = 360.0
+#: the parts, at full width: jamba's MoE layer expert-parallel on (4, 2),
+#: 1024 tokens a "data" rank; qwen2-1.5b sequence-parallel on (1, 8)
+#: (12 heads do not divide 8); qwen2-1.5b's sharded zero3 step on (4, 2);
+#: its int8-compressed step on (2, 2, 2) under base.  qwen2 is cut to
+#: ``layers`` (its 28 layers would not fit eight ranks and rank 0's
+#: one-device reference on the card); the zero3 step and the SP loss gate
+#: run in float32, the EP layer, the SP gradient and the int8 step in
+#: bfloat16
+PARALLEL_PLAN = {
+    "ep": dict(arch=MOE_ARCH, mesh={"data": 4, "model": 2}, tokens=1024),
+    "sp": dict(arch=ARCH, layers=4, mesh={"data": 1, "model": 8}, batch=8,
+               seq=512),
+    "step": dict(arch=ARCH, layers=4, mesh={"data": 4, "model": 2},
+                 steps=3, batch=8, seq=512),
+    "int8": dict(arch=ARCH, layers=4, mesh={"pod": 2, "data": 2, "model": 2},
+                 batch=8, seq=512),
+}
+#: phase 26 at small size (tests/test_torch_cuda.py): the reduced
+#: configs, head dim 32 (flash takes 32, 64 and 128)
+PARALLEL_PLAN_SMALL = {
+    "ep": dict(PARALLEL_PLAN["ep"], reduced=True, tokens=64),
+    "sp": dict(PARALLEL_PLAN["sp"], reduced=True, layers=2, seq=64,
+               changes=dict(d_head=32)),
+    "step": dict(PARALLEL_PLAN["step"], reduced=True, layers=2, seq=32,
+                 changes=dict(d_head=32)),
+    "int8": dict(PARALLEL_PLAN["int8"], reduced=True, layers=2, seq=32,
+                 changes=dict(d_head=32)),
+}
+#: the reference's bars (tests/test_multidevice.py) and the training
+#: gates' bfloat16 bar
+GATE_EP_F32 = 1e-4
+GATE_EP_AUX = 0.1
+GATE_SP_LOSS = 1e-4
+#: bfloat16 SP's loss against one device, absolute: a rank's eighth of
+#: the queries may take another flash instance than the whole sequence
+#: (at the small size "split" against "simt"); a few times the largest
+#: reading, 3.0e-4 at the small size (run 27e; 0 at full width, where both
+#: take "wgmma")
+GATE_SP_BF16_LOSS = 1e-3
+GATE_STEP_LOSS, GATE_STEP_PARAMS = 1e-4, 2e-2
+GATE_INT8_LOSS, GATE_INT8_PARAMS = 1e-5, 5e-2
+#: the int8 step's reduced gradient against the exact step's, in units of
+#: the compressed mean's quantum amax/127 (below 1 in exact arithmetic;
+#: the rest is float32 rounding), the pods' mean against the exact step's
+#: (the same gradients summed in another order), and the quantum against
+#: the gradient's max: under 1/2, a zero, sign-flipped or un-averaged
+#: gradient would fail the first bar
+GATE_INT8_GRAD, GATE_INT8_PODS, GATE_INT8_QUANTUM = 1.0 + 1e-3, 1e-2, 0.5
+#: SP's tied embedding (qwen2 ties its input and output embeddings)
+SP_TIED_LEAF = "embed/table"
+PARALLEL_KERNELS = ("flash_attention", "flash_attention_bwd", "gmm",
+                    "gmm_bwd")
+
+
+def parallel_config(part: dict, dtype: str):
+    """A part's config: the arch at full width (``reduced`` takes the
+    reduced one, ``changes`` are applied), cut to ``layers``, in
+    ``dtype``."""
+    from repro_torch.configs import get_config, reduced_config
+    cfg = (reduced_config if part.get("reduced") else get_config)(
+        part["arch"])
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, activation_dtype=dtype,
+                              **part.get("changes", {}))
+    if part.get("layers"):
+        cfg = cut_layers(cfg, part["layers"])
+    return cfg
+
+
+class PartClock:
+    """A part's wall time, its main path's, and its main path's launches
+    (the counts set to 0 just before it, read just after)."""
+
+    def __init__(self, dev):
+        from repro_torch.kernels.build import launch_counts
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.moe_gmm import ops as gm
+        self.dev, self.counts = dev, launch_counts
+        self.routes = {"flash_attention": fa.route_counts,
+                       "flash_attention_bwd": fa.bwd_route_counts,
+                       "gmm": gm.route_counts, "gmm_bwd": gm.bwd_route_counts}
+        self.t0 = time.perf_counter()
+        self.main_s = 0.0
+        self.launches = {k: 0 for k in PARALLEL_KERNELS}
+        self.by_instance = {k: {} for k in PARALLEL_KERNELS}
+
+    def _sync(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    @contextlib.contextmanager
+    def main_path(self):
+        self._sync()
+        for k in self.counts:
+            self.counts[k] = 0
+        routes = {k: dict(v) for k, v in self.routes.items()}
+        t0 = time.perf_counter()
+        yield
+        self._sync()
+        self.main_s += time.perf_counter() - t0
+        for k in PARALLEL_KERNELS:
+            self.launches[k] += self.counts[k]
+            for inst, n in self.routes[k].items():
+                d = n - routes[k].get(inst, 0)
+                if d:
+                    self.by_instance[k][inst] = \
+                        self.by_instance[k].get(inst, 0) + d
+
+    def row(self, **extra) -> dict:
+        self._sync()
+        return {"wall_s": time.perf_counter() - self.t0,
+                "main_s": self.main_s, "launches": self.launches,
+                "by_instance": self.by_instance, **extra}
+
+
+def parallel_launches(plan: dict) -> dict:
+    """Each part's launches on each rank's main path, from the shapes:
+    EP three gmm forwards and three backwards; SP one flash forward and
+    one backward per layer; each step the same per layer and step."""
+    none = {k: 0 for k in PARALLEL_KERNELS}
+    per_layer = dict(none, flash_attention=1, flash_attention_bwd=1)
+    steps = {"sp": 1, "step": plan.get("step", {}).get("steps"), "int8": 2}
+    return {name: (dict(none, gmm=3, gmm_bwd=3) if name == "ep" else
+                   {k: v * plan[name]["layers"] * steps[name]
+                    for k, v in per_layer.items()})
+            for name in plan}
+
+
+def _ep_router(cfg, dev):
+    from repro_torch.models.param import Init
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    return Init(gen, dev).dense((cfg.d_model, cfg.moe.n_experts), "float32")
+
+
+def _ep_weights(cfg, dev, experts, mesh=None):
+    """The MoE layer's weights from fixed seeds: the router whole, the
+    experts in ``experts`` (one generator an expert, so every rank draws
+    the same expert), cut to this rank's part of the FF dim under
+    ``mesh``."""
+    from repro_torch.models.param import Init
+    from repro_torch.parallel import collectives as coll
+    d, f, dt = cfg.d_model, cfg.moe.d_ff_expert, cfg.param_dtype
+    gen = torch.Generator(device=dev)
+    p = {"router": _ep_router(cfg, dev)}
+    for name, shape, f_dim in (("gate", (d, f), 1), ("up", (d, f), 1),
+                               ("down", (f, d), 0)):
+        ws = []
+        for e in experts:
+            gen.manual_seed(1000 * (1 + ("gate", "up", "down").index(name))
+                            + e)
+            w = Init(gen, dev).dense(shape, dt, fan_in=shape[0])
+            if mesh is not None:
+                w = coll.own_slice(w, mesh, "model", f_dim).contiguous()
+            ws.append(w)
+        p[name] = torch.stack(ws)
+    return p
+
+
+def _ep_tokens(cfg, dev, data_index, tokens, dtype):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(100 + data_index)
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen, device=dev)
+    dy = torch.randn((1, tokens, cfg.d_model), generator=gen, device=dev)
+    return x.to(dtype), dy
+
+
+def ep_no_drop_capacity(cfg, mesh, x):
+    """(capacity factor of EP, of the dense dispatch over the gathered
+    tokens) at which neither drops an assignment: C_send holds the most
+    assignments a rank sends one rank, cap_e the most an expert receives,
+    the dense C the most an expert gets of all the tokens."""
+    from repro_torch.parallel import collectives as coll
+    m = cfg.moe
+    dsz = mesh.shape["data"]
+    E_loc = m.n_experts // dsz
+    T = x.shape[0] * x.shape[1]
+    A = T * m.top_k
+    p_router = _ep_router(cfg, x.device)
+    idx = torch.topk(torch.softmax(x.reshape(T, -1).float() @ p_router, -1),
+                     m.top_k, dim=-1).indices.reshape(-1)
+    per_expert = torch.bincount(idx, minlength=m.n_experts).to(torch.int32)
+    per_dst = per_expert.reshape(dsz, E_loc).sum(1)
+    most_sent = int(coll.pmax(per_dst.max(), mesh, mesh.axis_names))
+    # assignments an expert gets from the "data" group (the pod's tokens)
+    totals = coll.psum(per_expert, mesh, "data")
+    most = int(coll.pmax(totals.max(), mesh, mesh.axis_names))
+    cf = most_sent * dsz / A
+    while math.ceil(dsz * math.ceil(A * cf / dsz) * cf / E_loc) < most:
+        cf *= 1.05
+    dense_cf = most * m.n_experts / (dsz * A)
+    return cf * 1.0001, dense_cf * 1.0001
+
+
+def ep_part(rank, dev, plan, clock):
+    """jamba's MoE layer on (4, 2), expert-parallel, forward and backward
+    in bfloat16, then forward in float32; rank 0 holds it against the
+    one-device dense dispatch over the gathered tokens with the same
+    weights."""
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import collectives as coll
+    part = plan["ep"]
+    mesh = WorkerMesh(part["mesh"], dev)
+    di, dsz = mesh.coord["data"], mesh.shape["data"]
+    rep = mesh.shape["model"]
+    names = ("router", "gate", "up", "down")
+    row = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = parallel_config(part, dtype)
+        E_loc = cfg.moe.n_experts // dsz
+        x, dy = _ep_tokens(cfg, dev, di, part["tokens"],
+                           getattr(torch, dtype))
+        cf, dense_cf = ep_no_drop_capacity(cfg, mesh, x)
+        ep_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        p = _ep_weights(cfg, dev, range(di * E_loc, (di + 1) * E_loc), mesh)
+        train = dtype == "bfloat16"
+        leaves = [x.detach().requires_grad_(train)] + [
+            p[k].detach().requires_grad_(train) for k in names]
+        q = dict(zip(names, leaves[1:]))
+        with clock.main_path() if train else contextlib.nullcontext():
+            y, aux = moe_mod.moe_forward_ep(q, ep_cfg, leaves[0], mesh)
+            if train:
+                # sum(y * dy), each "model" replica's share: aux's
+                # gradient (a mean of per-rank estimates here, one
+                # estimate on the dense side) is left out of the check
+                obj = (y.float() * dy).sum() / rep
+                grads = torch.autograd.grad(obj, leaves)
+        y_all = coll.all_gather(y.detach(), mesh, "data", 0)
+        dy_all = coll.all_gather(dy, mesh, "data", 0)
+        x_all = coll.all_gather(x, mesh, "data", 0)
+        if train:
+            dx_all = coll.all_gather(coll.psum(grads[0], mesh, "model"),
+                                     mesh, "data", 0)
+            d_router = coll.psum(grads[1].float(), mesh, mesh.axis_names)
+            # each expert leaf's gradient norm over every rank's shard
+            sq = torch.stack([g.float().square().sum() for g in grads[2:]])
+            norms = coll.psum(sq, mesh, mesh.axis_names).sqrt()
+            mine = [g.detach() for g in grads[2:]]
+        del p, q, leaves, y
+        if rank == 0:
+            dense_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=dense_cf))
+            P = _ep_weights(cfg, dev, range(cfg.moe.n_experts))
+            if train:
+                L = {k: P[k].detach().requires_grad_() for k in names}
+                X = x_all.detach().requires_grad_()
+                Y, AUX = moe_mod.moe_forward_dense(L, dense_cfg, X)
+                G = torch.autograd.grad((Y.float() * dy_all).sum(), [X] +
+                                        [L[k] for k in names])
+                row["y_bf16"] = rel_err(y_all, Y)
+                row["dx"] = rel_err(dx_all, G[0])
+                row["drouter"] = rel_err(d_router, G[1])
+                row["aux"] = abs(float(aux) - float(AUX))
+                f_loc = cfg.moe.d_ff_expert // rep
+                for k, g_ep, g_ref, norm in zip(names[1:], mine, G[2:],
+                                                norms):
+                    own = g_ref[:E_loc]
+                    own = (own[:, :f_loc] if k == "down"
+                           else own[:, :, :f_loc])
+                    row[f"d{k}_rank0_shard"] = rel_err(g_ep, own)
+                    row[f"d{k}_norm"] = abs(float(norm) - float(
+                        g_ref.float().norm())) / float(g_ref.float().norm())
+                del L, X, Y, G
+            else:
+                with torch.no_grad():
+                    Y, _ = moe_mod.moe_forward_dense(P, dense_cfg, x_all)
+                row["y_f32"] = rel_err(y_all, Y)
+            del P
+        if train:
+            del grads, mine
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+        row[f"capacity_factor_{dtype}"] = cf
+    return row
+
+
+def ep_gates(row):
+    gate("EP jamba MoE layer f32: y, EP (4, 2) vs dense", row["y_f32"],
+         GATE_EP_F32)
+    gate("EP jamba MoE layer bf16: y", row["y_bf16"], GATE_TRAIN_BF16_GRAD)
+    gate("EP jamba MoE layer bf16: aux", row["aux"], GATE_EP_AUX)
+    gate("EP jamba MoE layer bf16: dx", row["dx"], GATE_TRAIN_BF16_GRAD)
+    gate("EP jamba MoE layer bf16: drouter", row["drouter"],
+         GATE_TRAIN_BF16_GRAD)
+    for k in ("gate", "up", "down"):
+        for what in ("rank0_shard", "norm"):
+            gate(f"EP jamba MoE layer bf16: d{k} {what}",
+                 row[f"d{k}_{what}"], GATE_TRAIN_BF16_GRAD)
+
+
+def _same_params(cfg, dev, mesh):
+    from repro_torch.models import model as model_lib
+    from repro_torch.parallel.collectives import assert_replicated
+    params = model_lib.init_model(cfg, seed=0, device=dev)
+    assert_replicated(params, mesh, f"{cfg.name}'s drawn weights")
+    return params
+
+
+def _pipeline_batch(cfg, part, step, dev):
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, part["seq"], part["batch"],
+                                  seed=1)
+    return pipe.torch_batch_at(step, dev)
+
+
+def sp_part(rank, dev, plan, clock):
+    """qwen2 on (1, 8), attention sequence-parallel: loss_fn and its
+    gradient in float32 (the gates), then in bfloat16 (the main path);
+    rank 0 holds both against its one-device loss_fn on the whole batch,
+    the gradient leaf by leaf."""
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.attention import _use_sp
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import constrainer, rules_for
+    part = plan["sp"]
+    mesh = WorkerMesh(part["mesh"], dev)
+    row = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = parallel_config(part, dtype)
+        if not _use_sp(cfg, mesh, part["seq"], part["seq"], part["batch"],
+                       False):
+            raise AssertionError(f"SP: {cfg.n_heads} heads on {mesh.shape} "
+                                 f"do not route sequence-parallel")
+        params = _same_params(cfg, dev, mesh)
+        names = [name for name, _ in state_items(params)]
+        batch = _pipeline_batch(cfg, part, 0, dev)
+        c = constrainer(rules_for(cfg, "train"), mesh)
+        req = tree_map(lambda t: t.detach().requires_grad_(), params)
+        main = dtype == "bfloat16"
+        with clock.main_path() if main else contextlib.nullcontext():
+            loss, _ = model_lib.loss_fn(req, cfg, batch, mesh=mesh,
+                                        constrain=c, remat="none")
+            grads = torch.autograd.grad(loss, tree_leaves(req))
+        # the whole gradient: the ranks' shares summed in float32
+        grads = [coll.psum(g.float(), mesh, mesh.axis_names) for g in grads]
+        del req
+        if rank == 0:
+            ref_loss, ref_grads = loss_and_grads(model_lib, params, cfg,
+                                                 batch)
+            row[f"loss_{dtype}"] = abs(float(loss) - float(ref_loss))
+            errs = leaf_errors(cfg, names, grads, ref_grads)
+            row[f"grad_{dtype}"] = max(errs.values())
+            row[f"worst_leaves_{dtype}"] = dict(sorted(
+                errs.items(), key=lambda kv: -kv[1])[:3])
+            # every leaf but the tied embedding on max |diff| / max |g|;
+            # the tied embedding on |diff| / |g| (sp_gates)
+            row[f"grad_untied_{dtype}"] = max(
+                v for k, v in errs.items() if k != SP_TIED_LEAF)
+            a, b = grads[names.index(SP_TIED_LEAF)], \
+                ref_grads[names.index(SP_TIED_LEAF)].float()
+            row[f"grad_tied_norm_{dtype}"] = float((a - b).norm() /
+                                                   b.norm())
+            del ref_grads
+        del params, grads
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+    return row
+
+
+def sp_gates(row):
+    gate("SP qwen2 f32 (1, 8): loss vs one device", row["loss_float32"],
+         GATE_SP_LOSS)
+    gate("SP qwen2 f32 (1, 8): gradient vs one device, each leaf",
+         row["grad_float32"], GATE_TRAIN_GRAD)
+    gate("SP qwen2 bf16 (1, 8): loss vs one device", row["loss_bfloat16"],
+         GATE_SP_BF16_LOSS)
+    gate("SP qwen2 bf16 (1, 8): gradient vs one device, each leaf but the "
+         "tied embedding", row["grad_untied_bfloat16"], GATE_TRAIN_BF16_GRAD)
+    # in bfloat16 each rank rounds its rows' share of a leaf's gradient
+    # before the float32 sum, where one device rounds the whole sum once:
+    # the tied embedding's largest entries are sums that cancel, so its
+    # max |diff| / max |g| reads 3.7e-2 at full width (27e, 27g); it is
+    # held on |diff| / |g| over the leaf (1.3e-2 there), and the float32
+    # run above on every element
+    gate("SP qwen2 bf16 (1, 8): tied embedding's gradient vs one device, "
+         "|diff| / |g|", row["grad_tied_norm_bfloat16"],
+         GATE_TRAIN_BF16_GRAD)
+
+
+def step_part(rank, dev, plan, clock):
+    """qwen2 in float32, zero3 on (4, 2): ``steps`` sharded steps; rank 0
+    runs the one-device `make_train_step` on the same weights and
+    batches."""
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.parallel.sharding import rules_for
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.parallel.collectives import unshard
+    from repro_torch.train.train_step import (
+        init_train_state, make_train_step, param_specs, shard_params)
+    part = plan["step"]
+    mesh = WorkerMesh(part["mesh"], dev)
+    cfg = parallel_config(part, "float32")
+    rules = rules_for(cfg, "train")
+    opt = OptimizerConfig(lr=1e-3)
+    lr_kwargs = dict(peak=1e-3, warmup_steps=0, total_steps=10)
+    params = _same_params(cfg, dev, mesh)
+    specs = param_specs(cfg, rules, mesh)
+    state = init_train_state(shard_params(params, specs, mesh), opt)
+    if rank != 0:                   # rank 0 keeps them for its reference
+        del params
+    step = make_train_step(cfg, opt, mesh, rules, remat="none",
+                           lr_kwargs=lr_kwargs)
+    losses = []
+    batches = [_pipeline_batch(cfg, part, i, dev)
+               for i in range(part["steps"])]
+    with clock.main_path():
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+    whole = tree_map(lambda t, s: unshard(t, s, mesh), state.params, specs)
+    del state
+    row = {"rules": rules.name, "losses": losses}
+    if rank == 0:
+        one = make_train_step(cfg, opt, remat="none", lr_kwargs=lr_kwargs,
+                              device=dev)
+        ref = init_train_state(params, opt)
+        for i, b in enumerate(batches):
+            ref, m = one(ref, b)
+            # relative: the random full-width model starts at a loss of
+            # ~1275 (its z-loss), where a float32 ulp is 1.2e-4
+            row.setdefault("loss", []).append(abs(
+                losses[i] - float(m["loss"])) / max(1.0, abs(float(
+                    m["loss"]))))
+        row["params"] = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(whole), tree_leaves(ref.params)))
+        del ref, one, params
+    del whole
+    return row
+
+
+def step_gates(row):
+    gate("sharded step qwen2 f32 zero3 (4, 2): loss vs one device, "
+         "relative", max(row["loss"]), GATE_STEP_LOSS)
+    gate("sharded step qwen2 f32 zero3 (4, 2): parameters vs one device",
+         row["params"], GATE_STEP_PARAMS)
+
+
+def _pod_quanta(cfg, rules, mesh, specs, batch, dev) -> list:
+    """Each of this rank's gradient shards' quantum under the int8 step's
+    compressed mean over "pod": amax/127, amax the shard's largest |g|
+    over the pods.  The pods' gradients are formed as the int8 step forms
+    them before its mean (each pod's loss a mean over its own rows, the
+    ranks' shares summed over "data" and "model").  Returns [(quantum,
+    the pods' mean of the shard)]."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import constrainer
+    inner = tuple(a for a in mesh.axis_names if a != "pod")
+    params = tree_map(lambda t: t.requires_grad_(),
+                      _same_params(cfg, dev, mesh))
+    loss, _ = model_lib.loss_fn(params, cfg, batch, mesh=mesh,
+                                constrain=constrainer(rules, mesh),
+                                remat="none", mean_axes=inner)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    del params, loss
+    out = []
+    for g, spec in zip(grads, tree_leaves(specs)):
+        pod = coll.shard_of(coll.psum(g.float(), mesh, inner), spec, mesh)
+        amax = coll.pmax(pod.abs().max(), mesh, "pod")
+        mean = coll.psum(pod, mesh, "pod") / mesh.shape["pod"]
+        out.append((float(amax) / 127.0, mean.cpu()))
+    return out
+
+
+def int8_part(rank, dev, plan, clock):
+    """qwen2 in bfloat16 on (2, 2, 2) under base: the exact and the
+    int8-compressed sharded step from the same state.  Each rank holds
+    the gradient the int8 step reduced (read from AdamW's first moment)
+    against the exact step's, shard by shard, in units of the compressed
+    mean's quantum (`_pod_quanta`, outside the main path), and the
+    parameters; then the compressed mean's bound and bits on a drawn
+    tensor."""
+    import hashlib
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import preset
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import (
+        init_train_state, make_train_step, param_specs, shard_params)
+    part = plan["int8"]
+    mesh = WorkerMesh(part["mesh"], dev)
+    cfg = parallel_config(part, "bfloat16")
+    rules = preset("base")
+    opt = OptimizerConfig(lr=1e-3)
+    lr_kwargs = dict(peak=1e-3, warmup_steps=0, total_steps=10)
+    specs = param_specs(cfg, rules, mesh)
+    batch = _pipeline_batch(cfg, part, 0, dev)
+    row, after, grads = {}, {}, {}
+    with clock.main_path():
+        for name, comp in (("exact", None), ("int8", "int8")):
+            # each state from the seed's weights again, and the updated
+            # shards kept in host memory: eight ranks share the card
+            state = init_train_state(shard_params(
+                _same_params(cfg, dev, mesh), specs, mesh), opt)
+            step = make_train_step(cfg, opt, mesh, rules, remat="none",
+                                   grad_compression=comp,
+                                   lr_kwargs=lr_kwargs)
+            state, m = step(state, batch)
+            row[f"loss_{name}"] = float(m["loss"])
+            row[f"grad_norm_{name}"] = float(m["grad_norm"])
+            after[name] = [t.detach().cpu() for t in
+                           tree_leaves(state.params)]
+            # AdamW's first step stores (1 - b1) x clip_factor x g
+            scale = (1.0 - opt.b1) * float(m["clip_factor"])
+            grads[name] = [(mu.float() / scale).cpu()
+                           for mu in tree_leaves(state.opt["mu"])]
+            del state, step
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    for name in after:
+        digest = hashlib.sha256()
+        for t in after[name]:
+            digest.update(t.float().numpy().tobytes())
+        row[f"digest_{name}"] = digest.hexdigest()
+    # the parameters' largest difference, over every rank's shards
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(after["exact"], after["int8"]))
+    row["params"] = float(coll.pmax(torch.tensor(diff, device=dev), mesh,
+                                    mesh.axis_names))
+    row["loss"] = abs(row["loss_exact"] - row["loss_int8"])
+    # the reduced gradients, in units of each shard's quantum; the
+    # squared norm of the quanta, each element counted once
+    quanta = _pod_quanta(cfg, rules, mesh, specs, batch, dev)
+    err, pods, q_max, g_max, bound_sq = [], [], [], [], 0.0
+    for a, b, (q, mean), spec in zip(grads["int8"], grads["exact"], quanta,
+                                     tree_leaves(specs)):
+        d, dp = float((a - b).abs().max()), float((mean - b).abs().max())
+        err.append(d / q if q > 0 else (0.0 if d == 0 else math.inf))
+        pods.append(dp / q if q > 0 else (0.0 if dp == 0 else math.inf))
+        q_max.append(q)
+        g_max.append(float(b.abs().max()))
+        bound_sq += b.numel() * q * q / coll.replication(spec, mesh)
+    worst = coll.pmax(torch.tensor([max(err), max(pods)], device=dev),
+                      mesh, mesh.axis_names)
+    row["grad_over_quantum"], row["pods_over_quantum"] = map(float, worst)
+    # each leaf's largest quantum over its largest |g|, over the shards
+    qg = coll.pmax(torch.tensor([q_max, g_max], device=dev), mesh,
+                   mesh.axis_names)
+    row["quantum_over_gmax"] = float((qg[0] / qg[1]).max())
+    bound = float(coll.psum(torch.tensor(bound_sq, device=dev), mesh,
+                            mesh.axis_names).sqrt())
+    row["grad_norm_over_bound"] = abs(
+        row["grad_norm_int8"] - row["grad_norm_exact"]) / bound
+    del grads, quanta
+    # the compressed mean on a drawn tensor: its error and its bits
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rank)
+    g = torch.randn((4096, 1024), generator=gen, device=dev)
+    mean = coll.compressed_psum(g, mesh, ("pod",), coll.rng_seed(17, 0))
+    exact = coll.psum(g, mesh, "pod") / mesh.shape["pod"]
+    amax = coll.pmax(g.abs().max(), mesh, "pod")
+    row["psum_err_over_step"] = float((mean - exact).abs().max() /
+                                      (amax / 127.0))
+    row["psum_digest"] = hashlib.sha256(
+        mean.cpu().numpy().tobytes()).hexdigest()
+    row["coord"] = dict(mesh.coord)
+    return row
+
+
+def int8_gates(rows):
+    r0 = rows[0]["int8"]
+    gate("int8 step qwen2 bf16 base (2, 2, 2): loss vs exact", r0["loss"],
+         GATE_INT8_LOSS)
+    gate("int8 step qwen2 bf16 base (2, 2, 2): parameters vs exact",
+         r0["params"], GATE_INT8_PARAMS)
+    # the loss is taken before the update and AdamW's first step moves
+    # each parameter by about lr whatever the gradient, so the gradient
+    # the step reduced is held too: against the exact step's, shard by
+    # shard, in units of the compressed mean's quantum amax/127
+    gate("int8 step qwen2 bf16 base (2, 2, 2): reduced gradient vs exact / "
+         "(amax/127)", r0["grad_over_quantum"], GATE_INT8_GRAD)
+    gate("int8 step qwen2 bf16 base (2, 2, 2): the pods' mean gradient vs "
+         "exact / (amax/127)", r0["pods_over_quantum"], GATE_INT8_PODS)
+    gate("int8 step qwen2 bf16 base (2, 2, 2): amax/127 / max |g|, each leaf",
+         r0["quantum_over_gmax"], GATE_INT8_QUANTUM)
+    gate("int8 step qwen2 bf16 base (2, 2, 2): |grad_norm - exact's| / the "
+         "quanta's norm", r0["grad_norm_over_bound"], GATE_INT8_GRAD)
+    # the bound amax/127, and the float32 rounding of the two means
+    gate("int8 compressed mean: max error / (amax/127)",
+         max(r["int8"]["psum_err_over_step"] for r in rows), 1.0 + 1e-5)
+    for key in ("digest_int8", "psum_digest"):
+        groups = {}
+        for r in rows:
+            c = r["int8"]["coord"]
+            groups.setdefault((c["data"], c["model"]), set()).add(
+                r["int8"][key])
+        if any(len(v) != 1 for v in groups.values()):
+            raise AssertionError(f"int8: {key} differs within a pod group")
+
+
+def parallel_rank(rank, dev, plan):
+    """Phase 26 on one rank: the four parts, each timed, with its main
+    path's launches; every rank's peak memory."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, fn in (("ep", ep_part), ("sp", sp_part), ("step", step_part),
+                     ("int8", int8_part)):
+        if name not in plan:
+            continue
+        dist.barrier()
+        clock = PartClock(dev)
+        out[name] = clock.row(**fn(rank, dev, plan, clock))
+        if dev.type == "cuda":
+            out[name]["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            torch.cuda.reset_peak_memory_stats(dev)
+            torch.cuda.empty_cache()
+        if rank == 0:           # as it goes: the gates read them at the end
+            print(json.dumps({"parallel_part": name, **{
+                k: v for k, v in out[name].items()
+                if isinstance(v, (int, float, str, dict, list))}}),
+                flush=True)
+    return out
+
+
+def parallel_phase(plan=PARALLEL_PLAN, device="cuda",
+                   ranks=PARALLEL_RANKS) -> dict:
+    """Phase 26: one world of ``ranks`` processes (spawn, gloo on the
+    rank's device, all on card 0), the four parts on meshes made over the
+    same ranks, their gates, and each rank's launches held exactly to
+    `parallel_launches`.  Returns the summed launches by kernel."""
+    from repro_torch.launch.mesh import spawn_world
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(json.dumps({"parallel_free_gb": free / 1e9,
+                          "card_gb": total / 1e9}), flush=True)
+    # the ranks' allocators grow by segments (eight of them share 80 GB)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    world_dir = ROOT / "build" / "repro_torch" / "world"
+    world_dir.mkdir(parents=True, exist_ok=True)
+    store = world_dir / f"store-{os.getpid()}-{time.time_ns()}"
+    t0 = time.perf_counter()
+    rows = spawn_world(parallel_rank, ranks, backend="gloo", device=device,
+                       init_file=store, timeout_s=PARALLEL_TIMEOUT_S,
+                       threads=None, args=(plan,))
+    wall = time.perf_counter() - t0
+    for name, gates in (("ep", ep_gates), ("sp", sp_gates),
+                        ("step", step_gates), ("int8", int8_gates)):
+        if name in plan:
+            gates(rows[0][name] if name != "int8" else rows)
+    want = parallel_launches(plan)
+    total = {k: 0 for k in PARALLEL_KERNELS}
+    for rank, r in enumerate(rows):
+        for part, counts in want.items():
+            if r[part]["launches"] != counts:
+                raise AssertionError(f"phase 26 {part}: rank {rank} "
+                                     f"launched {r[part]['launches']}, not "
+                                     f"{counts}")
+            for k in total:
+                total[k] += r[part]["launches"][k]
+    summary = {"parallel": {
+        "ranks": ranks, "backend": "gloo", "world_wall_s": wall,
+        "parts": {part: {
+            "mesh": plan[part]["mesh"],
+            "wall_s": [r[part]["wall_s"] for r in rows],
+            "main_s": [r[part]["main_s"] for r in rows],
+            "launches_per_rank": want[part],
+            "by_instance_rank0": rows[0][part]["by_instance"],
+            **{k: v for k, v in rows[0][part].items() if k not in (
+                "wall_s", "main_s", "launches", "by_instance")}}
+            for part in want},
+        "peak_gb": {part: [r[part].get("peak_gb") for r in rows]
+                    for part in want},
+        "launches": total}}
+    print(json.dumps(summary), flush=True)
+    return total
+
+
 def build_all(modules) -> None:
     """Builds every kernel at once, one nvcc per source (a module's
     `build`, and its `build_backward` where it has one), and prints each
@@ -5312,6 +6019,15 @@ def main() -> int:
     service = service_phase(launch_counts)
     waterfill_line["launches_service"] = service["waterfill_launches"]
     phase_done("25")
+    # phase 26: parallel/ -- expert-parallel MoE, sequence-parallel
+    # attention, the sharded and the int8-compressed train steps on a
+    # world of 8 ranks that share the card (gloo)
+    parallel = parallel_phase()
+    for line, name in ((flash_line, "flash_attention"),
+                       (bwd_line, "flash_attention_bwd"),
+                       (gmm_line, "gmm"), (gmm_bwd_line, "gmm_bwd")):
+        line["launches_parallel"] = parallel[name]
+    phase_done("26")
     print(json.dumps({"profiler_sessions": profiler_sessions}), flush=True)
     print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
                                   gmm_line, bwd_line, ssd_bwd_line,

@@ -1,1 +1,3 @@
-from repro_torch.data.pipeline import SyntheticTokenPipeline, stub_modality_inputs
+from repro_torch.data.pipeline import (
+    SyntheticTokenPipeline, make_batch_specs, stub_modality_inputs,
+)

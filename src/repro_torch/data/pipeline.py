@@ -12,8 +12,10 @@ The batches are numpy arrays made by numpy's generators:
 for letter, so both packages draw the same arrays from the same seeds
 (tests/test_torch_train.py and tests/test_torch_copies.py hold them to
 it).  `torch_batch_at` takes the place of ``jax_batch_at`` and puts a
-batch on one device; the sharded batch specs (``make_batch_specs``)
-belong to the multi-device work (ROADMAP Queue 1 item 14).
+batch on one device.  Under a mesh every rank draws the same global batch
+from the seed and takes its own rows (`models.model.loss_fn`), so the
+global batch is bit-equal to one device's; `make_batch_specs` is the
+reference's spec tree for it.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import batch_spec
 
 
 @dataclasses.dataclass
@@ -70,6 +73,19 @@ class SyntheticTokenPipeline:
         """`batch_at` as int32 tensors on ``device``."""
         return {k: torch.from_numpy(v).to(device)
                 for k, v in self.batch_at(step).items()}
+
+
+def make_batch_specs(cfg: ModelConfig, mesh):
+    """PartitionSpec tree for a training batch of this model family."""
+    specs = {
+        "tokens": batch_spec(mesh, None),
+        "labels": batch_spec(mesh, None),
+    }
+    if cfg.encoder is not None:
+        specs["frames"] = batch_spec(mesh, None, None)
+    if cfg.frontend is not None:
+        specs["patches"] = batch_spec(mesh, None, None)
+    return specs
 
 
 def stub_modality_inputs(cfg: ModelConfig, batch: int, rng_seed: int = 0):

@@ -21,8 +21,20 @@ copy of the whole cache per layer and token.  A cross-attention cache
 holds the encoder output's keys and values: the prefill writes it once,
 and a decode step only reads it.
 
-Not ported here: sequence-parallel attention under a mesh (Queue 1 item
-14).
+Sequence-parallel attention (the reference's ``_sp_attention``) runs
+under a mesh (`launch.mesh.WorkerMesh`) where the head count does not
+divide the "model" axis (`_use_sp`): each rank of the "model" group
+takes one part of the sequence of its group's rows, all-gathers the
+keys, values and their positions over "model", and runs
+`flash_attention` (the kernel, forward and backward, on CUDA) on its
+query rows; absolute positions keep causality exact.  Where the rows
+are replicated over "model" (the base/ep presets) the rank slices its
+part of the sequence and the outputs are all-gathered back; where they
+are cut over "model" too (zero3) an all-to-all over "model" turns the
+rank's rows into its part of the sequence and back.  Every collective is
+differentiable (`parallel.collectives`).  Where the heads divide the
+"model" axis the rank attends its own rows with every head (the port
+keeps no head-sharded activations).
 """
 from __future__ import annotations
 
@@ -34,19 +46,25 @@ from repro_torch.models.layers import (
     apply_linear, apply_rmsnorm, apply_rope, init_linear,
 )
 from repro_torch.models.param import Init, torch_dtype
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import layout_rows, no_constraint
+
 
 def init_attention(init: Init, cfg: ModelConfig) -> dict:
     d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     dt = cfg.param_dtype
     p = {
-        "wq": init_linear(init, d, H * Dh, dt, bias=cfg.qkv_bias),
-        "wk": init_linear(init, d, Hkv * Dh, dt, bias=cfg.qkv_bias),
-        "wv": init_linear(init, d, Hkv * Dh, dt, bias=cfg.qkv_bias),
-        "wo": init_linear(init, H * Dh, d, dt),
+        "wq": init_linear(init, d, H * Dh, dt, axes=("embed", "heads"),
+                          bias=cfg.qkv_bias, bias_axis="heads"),
+        "wk": init_linear(init, d, Hkv * Dh, dt, axes=("embed", "kv"),
+                          bias=cfg.qkv_bias, bias_axis="kv"),
+        "wv": init_linear(init, d, Hkv * Dh, dt, axes=("embed", "kv"),
+                          bias=cfg.qkv_bias, bias_axis="kv"),
+        "wo": init_linear(init, H * Dh, d, dt, axes=("heads", "embed")),
     }
     if cfg.qk_norm:
-        p["q_norm"] = {"scale": init.ones((Dh,), dt)}
-        p["k_norm"] = {"scale": init.ones((Dh,), dt)}
+        p["q_norm"] = {"scale": init.ones((Dh,), dt, axes=(None,))}
+        p["k_norm"] = {"scale": init.ones((Dh,), dt, axes=(None,))}
     return p
 
 
@@ -75,17 +93,62 @@ def default_positions(B: int, S: int, device) -> torch.Tensor:
                         device=device).expand(B, S).contiguous()
 
 
+def _sp_attention(q, k, v, q_pos, kv_pos, mesh, rows, *, causal, window,
+                  softcap):
+    """Sequence-parallel attention on this rank of the "model" group:
+    q, k, v (B_loc, S, H, Dh) and positions (B_loc, S) of the rank's rows
+    (cut over ``rows``)."""
+    tp = mesh.shape["model"]
+    B, S = q.shape[:2]
+    if "model" in rows:             # rows cut over "model": rows -> seq
+        def to_seq(t):
+            t = t.reshape(B, tp, S // tp, *t.shape[2:]).transpose(0, 1)
+            t = coll.all_to_all(t.contiguous(), mesh, "model")
+            return t.reshape(tp * B, S // tp, *t.shape[3:])
+
+        def to_rows(t):
+            t = coll.all_to_all(t.reshape(tp, B, S // tp, *t.shape[2:]),
+                                mesh, "model")
+            return t.transpose(0, 1).reshape(B, S, *t.shape[3:])
+    else:                           # rows replicated over "model"
+        def to_seq(t):
+            return coll.own_slice(t, mesh, "model", 1).contiguous()
+
+        def to_rows(t):
+            return coll.all_gather(t, mesh, "model", 1)
+    q_l, k_l, v_l, qp_l, kp_l = map(to_seq, (q, k, v, q_pos, kv_pos))
+    k_f = coll.all_gather(k_l, mesh, "model", 1)
+    v_f = coll.all_gather(v_l, mesh, "model", 1)
+    kp_f = coll.all_gather(kp_l, mesh, "model", 1)
+    o = flash_attention(q_l, k_f, v_f, qp_l, kp_f, causal=causal,
+                        window=window, softcap=softcap)
+    return to_rows(o)
+
+
+def _use_sp(cfg: ModelConfig, mesh, Sq: int, Skv: int, B: int,
+            cross: bool) -> bool:
+    if mesh is None or cross:
+        return False
+    tp = dict(mesh.shape).get("model", 1)
+    if tp <= 1 or cfg.n_heads % tp == 0:
+        return False  # the reference shards heads; the port keeps them
+    return Sq > 1 and Sq % tp == 0 and Skv % tp == 0
+
+
 def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                  rope_on: bool = True, window: int | None = None,
                  causal: bool = True, positions: torch.Tensor | None = None,
                  kv_ctx: torch.Tensor | None = None,
-                 return_kv: bool = False):
+                 constrain=no_constraint, return_kv: bool = False,
+                 mesh=None):
     """Full-sequence attention (training / prefill / encoder / cross).
     With ``kv_ctx`` (the encoder's output, (B, F, d_model)) it is
     cross-attention: keys and values projected from ``kv_ctx`` at
     positions 0..F-1, no RoPE, no causal mask.
     With return_kv=True returns (out, (k, v)) for cache filling -- k is
-    post-RoPE, matching the decode path's cache convention."""
+    post-RoPE, matching the decode path's cache convention.  Under a
+    ``mesh`` (x the rank's rows, laid out as ``constrain`` says) it is
+    sequence-parallel where `_use_sp` holds."""
     B, S, _ = x.shape
     if positions is None:
         positions = default_positions(B, S, x.device)
@@ -97,8 +160,14 @@ def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         kv_positions = default_positions(B, xkv.shape[1], x.device)
     q, k, v = _project_qkv(p, cfg, x, xkv, rope_on=rope_on,
                            q_positions=positions, kv_positions=kv_positions)
-    o = flash_attention(q, k, v, positions, kv_positions, causal=causal,
-                        window=window, softcap=cfg.attn_logit_softcap)
+    if _use_sp(cfg, mesh, q.shape[1], k.shape[1], q.shape[0],
+               kv_ctx is not None):
+        o = _sp_attention(q, k, v, positions, kv_positions, mesh,
+                          layout_rows(constrain, mesh), causal=causal,
+                          window=window, softcap=cfg.attn_logit_softcap)
+    else:
+        o = flash_attention(q, k, v, positions, kv_positions, causal=causal,
+                            window=window, softcap=cfg.attn_logit_softcap)
     out = apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.d_head))
     if return_kv:
         return out, (k, v)

@@ -68,7 +68,7 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_rmsnorm(init: Init, d: int, dtype) -> dict:
-    return {"scale": init.ones((d,), dtype)}
+    return {"scale": init.ones((d,), dtype, axes=("embed",))}
 
 
 def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -79,7 +79,8 @@ def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def init_layernorm(init: Init, d: int, dtype) -> dict:
-    return {"scale": init.ones((d,), dtype), "bias": init.zeros((d,), dtype)}
+    return {"scale": init.ones((d,), dtype, axes=("embed",)),
+            "bias": init.zeros((d,), dtype, axes=("embed",))}
 
 
 def apply_layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -108,10 +109,11 @@ def apply_norm(kind: str, p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_linear(init: Init, d_in: int, d_out: int, dtype, *,
-                bias: bool = False) -> dict:
-    p = {"w": init.dense((d_in, d_out), dtype, fan_in=d_in)}
+                axes=(None, None), bias: bool = False,
+                bias_axis: str | None = None) -> dict:
+    p = {"w": init.dense((d_in, d_out), dtype, fan_in=d_in, axes=axes)}
     if bias:
-        p["b"] = init.zeros((d_out,), dtype)
+        p["b"] = init.zeros((d_out,), dtype, axes=(bias_axis,))
     return p
 
 
@@ -125,7 +127,7 @@ def apply_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_embedding(init: Init, vocab: int, d: int, dtype) -> dict:
-    return {"table": init.embed((vocab, d), dtype)}
+    return {"table": init.embed((vocab, d), dtype, axes=("vocab", "embed"))}
 
 
 def apply_embedding(p: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -176,11 +178,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def init_mlp(init: Init, d_model: int, d_ff: int, dtype, *,
              gated: bool = True) -> dict:
     p = {
-        "up": init.dense((d_model, d_ff), dtype),
-        "down": init.dense((d_ff, d_model), dtype, fan_in=d_ff),
+        "up": init.dense((d_model, d_ff), dtype, axes=("embed", "mlp")),
+        "down": init.dense((d_ff, d_model), dtype, fan_in=d_ff,
+                           axes=("mlp", "embed")),
     }
     if gated:
-        p["gate"] = init.dense((d_model, d_ff), dtype)
+        p["gate"] = init.dense((d_model, d_ff), dtype, axes=("embed", "mlp"))
     return p
 
 

@@ -41,7 +41,11 @@ from repro_torch.models.layers import (
     apply_embedding, apply_linear, apply_norm, apply_unembed, init_embedding,
     init_linear, init_norm, matmul_f32,
 )
-from repro_torch.models.param import Init, PyTree, torch_dtype
+from repro_torch.models.param import Init, PyTree, torch_dtype, tree_map
+from repro_torch.parallel.collectives import own_slice, psum
+from repro_torch.parallel.sharding import (
+    Constrainer, no_constraint, row_axes, rules_for,
+)
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -73,7 +77,22 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    init = Init(gen, dev)
+    return _init_tree(Init(gen, dev), cfg)
+
+
+def leaf_tree(cfg: ModelConfig) -> PyTree:
+    """The parameter tree's `Leaf` (full shape and logical axes) at each
+    leaf, with `init_model`'s paths; nothing is drawn."""
+    return _init_tree(Init(None, None, record=True), cfg)
+
+
+def axes_tree(cfg: ModelConfig) -> PyTree:
+    """The logical axes of every parameter: the reference's
+    ``axes_tree(init_model(cfg))`` (a stack axis is ``"layers"``)."""
+    return tree_map(lambda leaf: leaf.axes, leaf_tree(cfg))
+
+
+def _init_tree(init: Init, cfg: ModelConfig) -> PyTree:
     cross = cfg.encoder is not None
     p = {
         "embed": init_embedding(init, cfg.vocab_size, cfg.d_model,
@@ -83,7 +102,8 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         p["unembed"] = {"w": init.dense((cfg.d_model, cfg.vocab_size),
-                                        cfg.param_dtype)}
+                                        cfg.param_dtype,
+                                        axes=("embed", "vocab"))}
     if cross:
         p["encoder"] = {
             "stack": tfm.init_stack(init, cfg, n_layers=cfg.encoder.n_layers),
@@ -92,7 +112,7 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
         }
     if cfg.frontend is not None:
         p["projector"] = init_linear(init, cfg.frontend.d_input, cfg.d_model,
-                                     cfg.param_dtype)
+                                     cfg.param_dtype, axes=(None, "embed"))
     return p
 
 
@@ -128,7 +148,8 @@ def _unembed(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor, *,
-            remat: str = "none", unroll: bool = False) -> torch.Tensor:
+            mesh=None, constrain=no_constraint, remat: str = "none",
+            unroll: bool = False) -> torch.Tensor:
     """The encoder over ``frames`` (B, F, d_model): sinusoidal positions
     added in float32, a non-causal stack, its final norm."""
     frames = frames.to(params_device(params))
@@ -138,18 +159,21 @@ def _encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor, *,
     x = (frames.float() + sinusoidal(pos, cfg.d_model)).to(
         torch_dtype(cfg.activation_dtype))
     x, _ = tfm.stack_forward(params["encoder"]["stack"], cfg, x,
-                             positions=pos, causal=False, remat=remat,
+                             positions=pos, causal=False, mesh=mesh,
+                             constrain=constrain, remat=remat,
                              unroll=unroll)
     return apply_norm(cfg.norm, params["encoder"]["final_norm"], x,
                       cfg.norm_eps)
 
 
 def _enc_out(params: PyTree, cfg: ModelConfig, batch: dict, *,
-             remat: str = "none", unroll: bool = False):
+             mesh=None, constrain=no_constraint, remat: str = "none",
+             unroll: bool = False):
     """The encoder's output for an enc-dec batch, None otherwise."""
     if cfg.encoder is None:
         return None
-    return _encode(params, cfg, batch["frames"], remat=remat, unroll=unroll)
+    return _encode(params, cfg, batch["frames"], mesh=mesh,
+                   constrain=constrain, remat=remat, unroll=unroll)
 
 
 def _input_embeds(params: PyTree, cfg: ModelConfig, batch: dict
@@ -173,33 +197,61 @@ def _input_embeds(params: PyTree, cfg: ModelConfig, batch: dict
 # ---------------------------------------------------------------------------
 
 def _forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
-             remat: str, unroll: bool) -> tuple[torch.Tensor, torch.Tensor]:
+             remat: str, unroll: bool, mesh=None, constrain=no_constraint
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """(logits (B, S_text, vocab) float32, the MoE auxiliary loss)."""
-    enc_out = _enc_out(params, cfg, batch, remat=remat, unroll=unroll)
+    enc_out = _enc_out(params, cfg, batch, mesh=mesh, constrain=constrain,
+                       remat=remat, unroll=unroll)
     x, positions = _input_embeds(params, cfg, batch)
     x, aux = tfm.stack_forward(params["stack"], cfg, x, positions=positions,
                                causal=True, cross=enc_out is not None,
-                               enc_out=enc_out, remat=remat, unroll=unroll)
+                               enc_out=enc_out, mesh=mesh,
+                               constrain=constrain, remat=remat,
+                               unroll=unroll)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     if cfg.frontend is not None:        # only text positions produce logits
         x = x[:, cfg.frontend.n_prefix:, :]
     return _unembed(params, cfg, x), aux
 
 
+def _rank_batch(cfg: ModelConfig, batch: dict, mesh, constrain):
+    """This rank's rows of a global batch, and the constrainer that says
+    how they are cut (`parallel.sharding.row_axes` of the rules, which
+    default to the training preset)."""
+    rules = getattr(constrain, "rules", None) or rules_for(cfg, "train")
+    rows = row_axes(rules, mesh, batch["tokens"].shape[0])
+    local = {k: own_slice(v, mesh, rows, 0) for k, v in batch.items()}
+    return local, Constrainer(rules, mesh, rows=rows)
+
+
 def forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
-            remat: str = "none", unroll: bool = False) -> torch.Tensor:
+            mesh=None, constrain=no_constraint, remat: str = "none",
+            unroll: bool = False) -> torch.Tensor:
     """Returns logits (B, S_text, vocab) float32.  (The MoE auxiliary loss
-    that the stack returns beside them goes to `loss_fn`.)"""
-    return _forward(params, cfg, batch, remat=remat, unroll=unroll)[0]
+    that the stack returns beside them goes to `loss_fn`.)  Under a
+    ``mesh`` every rank passes the same global batch and whole
+    parameters, and gets the logits of its own rows."""
+    if mesh is not None:
+        batch, constrain = _rank_batch(cfg, batch, mesh, constrain)
+    return _forward(params, cfg, batch, remat=remat, unroll=unroll,
+                    mesh=mesh, constrain=constrain)[0]
 
 
 def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict, *,
-            remat: str = "full", z_loss: float = 1e-4,
-            unroll: bool = False) -> tuple[torch.Tensor, dict]:
+            mesh=None, constrain=no_constraint, remat: str = "full",
+            z_loss: float = 1e-4, unroll: bool = False,
+            mean_axes: tuple[str, ...] | None = None
+            ) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy over the labels >= 0, plus ``z_loss`` times
     the mean squared log-normaliser and the MoE auxiliary loss times its
     weight.  Returns (loss, metrics) with the reference's metrics
-    (``loss``, ``ce``, ``z_loss``, ``moe_aux``, ``tokens``), float32."""
+    (``loss``, ``ce``, ``z_loss``, ``moe_aux``, ``tokens``), float32.
+
+    Under a ``mesh`` see `_mesh_loss`."""
+    if mesh is not None:
+        return _mesh_loss(params, cfg, batch, mesh=mesh, constrain=constrain,
+                          remat=remat, z_loss=z_loss, unroll=unroll,
+                          mean_axes=mean_axes)
     logits, aux = _forward(params, cfg, batch, remat=remat, unroll=unroll)
     labels = batch["labels"].to(logits.device)
     valid = labels >= 0
@@ -215,6 +267,50 @@ def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict, *,
     metrics = {"loss": total, "ce": ce_mean, "z_loss": zl, "moe_aux": aux,
                "tokens": n.float()}
     return total, metrics
+
+
+def _mesh_loss(params, cfg, batch, *, mesh, constrain, remat, z_loss,
+               unroll, mean_axes):
+    """`loss_fn` on one rank of a mesh.  Every rank passes the same global
+    batch and whole parameters; the rank computes its own rows
+    (`_rank_batch`).  The loss is the mean over the valid labels of the
+    ranks of ``mean_axes`` (every mesh axis by default; the compressed
+    train step leaves "pod" out), their count from an all-reduce.
+
+    The returned loss has the value of that mean, and the gradient of
+    this rank's share of it: its rows' sum over the count, divided by the
+    ranks that hold the same rows (``rep``), plus its share of the MoE
+    auxiliary loss (a mean over the ranks, `share_mean`).  The shares of
+    the ranks of ``mean_axes`` add up to the loss, so the gradient is the
+    sum of the ranks' gradients over ``mean_axes``.  The metrics are the
+    reference's, for the whole group."""
+    axes = mesh.axis_names if mean_axes is None else mesh.canonical(
+        mean_axes)
+    batch, constrain = _rank_batch(cfg, batch, mesh, constrain)
+    logits, aux = _forward(params, cfg, batch, remat=remat, unroll=unroll,
+                           mesh=mesh, constrain=constrain)
+    labels = batch["labels"].to(logits.device)
+    valid = labels >= 0
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None]
+                        )[..., 0]
+    rep = mesh.size(axes) // mesh.size(
+        [a for a in constrain.rows if a in axes])
+    n = psum(valid.sum().to(torch.int32), mesh, axes) // rep
+    n = n.clamp(min=1)
+    sums = torch.stack([((logz - gold) * valid).sum(),
+                        (logz.square() * valid).sum()])
+    share = (sums[0] + z_loss * sums[1]) / n / rep
+    total_sums = psum(sums.detach(), mesh, axes) / rep
+    ce_mean = total_sums[0] / n
+    zl = z_loss * total_sums[1] / n
+    aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+    total = ce_mean + zl + aux_w * aux.detach()
+    share = share + aux_w * aux
+    loss = share + (total - share).detach()
+    metrics = {"loss": total, "ce": ce_mean, "z_loss": zl,
+               "moe_aux": aux.detach(), "tokens": n.float()}
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -270,5 +366,6 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens_t: torch.Tensor,
     return logits, cache, lengths + 1
 
 
-__all__ = ["init_model", "init_cache", "forward", "loss_fn", "prefill",
-           "decode_step", "resolve_device", "params_device", "sinusoidal"]
+__all__ = ["init_model", "leaf_tree", "axes_tree", "init_cache", "forward",
+           "loss_fn", "prefill", "decode_step", "resolve_device",
+           "params_device", "sinusoidal"]

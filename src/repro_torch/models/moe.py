@@ -31,9 +31,26 @@ accumulates with duplicate indices only into the overflow row ``E·C``,
 whose gradient is discarded, so nothing the model uses depends on the
 order of those atomic adds: two backward passes give the same bits.
 
-The expert-parallel all-to-all path (``moe_forward_ep``) belongs to the
-reference's ``parallel/`` work and is not ported (ROADMAP Queue 1 item
-14).
+Expert parallelism (``moe_forward_ep``, the reference's shard_map body
+``_ep_local``) runs on a `launch.mesh.WorkerMesh`, one rank per mesh
+coordinate: experts cut over "data" (E/|data| a rank), the expert FF dim
+over "model", the block replicated over "pod".  Each rank routes its own
+tokens, sorts the (token, slot) assignments by destination rank into
+buffers of ``C_send`` rows (overflow dropped), exchanges them and their
+local expert ids with an all-to-all over "data", sorts what it received
+by local expert into groups of ``cap_e`` rows, runs the three expert
+products on `gmm` over those groups (the reference's einsums; the Hopper
+kernel on CUDA tensors, forward and backward), sums the down-projection
+partials over "model" in the activation dtype (bfloat16 on the wire),
+sends the rows back with the reverse all-to-all and combines them at the
+sender with the gates, summed in float32 as the dense path does.  ``aux``
+is the mean of the ranks' local estimates (`parallel.collectives.
+share_mean`).  Where the model's rows are also cut over "model" (the
+zero3 presets) the "model" group's rows are gathered first and each rank
+keeps its own after.  `moe_forward` picks EP under the reference's
+conditions; otherwise, under a mesh, every rank runs the dense dispatch
+on the gathered batch (capacity and drops are global, as in the
+reference) and keeps its rows.
 """
 from __future__ import annotations
 
@@ -43,7 +60,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.moe_gmm.ops import gmm
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import default_rows
 from repro_torch.models.layers import apply_mlp, init_mlp
 from repro_torch.models.param import Init
 
@@ -53,10 +72,14 @@ def init_moe(init: Init, cfg: ModelConfig) -> dict:
     d, dt = cfg.d_model, cfg.param_dtype
     f = m.d_ff_expert
     p = {
-        "router": init.dense((d, m.n_experts), "float32"),
-        "gate": init.dense((m.n_experts, d, f), dt, fan_in=d),
-        "up": init.dense((m.n_experts, d, f), dt, fan_in=d),
-        "down": init.dense((m.n_experts, f, d), dt, fan_in=f),
+        "router": init.dense((d, m.n_experts), "float32",
+                             axes=("embed", None)),
+        "gate": init.dense((m.n_experts, d, f), dt, fan_in=d,
+                           axes=("expert", "embed", "mlp")),
+        "up": init.dense((m.n_experts, d, f), dt, fan_in=d,
+                         axes=("expert", "embed", "mlp")),
+        "down": init.dense((m.n_experts, f, d), dt, fan_in=f,
+                           axes=("expert", "mlp", "embed")),
     }
     if m.n_shared_experts > 0:
         p["shared"] = init_mlp(init, d, f * m.n_shared_experts, dt,
@@ -91,6 +114,11 @@ def capacity(cfg: ModelConfig, T: int) -> int:
     return max(1, math.ceil(T * m.top_k * m.capacity_factor / m.n_experts))
 
 
+def _pick(buf: torch.Tensor, place: torch.Tensor) -> torch.Tensor:
+    """Rows ``buf[place]`` with the scratch place (len(buf)) read as 0."""
+    return torch.cat([buf, buf.new_zeros((1, *buf.shape[1:]))])[place]
+
+
 def moe_forward_dense(p: dict, cfg: ModelConfig, x: torch.Tensor
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, S, d) in x's dtype, aux (float32 scalar))."""
@@ -121,7 +149,7 @@ def moe_forward_dense(p: dict, cfg: ModelConfig, x: torch.Tensor
     h = (F.silu(h) * u).to(x.dtype)
     ex_out = gmm(h, p["down"], sizes, out_dtype=torch.float32).to(x.dtype)
 
-    out_rows = torch.cat([ex_out, ex_out.new_zeros((1, d))])[place]
+    out_rows = _pick(ex_out, place)
     g = gates.to(x.dtype).reshape(T * k, 1)
     y = (g.float() * out_rows.float()).reshape(T, k, d).sum(dim=1)
     y = y.to(x.dtype)
@@ -131,15 +159,164 @@ def moe_forward_dense(p: dict, cfg: ModelConfig, x: torch.Tensor
     return y.reshape(B, S, d), aux
 
 
-def moe_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh=None
+# ---------------------------------------------------------------------------
+# Expert-parallel (all-to-all) dispatch
+# ---------------------------------------------------------------------------
+
+def _sort_dispatch(values: torch.Tensor, key: torch.Tensor, n_buckets: int,
+                   capacity: int):
+    """Stable-sorts the rows of ``values`` into (n_buckets, capacity) with
+    overflow dropped; keys >= n_buckets are dropped too.
+
+    Returns (buffer (n_buckets, capacity, ...), order, kept_sorted,
+    place_sorted): ``order`` is the stable sort permutation and
+    ``buffer.flat[place] = values[order]`` for the kept rows (a dropped
+    row's place is the scratch row n_buckets*capacity)."""
+    A = key.shape[0]
+    order = torch.argsort(key, stable=True)
+    key_s = key[order]
+    counts = torch.bincount(key_s, minlength=n_buckets + 1)[:n_buckets]
+    starts = torch.cumsum(counts, 0) - counts              # exclusive
+    rank = torch.arange(A, device=key.device) - starts[
+        key_s.clamp(0, n_buckets - 1)]
+    kept = (rank >= 0) & (rank < capacity) & (key_s < n_buckets)
+    place = torch.where(kept, key_s * capacity + rank, n_buckets * capacity)
+    buf = values.new_zeros((n_buckets * capacity + 1, *values.shape[1:]))
+    buf[place] = values[order]
+    return (buf[:n_buckets * capacity].reshape(
+        n_buckets, capacity, *values.shape[1:]), order, kept, place)
+
+
+def _ep_local(xt, router_w, w_gate, w_up, w_down, *, m: MoEConfig, mesh,
+              data_axis: str, model_axis: str, cf: float):
+    """The per-rank body. xt: (T_loc, d) the rank's tokens; w_*: the
+    rank's expert shards, (E_loc, d, f_loc) and (E_loc, f_loc, d).
+    Returns (y (T_loc, d), the rank's local aux estimate)."""
+    T_loc, d = xt.shape
+    E, k = m.n_experts, m.top_k
+    dsz = mesh.shape[data_axis]
+    E_loc = E // dsz
+    logits = xt.float() @ router_w.float()
+    probs, gates, idx = _router_topk(logits, k)
+    aux = _aux_loss(probs, idx, E)
+
+    A = T_loc * k
+    expert_id = idx.reshape(A)
+    gate_val = gates.reshape(A)
+    dst = expert_id // E_loc                       # destination rank
+    e_local = expert_id % E_loc
+
+    C_send = max(1, math.ceil(A * cf / dsz))
+    send_x, order, kept, place = _sort_dispatch(
+        xt.repeat_interleave(k, dim=0), dst, dsz, C_send)
+    send_meta = torch.full((dsz * C_send + 1,), -1, dtype=torch.int32,
+                           device=xt.device)
+    send_meta[place] = torch.where(kept, e_local[order].to(torch.int32), -1)
+    send_meta = send_meta[:-1].reshape(dsz, C_send)
+
+    recv_x = coll.all_to_all(send_x, mesh, data_axis)
+    recv_meta = coll.all_to_all(send_meta, mesh, data_axis)
+
+    n_recv = dsz * C_send
+    rx = recv_x.reshape(n_recv, d)
+    rm = recv_meta.reshape(n_recv).long()
+    cap_e = max(1, math.ceil(n_recv * cf / max(E_loc, 1)))
+    grouped, order2, _, place2 = _sort_dispatch(
+        rx, torch.where(rm < 0, E_loc, rm), E_loc, cap_e)
+
+    sizes = torch.full((E_loc,), cap_e, dtype=torch.int32, device=xt.device)
+    flat = grouped.reshape(E_loc * cap_e, d)
+    h = gmm(flat, w_gate, sizes, out_dtype=torch.float32)
+    u = gmm(flat, w_up, sizes, out_dtype=torch.float32)
+    h = (F.silu(h) * u).to(xt.dtype)
+    y_g = gmm(h, w_down, sizes, out_dtype=torch.float32).to(xt.dtype)
+    # the down-projection partials summed over "model" in the activation
+    # dtype (the float32 accumulation happened inside the products)
+    y_g = coll.psum(y_g, mesh, model_axis)
+
+    # expert outputs back to the received order, then the reverse a2a
+    ry = _pick(y_g, place2)[torch.argsort(order2)]
+    back = coll.all_to_all(ry.reshape(dsz, C_send, d), mesh, data_axis)
+    # combine at the sender: assignment a (sorted) came back at place[a]
+    y_a = _pick(back.reshape(n_recv, d), place)[torch.argsort(order)]
+    g = gate_val.to(xt.dtype).reshape(A, 1)
+    y = (g.float() * y_a.float()).reshape(T_loc, k, d).sum(dim=1)
+    return y.to(xt.dtype), aux
+
+
+def _local_experts(w: torch.Tensor, E_loc: int, f_dim: int, mesh,
+                   data_axis: str, model_axis: str) -> torch.Tensor:
+    """The rank's expert shard of ``w``: given whole (E, ...), its E_loc
+    experts and its part of the FF dim ``f_dim``; given the shard, as it
+    is."""
+    if w.shape[0] == E_loc:
+        return w
+    w = coll.own_slice(w, mesh, data_axis, 0)
+    return coll.own_slice(w, mesh, model_axis, f_dim).contiguous()
+
+
+def moe_forward_ep(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh, *,
+                   rows: tuple[str, ...] | None = None,
+                   data_axis: str = "data", model_axis: str = "model"
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel dispatch on this rank.  ``x`` (B_loc, S, d): the
+    rank's rows, cut over ``rows`` (by default the batch axes ("pod",
+    "data") present; with "model" among them the model group's rows are
+    gathered first).  ``p``'s experts are whole or this rank's shards;
+    the router is whole.  Returns (y like x, aux: the mean of the ranks'
+    local estimates)."""
+    m = cfg.moe
+    d = x.shape[-1]
+    E_loc = m.n_experts // mesh.shape[data_axis]
+    if rows is None:
+        rows = default_rows(mesh)
+    gathered = model_axis in rows and mesh.shape[model_axis] > 1
+    xb = coll.all_gather(x, mesh, model_axis, 0) if gathered else x
+    w = {name: _local_experts(p[name], E_loc, 1 if name == "down" else 2,
+                              mesh, data_axis, model_axis)
+         for name in ("gate", "up", "down")}
+    y, aux = _ep_local(xb.reshape(-1, d), p["router"], w["gate"], w["up"],
+                       w["down"], m=m, mesh=mesh, data_axis=data_axis,
+                       model_axis=model_axis, cf=m.capacity_factor)
+    y = y.reshape(xb.shape)
+    if gathered:
+        y = coll.own_slice(y, mesh, model_axis, 0)
+    aux = coll.share_mean(aux, mesh, mesh.axis_names)
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], x, gated=cfg.gated_mlp, act=cfg.act)
+    return y, aux
+
+
+def use_ep(cfg: ModelConfig, mesh, batch: int) -> bool:
+    """The reference's selector: EP when the mesh has a "data" axis of
+    size > 1, the experts divide it, the global ``batch`` rows divide the
+    batch axes ("pod", "data") and the expert FF dim divides "model"."""
+    if mesh is None or mesh.shape.get("data", 1) <= 1:
+        return False
+    psize = math.prod(mesh.shape[a] for a in ("pod", "data")
+                      if a in mesh.shape)
+    return (cfg.moe.n_experts % mesh.shape["data"] == 0
+            and batch % psize == 0
+            and cfg.moe.d_ff_expert % mesh.shape.get("model", 1) == 0)
+
+
+def moe_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh=None, *,
+                rows: tuple[str, ...] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The dense dispatch; a mesh (the reference's expert-parallel path)
-    is refused."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "moe_forward with a mesh (the expert-parallel all-to-all "
-            "moe_forward_ep) is not ported yet (ROADMAP Queue 1 item 14)")
-    return moe_forward_dense(p, cfg, x)
+    """Dispatch selector.  Without a mesh: the dense dispatch.  With one
+    (``x`` the rank's rows, cut over ``rows``): EP where `use_ep` holds,
+    else the dense dispatch over the gathered batch, this rank keeping
+    its rows; aux is then a mean over the ranks (`share_mean`)."""
+    if mesh is None:
+        return moe_forward_dense(p, cfg, x)
+    if rows is None:
+        rows = default_rows(mesh)
+    if use_ep(cfg, mesh, x.shape[0] * mesh.size(rows)):
+        return moe_forward_ep(p, cfg, x, mesh, rows=rows)
+    y, aux = moe_forward_dense(p, cfg, coll.all_gather(x, mesh, rows, 0))
+    return (coll.own_slice(y, mesh, rows, 0),
+            coll.share_mean(aux, mesh, mesh.axis_names))
 
 
-__all__ = ["init_moe", "moe_forward_dense", "moe_forward", "capacity"]
+__all__ = ["init_moe", "moe_forward_dense", "moe_forward_ep", "moe_forward",
+           "use_ep", "capacity"]

@@ -18,6 +18,12 @@ Values are drawn in float32 and cast to the parameter dtype, as
 ``materialize`` does.  JAX's random bits cannot be reproduced, so
 parity tests load the reference's own arrays with
 `params_from_reference` instead.
+
+Every draw also names its logical axes (the reference's ``Param.axes``:
+``("embed", "heads")`` and the like, ``"layers"`` for a stack axis).  An
+``Init`` made with ``record=True`` draws nothing and returns a `Leaf`
+(shape and axes) instead, which is how `models.model.axes_tree` builds
+the tree the sharding rules read.
 """
 from __future__ import annotations
 
@@ -49,13 +55,37 @@ DENSE_DRAW_MAX = 2 ** 31
 
 
 @dataclasses.dataclass(frozen=True)
+class Leaf:
+    """A parameter's full shape and logical axes, as a recording `Init`
+    returns them."""
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+
+
+def _recorded(draw):
+    """A draw of `Init` that returns a `Leaf` when the Init records."""
+    def wrapped(self, shape, *args, axes=None, **kw):
+        if not self.record:
+            return draw(self, shape, *args, **kw)
+        axes = (None,) * len(shape) if axes is None else tuple(axes)
+        if len(axes) != len(shape):
+            raise ValueError(f"axes {axes} for shape {shape}")
+        return Leaf((*self.lead, *shape), ("layers",) * len(self.lead) + axes)
+    wrapped.__name__, wrapped.__doc__ = draw.__name__, draw.__doc__
+    return wrapped
+
+
+@dataclasses.dataclass(frozen=True)
 class Init:
     """Draws parameters of shape ``lead + shape`` on ``device`` from
-    ``generator`` (a generator of that device)."""
+    ``generator`` (a generator of that device).  Each draw takes the
+    parameter's logical ``axes``; with ``record`` it draws nothing and
+    returns a `Leaf`."""
 
-    generator: torch.Generator
-    device: torch.device
+    generator: torch.Generator | None
+    device: torch.device | None
     lead: tuple[int, ...] = ()
+    record: bool = False
 
     def stacked(self, n: int) -> "Init":
         """The same draws with a leading stack axis of ``n`` layers."""
@@ -65,6 +95,7 @@ class Init:
         return torch.empty((*self.lead, *shape), dtype=torch.float32,
                            device=self.device)
 
+    @_recorded
     def dense(self, shape: tuple[int, ...], dtype, *,
               fan_in: int | None = None) -> torch.Tensor:
         """Truncated-normal matmul weight with 1/sqrt(fan_in) scaling.  A
@@ -90,30 +121,36 @@ class Init:
             part.copy_(w.mul_(stddev))
         return out
 
+    @_recorded
     def embed(self, shape: tuple[int, ...], dtype) -> torch.Tensor:
         w = self._empty(shape).normal_(generator=self.generator)
         return w.to(torch_dtype(dtype))
 
+    @_recorded
     def uniform(self, shape: tuple[int, ...], low: float = 0.0,
                 high: float = 1.0) -> torch.Tensor:
         """float32 U[low, high)."""
         return self._empty(shape).uniform_(low, high,
                                            generator=self.generator)
 
+    @_recorded
     def a_log(self, shape: tuple[int, ...]) -> torch.Tensor:
         """float32 ``log A`` with A ~ U[1, 16), the Mamba2 init."""
         return torch.log(self.uniform(shape, 1.0, 16.0))
 
+    @_recorded
     def dt_bias(self, shape: tuple[int, ...]) -> torch.Tensor:
         """float32 inverse softplus of dt ~ LogUniform(1e-3, 1e-1)."""
         lo, hi = math.log(1e-3), math.log(0.1)
         dt0 = torch.exp(self.uniform(shape) * (hi - lo) + lo)
         return dt0 + torch.log(-torch.expm1(-dt0))
 
+    @_recorded
     def zeros(self, shape: tuple[int, ...], dtype) -> torch.Tensor:
         return torch.zeros((*self.lead, *shape), dtype=torch_dtype(dtype),
                            device=self.device)
 
+    @_recorded
     def ones(self, shape: tuple[int, ...], dtype) -> torch.Tensor:
         return torch.ones((*self.lead, *shape), dtype=torch_dtype(dtype),
                           device=self.device)
@@ -179,5 +216,5 @@ def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:
     return fn(tree, *rest)
 
 
-__all__ = ["Init", "params_from_reference", "param_count", "torch_dtype",
+__all__ = ["Init", "Leaf", "params_from_reference", "param_count", "torch_dtype",
            "tree_leaves", "tree_map"]

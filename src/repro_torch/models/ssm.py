@@ -44,14 +44,15 @@ def init_ssm(init: Init, cfg: ModelConfig) -> dict:
     d, dt = cfg.d_model, cfg.param_dtype
     proj_out = 2 * di + 2 * s.ngroups * s.d_state + H  # [z, xBC, dt]
     return {
-        "in_proj": init_linear(init, d, proj_out, dt),
-        "conv_w": init.dense((s.d_conv, conv_ch), dt, fan_in=s.d_conv),
-        "conv_b": init.zeros((conv_ch,), dt),
-        "A_log": init.a_log((H,)),
-        "D": init.ones((H,), "float32"),
-        "dt_bias": init.dt_bias((H,)),
-        "norm_scale": init.ones((di,), dt),
-        "out_proj": init_linear(init, di, d, dt),
+        "in_proj": init_linear(init, d, proj_out, dt, axes=("embed", "ssm")),
+        "conv_w": init.dense((s.d_conv, conv_ch), dt, fan_in=s.d_conv,
+                             axes=("conv", "ssm")),
+        "conv_b": init.zeros((conv_ch,), dt, axes=("ssm",)),
+        "A_log": init.a_log((H,), axes=(None,)),
+        "D": init.ones((H,), "float32", axes=(None,)),
+        "dt_bias": init.dt_bias((H,), axes=(None,)),
+        "norm_scale": init.ones((di,), dt, axes=("ssm",)),
+        "out_proj": init_linear(init, di, d, dt, axes=("ssm", "embed")),
     }
 
 

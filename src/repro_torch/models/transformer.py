@@ -51,6 +51,7 @@ from repro_torch.models.layers import (
     apply_mlp, apply_norm, init_mlp, init_norm,
 )
 from repro_torch.models.param import Init
+from repro_torch.parallel.sharding import no_constraint
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -155,15 +156,17 @@ def init_block(init: Init, cfg: ModelConfig, spec: SlotSpec) -> dict:
     return p
 
 
-def _ffn(p: dict, cfg: ModelConfig, spec: SlotSpec,
-         x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+def _ffn(p: dict, cfg: ModelConfig, spec: SlotSpec, x: torch.Tensor, *,
+         mesh=None, constrain=no_constraint
+         ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The block's FFN with its residual; returns (x, the MoE auxiliary
     loss or None)."""
     if spec.ffn == "none":
         return x, None
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
     if spec.ffn == "moe":
-        y, aux = moe_mod.moe_forward(p["ffn"], cfg, h)
+        y, aux = moe_mod.moe_forward(p["ffn"], cfg, h, mesh,
+                                     rows=getattr(constrain, "rows", None))
         return x + y, aux
     return x + apply_mlp(p["ffn"], h, gated=cfg.gated_mlp, act=cfg.act), None
 
@@ -182,20 +185,22 @@ def _cross(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def apply_block(p: dict, cfg: ModelConfig, spec: SlotSpec, x: torch.Tensor,
                 *, positions: torch.Tensor, causal: bool,
-                enc_out: torch.Tensor | None = None
+                enc_out: torch.Tensor | None = None, mesh=None,
+                constrain=no_constraint
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Full-sequence block.  Returns (x, MoE aux or None)."""
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
         mix = attn.attn_forward(p["mixer"], cfg, h, rope_on=spec.rope_on,
                                 window=spec.window, causal=causal,
-                                positions=positions)
+                                positions=positions, constrain=constrain,
+                                mesh=mesh)
     else:
         mix = ssm_mod.ssm_forward(p["mixer"], cfg, h)
     x = x + mix
     if spec.cross:
         x = _cross(p, cfg, x, enc_out)
-    return _ffn(p, cfg, spec, x)
+    return _ffn(p, cfg, spec, x, mesh=mesh, constrain=constrain)
 
 
 # ---------------------------------------------------------------------------
@@ -226,10 +231,13 @@ def _n_scan(params: dict) -> int:
 def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                   positions: torch.Tensor | None = None, causal: bool = True,
                   cross: bool = False, enc_out: torch.Tensor | None = None,
-                  remat: str = "none",
+                  mesh=None, constrain=no_constraint, remat: str = "none",
                   unroll: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, the MoE layers' summed auxiliary loss, float32).  With
-    ``cross`` each block attends ``enc_out`` after its mixer."""
+    ``cross`` each block attends ``enc_out`` after its mixer.  Under a
+    ``mesh``, x holds the rank's rows (laid out as ``constrain`` says):
+    attention is sequence-parallel and the MoE layers expert-parallel
+    where the reference's selectors say so."""
     _check_modes(remat=remat, unroll=unroll)
     B, S, _ = x.shape
     if positions is None:
@@ -242,7 +250,8 @@ def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
         for spec in specs:
             x, aux_l = apply_block(slices[f"slot{spec.slot}"], cfg, spec, x,
                                    positions=positions, causal=causal,
-                                   enc_out=enc_out)
+                                   enc_out=enc_out, mesh=mesh,
+                                   constrain=constrain)
             if aux_l is not None:
                 aux = aux + aux_l
         return x, aux

@@ -13,9 +13,11 @@ prefilled alone, as a batch of one into a fresh one-row cache, and that
 row is copied into its slot of the engine's cache; the decode tick then
 runs over every row, and greedy argmax picks each token.
 
-The engine runs on the parameters' device.  The reference's mesh and
-sharding rules (``make_prefill_step``/``make_decode_step``) belong to
-its ``parallel/`` package, which is not ported (ROADMAP Queue 1 item 14).
+The engine runs on the parameters' device.  The port's `parallel/`
+package (sharding rules, meshes, collectives) serves training; serving
+under a mesh -- the reference's ``make_prefill_step``/
+``make_decode_step`` and its ``decode``/``decode_sp`` presets -- is
+still to port (ROADMAP Queue 1, the rest of item 14).
 """
 from __future__ import annotations
 

@@ -16,6 +16,9 @@ least ``_CHUNK_THRESHOLD`` elements is updated a slab of leading rows at
 a time, each slab at most that many elements, as the reference's
 ``lax.map`` over the leading axis caps its float32 working set; the
 update is elementwise, so the slabs change nothing in the result.
+
+Under a mesh (`train.train_step`'s sharded step) the trees hold each
+rank's shards; only the gradient's global norm needs the other ranks.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from typing import Any
 import torch
 
 from repro_torch.models.param import torch_dtype, tree_leaves, tree_map
+from repro_torch.parallel.collectives import psum, replication
 
 PyTree = Any
 
@@ -57,11 +61,21 @@ def adamw_init(params: PyTree, cfg: OptimizerConfig) -> PyTree:
     }
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32."""
-    return torch.sqrt(sum(
-        torch.linalg.vector_norm(leaf, dtype=torch.float32).square()
-        for leaf in tree_leaves(tree)))
+def global_norm(tree: PyTree, *, mesh=None, specs: PyTree = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32.  Under a
+    ``mesh`` the leaves are this rank's shards (cut as ``specs`` say):
+    each shard's sum of squares is divided by the number of ranks that
+    hold it, so that the all-reduce over the mesh counts every element
+    once, and every rank gets the norm of the whole tree."""
+    if mesh is None:
+        return torch.sqrt(sum(
+            torch.linalg.vector_norm(leaf, dtype=torch.float32).square()
+            for leaf in tree_leaves(tree)))
+    total = sum(torch.linalg.vector_norm(leaf, dtype=torch.float32).square()
+                / replication(spec, mesh)
+                for leaf, spec in zip(tree_leaves(tree), tree_leaves(specs)))
+    return torch.sqrt(psum(total, mesh, mesh.axis_names))
 
 
 def _slabs(*leaves: torch.Tensor):
@@ -83,12 +97,17 @@ def adamw_update(
     state: PyTree,
     cfg: OptimizerConfig,
     lr,
+    *,
+    mesh=None,
+    specs: PyTree = None,
 ) -> tuple[PyTree, PyTree, dict]:
     """One AdamW step at learning rate ``lr`` (a float or a 0-d tensor).
     Updates ``params`` and the moments in place and returns (params, new
-    state, {"grad_norm", "clip_factor"})."""
+    state, {"grad_norm", "clip_factor"}).  Under a ``mesh`` every tree
+    holds this rank's shards and the clip factor is the whole tree's
+    (`global_norm`)."""
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh=mesh, specs=specs)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2

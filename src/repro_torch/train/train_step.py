@@ -12,11 +12,26 @@ leading axis and sums the microbatches' gradients in float32, then
 averages them and the metrics (``tokens`` is summed), as the reference's
 ``lax.scan`` does.
 
-Gradient compression (the reference's ``grad_compression="int8"``, a
-re-reduction over a mesh's ``"pod"`` axis) and the sharding helpers
-(``state_shardings``, ``batch_shardings``, ``train_batch_specs``) belong
-to the multi-device work (ROADMAP Queue 1 item 14): asking for
-compression raises.
+With a ``mesh`` (`launch.mesh.WorkerMesh`, one rank per coordinate)
+and sharding ``rules`` the step is sharded ZeRO-style: each rank's state
+holds its shard of every parameter and moment (`param_specs`,
+`shard_state`), and the step all-gathers the whole parameters, computes
+the loss of its own rows of the global batch (every rank passes the same
+batch; `models.model.loss_fn` under a mesh, where attention is
+sequence-parallel and the MoE layers expert-parallel as the reference
+selects), sums the gradients in float32 over the mesh
+(`parallel.collectives.psum`: the sum of the ranks' shares is the whole
+gradient), keeps its shard of the sum, and updates that shard with the
+whole tree's clip factor.  With ``grad_compression="int8"`` (the
+reference's; its presets only: base/ep/decode, on a mesh with a
+"pod" axis) the loss is a mean within each pod, the gradients are summed
+exactly within the pod and then re-reduced over "pod" as an
+int8-compressed mean (`parallel.collectives.compressed_psum`, leaf i of
+step t rounding from (17, t + i)), and the metrics are the pods' mean.
+Compression does not compose with the expert-parallel MoE layer (its
+auxiliary loss is a mean over every rank), so MoE configs refuse it.
+`state_shardings`, `batch_shardings` and `train_batch_specs` are the
+reference's helpers, as placements.
 
 The step's forward and its optimizer run under the profiler labels
 ``"forward"`` and ``"optimizer"`` (`torch.profiler.record_function`,
@@ -35,9 +50,17 @@ from typing import Any, Callable
 import torch
 from torch.profiler import record_function
 
+from repro_torch.data.pipeline import make_batch_specs
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.parallel.collectives import (
+    compressed_psum, psum, rng_seed, shard_of, unshard,
+)
+from repro_torch.parallel.sharding import (
+    P, ShardingRules, constrainer, param_sharding_tree, param_spec_tree,
+    placements, rules_for,
+)
 from repro_torch.train.optimizer import (
     OptimizerConfig, adamw_init, adamw_update,
 )
@@ -81,25 +104,54 @@ def _value_and_grad(loss_for_batch, params: PyTree, batch: dict):
 def make_train_step(
     cfg: ModelConfig,
     opt_cfg: OptimizerConfig,
+    mesh=None,
+    rules: ShardingRules | None = None,
     *,
     accum_steps: int = 1,
     remat: str = "full",
     grad_compression: str | None = None,
     lr_kwargs: dict | None = None,
+    unroll: bool = False,
     device: str | torch.device | None = None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
-    """The step for one device (cuda unless ``device`` says otherwise;
-    the batch is moved there)."""
-    dev = model_lib.resolve_device(device)
+    """The step: for one device (cuda unless ``device`` says otherwise;
+    the batch is moved there), or, with a ``mesh``, for this rank
+    (``rules`` default to `rules_for(cfg, "train")`; the state holds this
+    rank's shards, see the module docstring; the parameters' logical
+    axes, the reference's ``param_axes``, come from ``cfg``)."""
+    dev = model_lib.resolve_device(device if mesh is None else mesh.device)
     lr_kwargs = lr_kwargs or {}
-    if grad_compression is not None:
+    if grad_compression not in (None, "int8"):
+        raise ValueError(f"unknown grad_compression {grad_compression!r}")
+    if grad_compression is not None and (mesh is None
+                                         or "pod" not in mesh.shape):
         raise NotImplementedError(
-            f"make_train_step: grad_compression={grad_compression!r} "
-            "re-reduces over a mesh's \"pod\" axis, which is not ported "
-            "yet (ROADMAP Queue 1 item 14)")
+            "make_train_step: grad_compression re-reduces over a mesh's "
+            "\"pod\" axis, and this step has none")
+    rules = rules or (rules_for(cfg, "train") if mesh is not None else None)
+    if grad_compression is not None:
+        if rules.name not in ("base", "ep", "decode"):
+            raise ValueError(
+                "int8 grad compression composes with the TP presets "
+                "(base/ep), as in the reference")
+        if cfg.moe is not None:
+            raise ValueError(
+                "int8 grad compression does not compose with the "
+                "expert-parallel MoE layer")
+    mean_axes = None
+    if mesh is not None:
+        specs = param_specs(cfg, rules, mesh)
+        constrain = constrainer(rules, mesh)
+        mean_axes = tuple(a for a in mesh.axis_names
+                          if a != "pod" or grad_compression is None)
 
     def loss_for_batch(params, batch):
-        return model_lib.loss_fn(params, cfg, batch, remat=remat)
+        if mesh is None:
+            return model_lib.loss_fn(params, cfg, batch, remat=remat,
+                                     unroll=unroll)
+        return model_lib.loss_fn(params, cfg, batch, mesh=mesh,
+                                 constrain=constrain, remat=remat,
+                                 unroll=unroll, mean_axes=mean_axes)
 
     def compute_grads(params, batch):
         if accum_steps == 1:
@@ -127,14 +179,38 @@ def make_train_step(
         return g_acc, {k: v * inv if k != "tokens" else v
                        for k, v in m_acc.items()}
 
+    def sharded_grads(state, batch):
+        """Whole parameters in, this rank's shard of the reduced
+        gradient out."""
+        full = tree_map(lambda t, s: unshard(t, s, mesh), state.params,
+                        specs)
+        grads, metrics = compute_grads(full, batch)
+        del full
+        grads = tree_map(
+            lambda g, s: shard_of(psum(g.float(), mesh, mean_axes), s,
+                                  mesh).clone(), grads, specs)
+        if grad_compression is not None:
+            step = int(state.step)
+            it = iter([compressed_psum(g, mesh, ("pod",),
+                                       rng_seed(17, step + i))
+                       for i, g in enumerate(tree_leaves(grads))])
+            grads = tree_map(lambda _: next(it), grads)
+            metrics = {k: psum(v, mesh, ("pod",)) / mesh.shape["pod"]
+                       for k, v in metrics.items()}
+        return grads, metrics
+
     def train_step(state: TrainState, batch: dict
                    ) -> tuple[TrainState, dict]:
         batch = {k: v.to(dev) for k, v in batch.items()}
-        grads, metrics = compute_grads(state.params, batch)
+        if mesh is None:
+            grads, metrics = compute_grads(state.params, batch)
+        else:
+            grads, metrics = sharded_grads(state, batch)
         lr = lr_schedule(state.step, **lr_kwargs)
         with record_function("optimizer"):
             new_params, new_opt, opt_metrics = adamw_update(
-                state.params, grads, state.opt, opt_cfg, lr)
+                state.params, grads, state.opt, opt_cfg, lr, mesh=mesh,
+                specs=None if mesh is None else specs)
         metrics = {**metrics, **opt_metrics, "lr": lr}
         return TrainState(params=new_params, opt=new_opt,
                           step=state.step + 1), metrics
@@ -142,4 +218,62 @@ def make_train_step(
     return train_step
 
 
-__all__ = ["TrainState", "init_train_state", "make_train_step"]
+# ---------------------------------------------------------------------------
+# Shards of the state
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: ModelConfig, rules: ShardingRules, mesh) -> PyTree:
+    """The shape-aware spec of every parameter (`spec_for` of its full
+    shape and logical axes)."""
+    return param_spec_tree(model_lib.leaf_tree(cfg), rules, mesh)
+
+
+def _state_map(fn, state: TrainState, specs: PyTree) -> TrainState:
+    return TrainState(
+        params=tree_map(fn, state.params, specs),
+        opt={"mu": tree_map(fn, state.opt["mu"], specs),
+             "nu": tree_map(fn, state.opt["nu"], specs),
+             "count": state.opt["count"]},
+        step=state.step)
+
+
+def shard_params(params: PyTree, specs: PyTree, mesh) -> PyTree:
+    """This rank's shards (copies) of whole parameters (make the state
+    from them with `init_train_state`: its moments are then shards
+    too)."""
+    return tree_map(lambda t, s: shard_of(t, s, mesh).clone(), params,
+                    specs)
+
+
+def shard_state(state: TrainState, specs: PyTree, mesh) -> TrainState:
+    """This rank's shards (copies) of a whole state."""
+    return _state_map(lambda t, s: shard_of(t, s, mesh).clone(), state,
+                      specs)
+
+
+def gather_state(state: TrainState, specs: PyTree, mesh) -> TrainState:
+    """The whole state from every rank's shards (on every rank)."""
+    return _state_map(lambda t, s: unshard(t, s, mesh), state, specs)
+
+
+def state_shardings(leaf_tree: PyTree, rules: ShardingRules,
+                    mesh) -> TrainState:
+    """Placements matching TrainState(params, opt, step), from the tree
+    of `Leaf`s (`models.model.leaf_tree`; shape-aware specs)."""
+    p_sh = param_sharding_tree(leaf_tree, rules, mesh)
+    rep = placements(P(), mesh)
+    return TrainState(params=p_sh, opt={"mu": p_sh, "nu": p_sh,
+                                        "count": rep}, step=rep)
+
+
+def batch_shardings(batch_spec_tree: dict, mesh) -> dict:
+    return {k: placements(spec, mesh) for k, spec in batch_spec_tree.items()}
+
+
+def train_batch_specs(cfg: ModelConfig, mesh) -> dict:
+    return make_batch_specs(cfg, mesh)
+
+
+__all__ = ["TrainState", "init_train_state", "make_train_step",
+           "param_specs", "shard_params", "shard_state", "gather_state", "state_shardings",
+           "batch_shardings", "train_batch_specs"]

@@ -26,7 +26,7 @@ COPIES = [
                                    "generators", "replay", "compare")),
     *(f"service/{m}.py" for m in ("__init__", "__main__", "driver", "http",
                                   "pool")),
-    "models/__init__.py", "models/config.py",
+    "models/__init__.py", "models/config.py", "parallel/__init__.py",
     "train/__init__.py", "checkpoint/__init__.py",
     "kernels/flash_attention/__init__.py", "kernels/moe_gmm/__init__.py",
     *(f"configs/{m}.py" for m in (
@@ -42,8 +42,8 @@ DIFFERING = {
     "core/matchmaker/base.py": "adds problem_from_reference at the end",
     "configs/__init__.py": "no ShapeDtypeStruct input specs (only the "
                            "dry-run reads them, and it is not ported)",
-    "data/__init__.py": "exports stub_modality_inputs in place of "
-                        "make_batch_specs (sharded specs: ROADMAP item 14)",
+    "data/__init__.py": "exports stub_modality_inputs beside "
+                        "make_batch_specs",
 }
 #: modules of the port with no reference counterpart to copy
 PORT_OWN = {
@@ -63,6 +63,7 @@ PORT_OWN = {
     "models/moe.py",
     "serve/__init__.py", "serve/engine.py",
     "launch/__init__.py", "launch/serve.py", "launch/train.py",
+    "launch/mesh.py", "parallel/sharding.py", "parallel/collectives.py",
     "train/optimizer.py", "train/schedule.py", "train/train_step.py",
     "data/pipeline.py", "checkpoint/manager.py",
 }

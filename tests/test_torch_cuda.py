@@ -1364,3 +1364,35 @@ def test_moe_model_gradients_on_the_card_match_the_cpu(cuda, arch):
     for a, b in zip(g, g_cpu):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
             b.abs().max().clamp(min=1e-30))
+
+
+def test_parallel_phase_at_small_size_on_the_card(cuda, tmp_path):
+    """chip_smoke's phase 26 at small size (`PARALLEL_PLAN_SMALL`: the
+    reduced jamba MoE layer expert-parallel on (4, 2), the reduced qwen2
+    sequence-parallel on (1, 8), its sharded zero3 and int8-compressed
+    steps) in a world of 8 ranks on the card: every part's gates, and
+    each rank's launches equal to the shapes' exactly."""
+    from chip_smoke import (
+        PARALLEL_PLAN_SMALL, parallel_launches, parallel_phase,
+    )
+    total = parallel_phase(PARALLEL_PLAN_SMALL, device="cuda")
+    want = parallel_launches(PARALLEL_PLAN_SMALL)
+    assert total == {k: 8 * sum(part[k] for part in want.values())
+                     for k in total}
+    assert total["gmm"] == 8 * 3 and total["flash_attention"] > 0
+
+
+def test_collectives_carry_cuda_tensors_on_gloo(cuda, tmp_path):
+    """The collectives phase 26 uses, on CUDA tensors in a gloo world of
+    4 ranks on the card: bfloat16 all-gather and all-to-all (as bytes),
+    the float32 and bfloat16 psum (the same bits on every rank), int32
+    sums and float32 max."""
+    from repro_torch.launch.mesh import spawn_world
+    import torch_world
+    out = spawn_world(torch_world.cuda_collectives, 4, backend="gloo",
+                      device="cuda", init_file=tmp_path / "store",
+                      timeout_s=180.0, threads=None)
+    for r in out[1:]:
+        for k in out[0]:
+            assert np.array_equal(r[k], out[0][k]) or k.startswith("own"), k
+    assert (out[0]["psum_i32"] == sum(range(4))).all()

@@ -108,11 +108,28 @@ def test_capacity_is_the_references():
         1, 2, 80, 160]
 
 
-def test_moe_refuses_a_mesh(rng):
+def test_moe_refuses_a_mesh(rng, tmp_path):
+    """A mesh is no longer refused (expert parallelism on several ranks is
+    in tests/test_torch_parallel.py): on a one-rank world's (1, 1) mesh
+    the layer is the dense dispatch, bit for bit, and its aux is the
+    dense one's."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import WorkerMesh
+
     cfg = reduced_config(JAMBA)
     p = carried(moe_layer(ref_reduced_config(JAMBA)))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        moe.moe_forward(p, cfg, torch.zeros(1, 2, cfg.d_model), mesh=object())
+    x = torch.from_numpy(rng.standard_normal((2, 8, cfg.d_model)).astype(
+        np.float32))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = WorkerMesh({"data": 1, "model": 1}, "cpu")
+        assert not moe.use_ep(cfg, mesh, 2)
+        y, aux = moe.moe_forward(p, cfg, x, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    y_d, aux_d = moe.moe_forward_dense(p, cfg, x)
+    assert torch.equal(y, y_d) and torch.equal(aux, aux_d)
 
 
 @pytest.mark.parametrize("arch", [JAMBA, SCOUT])

@@ -1,0 +1,266 @@
+"""Rank bodies of the gloo worlds that tests/test_torch_parallel.py and
+tests/test_torch_multidevice.py spawn (`repro_torch.launch.mesh.
+spawn_world`: one process and one torch thread a rank, on the CPU).
+
+The ``spawn`` start method imports this module in every rank, so it
+imports torch and the port only: the JAX package runs in the pytest
+process, and arrays cross over as numpy.  Each body returns a dict of
+numpy arrays and floats per rank."""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+
+import numpy as np
+import torch
+
+from repro_torch.configs import reduced_config
+from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import WorkerMesh
+from repro_torch.models import model as model_lib
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.param import params_from_reference, tree_leaves, tree_map
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import (
+    constrainer, default_rows, preset, rules_for,
+)
+from repro_torch.train.optimizer import OptimizerConfig
+from repro_torch.train.train_step import (
+    gather_state, init_train_state, make_train_step, param_specs, shard_state,
+)
+
+#: the learning-rate schedule of the step comparisons (no warmup: the
+#: first step moves every parameter)
+LR_KWARGS = dict(peak=1e-3, warmup_steps=0, total_steps=10)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().numpy()
+
+
+def _paths(tree: dict, pre: str = "") -> list[str]:
+    """The dotted paths of a tree's leaves, in `tree_leaves` order."""
+    out = []
+    for k, v in tree.items():
+        out += _paths(v, f"{pre}{k}.") if isinstance(v, dict) else [pre + k]
+    return out
+
+
+def _batch(b: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def with_moe(cfg, n_experts: int, capacity_factor: float, **changes):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=n_experts, capacity_factor=capacity_factor,
+        **changes))
+
+
+def sp_config():
+    """granite reduced to 6 query heads, 2 kv heads, head dim 16: 6 heads
+    do not divide a "model" axis of 4, so attention is
+    sequence-parallel."""
+    return dataclasses.replace(reduced_config("granite-8b"), n_heads=6,
+                               n_kv_heads=2, d_head=16)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_parallel.py
+# ---------------------------------------------------------------------------
+
+EP_LAYOUTS = {
+    # name: (mesh, rows the layer's tokens are cut over; None = default)
+    "ep": ({"data": 4, "model": 2}, None),
+    "ep_rows_on_model": ({"data": 4, "model": 2}, ("data", "model")),
+    "dense_on_mesh": ({"data": 8}, None),
+}
+
+
+def moe_layouts(rank, dev, case):
+    """The MoE layer under each of `EP_LAYOUTS`: this rank's rows of y,
+    its aux, the gradients of sum(y * w) (x's summed over the ranks that
+    hold the same rows, the weights' over the mesh)."""
+    cfg = with_moe(reduced_config(case["arch"]), case["n_experts"],
+                   case["capacity_factor"])
+    p = params_from_reference(case["params"], device=dev)
+    x, w = torch.from_numpy(case["x"]), torch.from_numpy(case["w"])
+    out = {}
+    for name, (shape, rows) in EP_LAYOUTS.items():
+        mesh = WorkerMesh(shape, dev)
+        r = rows if rows is not None else default_rows(mesh)
+        xl = coll.own_slice(x, mesh, r, 0).clone().requires_grad_()
+        pl = tree_map(lambda t: t.clone().requires_grad_(), p)
+        y, aux = moe_mod.moe_forward(pl, cfg, xl, mesh, rows=rows)
+        rep = mesh.size(mesh.axis_names) // mesh.size(r)
+        obj = (y * coll.own_slice(w, mesh, r, 0)).sum() / rep
+        grads = torch.autograd.grad(obj, [xl] + tree_leaves(pl),
+                                    retain_graph=True)
+        d_aux = torch.autograd.grad(aux, [xl, pl["router"]])
+        others = [a for a in mesh.axis_names if a not in r]
+        dw = {name: _np(coll.psum(g.float(), mesh, mesh.axis_names))
+              for name, g in zip(_paths(pl), grads[1:])}
+        out[name] = {
+            "index": mesh.index(r), "parts": mesh.size(r), "y": _np(y),
+            "aux": float(aux.detach()),
+            "used_ep": moe_mod.use_ep(cfg, mesh, x.shape[0]),
+            "dx": _np(coll.psum(grads[0], mesh, others)),
+            "dw": dw if rank == 0 else None,
+            # aux's gradient: x's summed as above, the router's over the
+            # mesh (each rank's is its share of the mean)
+            "daux_dx": _np(coll.psum(d_aux[0], mesh, others)),
+            "daux_router": _np(coll.psum(d_aux[1], mesh, mesh.axis_names))}
+    return out
+
+
+def compressed_means(rank, dev, g, seeds):
+    """compressed_psum over "pod" (8 ranks, rank r holding row r of g)
+    for each seed, and compressed_psum_tree on a (2, 2, 2) mesh."""
+    mesh = WorkerMesh({"pod": 8}, dev)
+    gl = torch.from_numpy(g[rank:rank + 1])
+    outs = torch.stack([coll.compressed_psum(gl, mesh, ("pod",), s)
+                        for s in seeds])
+    mesh3 = WorkerMesh({"pod": 2, "data": 2, "model": 2}, dev)
+    tree = {"a": gl[:, :128], "b": {"c": gl[:, 128:].double()}}
+    red = coll.compressed_psum_tree(tree, mesh3, seed=5)
+    return {"outs": outs.numpy(), "pod": mesh3.coord["pod"],
+            "tree": [t.numpy() for t in tree_leaves(red)],
+            "tree_dtypes": [str(t.dtype) for t in tree_leaves(red)]}
+
+
+def parallel_world(rank, dev, moe_case, g, seeds):
+    return {"moe": moe_layouts(rank, dev, moe_case),
+            "compressed": compressed_means(rank, dev, g, seeds)}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_multidevice.py
+# ---------------------------------------------------------------------------
+
+def sp_losses(rank, dev, case):
+    """loss_fn and its gradient (summed over the mesh) on a (2, 4) mesh
+    under zero3 (rows cut over "model" too: the all-to-all) and base
+    (rows replicated over "model": the slice and gather)."""
+    cfg = sp_config()
+    params = params_from_reference(case["params"], device=dev)
+    batch = _batch(case["batch"])
+    mesh = WorkerMesh({"data": 2, "model": 4}, dev)
+    out = {}
+    for name in ("zero3", "base"):
+        pl = tree_map(lambda t: t.clone().requires_grad_(), params)
+        loss, metrics = model_lib.loss_fn(
+            pl, cfg, batch, mesh=mesh,
+            constrain=constrainer(preset(name), mesh), remat="none")
+        grads = [_np(coll.psum(g.float(), mesh, mesh.axis_names))
+                 for g in torch.autograd.grad(loss, tree_leaves(pl))]
+        out[name] = {
+            "loss": float(loss.detach()),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads if rank == 0 else None}
+    return out
+
+
+def sharded_steps(rank, dev, case):
+    """Three sharded train steps from the carried weights; each step's
+    metrics, and the gathered parameters after each (rank 0)."""
+    cfg = reduced_config(case["arch"])
+    if case.get("n_experts"):
+        cfg = with_moe(cfg, case["n_experts"], case["capacity_factor"],
+                       **case["moe"])
+    mesh = WorkerMesh(case["mesh"], dev)
+    rules = preset(case["rules"]) if case.get("rules") else rules_for(
+        cfg, "train")
+    opt = OptimizerConfig(lr=1e-3)
+    specs = param_specs(cfg, rules, mesh)
+    state = shard_state(init_train_state(params_from_reference(
+        case["params"], device=dev), opt), specs, mesh)
+    step = make_train_step(cfg, opt, mesh, rules, remat="none",
+                           lr_kwargs=LR_KWARGS)
+    out = {"rules": rules.name, "metrics": [], "params": []}
+    for b in case["batches"]:
+        state, m = step(state, _batch(b))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        whole = gather_state(state, specs, mesh)
+        if rank == 0:
+            out["params"].append([_np(t) for t in tree_leaves(whole.params)])
+    return out
+
+
+def reduced_gradient(state, metrics, opt: OptimizerConfig) -> list:
+    """The gradient a first step reduced, from its first moment: AdamW's
+    first step stores (1 - b1) x clip_factor x g."""
+    scale = (1.0 - opt.b1) * float(metrics["clip_factor"])
+    return [_np(mu) / scale for mu in tree_leaves(state.opt["mu"])]
+
+
+def compressed_step(rank, dev, case):
+    """One exact and one int8-compressed step on (2, 2, 2) with the base
+    preset from the same state: the metrics, the gathered parameters and
+    reduced gradients (rank 0), and a digest of this rank's compressed
+    shards."""
+    cfg = reduced_config(case["arch"])
+    mesh = WorkerMesh({"pod": 2, "data": 2, "model": 2}, dev)
+    rules = preset("base")
+    opt = OptimizerConfig(lr=1e-3)
+    specs = param_specs(cfg, rules, mesh)
+    out = {"coord": dict(mesh.coord)}
+    for name, comp in (("exact", None), ("int8", "int8")):
+        state = shard_state(init_train_state(params_from_reference(
+            case["params"], device=dev), opt), specs, mesh)
+        step = make_train_step(cfg, opt, mesh, rules, remat="none",
+                               grad_compression=comp, lr_kwargs=LR_KWARGS)
+        state, m = step(state, _batch(case["batch"]))
+        digest = hashlib.sha256()
+        for t in tree_leaves(state.params):
+            digest.update(t.detach().contiguous().numpy().tobytes())
+        whole = gather_state(state, specs, mesh)
+        out[name] = {
+            "metrics": {k: float(v) for k, v in m.items()},
+            "digest": digest.hexdigest(),
+            "params": [_np(t) for t in tree_leaves(whole.params)]
+            if rank == 0 else None,
+            "grads": reduced_gradient(whole, m, opt) if rank == 0 else None}
+    return out
+
+
+def world_run_fixed(rank, dev, case):
+    """`run_fixed` in this world with --model-parallel 2 (a (4, 2) mesh),
+    checkpointing the last step from rank 0."""
+    losses = launch_train.run_fixed(
+        reduced_config(case["arch"]), steps=case["steps"],
+        batch=case["batch"], seq=case["seq"], ckpt_dir=case["ckpt_dir"],
+        device=dev, model_parallel=2, log_every=1,
+        ckpt_every=case["steps"])
+    return {"losses": losses}
+
+
+def multidevice_world(rank, dev, cases):
+    return {"sp": sp_losses(rank, dev, cases["sp"]),
+            "steps": [sharded_steps(rank, dev, c) for c in cases["steps"]],
+            "int8": compressed_step(rank, dev, cases["int8"]),
+            "run_fixed": world_run_fixed(rank, dev, cases["run_fixed"])}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_cuda.py (on the card)
+# ---------------------------------------------------------------------------
+
+def cuda_collectives(rank, dev):
+    """Each collective of `parallel.collectives` on CUDA tensors."""
+    mesh = WorkerMesh({"data": 2, "model": 2}, dev)
+    x = torch.full((3, 4), float(rank), device=dev)
+    b = (x + 0.5).to(torch.bfloat16)
+    out = {
+        "psum_f32": coll.psum(x, mesh, mesh.axis_names)[0].cpu().numpy(),
+        "psum_bf16": coll.psum(b, mesh, mesh.axis_names).float().cpu(
+            ).numpy(),
+        "psum_i32": coll.psum(x.to(torch.int32), mesh, mesh.axis_names
+                              ).cpu().numpy(),
+        "pmax": coll.pmax(x, mesh, mesh.axis_names).cpu().numpy(),
+        "gather_bf16": coll.all_gather(b, mesh, mesh.axis_names, 0).float(
+            ).cpu().numpy(),
+        "own_a2a": coll.all_to_all(b.reshape(2, 6)[:, :4].contiguous(),
+                                   mesh, "model").float().cpu().numpy(),
+    }
+    assert out["own_a2a"].shape == (2, 4)
+    assert (out["psum_f32"] == 6.0).all()
+    return out
