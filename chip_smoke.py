@@ -5,12 +5,12 @@ Run from the repository root on a machine with the card:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package.  Phases, run
-in the order 1, 2, 5-13, 15-24, 3, 4, 25, 26, 14 (the water-fill's last: once its
-tier-1m case has run, `torch.profiler` reads no device events in the
-same process -- `repro_torch.kernels.waterfill.study` finds where -- so
-every phase that reads the profiler runs first); any failure raises and
-exits non-zero (nothing is caught, and nothing falls back to the CPU or
-to a plain version):
+in the order 1, 2, 5-13, 15-24, 3, 4, 25, 26, 27, 14 (the water-fill's
+last: once its tier-1m case has run, `torch.profiler` reads no device
+events in the same process -- `repro_torch.kernels.waterfill.study`
+finds where -- so every phase that reads the profiler runs first); any
+failure raises and exits non-zero (nothing is caught, and nothing falls
+back to the CPU or to a plain version):
 
   1. the card: name and power limit as nvidia-smi reports them;
   2. build every kernel from the checkout's CUDA sources, one nvcc per
@@ -312,6 +312,23 @@ to a plain version):
      launches on each part's main path equal `parallel_launches`; a
      `{"parallel": ...}` line with each part's wall time per rank, each
      rank's peak memory and rank 0's launches by instance;
+ 27. in phase 26's world, after its parts (`PARALLEL_PLAN`'s "elastic"
+     and "serve_mesh"): `run_elastic` on qwen2-1.5b at full width cut to
+     2 layers, float32, 8 x 512 tokens, 4 steps: the control plane on
+     rank 0 claims 4 workers at step 0 and 8 at step 2
+     (`elastic_schedule`), the state zero3 on ranks 0-3, saved from them
+     and restored onto all 8 at the rescale; held against this process's
+     one-device `run_fixed` of the same steps (each loss 1e-4 of itself,
+     the final parameters 2e-2); then `ServeEngine` on {"data": 8} under ``decode`` (a row a
+     rank) and ``decode_sp`` (256 of the 2048 cache slots a rank, the
+     ranks' flash outputs merged by their lse), 8 requests of 64-512
+     prompt tokens and 16 new tokens: at 2 layers in float32 (greedy
+     tokens equal to the one-device engine's) and at full depth in
+     bfloat16 (the first tick's logits within 5e-2; where the tokens
+     first part is printed), each rank's flash launches by instance
+     exact (`serve_mesh_routes`); an `{"elastic": ...}` line (rescales
+     with their save and restore seconds, each step's seconds and worker
+     count, peaks by rank) and a `{"serve_mesh": ...}` line;
  14. a JSON line per kernel (the water-fill's with its launches by
      instance and by entry point and the host breakdown; flash's, the
      SSD's and gmm's with their launches by instance and ptxas' report of
@@ -4900,7 +4917,7 @@ def service_cli_phase(matchmaker, jobs, seed, timeout_s=600.0):
 #: ranks of phase 26's world, all on card 0 (gloo: NCCL refuses two ranks
 #: on one device), and the world's timeout
 PARALLEL_RANKS = 8
-PARALLEL_TIMEOUT_S = 360.0
+PARALLEL_TIMEOUT_S = 480.0
 #: the parts, at full width: jamba's MoE layer expert-parallel on (4, 2),
 #: 1024 tokens a "data" rank; qwen2-1.5b sequence-parallel on (1, 8)
 #: (12 heads do not divide 8); qwen2-1.5b's sharded zero3 step on (4, 2);
@@ -4917,6 +4934,26 @@ PARALLEL_PLAN = {
                  steps=3, batch=8, seq=512),
     "int8": dict(arch=ARCH, layers=4, mesh={"pod": 2, "data": 2, "model": 2},
                  batch=8, seq=512),
+}
+#: phase 27, run in phase 26's world after its parts: elastic training
+#: (`run_elastic`) on qwen2-1.5b at full width cut to 2 layers, float32,
+#: zero3 over "data" (the rescale at step steps // 2 reshards 4 ranks'
+#: state onto 8); serving qwen2-1.5b at full width and depth in bfloat16
+#: on {"data": 8} under ``decode`` (a row a rank) and ``decode_sp`` (256
+#: cache slots a rank), with a float32 gate at ``gate_layers`` layers
+PARALLEL_PLAN["elastic"] = dict(arch=ARCH, layers=2, steps=4, batch=8,
+                                seq=512)
+PARALLEL_PLAN["serve_mesh"] = dict(
+    arch=ARCH, mesh={"data": 8}, rules=("decode", "decode_sp"), slots=8,
+    max_seq=2048, requests=8, prompt=(64, 512), new=16, gate_layers=2)
+#: phase 27 at small size (tests/test_torch_cuda.py): the reduced qwen2,
+#: head dim 32
+MESH_PLAN_SMALL = {
+    "elastic": dict(PARALLEL_PLAN["elastic"], reduced=True, seq=32,
+                    changes=dict(d_head=32)),
+    "serve_mesh": dict(PARALLEL_PLAN["serve_mesh"], reduced=True,
+                       changes=dict(d_head=32), max_seq=64, prompt=(8, 24),
+                       new=4),
 }
 #: phase 26 at small size (tests/test_torch_cuda.py): the reduced
 #: configs, head dim 32 (flash takes 32, 64 and 128)
@@ -4951,6 +4988,20 @@ GATE_INT8_LOSS, GATE_INT8_PARAMS = 1e-5, 5e-2
 GATE_INT8_GRAD, GATE_INT8_PODS, GATE_INT8_QUANTUM = 1.0 + 1e-3, 1e-2, 0.5
 #: SP's tied embedding (qwen2 ties its input and output embeddings)
 SP_TIED_LEAF = "embed/table"
+#: phase 27's bars: the elastic run's losses against one device (phase
+#: 26's step bar, relative), its final parameters against one device's
+#: as a share of how far the one-device run moved them (the four steps'
+#: lr is 0 to 3e-4, so an absolute bar would sit above any fault;
+#: `elastic_one_device` plants one, moments zeroed at the rescale, that
+#: reads 0.87-0.90; sound runs read 1.6e-3 at full width and 1.5e-2 at
+#: the small size on the H100: float32 summation order, which AdamW's
+#: normalised step can enlarge where a gradient is near zero), the meshed
+#: bfloat16 engine's first tick's logits against the one-device
+#: engine's (phase 7's bar; `serve_mesh_part` plants a dropped cache part
+#: that must read above it)
+GATE_ELASTIC_LOSS = GATE_STEP_LOSS
+GATE_ELASTIC_PARAMS_SHARE = 0.1
+GATE_SERVE_MESH_BF16 = GATE_BF16
 PARALLEL_KERNELS = ("flash_attention", "flash_attention_bwd", "gmm",
                     "gmm_bwd")
 
@@ -5015,17 +5066,43 @@ class PartClock:
                 "by_instance": self.by_instance, **extra}
 
 
-def parallel_launches(plan: dict) -> dict:
-    """Each part's launches on each rank's main path, from the shapes:
-    EP three gmm forwards and three backwards; SP one flash forward and
-    one backward per layer; each step the same per layer and step."""
+def elastic_schedule(steps: int, ranks: int) -> list:
+    """The rescales the control plane gives `run_elastic` on a pool of
+    ``ranks`` (the reference's demand schedule, as its run on the CPU
+    prints it; tests/test_torch_elastic.py holds the port's lines to the
+    reference's): (step, from, to, claimed)."""
+    return [(0, 0, ranks // 2, ranks // 2),
+            (steps // 2, ranks // 2, ranks, ranks)]
+
+
+def parallel_launches(plan: dict, rank: int = 0,
+                      ranks: int = PARALLEL_RANKS) -> dict:
+    """Each part's launches on a rank's main path, from the shapes: EP
+    three gmm forwards and three backwards; SP one flash forward and one
+    backward per layer; each step the same per layer and step (elastic:
+    the steps the rank's meshes ran); serving one flash forward per
+    layer, each prefill (every rank computes it whole) and each tick."""
     none = {k: 0 for k in PARALLEL_KERNELS}
     per_layer = dict(none, flash_attention=1, flash_attention_bwd=1)
     steps = {"sp": 1, "step": plan.get("step", {}).get("steps"), "int8": 2}
-    return {name: (dict(none, gmm=3, gmm_bwd=3) if name == "ep" else
-                   {k: v * plan[name]["layers"] * steps[name]
-                    for k, v in per_layer.items()})
-            for name in plan}
+    if "elastic" in plan:
+        e = plan["elastic"]
+        first = elastic_schedule(e["steps"], ranks)[0][2]
+        steps["elastic"] = (e["steps"] if rank < first
+                            else e["steps"] - e["steps"] // 2)
+    out = {}
+    for name in plan:
+        if name == "ep":
+            out[name] = dict(none, gmm=3, gmm_bwd=3)
+        elif name == "serve_mesh":
+            part = plan[name]
+            calls = part["requests"] + part["new"] - 1
+            out[name] = dict(none, flash_attention=len(part["rules"]) * calls
+                             * parallel_config(part, "float32").n_layers)
+        else:
+            out[name] = {k: v * plan[name]["layers"] * steps[name]
+                         for k, v in per_layer.items()}
+    return out
 
 
 def _ep_router(cfg, dev):
@@ -5495,6 +5572,300 @@ def int8_gates(rows):
             raise AssertionError(f"int8: {key} differs within a pod group")
 
 
+def _printed(fn, *args, **kwargs):
+    """(fn's result, the lines it printed)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue().splitlines()
+
+
+def elastic_part(rank, dev, plan, clock):
+    """Phase 27 (a): `run_elastic` on the world (the control plane on
+    rank 0, zero3 meshes of the claimed ranks, the rescale's save from 4
+    ranks and restore onto 8).  Rank 0 leaves the final parameters beside
+    the run's checkpoints for `elastic_one_device` (a one-device
+    `run_fixed` cannot run inside the world)."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.parallel.collectives import unshard
+    part = plan["elastic"]
+    cfg = parallel_config(part, "float32")
+    events, step_s = [], []
+
+    def on_rescale(event):
+        events.append(event)
+
+    def on_step(i, state, metrics, seconds):
+        step_s.append({"step": i, "workers": events[-1]["to"],
+                       "s": seconds})
+        if i == part["steps"] - 1:
+            mesh, specs = events[-1]["mesh"], events[-1]["specs"]
+            whole = tree_map(lambda t, s: unshard(t, s, mesh), state.params,
+                             specs)
+            if rank == 0:
+                torch.save([t.cpu() for t in tree_leaves(whole)],
+                           Path(part["ckpt_dir"]) / "final_params.pt")
+            del whole
+
+    with clock.main_path():
+        losses, printed = _printed(
+            launch_train.run_elastic, cfg, steps=part["steps"],
+            batch=part["batch"], seq=part["seq"],
+            ckpt_dir=part["ckpt_dir"], log_every=1, device=dev,
+            on_step=on_step, on_rescale=on_rescale)
+    return {"losses": losses, "step_s": step_s,
+            "rescales": [{k: e[k] for k in ("step", "from", "to", "claimed",
+                                            "save_s", "restore_s")}
+                         for e in events],
+            "printed": [line for line in printed
+                        if line.startswith("[elastic]")]}
+
+
+def _one_device_run(cfg, part, device, zero_moments_at=None) -> dict:
+    """A one-device `run_fixed` of the elastic part's steps: its losses,
+    step seconds and final parameters (on the host).  With
+    ``zero_moments_at`` AdamW's moments are zeroed before that step: the
+    planted fault of a rescale that restored them as zeros."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.param import tree_leaves
+    one = {"step_s": []}
+
+    def on_step(i, state, metrics, seconds):
+        one["step_s"].append(seconds)
+        if zero_moments_at is not None and i == zero_moments_at - 1:
+            for t in (tree_leaves(state.opt["mu"])
+                      + tree_leaves(state.opt["nu"])):
+                t.zero_()
+        if i == part["steps"] - 1:
+            one["params"] = [t.detach().cpu()
+                             for t in tree_leaves(state.params)]
+
+    one["losses"] = launch_train.run_fixed(
+        cfg, steps=part["steps"], batch=part["batch"], seq=part["seq"],
+        ckpt_dir=None, device=device, log_every=1, on_step=on_step)
+    return one
+
+
+def _max_diff(a: list, b: list) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def elastic_one_device(rows, plan, device) -> dict:
+    """The one-device `run_fixed` of the elastic part's steps (in this
+    process, outside the world), against the elastic run: each logged
+    loss relative to itself, and the final parameters' largest
+    difference as a share of the largest change the one-device run made
+    to them (from the seed's draw); the same share for a one-device run
+    with the moments zeroed at the rescale's step (a planted fault the
+    gate must fail)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.param import tree_leaves
+    part = plan["elastic"]
+    cfg = parallel_config(part, "float32")
+    t0 = time.perf_counter()
+    one = _one_device_run(cfg, part, device)
+    wall = time.perf_counter() - t0
+    fault = _one_device_run(cfg, part, device,
+                            zero_moments_at=part["steps"] // 2)
+    init = [t.cpu() for t in tree_leaves(
+        model_lib.init_model(cfg, seed=0, device=device))]
+    final = torch.load(Path(part["ckpt_dir"]) / "final_params.pt")
+    losses = rows[0]["elastic"]["losses"]
+    change = _max_diff(one["params"], init)
+    # relative: the random full-width model starts at a loss of ~1275
+    out = {"one_device_losses": one["losses"],
+           "one_device_step_s": one["step_s"], "one_device_wall_s": wall,
+           "loss": max(abs(a - b) / max(1.0, abs(b))
+                       for a, b in zip(losses, one["losses"])),
+           "params": _max_diff(final, one["params"]),
+           "params_change": change,
+           "fault_params": _max_diff(fault["params"], one["params"]),
+           "fault_loss": max(abs(a - b) / max(1.0, abs(b))
+                             for a, b in zip(fault["losses"],
+                                             one["losses"]))}
+    out["params_share"] = out["params"] / change
+    out["fault_params_share"] = out["fault_params"] / change
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def elastic_gates(rows, plan, one):
+    part = plan["elastic"]
+    want = elastic_schedule(part["steps"], len(rows))
+    r0 = dict(rows[0]["elastic"], **one)
+    got = [(e["step"], e["from"], e["to"], e["claimed"])
+           for e in r0["rescales"]]
+    if got != want or r0["printed"] != [
+            f"[elastic] rescale: {a} -> {b} workers (claimed={c})"
+            for _, a, b, c in want]:
+        raise AssertionError(f"elastic: rescales {got} ({r0['printed']}), "
+                             f"not the control plane's {want}")
+    if any(r["elastic"]["losses"] != r0["losses"] for r in rows):
+        raise AssertionError("elastic: the ranks logged different losses")
+    if len(r0["losses"]) != part["steps"]:
+        raise AssertionError(f"elastic: {len(r0['losses'])} losses logged")
+    gate("elastic qwen2 f32 zero3 4 -> 8 ranks: loss vs one device, "
+         "relative", r0["loss"], GATE_ELASTIC_LOSS)
+    label = ("elastic qwen2 f32 zero3 4 -> 8 ranks: final parameters vs "
+             "one device, a share of the one-device run's change")
+    if not r0["fault_params_share"] > GATE_ELASTIC_PARAMS_SHARE:
+        raise AssertionError(
+            f"{label}: the planted fault (moments zeroed at the rescale) "
+            f"reads {r0['fault_params_share']:.3g}, not above the bar "
+            f"{GATE_ELASTIC_PARAMS_SHARE:.3g}: the gate cannot fail")
+    print(json.dumps({"elastic_params": {
+        "max_diff": r0["params"], "one_device_change": r0["params_change"],
+        "fault_share": r0["fault_params_share"]}}), flush=True)
+    gate(label, r0["params_share"], GATE_ELASTIC_PARAMS_SHARE)
+
+
+def first_parting(a: dict, b: dict) -> dict:
+    """Each request's first position where two runs' tokens part (None
+    where they are equal)."""
+    return {i: next((j for j, (x, y) in enumerate(zip(a[i], b[i]))
+                     if x != y), None) for i in a}
+
+
+def _serve_run(engine, reqs, main=None):
+    """Drives ``engine`` over copies of ``reqs`` until drained: (tokens,
+    the first tick's logits, wall seconds)."""
+    from repro_torch.serve.engine import Request
+    for r in reqs:
+        engine.submit(Request(rid=r.rid, prompt=r.prompt,
+                              max_new_tokens=r.max_new_tokens))
+    first = None
+    t0 = time.perf_counter()
+    with main if main is not None else contextlib.nullcontext():
+        while engine.queue or engine.busy_slots():
+            engine.step()
+            if first is None and engine.last_logits is not None:
+                first = engine.last_logits.detach().float().clone()
+    return outputs(engine), first, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def dropped_part(rank: int):
+    """A planted fault: `merge_partials` weighs the cache part of the
+    rank at ``rank`` of the merge's axes 0 (its lse read as +inf, a part
+    with no key), as a merge that left that part out would."""
+    from repro_torch.models import attention
+    real = attention.merge_partials
+
+    def merge(o, lse, mesh, axes):
+        if mesh.index(axes) == rank:
+            lse = torch.full_like(lse, float("inf"))
+        return real(o, lse, mesh, axes)
+
+    attention.merge_partials = merge
+    try:
+        yield
+    finally:
+        attention.merge_partials = real
+
+
+def serve_mesh_part(rank, dev, plan, clock):
+    """Phase 27 (b): `ServeEngine` on the mesh under each of the part's
+    rules: at ``gate_layers`` layers in float32 (rank 0 holds the greedy
+    tokens equal to the one-device engine's), then at full depth in
+    bfloat16, the main path (rank 0: the first tick's logits against the
+    one-device engine's, and where the greedy tokens first part).  Off
+    the main path, the bfloat16 engine's first tick under ``decode_sp``
+    with the first rank's cache part dropped from the merge (every
+    prompt has keys there): a fault the bfloat16 gate must fail."""
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import Request
+    from repro_torch.parallel.sharding import preset
+    from repro_torch.serve.engine import ServeEngine
+    part = plan["serve_mesh"]
+    mesh = WorkerMesh(part["mesh"], dev)
+    row = {"runs": {}}
+    for dtype, layers in (("float32", part["gate_layers"]),
+                          ("bfloat16", None)):
+        cfg = parallel_config(dict(part, layers=layers), dtype)
+        params = model_lib.init_model(cfg, seed=0, device=dev)
+        reqs = make_requests(cfg, part["requests"], part["prompt"],
+                             part["new"], seed=27)
+        main = dtype == "bfloat16"
+        runs = {}
+        for rules in part["rules"]:
+            engine = ServeEngine(cfg, params, batch_slots=part["slots"],
+                                 max_seq=part["max_seq"], mesh=mesh,
+                                 rules=preset(rules))
+            runs[rules] = _serve_run(engine, reqs,
+                                     clock.main_path() if main else None)
+            if main:
+                if (engine.prefill_calls, engine.decode_ticks) != (
+                        part["requests"], part["new"] - 1):
+                    raise AssertionError(
+                        f"serve_mesh {rules}: {engine.prefill_calls} "
+                        f"prefills, {engine.decode_ticks} ticks")
+                tokens = sum(len(t) for t in runs[rules][0].values())
+                row["runs"][rules] = {
+                    "wall_s": runs[rules][2],
+                    "tokens_per_s": tokens / runs[rules][2],
+                    "layout": [engine.layout.rows, engine.layout.kv_seq],
+                    "cache_slots_per_rank": engine.cache["slot0"]["self"][
+                        "k"].shape[2]}
+            del engine
+        fault_first = None
+        if main and "decode_sp" in part["rules"]:
+            engine = ServeEngine(cfg, params, batch_slots=part["slots"],
+                                 max_seq=part["max_seq"], mesh=mesh,
+                                 rules=preset("decode_sp"))
+            for r in reqs:
+                engine.submit(Request(rid=r.rid, prompt=r.prompt,
+                                      max_new_tokens=r.max_new_tokens))
+            with dropped_part(0):
+                engine.step()
+            fault_first = engine.last_logits.detach().float().clone()
+            del engine
+        if rank == 0:
+            one = ServeEngine(cfg, params, batch_slots=part["slots"],
+                              max_seq=part["max_seq"])
+            want, want_first, _ = _serve_run(one, reqs)
+            del one
+            for rules, (got, first, _) in runs.items():
+                key = f"{rules}_{dtype}"
+                row[f"logits_{key}"] = rel_err(first, want_first)
+                row[f"tokens_equal_{key}"] = got == want
+                row[f"first_parting_{key}"] = first_parting(got, want)
+            if fault_first is not None:
+                row["logits_fault_decode_sp_bfloat16"] = rel_err(
+                    fault_first, want_first)
+        del params, runs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return row
+
+
+def serve_mesh_gates(row, plan):
+    part = plan["serve_mesh"]
+    for rules in part["rules"]:
+        if not row[f"tokens_equal_{rules}_float32"]:
+            raise AssertionError(
+                f"serve_mesh {rules} f32 at {part['gate_layers']} layers: "
+                f"greedy tokens part from one device's at "
+                f"{row[f'first_parting_{rules}_float32']}")
+        gate(f"serve_mesh qwen2 f32 {rules} on {part['mesh']}: first tick's "
+             f"logits vs one device", row[f"logits_{rules}_float32"],
+             GATE_F32)
+        gate(f"serve_mesh qwen2 bf16 {rules} on {part['mesh']}: first tick's "
+             f"logits vs one device", row[f"logits_{rules}_bfloat16"],
+             GATE_SERVE_MESH_BF16)
+    if "decode_sp" in part["rules"]:
+        fault = row["logits_fault_decode_sp_bfloat16"]
+        if not fault > GATE_SERVE_MESH_BF16:
+            raise AssertionError(
+                f"serve_mesh bf16 decode_sp: the first tick with rank 0's "
+                f"cache part dropped from the merge reads {fault:.3g}, not "
+                f"above the bar {GATE_SERVE_MESH_BF16:.3g}: the gate cannot "
+                f"fail")
+
+
 def parallel_rank(rank, dev, plan):
     """Phase 26 on one rank: the four parts, each timed, with its main
     path's launches; every rank's peak memory."""
@@ -5503,7 +5874,8 @@ def parallel_rank(rank, dev, plan):
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     for name, fn in (("ep", ep_part), ("sp", sp_part), ("step", step_part),
-                     ("int8", int8_part)):
+                     ("int8", int8_part), ("elastic", elastic_part),
+                     ("serve_mesh", serve_mesh_part)):
         if name not in plan:
             continue
         dist.barrier()
@@ -5521,12 +5893,38 @@ def parallel_rank(rank, dev, plan):
     return out
 
 
+def serve_mesh_routes(plan: dict) -> dict:
+    """The flash instances each rank's serving runs launch (`flash_route`
+    of every prefill, whole on every rank, and of each tick), by
+    instance, over the part's rules."""
+    part = plan["serve_mesh"]
+    cfg = parallel_config(part, "bfloat16")
+    dims = (cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    out: dict = {}
+    calls = [len(r.prompt) for r in make_requests(
+        cfg, part["requests"], part["prompt"], part["new"], seed=27)]
+    calls += [1] * (part["new"] - 1)
+    for Sq in calls:
+        inst = flash_route(torch.bfloat16, Sq, *dims)
+        out[inst] = out.get(inst, 0) + cfg.n_layers * len(part["rules"])
+    return out
+
+
+#: the parts of phase 27 (run in phase 26's world)
+MESH_PARTS = ("elastic", "serve_mesh")
+
+
 def parallel_phase(plan=PARALLEL_PLAN, device="cuda",
                    ranks=PARALLEL_RANKS) -> dict:
-    """Phase 26: one world of ``ranks`` processes (spawn, gloo on the
-    rank's device, all on card 0), the four parts on meshes made over the
+    """Phases 26 and 27: one world of ``ranks`` processes (spawn, gloo on
+    the rank's device, all on card 0), the parts on meshes made over the
     same ranks, their gates, and each rank's launches held exactly to
-    `parallel_launches`.  Returns the summed launches by kernel."""
+    `parallel_launches` (and serving's flash instances to
+    `serve_mesh_routes`).  Prints a ``{"parallel": ...}`` line for phase
+    26's parts, and ``{"elastic": ...}`` and ``{"serve_mesh": ...}`` for
+    phase 27's.  Returns each part's launches by kernel, as the ranks
+    counted them on its main path, summed over the ranks."""
+    import shutil
     from repro_torch.launch.mesh import spawn_world
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -5537,42 +5935,71 @@ def parallel_phase(plan=PARALLEL_PLAN, device="cuda",
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     world_dir = ROOT / "build" / "repro_torch" / "world"
     world_dir.mkdir(parents=True, exist_ok=True)
-    store = world_dir / f"store-{os.getpid()}-{time.time_ns()}"
+    tag = f"{os.getpid()}-{time.time_ns()}"
+    store = world_dir / f"store-{tag}"
+    ckpt_dir = world_dir / f"elastic-{tag}"
+    if "elastic" in plan:
+        plan = dict(plan, elastic=dict(plan["elastic"],
+                                       ckpt_dir=str(ckpt_dir)))
     t0 = time.perf_counter()
-    rows = spawn_world(parallel_rank, ranks, backend="gloo", device=device,
-                       init_file=store, timeout_s=PARALLEL_TIMEOUT_S,
-                       threads=None, args=(plan,))
-    wall = time.perf_counter() - t0
+    try:
+        rows = spawn_world(parallel_rank, ranks, backend="gloo",
+                           device=device, init_file=store,
+                           timeout_s=PARALLEL_TIMEOUT_S, threads=None,
+                           args=(plan,))
+        wall = time.perf_counter() - t0
+        if "elastic" in plan:
+            one = elastic_one_device(rows, plan, device)
+            rows[0]["elastic"].update(one)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     for name, gates in (("ep", ep_gates), ("sp", sp_gates),
                         ("step", step_gates), ("int8", int8_gates)):
         if name in plan:
             gates(rows[0][name] if name != "int8" else rows)
-    want = parallel_launches(plan)
-    total = {k: 0 for k in PARALLEL_KERNELS}
+    if "elastic" in plan:
+        elastic_gates(rows, plan, one)
+    if "serve_mesh" in plan:
+        serve_mesh_gates(rows[0]["serve_mesh"], plan)
+        routes = serve_mesh_routes(plan)
+        for rank, r in enumerate(rows):
+            got = r["serve_mesh"]["by_instance"]["flash_attention"]
+            if got != routes:
+                raise AssertionError(f"phase 27 serve_mesh: rank {rank}'s "
+                                     f"flash instances {got}, not {routes}")
     for rank, r in enumerate(rows):
-        for part, counts in want.items():
+        for part, counts in parallel_launches(plan, rank, ranks).items():
             if r[part]["launches"] != counts:
-                raise AssertionError(f"phase 26 {part}: rank {rank} "
+                raise AssertionError(f"phase 26/27 {part}: rank {rank} "
                                      f"launched {r[part]['launches']}, not "
                                      f"{counts}")
-            for k in total:
-                total[k] += r[part]["launches"][k]
-    summary = {"parallel": {
-        "ranks": ranks, "backend": "gloo", "world_wall_s": wall,
-        "parts": {part: {
-            "mesh": plan[part]["mesh"],
+    by_part = {part: {k: sum(r[part]["launches"][k] for r in rows)
+                      for k in PARALLEL_KERNELS} for part in plan}
+
+    def part_line(part):
+        return {
+            "mesh": plan[part].get("mesh"),
             "wall_s": [r[part]["wall_s"] for r in rows],
             "main_s": [r[part]["main_s"] for r in rows],
-            "launches_per_rank": want[part],
+            "launches_per_rank": [r[part]["launches"] for r in rows],
             "by_instance_rank0": rows[0][part]["by_instance"],
+            "peak_gb": [r[part].get("peak_gb") for r in rows],
             **{k: v for k, v in rows[0][part].items() if k not in (
-                "wall_s", "main_s", "launches", "by_instance")}}
-            for part in want},
-        "peak_gb": {part: [r[part].get("peak_gb") for r in rows]
-                    for part in want},
-        "launches": total}}
+                "wall_s", "main_s", "launches", "by_instance", "peak_gb")}}
+
+    summary = {"parallel": {
+        "ranks": ranks, "backend": "gloo", "world_wall_s": wall,
+        "parts": {part: part_line(part) for part in plan
+                  if part not in MESH_PARTS},
+        "launches": {k: sum(by_part[part][k] for part in plan
+                            if part not in MESH_PARTS)
+                     for k in PARALLEL_KERNELS}}}
     print(json.dumps(summary), flush=True)
-    return total
+    for part in MESH_PARTS:
+        if part in plan:
+            print(json.dumps({part: dict(part_line(part), ranks=ranks,
+                                         plan=plan[part])}), flush=True)
+    return by_part
 
 
 def build_all(modules) -> None:
@@ -6019,15 +6446,21 @@ def main() -> int:
     service = service_phase(launch_counts)
     waterfill_line["launches_service"] = service["waterfill_launches"]
     phase_done("25")
-    # phase 26: parallel/ -- expert-parallel MoE, sequence-parallel
-    # attention, the sharded and the int8-compressed train steps on a
-    # world of 8 ranks that share the card (gloo)
-    parallel = parallel_phase()
+    # phases 26 and 27 in one world of 8 ranks that share the card (gloo):
+    # parallel/ -- expert-parallel MoE, sequence-parallel attention, the
+    # sharded and the int8-compressed train steps; then elastic training
+    # and serving under a mesh
+    by_part = parallel_phase()
     for line, name in ((flash_line, "flash_attention"),
                        (bwd_line, "flash_attention_bwd"),
                        (gmm_line, "gmm"), (gmm_bwd_line, "gmm_bwd")):
-        line["launches_parallel"] = parallel[name]
-    phase_done("26")
+        line["launches_parallel"] = sum(
+            counts[name] for part, counts in by_part.items()
+            if part not in MESH_PARTS)
+    for part in MESH_PARTS:
+        flash_line[f"launches_{part}"] = by_part[part]["flash_attention"]
+    bwd_line["launches_elastic"] = by_part["elastic"]["flash_attention_bwd"]
+    phase_done("26, 27")
     print(json.dumps({"profiler_sessions": profiler_sessions}), flush=True)
     print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
                                   gmm_line, bwd_line, ssd_bwd_line,

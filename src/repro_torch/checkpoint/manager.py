@@ -1,4 +1,4 @@
-"""Checkpointing: atomic, optionally asynchronous, onto one device.
+"""Checkpointing: atomic, optionally asynchronous, reshard-on-restore.
 
 The port of the JAX package's ``checkpoint/manager.py`` with the same
 on-disk format, so that either package restores what the other wrote:
@@ -17,9 +17,14 @@ most one write outstanding (a save first waits for the last write, so
 host memory holds one snapshot at a time).
 
 Trees are nested dicts (lists and tuples by index) of tensors, numpy
-arrays or numbers.  `restore` loads onto one device (``device``); the
-reference's restore onto another mesh's shardings belongs to elastic
-training (ROADMAP Queue 1 item 13).
+arrays or numbers.  The on-disk layout is mesh-agnostic (each leaf
+whole), so `restore` can put a step onto one device or onto any mesh:
+with ``shardings`` (a spec or a placements tuple per leaf, over a
+`launch.mesh.WorkerMesh`) each rank keeps only its shard of each leaf
+(`parallel.collectives.shard_of`), reading one leaf at a time.  A
+checkpoint written from a mesh of 4 ranks (rank 0 saving the gathered
+state) restores onto 8, onto one device, or into the JAX package's
+manager, and the reverse.
 """
 from __future__ import annotations
 
@@ -65,6 +70,34 @@ def _host_array(leaf) -> np.ndarray:
 
 def _flatten_with_paths(tree: PyTree) -> dict[str, np.ndarray]:
     return {path: _host_array(leaf) for path, leaf in _items(tree)}
+
+
+def _at(tree: PyTree, path: str):
+    """The entry of ``tree`` at a leaf path of `_items` (specs and
+    placements are tuples, so the path is followed, not the tuples)."""
+    for part in path.split(_SEP) if path else ():
+        tree = tree[part] if isinstance(tree, dict) else tree[int(part)]
+    return tree
+
+
+def _as_spec(sharding, mesh):
+    """A leaf's sharding as a spec: a spec (`parallel.sharding.P`) as it
+    is; a placements tuple (one ``Shard(dim)`` or ``Replicate()`` per
+    mesh axis, `parallel.sharding.placements`) as the spec that gives
+    it."""
+    from repro_torch.parallel.sharding import P
+
+    if isinstance(sharding, P):
+        return sharding
+    from torch.distributed.tensor import Shard
+    if len(sharding) != len(mesh.axis_names):
+        raise ValueError(f"placements {sharding} for mesh {mesh.shape}")
+    cut: dict[int, tuple[str, ...]] = {}
+    for name, pl in zip(mesh.axis_names, sharding):
+        if isinstance(pl, Shard):
+            cut[pl.dim] = cut.get(pl.dim, ()) + (name,)
+    n = max(cut, default=-1) + 1
+    return P(*(cut.get(d) for d in range(n)))
 
 
 def _rebuild(target: PyTree, leaves: dict, prefix: tuple = ()) -> PyTree:
@@ -143,14 +176,28 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: PyTree, *,
-                device: str | torch.device = "cpu") -> PyTree:
+    def restore(self, step: int, target: PyTree, shardings: PyTree = None,
+                *, mesh=None, device: str | torch.device | None = None
+                ) -> PyTree:
         """Restore into the structure of ``target`` (a tree of tensors, or
-        of anything with a torch ``dtype`` and a ``shape``), each leaf
-        cast to its target's dtype on ``device``."""
+        of anything with a torch ``dtype`` and a whole ``shape``, such as
+        `models.model.leaf_tree`'s leaves), each leaf cast to its
+        target's dtype.
+
+        ``shardings`` (the structure of ``target``; a spec or a placements
+        tuple per leaf) reshard each leaf onto ``mesh`` (this rank's
+        `WorkerMesh`): the rank keeps its shard of it, on the mesh's
+        device.  Without them a leaf goes to ``device``, else where its
+        target leaf lives when that is a tensor, else to the default
+        device (cuda: `models.model.resolve_device`)."""
+        from repro_torch.models.model import resolve_device
+        from repro_torch.parallel.collectives import shard_of
+
         path = os.path.join(self.dir, f"step_{step:08d}")
         if not os.path.exists(os.path.join(path, "DONE")):
             raise FileNotFoundError(f"no committed checkpoint at {path}")
+        if shardings is not None and mesh is None:
+            raise ValueError("restore: shardings need the mesh they are over")
         leaves = {}
         # one leaf in host memory at a time
         with np.load(os.path.join(path, "arrays.npz")) as data:
@@ -164,8 +211,16 @@ class CheckpointManager:
                         f"shape mismatch for {key}: ckpt {arr.shape} vs "
                         f"target {tuple(tgt.shape)}"
                     )
-                leaves[key] = torch.from_numpy(arr).to(device=device,
-                                                       dtype=tgt.dtype)
+                whole = torch.from_numpy(arr)
+                if shardings is not None:
+                    spec = _as_spec(_at(shardings, key), mesh)
+                    leaves[key] = shard_of(whole, spec, mesh).to(
+                        device=mesh.device, dtype=tgt.dtype, copy=True)
+                    continue
+                dev = (device if device is not None else tgt.device
+                       if isinstance(tgt, torch.Tensor)
+                       else resolve_device(None))
+                leaves[key] = whole.to(device=dev, dtype=tgt.dtype)
         return _rebuild(target, leaves)
 
     def read_meta(self, step: int) -> dict:

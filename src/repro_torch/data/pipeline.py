@@ -68,10 +68,15 @@ class SyntheticTokenPipeline:
         labels = toks[:, 1:].astype(np.int32)
         return {"tokens": tokens, "labels": labels}
 
-    def torch_batch_at(self, step: int, device: str | torch.device = "cpu"
+    def torch_batch_at(self, step: int,
+                       device: str | torch.device | None = None
                        ) -> dict[str, torch.Tensor]:
-        """`batch_at` as int32 tensors on ``device``."""
-        return {k: torch.from_numpy(v).to(device)
+        """`batch_at` as int32 tensors on ``device`` (cuda unless the
+        caller asks for the CPU: `models.model.resolve_device`)."""
+        from repro_torch.models.model import resolve_device
+
+        dev = resolve_device(device)
+        return {k: torch.from_numpy(v).to(dev)
                 for k, v in self.batch_at(step).items()}
 
 

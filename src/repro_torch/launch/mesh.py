@@ -2,13 +2,18 @@
 
 The port of the JAX package's ``launch/mesh.py``.  One process is one
 rank at one mesh coordinate; a mesh names its axes as the reference's
-does ("pod", "data", "model") and is a
-``torch.distributed.device_mesh.DeviceMesh`` underneath, whose
-``get_group(name)`` gives the sub-group of one axis.  `WorkerMesh` adds
-what the per-rank bodies need: ``shape`` (axis name -> size, which is
-what the sharding rules read), the rank's coordinate, and one process
-group for every set of axes (an all-reduce over ("data", "model") is one
-collective).
+does ("pod", "data", "model").  `WorkerMesh` holds what the per-rank
+bodies need: ``shape`` (axis name -> size, which is what the sharding
+rules read), the rank's coordinate, and one process group for every set
+of axes (an all-reduce over ("data", "model") is one collective).
+
+A mesh spans the first ranks of the world, as the reference's
+``make_worker_mesh(n)`` takes the first n of ``jax.devices()``: the
+world is the pool of workers, and a mesh of n < world ranks leaves the
+rest outside (``inside`` is False there, and such a rank takes part in
+none of the mesh's collectives).  Every rank of the world makes every
+mesh, in the same order, since making a process group is collective
+over the world.
 
 The world is set up by `init_world`: from ``torchrun``'s environment
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``) or from an
@@ -74,42 +79,45 @@ def init_world(backend: str, *, init_method: str | None = None,
 
 
 class WorkerMesh:
-    """A named mesh over every rank of the initialised world, in row-major
-    rank order (rank = the coordinate flattened in axis order): the
-    reference's ``jax.make_mesh(shape, names)`` is ``WorkerMesh(dict(zip(
-    names, shape)), device)``.  The device is the GPU unless the caller
-    asks for the CPU, as everywhere in the port."""
+    """A named mesh over the first ranks of the initialised world, in
+    row-major rank order (rank = the coordinate flattened in axis order):
+    the reference's ``jax.make_mesh(shape, names)`` is ``WorkerMesh(dict(
+    zip(names, shape)), device)``.  The device is the GPU unless the
+    caller asks for the CPU, as everywhere in the port.  A rank beyond
+    the mesh's size is outside it: ``inside`` is False and ``coord`` is
+    None."""
 
     def __init__(self, shape: dict[str, int],
                  device: torch.device | str | None = None):
-        from torch.distributed.device_mesh import DeviceMesh
-
         from repro_torch.models.model import resolve_device
 
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
-        sizes = tuple(self.shape.values())
-        n = math.prod(sizes)
-        if n != dist.get_world_size():
+        n = math.prod(self.shape.values())
+        world = dist.get_world_size()
+        if n > world:
             raise ValueError(f"mesh {self.shape} holds {n} ranks, the world "
-                             f"{dist.get_world_size()}")
+                             f"{world}")
         self.device = resolve_device(device)
         self.rank = dist.get_rank()
-        self.device_mesh = DeviceMesh(
-            self.device.type, torch.arange(n).reshape(sizes),
-            mesh_dim_names=self.axis_names)
-        coord, r = [], self.rank
-        for size in reversed(sizes):
-            coord.append(r % size)
-            r //= size
-        self.coord = dict(zip(self.axis_names, reversed(coord)))
-        # one group per set of two or more axes (the whole world is the
-        # default group); every rank makes every group, in one order
+        self.inside = self.rank < n
+        self.coord = None
+        if self.inside:
+            coord, r = [], self.rank
+            for size in reversed(self.shape.values()):
+                coord.append(r % size)
+                r //= size
+            self.coord = dict(zip(self.axis_names, reversed(coord)))
+        # one group per non-empty set of axes; every rank of the world makes
+        # every group, in one order (a rank outside the mesh gets none)
         self._groups: dict[tuple[str, ...], Any] = {}
-        for k in range(2, len(self.axis_names)):
+        for k in range(1, len(self.axis_names) + 1):
             for axes in itertools.combinations(self.axis_names, k):
-                mine, _ = dist.new_subgroups_by_enumeration(
-                    self._enumerate(axes))
+                if k == len(self.axis_names) and n == world:
+                    mine = dist.group.WORLD
+                else:
+                    mine, _ = dist.new_subgroups_by_enumeration(
+                        self._enumerate(axes))
                 self._groups[axes] = mine
 
     empty = False
@@ -150,12 +158,9 @@ class WorkerMesh:
         return i
 
     def group(self, axes):
-        axes = self.canonical(axes)
-        if len(axes) == len(self.axis_names):
-            return dist.group.WORLD
-        if len(axes) == 1:
-            return self.device_mesh.get_group(axes[0])
-        return self._groups[axes]
+        if not self.inside:
+            raise RuntimeError(f"rank {self.rank} is outside {self!r}")
+        return self._groups[self.canonical(axes)]
 
     def __repr__(self):
         return f"WorkerMesh({self.shape}, rank={self.rank})"
@@ -173,9 +178,10 @@ def make_worker_mesh(n_devices: int | None = None, *,
                      model_parallel: int = 1,
                      device: torch.device | str | None = None
                      ) -> WorkerMesh:
-    """("data", "model") over the world: data = ranks / model_parallel."""
+    """("data", "model") over the first ``n_devices`` ranks of the world
+    (all of them by default): data = ranks / model_parallel."""
     n = n_devices or dist.get_world_size()
-    if n != dist.get_world_size() or n % model_parallel:
+    if n > dist.get_world_size() or n % model_parallel:
         raise ValueError(f"make_worker_mesh: {n} ranks (world "
                          f"{dist.get_world_size()}), model_parallel "
                          f"{model_parallel}")

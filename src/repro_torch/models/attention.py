@@ -35,12 +35,22 @@ rank's rows into its part of the sequence and back.  Every collective is
 differentiable (`parallel.collectives`).  Where the heads divide the
 "model" axis the rank attends its own rows with every head (the port
 keeps no head-sharded activations).
+
+Serving under a mesh whose rules cut the KV cache's slots over mesh axes
+(``decode_sp``: "data"; `parallel.sharding.serving_layout`) holds on each
+rank its part of every cache's slots: `cache_fill` writes a position on
+the rank that owns its slot, and `attn_decode` runs the flash kernel over
+the rank's part (`flash_attention_forward`, the decode split with each
+row's log-sum-exp) and merges the ranks' outputs in float32
+(`merge_partials`), as the split kernel merges its own parts.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    flash_attention, flash_attention_forward,
+)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_linear, apply_rmsnorm, apply_rope, init_linear,
@@ -191,33 +201,72 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, *,
 
 
 def cache_fill(cache: dict, k: torch.Tensor, v: torch.Tensor,
-               positions: torch.Tensor) -> dict:
+               positions: torch.Tensor, *, mesh=None,
+               axes: tuple[str, ...] = ()) -> dict:
     """Writes keys/values in place at slot = position % capacity (exact
     for global layers, rolling for local windows) and returns the cache.
     When one write covers more positions than the cache holds, only the
     last C are written: later positions overwrite earlier slots, as the
     window semantics and the reference's scatter have it.  One indexed
     write serves both of the reference's forms (its masked update for
-    B = S = 1 and its scatter)."""
-    C = cache["k"].shape[1]
+    B = S = 1 and its scatter).
+
+    With a ``mesh`` and ``axes`` the cache is this rank's part of a
+    cache whose slots are cut over ``axes`` (C = the part's slots times
+    the group's size), and the rank writes only the positions whose slot
+    it owns."""
+    n = mesh.size(axes) if mesh is not None else 1
+    part = cache["k"].shape[1]
+    C = part * n
     if positions.shape[1] > C:
         k, v, positions = k[:, -C:], v[:, -C:], positions[:, -C:]
     slots = (positions % C).long()
     bidx = torch.arange(k.shape[0], device=k.device)[:, None]
+    if n > 1:
+        mine = slots // part == mesh.index(axes)
+        bidx = bidx.expand_as(slots)[mine]
+        slots, positions = slots[mine] % part, positions[mine]
+        k, v = k[mine], v[mine]
     cache["k"][bidx, slots] = k.to(cache["k"].dtype)
     cache["v"][bidx, slots] = v.to(cache["v"].dtype)
     cache["pos"][bidx, slots] = positions.to(torch.int32)
     return cache
 
 
+def merge_partials(o: torch.Tensor, lse: torch.Tensor, mesh,
+                   axes) -> torch.Tensor:
+    """Attention over keys cut over the ranks of ``axes``, from each
+    rank's output ``o`` (B, Sq, H, Dh) over its keys and each row's
+    log-sum-exp ``lse`` (B, Sq, H), float32: sum_r w_r o_r / sum_r w_r
+    with w_r = exp(lse_r - max_r lse_r), in float32.  A row that sees no
+    key on a rank (lse = +inf there, as `flash_attention_forward` gives
+    it) weighs 0; a row that sees none anywhere is 0.  One all-gather of
+    the ranks' (o, lse); every rank merges them in group order, so all
+    hold the same bits."""
+    both = torch.cat([o.float(), lse.float()[..., None]], dim=-1)
+    parts = coll.all_gather(both[None], mesh, axes, 0)
+    o_r, lse_r = parts[..., :-1], parts[..., -1]
+    lse_r = torch.where(torch.isposinf(lse_r), float("-inf"), lse_r)
+    top = lse_r.max(dim=0).values
+    w = torch.exp(lse_r - torch.where(torch.isneginf(top), 0.0, top))
+    den = w.sum(dim=0)[..., None]
+    out = torch.where(den > 0, (w[..., None] * o_r).sum(dim=0)
+                      / den.clamp(min=1e-30), 0.0)
+    return out.to(o.dtype)
+
+
 def attn_decode(p: dict, cfg: ModelConfig, x_t: torch.Tensor, cache: dict,
                 lengths: torch.Tensor, *, rope_on: bool = True,
-                window: int | None = None, cross: bool = False):
+                window: int | None = None, cross: bool = False,
+                mesh=None, constrain=no_constraint):
     """One decode step: x_t (B, 1, d_model) at positions ``lengths``
     (B,).  Returns (out, cache), the cache updated in place.  With
     ``cross`` the cache is the encoder output's, read and never written:
     q alone is projected, and attends every filled slot with no causal
-    mask and no window."""
+    mask and no window.  Under a ``mesh`` whose ``constrain`` cuts the
+    cache's slots (``kv_seq``), the cache is this rank's part: the rank
+    fills the slots it owns and its part's attention is merged over the
+    group (`merge_partials`)."""
     B = x_t.shape[0]
     q_positions = lengths[:, None].to(torch.int32).contiguous()
     if cross:
@@ -232,9 +281,18 @@ def attn_decode(p: dict, cfg: ModelConfig, x_t: torch.Tensor, cache: dict,
     q, k_t, v_t = _project_qkv(p, cfg, x_t, x_t, rope_on=rope_on,
                                q_positions=q_positions,
                                kv_positions=q_positions)
-    cache = cache_fill(cache, k_t, v_t, q_positions)
-    o = flash_attention(q, cache["k"], cache["v"], q_positions, cache["pos"],
-                        causal=True, window=window,
-                        softcap=cfg.attn_logit_softcap)
+    kv_seq = getattr(constrain, "kv_seq", ()) if mesh is not None else ()
+    if kv_seq:
+        cache = cache_fill(cache, k_t, v_t, q_positions, mesh=mesh,
+                           axes=kv_seq)
+        o, lse = flash_attention_forward(
+            q, cache["k"], cache["v"], q_positions, cache["pos"],
+            causal=True, window=window, softcap=cfg.attn_logit_softcap)
+        o = merge_partials(o, lse, mesh, kv_seq)
+    else:
+        cache = cache_fill(cache, k_t, v_t, q_positions)
+        o = flash_attention(q, cache["k"], cache["v"], q_positions,
+                            cache["pos"], causal=True, window=window,
+                            softcap=cfg.attn_logit_softcap)
     o = o.reshape(B, 1, cfg.n_heads * cfg.d_head)
     return apply_linear(p["wo"], o), cache

@@ -81,8 +81,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0,
 
 
 def leaf_tree(cfg: ModelConfig) -> PyTree:
-    """The parameter tree's `Leaf` (full shape and logical axes) at each
-    leaf, with `init_model`'s paths; nothing is drawn."""
+    """The parameter tree's `Leaf` (full shape, logical axes and dtype)
+    at each leaf, with `init_model`'s paths; nothing is drawn (the
+    reference's ``abstract_values(init_model(cfg))``, a restore's
+    target)."""
     return _init_tree(Init(None, None, record=True), cfg)
 
 
@@ -329,17 +331,45 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                                 cross=cfg.encoder is not None, n_enc=n_enc)
 
 
+def _serving_mesh(mesh) -> None:
+    """Serving runs under meshes without a "model" axis: there the
+    reference's presets cut heads and MLP activations over "model"
+    (activation tensor parallelism), which is not ported."""
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"serving on a mesh with a \"model\" axis of "
+            f"{mesh.shape['model']}: activation tensor parallelism is not "
+            f"ported yet (ROADMAP Queue 1 item 19)")
+
+
 @torch.no_grad()
-def prefill(params: PyTree, cfg: ModelConfig, batch: dict, cache: PyTree
+def prefill(params: PyTree, cfg: ModelConfig, batch: dict, cache: PyTree, *,
+            mesh=None, constrain=no_constraint, unroll: bool = False
             ) -> tuple[torch.Tensor, PyTree, torch.Tensor]:
     """Processes the prompt (and ``frames`` or ``patches``), fills the
     cache (in place).  Returns (last_logits (B, V) float32, cache,
-    lengths (B,) int32: the positions filled, a VLM prefix included)."""
-    enc_out = _enc_out(params, cfg, batch)
+    lengths (B,) int32: the positions filled, a VLM prefix included).
+
+    Under a ``mesh`` (serving: no "model" axis) every rank passes the
+    same whole batch and a whole cache and computes it all: ``constrain``
+    is a `Constrainer` whose ``rows`` are ``()`` (`serve.engine.
+    make_prefill_step` makes it; ``rules_for(cfg, "prefill")`` when none
+    is given), and the MoE layers dispatch over the mesh as `moe.
+    moe_forward` picks for rows replicated on every rank.  A caller that
+    holds a part of the cache keeps its part of the one filled here
+    (`serve.engine.ServeEngine`)."""
+    if mesh is not None:
+        _serving_mesh(mesh)
+        if not isinstance(constrain, Constrainer):
+            constrain = Constrainer(rules_for(cfg, "prefill"), mesh, rows=())
+    enc_out = _enc_out(params, cfg, batch, mesh=mesh, constrain=constrain,
+                       unroll=unroll)
     x, positions = _input_embeds(params, cfg, batch)
     x, cache = tfm.stack_prefill(params["stack"], cfg, x, cache,
                                  positions=positions,
-                                 cross=enc_out is not None, enc_out=enc_out)
+                                 cross=enc_out is not None, enc_out=enc_out,
+                                 mesh=mesh, constrain=constrain,
+                                 unroll=unroll)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = _unembed(params, cfg, x[:, -1, :])
     lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
@@ -349,18 +379,28 @@ def prefill(params: PyTree, cfg: ModelConfig, batch: dict, cache: PyTree
 
 @torch.no_grad()
 def decode_step(params: PyTree, cfg: ModelConfig, tokens_t: torch.Tensor,
-                cache: PyTree, lengths: torch.Tensor
+                cache: PyTree, lengths: torch.Tensor, *, mesh=None,
+                constrain=no_constraint, unroll: bool = False
                 ) -> tuple[torch.Tensor, PyTree, torch.Tensor]:
     """One token per sequence.  tokens_t: (B, 1).  Returns (logits (B, V)
     float32, cache (updated in place; a cross cache is only read), new
-    lengths)."""
+    lengths).
+
+    Under a ``mesh`` (serving: no "model" axis) the tokens, the cache
+    and the lengths are this rank's parts and the logits its rows', laid
+    out as ``constrain`` says (`parallel.sharding.serving_layout`: the
+    rows cut over its ``rows``, the attention caches' slots over its
+    ``kv_seq``)."""
+    if mesh is not None:
+        _serving_mesh(mesh)
     dev = params_device(params)
     lengths = lengths.to(dev)
     x = apply_embedding(params["embed"], tokens_t.to(dev))
     x = _maybe_abs_pos(cfg, x, lengths[:, None])
     x = x.to(torch_dtype(cfg.activation_dtype))
     x, cache = tfm.stack_decode(params["stack"], cfg, x, cache, lengths,
-                                cross=cfg.encoder is not None)
+                                cross=cfg.encoder is not None, mesh=mesh,
+                                constrain=constrain, unroll=unroll)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     logits = _unembed(params, cfg, x[:, 0, :])
     return logits, cache, lengths + 1

@@ -22,12 +22,14 @@ parity tests load the reference's own arrays with
 Every draw also names its logical axes (the reference's ``Param.axes``:
 ``("embed", "heads")`` and the like, ``"layers"`` for a stack axis).  An
 ``Init`` made with ``record=True`` draws nothing and returns a `Leaf`
-(shape and axes) instead, which is how `models.model.axes_tree` builds
-the tree the sharding rules read.
+(shape, axes and dtype) instead, which is how `models.model.axes_tree`
+builds the tree the sharding rules read, and what a checkpoint restore
+takes as its target (`models.model.leaf_tree`).
 """
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 from typing import Any
 
@@ -57,20 +59,29 @@ DENSE_DRAW_MAX = 2 ** 31
 @dataclasses.dataclass(frozen=True)
 class Leaf:
     """A parameter's full shape and logical axes, as a recording `Init`
-    returns them."""
+    returns them, and its dtype (not compared: two leaves are equal by
+    shape and axes)."""
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
+    dtype: torch.dtype | None = dataclasses.field(default=None,
+                                                  compare=False)
 
 
 def _recorded(draw):
-    """A draw of `Init` that returns a `Leaf` when the Init records."""
+    """A draw of `Init` that returns a `Leaf` when the Init records (the
+    draw's ``dtype`` argument, float32 for the draws that take none)."""
+    sig = inspect.signature(draw)
+
     def wrapped(self, shape, *args, axes=None, **kw):
         if not self.record:
             return draw(self, shape, *args, **kw)
         axes = (None,) * len(shape) if axes is None else tuple(axes)
         if len(axes) != len(shape):
             raise ValueError(f"axes {axes} for shape {shape}")
-        return Leaf((*self.lead, *shape), ("layers",) * len(self.lead) + axes)
+        dtype = sig.bind(self, shape, *args, **kw).arguments.get(
+            "dtype", "float32")
+        return Leaf((*self.lead, *shape), ("layers",) * len(self.lead) + axes,
+                    torch_dtype(dtype))
     wrapped.__name__, wrapped.__doc__ = draw.__name__, draw.__doc__
     return wrapped
 

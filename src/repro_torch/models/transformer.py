@@ -297,11 +297,13 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, *,
 
 def apply_block_decode(p: dict, cfg: ModelConfig, spec: SlotSpec,
                        x_t: torch.Tensor, cache: dict,
-                       lengths: torch.Tensor) -> torch.Tensor:
+                       lengths: torch.Tensor, *, mesh=None,
+                       constrain=no_constraint) -> torch.Tensor:
     h = apply_norm(cfg.norm, p["norm1"], x_t, cfg.norm_eps)
     if spec.mixer == "attn":
         mix, _ = attn.attn_decode(p["mixer"], cfg, h, cache["self"], lengths,
-                                  rope_on=spec.rope_on, window=spec.window)
+                                  rope_on=spec.rope_on, window=spec.window,
+                                  mesh=mesh, constrain=constrain)
     else:
         mix, _ = ssm_mod.ssm_decode(p["mixer"], cfg, h, cache["ssm"])
     x_t = x_t + mix
@@ -310,21 +312,25 @@ def apply_block_decode(p: dict, cfg: ModelConfig, spec: SlotSpec,
         y, _ = attn.attn_decode(p["cross"], cfg, h, cache["crosskv"],
                                 lengths, cross=True)
         x_t = x_t + y
-    return _ffn(p, cfg, spec, x_t)[0]
+    return _ffn(p, cfg, spec, x_t, mesh=mesh, constrain=constrain)[0]
 
 
 def stack_decode(params: dict, cfg: ModelConfig, x_t: torch.Tensor,
                  cache: dict, lengths: torch.Tensor, *, cross: bool = False,
+                 mesh=None, constrain=no_constraint,
                  unroll: bool = False) -> tuple[torch.Tensor, dict]:
     """One token per row through every layer; the cache is updated in
-    place and returned."""
+    place and returned.  Under a ``mesh`` x_t, the cache and lengths are
+    this rank's parts, laid out as ``constrain`` says (its ``rows``; the
+    attention caches' slots cut over its ``kv_seq``)."""
     _check_modes(unroll=unroll)
     specs = slot_specs(cfg, cross=cross)
     n = _n_scan(params)
     for p, c in zip(_layers(params, n), _layers(cache, n)):
         for spec in specs:
             key = f"slot{spec.slot}"
-            x_t = apply_block_decode(p[key], cfg, spec, x_t, c[key], lengths)
+            x_t = apply_block_decode(p[key], cfg, spec, x_t, c[key], lengths,
+                                     mesh=mesh, constrain=constrain)
     return x_t, cache
 
 
@@ -335,7 +341,8 @@ def stack_decode(params: dict, cfg: ModelConfig, x_t: torch.Tensor,
 def apply_block_prefill(p: dict, cfg: ModelConfig, spec: SlotSpec,
                         x: torch.Tensor, cache: dict, *,
                         positions: torch.Tensor,
-                        enc_out: torch.Tensor | None = None) -> torch.Tensor:
+                        enc_out: torch.Tensor | None = None, mesh=None,
+                        constrain=no_constraint) -> torch.Tensor:
     h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
         mix, (k, v) = attn.attn_forward(
@@ -351,12 +358,13 @@ def apply_block_prefill(p: dict, cfg: ModelConfig, spec: SlotSpec,
         x, (xk, xv) = _cross(p, cfg, x, enc_out, return_kv=True)
         attn.cache_fill(cache["crosskv"], xk, xv, attn.default_positions(
             xk.shape[0], xk.shape[1], xk.device))
-    return _ffn(p, cfg, spec, x)[0]
+    return _ffn(p, cfg, spec, x, mesh=mesh, constrain=constrain)[0]
 
 
 def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
                   cache: dict, *, positions: torch.Tensor | None = None,
                   cross: bool = False, enc_out: torch.Tensor | None = None,
+                  mesh=None, constrain=no_constraint,
                   unroll: bool = False) -> tuple[torch.Tensor, dict]:
     _check_modes(unroll=unroll)
     B, S, _ = x.shape
@@ -368,7 +376,8 @@ def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
         for spec in specs:
             key = f"slot{spec.slot}"
             x = apply_block_prefill(p[key], cfg, spec, x, c[key],
-                                    positions=positions, enc_out=enc_out)
+                                    positions=positions, enc_out=enc_out,
+                                    mesh=mesh, constrain=constrain)
     return x, cache
 
 

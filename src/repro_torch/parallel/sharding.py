@@ -297,13 +297,16 @@ class Constrainer:
     `constraint_spec` is the decision the reference would have imposed.
     ``rows``,
     when set (`models.model.loss_fn` sets it), names the mesh axes the
-    model's batch rows are cut over on this call."""
+    model's batch rows are cut over on this call; ``kv_seq`` (serving,
+    `serving_layout`) the axes a KV cache's slots are cut over."""
 
     def __init__(self, rules: ShardingRules, mesh,
-                 rows: tuple[str, ...] | None = None):
+                 rows: tuple[str, ...] | None = None,
+                 kv_seq: tuple[str, ...] = ()):
         self.rules = rules
         self.mesh = mesh
         self.rows = rows
+        self.kv_seq = kv_seq
 
     def __call__(self, x, axes):
         return x
@@ -316,6 +319,18 @@ def no_constraint(x, axes):
 
 def constrainer(rules: ShardingRules, mesh) -> Constrainer:
     return Constrainer(rules, mesh)
+
+
+def serving_layout(rules: ShardingRules, mesh, batch: int) -> Constrainer:
+    """How a serving engine's state of ``batch`` rows lies on the mesh, as
+    the constrainer of its decode calls: the KV caches' slots cut over
+    the rules' "kv_seq" axes present in the mesh (``decode_sp``: "data"),
+    and the rows over the rules' batch axes left (`row_axes`: the
+    ``decode`` and ``ep`` presets cut them over "data")."""
+    kv = _axes_of(rules.mesh_axes("kv_seq", mesh))
+    kv = tuple(a for a in mesh.shape if a in kv and mesh.shape[a] > 1)
+    rows = tuple(a for a in row_axes(rules, mesh, batch) if a not in kv)
+    return Constrainer(rules, mesh, rows=rows, kv_seq=kv)
 
 
 def layout_rows(constrain, mesh) -> tuple[str, ...]:
@@ -340,5 +355,6 @@ def batch_spec(mesh, *extra: str | None) -> P:
 __all__ = ["P", "ShardingRules", "BATCH_AXES", "preset", "rules_for",
            "logical_to_spec", "spec_tree", "spec_for", "placements",
            "param_spec_tree", "param_sharding_tree", "named_sharding_tree",
-           "constraint_spec", "row_axes", "Constrainer", "constrainer",
+           "constraint_spec", "row_axes", "serving_layout", "Constrainer",
+           "constrainer",
            "no_constraint", "layout_rows", "default_rows", "batch_spec"]

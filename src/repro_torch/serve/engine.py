@@ -1,10 +1,12 @@
 """Serving engine: continuous batching over the model's prefill/decode.
 
-The port of the JAX package's ``ServeEngine``, the host-side loop used
-by the examples and by the provisioner's serve workers: it batches
-queued requests, prefills them into free cache rows, decodes all rows
-each tick, and reports queue depth -- the demand signal the provisioner
-scales on (paper §2: "jobs waiting for resources").
+The port of the JAX package's ``serve/engine.py``.  ``make_prefill_step``
+/ ``make_decode_step`` build the per-call functions, on one device or
+under a mesh; ``ServeEngine`` is the host-side loop used by the examples
+and by the provisioner's serve workers: it batches queued requests,
+prefills them into free cache rows, decodes all rows each tick, and
+reports queue depth -- the demand signal the provisioner scales on
+(paper §2: "jobs waiting for resources").
 
 Continuous batching, engine-style: each cache row is a slot; finished
 sequences free their slot immediately and the next queued request is
@@ -13,11 +15,16 @@ prefilled alone, as a batch of one into a fresh one-row cache, and that
 row is copied into its slot of the engine's cache; the decode tick then
 runs over every row, and greedy argmax picks each token.
 
-The engine runs on the parameters' device.  The port's `parallel/`
-package (sharding rules, meshes, collectives) serves training; serving
-under a mesh -- the reference's ``make_prefill_step``/
-``make_decode_step`` and its ``decode``/``decode_sp`` presets -- is
-still to port (ROADMAP Queue 1, the rest of item 14).
+Under a mesh (`launch.mesh.WorkerMesh`, no "model" axis: that would be
+activation tensor parallelism, ROADMAP Queue 1 item 19) the engine runs
+SPMD: every rank runs the same loop over the same requests, with whole
+parameters, and holds its part of the cache as the rules lay it out
+(`parallel.sharding.serving_layout`): under ``decode`` (and ``ep`` for
+MoE models) its rows, cut over "data"; under ``decode_sp`` (the rules
+of ``rules_for(cfg, "decode_long")``) every row but its part of each
+attention cache's slots.  A prefill is computed whole on every rank and
+each keeps its part; a tick's tokens come from the logits gathered over
+the mesh, and the ranks are held to the same tokens.
 """
 from __future__ import annotations
 
@@ -31,8 +38,60 @@ import torch
 
 from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import (
+    Constrainer, ShardingRules, no_constraint, rules_for, serving_layout,
+)
 
 PyTree = Any
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, rules: ShardingRules):
+    """``prefill_step(params, batch, cache)``: `models.model.prefill` on
+    a whole batch and a whole cache (under a mesh, on every rank: the
+    rows are on every rank, cut over no axis)."""
+    constrain = no_constraint
+    if mesh is not None:
+        model_lib._serving_mesh(mesh)
+        constrain = Constrainer(rules, mesh, rows=())
+
+    def prefill_step(params, batch, cache):
+        return model_lib.prefill(params, cfg, batch, cache, mesh=mesh,
+                                 constrain=constrain)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, mesh, rules: ShardingRules,
+                     batch: int | None = None):
+    """``decode_step(params, tokens_t, cache, lengths)``: one token for
+    every row.  The tokens (B, 1) and lengths (B,) are whole; under a
+    mesh the cache is this rank's part (``decode_step.layout``, the
+    `serving_layout` of ``batch`` rows), the rank decodes its rows, and
+    the logits (B, V) come back whole, gathered over the rows' axes."""
+    if mesh is None:
+        def decode_step(params, tokens_t, cache, lengths):
+            return model_lib.decode_step(params, cfg, tokens_t, cache,
+                                         lengths)
+
+        decode_step.layout = None
+        return decode_step
+    model_lib._serving_mesh(mesh)
+    layout = serving_layout(rules, mesh, batch)
+
+    def decode_step(params, tokens_t, cache, lengths):
+        # the rank's rows as tensors of their own (the kernels take
+        # 16-byte aligned positions)
+        logits, cache, _ = model_lib.decode_step(
+            params, cfg,
+            coll.own_slice(tokens_t, mesh, layout.rows, 0).clone(), cache,
+            coll.own_slice(lengths, mesh, layout.rows, 0).clone(),
+            mesh=mesh, constrain=layout)
+        return (coll.all_gather(logits, mesh, layout.rows, 0), cache,
+                lengths + 1)
+
+    decode_step.layout = layout
+    return decode_step
 
 
 @dataclasses.dataclass
@@ -54,19 +113,30 @@ class _Slot:
 
 
 class ServeEngine:
-    """Host loop: queue -> slots -> prefill/decode, on one device."""
+    """Host loop: queue -> slots -> prefill/decode, on the parameters'
+    device, or SPMD on every rank of a ``mesh`` (``rules`` default to
+    ``rules_for(cfg, "decode")``; see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params: PyTree, *,
-                 batch_slots: int = 4, max_seq: int = 256):
+                 batch_slots: int = 4, max_seq: int = 256, mesh=None,
+                 rules: ShardingRules | None = None):
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
+        self.mesh = mesh
         self.device = model_lib.params_device(params)
         self.slots = [_Slot() for _ in range(batch_slots)]
         self.queue: deque[Request] = deque()
         self.done: dict[int, Request] = {}
-        self.cache = model_lib.init_cache(cfg, batch_slots, max_seq,
-                                          device=self.device)
+        rules = rules or rules_for(cfg, "decode")
+        self._prefill_one = make_prefill_step(cfg, mesh, rules)
+        self._decode = make_decode_step(cfg, mesh, rules, batch_slots)
+        self.layout = self._decode.layout
+        cache = model_lib.init_cache(cfg, batch_slots, max_seq,
+                                     device=self.device)
+        self.cache = (cache if mesh is None else
+                      _own_part(cache, mesh, self.layout.rows,
+                                self.layout.kv_seq))
         self.lengths = torch.zeros((batch_slots,), dtype=torch.int32,
                                    device=self.device)
         self.last_tok = torch.zeros((batch_slots, 1), dtype=torch.int64,
@@ -76,6 +146,8 @@ class ServeEngine:
         #: request, one decode per tick with an active slot
         self.prefill_calls = 0
         self.decode_ticks = 0
+        #: the last decode tick's logits (B, V), whole
+        self.last_logits = None
 
     # -- demand signal (paper §2) -----------------------------------------
     def queue_depth(self) -> int:
@@ -99,12 +171,23 @@ class ServeEngine:
                                      device=self.device)[None, :]
             row_cache = model_lib.init_cache(self.cfg, 1, self.max_seq,
                                              device=self.device)
-            logits, row_cache, row_len = model_lib.prefill(
-                self.params, self.cfg, {"tokens": prompt}, row_cache)
+            logits, row_cache, row_len = self._prefill_one(
+                self.params, {"tokens": prompt}, row_cache)
             self.prefill_calls += 1
-            _splice_row(self.cache, row_cache, i)
+            if self.mesh is None:
+                _splice_row(self.cache, row_cache, i)
+            else:
+                # the row's slots this rank holds, into its row i if it
+                # holds that row
+                rows = self.layout.rows
+                per = len(self.slots) // self.mesh.size(rows)
+                mine = i // per == self.mesh.index(rows)
+                if mine:
+                    _splice_row(self.cache, _own_part(
+                        row_cache, self.mesh, (), self.layout.kv_seq),
+                        i % per)
             self.lengths[i] = row_len[0]
-            nxt = int(torch.argmax(logits[0]))
+            nxt = int(self._agreed(torch.argmax(logits[0]))[0])
             self.last_tok[i, 0] = nxt
             slot.rid = req.rid
             slot.remaining = req.max_new_tokens - 1
@@ -125,11 +208,11 @@ class ServeEngine:
         self._admit()
         active = [i for i, s in enumerate(self.slots) if s.rid >= 0]
         if active:
-            logits, self.cache, self.lengths = model_lib.decode_step(
-                self.params, self.cfg, self.last_tok, self.cache,
-                self.lengths)
+            logits, self.cache, self.lengths = self._decode(
+                self.params, self.last_tok, self.cache, self.lengths)
             self.decode_ticks += 1
-            nxt = torch.argmax(logits, dim=-1)
+            self.last_logits = logits
+            nxt = self._agreed(torch.argmax(logits, dim=-1))
             self.last_tok = nxt[:, None]
             host = nxt.tolist()
             for i in active:
@@ -146,6 +229,41 @@ class ServeEngine:
             ticks += 1
         return ticks
 
+    def _agreed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``tokens`` (at least 1-d), held equal on every rank of the
+        mesh: SPMD slots must stay in step."""
+        tokens = tokens.reshape(-1)
+        if self.mesh is None:
+            return tokens
+        every = coll.all_gather(tokens.to(torch.int32)[None], self.mesh,
+                                self.mesh.axis_names, 0)
+        if not bool((every == every[0]).all()):
+            raise AssertionError("ServeEngine: the ranks picked different "
+                                 "tokens")
+        return tokens
+
+
+def _own_part(cache: PyTree, mesh, rows: tuple[str, ...],
+              kv_seq: tuple[str, ...], seq: tuple[str, ...] = ()) -> PyTree:
+    """This rank's part (a copy) of a whole cache: its rows (axis 1,
+    after the layer-stack axis) over ``rows``, and its part of each
+    attention cache's slots (axis 2 of the ``self`` caches) over
+    ``kv_seq``."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out[k] = _own_part(v, mesh, rows, kv_seq,
+                               kv_seq if k == "self" else ())
+            continue
+        for dim, axes in ((1, rows), (2, seq)):
+            if v.shape[dim] % mesh.size(axes):
+                raise ValueError(
+                    f"serving: a cache of {v.shape[dim]} along axis {dim} "
+                    f"does not divide over {axes} ({mesh.size(axes)})")
+        part = coll.own_slice(coll.own_slice(v, mesh, rows, 1), mesh, seq, 2)
+        out[k] = part.clone(memory_format=torch.contiguous_format)
+    return out
+
 
 def _splice_row(full: PyTree, row: PyTree, i: int):
     """Copies a one-row cache into row ``i`` of the engine's cache (the
@@ -158,4 +276,4 @@ def _splice_row(full: PyTree, row: PyTree, i: int):
             v[:, i:i + 1].copy_(row[k])
 
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = ["Request", "ServeEngine", "make_prefill_step", "make_decode_step"]

@@ -1375,11 +1375,33 @@ def test_parallel_phase_at_small_size_on_the_card(cuda, tmp_path):
     from chip_smoke import (
         PARALLEL_PLAN_SMALL, parallel_launches, parallel_phase,
     )
-    total = parallel_phase(PARALLEL_PLAN_SMALL, device="cuda")
+    by_part = parallel_phase(PARALLEL_PLAN_SMALL, device="cuda")
     want = parallel_launches(PARALLEL_PLAN_SMALL)
-    assert total == {k: 8 * sum(part[k] for part in want.values())
-                     for k in total}
-    assert total["gmm"] == 8 * 3 and total["flash_attention"] > 0
+    assert by_part == {part: {k: 8 * v for k, v in counts.items()}
+                       for part, counts in want.items()}
+    assert by_part["ep"]["gmm"] == 8 * 3
+    assert by_part["sp"]["flash_attention"] > 0
+
+
+@pytest.mark.parametrize("part", ["elastic", "serve_mesh"])
+def test_mesh_phase_at_small_size_on_the_card(cuda, part):
+    """chip_smoke's phase 27 at small size (`MESH_PLAN_SMALL`, the reduced
+    qwen2 with head dim 32) in a world of 8 ranks on the card: elastic
+    training (rescales 0 -> 4 -> 8, the losses and final parameters of a
+    one-device run_fixed, a planted fault above the parameters' bar), or
+    the meshed engine under decode and decode_sp (float32 greedy tokens
+    equal to one device's, the bfloat16 first tick within its bar and a
+    dropped cache part above it, each rank's flash instances exact); each
+    rank's launches equal to the shapes' exactly."""
+    from chip_smoke import (
+        MESH_PLAN_SMALL, PARALLEL_RANKS, parallel_launches, parallel_phase,
+    )
+    plan = {part: MESH_PLAN_SMALL[part]}
+    by_part = parallel_phase(plan, device="cuda")
+    want = [parallel_launches(plan, r)[part] for r in range(PARALLEL_RANKS)]
+    assert by_part == {part: {k: sum(w[k] for w in want)
+                              for k in by_part[part]}}
+    assert by_part[part]["flash_attention"] > 0
 
 
 def test_collectives_carry_cuda_tensors_on_gloo(cuda, tmp_path):

@@ -1,6 +1,7 @@
-"""Rank bodies of the gloo worlds that tests/test_torch_parallel.py and
-tests/test_torch_multidevice.py spawn (`repro_torch.launch.mesh.
-spawn_world`: one process and one torch thread a rank, on the CPU).
+"""Rank bodies of the gloo worlds that tests/test_torch_parallel.py,
+tests/test_torch_multidevice.py and tests/test_torch_elastic.py spawn
+(`repro_torch.launch.mesh.spawn_world`: one process and one torch thread
+a rank, on the CPU).
 
 The ``spawn`` start method imports this module in every rank, so it
 imports torch and the port only: the JAX package runs in the pytest
@@ -19,7 +20,9 @@ from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import WorkerMesh
 from repro_torch.models import model as model_lib
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.param import params_from_reference, tree_leaves, tree_map
+from repro_torch.models.param import (
+    Leaf, params_from_reference, tree_leaves, tree_map,
+)
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (
     constrainer, default_rows, preset, rules_for,
@@ -264,3 +267,166 @@ def cuda_collectives(rank, dev):
     assert out["own_a2a"].shape == (2, 4)
     assert (out["psum_f32"] == 6.0).all()
     return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_elastic.py
+# ---------------------------------------------------------------------------
+
+def _printed(fn, *args, **kwargs):
+    """(fn's result, what it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kwargs)
+    return out, buf.getvalue()
+
+
+def restores_across_meshes(rank, dev, case):
+    """A tree saved from a mesh of ranks 0-3 (rank 0 writing the gathered
+    leaves), restored onto a mesh of 8; and a checkpoint the JAX
+    package's manager wrote, restored onto 8.  Each rank's shards, and
+    the specs they were cut by."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.parallel.sharding import P, placements
+    whole = {k: torch.from_numpy(v) for k, v in case["tree"].items()}
+    whole["b"] = whole["b"].to(torch.bfloat16)
+    specs = {"w": P("data"), "b": P(None, "data"), "n": P()}
+    mesh4 = WorkerMesh({"data": 4}, dev)
+    out = {"inside4": mesh4.inside}
+    if mesh4.inside:
+        mine = {k: coll.shard_of(t, specs[k], mesh4).clone()
+                for k, t in whole.items()}
+        gathered = {k: coll.unshard(t, specs[k], mesh4)
+                    for k, t in mine.items()}
+        if rank == 0:
+            CheckpointManager(case["port_dir"], async_mode=False).save(
+                1, gathered)
+    torch.distributed.barrier()
+    mesh8 = WorkerMesh({"data": 8}, dev)
+    target = {k: Leaf(tuple(t.shape), (None,) * t.dim(), t.dtype)
+              for k, t in whole.items()}
+    got = CheckpointManager(case["port_dir"]).restore(1, target, specs,
+                                                      mesh=mesh8)
+    # the same by placements, from the JAX package's checkpoint
+    by_placements = {k: placements(s, mesh8) for k, s in specs.items()}
+    from_jax = CheckpointManager(case["jax_dir"]).restore(
+        1, target, by_placements, mesh=mesh8)
+    return {"index": mesh8.index("data"),
+            "restored": {k: _np(t) for k, t in got.items()},
+            "dtypes": {k: str(t.dtype) for k, t in got.items()},
+            "from_jax": {k: _np(t) for k, t in from_jax.items()}}
+
+
+def elastic_runs(rank, dev, case):
+    """run_elastic on the world: with the JAX package's initial weights
+    carried in (the draw that builds the first state patched), 8 steps
+    logged each step; and the example's twin from the port's own seed;
+    and mamba2 through ``main --elastic``.  Each run's losses and rank
+    0's printed lines."""
+    from unittest import mock
+    carried = params_from_reference(case["params"], device=dev)
+    out = {}
+    with mock.patch.object(
+            model_lib, "init_model",
+            lambda cfg, seed=0, device=None: tree_map(
+                lambda t: t.clone(), carried)):
+        run = case["carried"]
+        out["carried"] = _printed(
+            launch_train.run_elastic, reduced_config(run["arch"]),
+            steps=run["steps"], batch=run["batch"], seq=run["seq"],
+            ckpt_dir=run["ckpt_dir"], log_every=1, device=dev)
+    run = case["example"]
+    out["example"] = _printed(
+        launch_train.run_elastic, reduced_config(run["arch"]),
+        steps=run["steps"], batch=run["batch"], seq=run["seq"],
+        ckpt_dir=run["ckpt_dir"], log_every=run["log_every"], device=dev)
+    out["main"] = _printed(launch_train.main, case["main_argv"])
+    return out
+
+
+def resumed_on_mesh(rank, dev, case):
+    """run_fixed in the world (a mesh of 8), resumed from a one-device
+    checkpoint."""
+    return {"losses": launch_train.run_fixed(
+        reduced_config(case["arch"]), steps=case["steps"],
+        batch=case["batch"], seq=case["seq"], ckpt_dir=case["ckpt_dir"],
+        device=dev, log_every=1, resume_from=case["resume_from"])}
+
+
+def serve_on_mesh(rank, dev, case):
+    """ServeEngine on a mesh of 4 under each of the case's rules, with
+    carried weights: every request's tokens, the first tick's logits and
+    the engine's ticks (ranks outside the mesh return None)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.parallel.sharding import preset
+    cfg = dataclasses.replace(reduced_config(case["arch"]),
+                              **case.get("changes", {}))
+    if case.get("capacity_factor"):
+        cfg = with_moe(cfg, cfg.moe.n_experts, case["capacity_factor"])
+    params = params_from_reference(case["params"], device=dev)
+    out = {}
+    for rules in case["rules"]:
+        mesh = WorkerMesh(case["mesh"], dev)
+        if not mesh.inside:
+            out[rules] = None
+            continue
+        engine = ServeEngine(cfg, params, batch_slots=case["slots"],
+                             max_seq=case["max_seq"], mesh=mesh,
+                             rules=preset(rules))
+        for i, p in enumerate(case["prompts"]):
+            engine.submit(Request(rid=i, prompt=p,
+                                  max_new_tokens=case["new"]))
+        first, ticks = None, 0
+        while engine.queue or engine.busy_slots():
+            engine.step()
+            ticks += 1
+            if first is None and engine.last_logits is not None:
+                first = _np(engine.last_logits)
+        out[rules] = {"tokens": {i: r.output for i, r in engine.done.items()},
+                      "logits": first, "ticks": ticks,
+                      "layout": (engine.layout.rows, engine.layout.kv_seq)}
+    return out
+
+
+def merged_attention(rank, dev, case):
+    """A decode step's attention over a cache cut in 4 (one part holds
+    no key): the rank's flash output and lse merged over "data", and the
+    attention over the whole cache; and a serving mesh with a "model"
+    axis of 2 refusing."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_forward,
+    )
+    from repro_torch.models.attention import merge_partials
+    from repro_torch.serve.engine import ServeEngine
+    t = {k: torch.from_numpy(v) for k, v in case.items()}
+    out = {}
+    mesh = WorkerMesh({"data": 4}, dev)
+    if mesh.inside:
+        part = [coll.own_slice(t[k], mesh, "data", 1).contiguous()
+                for k in ("k", "v", "pos")]
+        o, lse = flash_attention_forward(t["q"], *part[:2], t["q_pos"],
+                                         part[2], causal=True)
+        merged = merge_partials(o, lse, mesh, ("data",))
+        whole = flash_attention(t["q"], t["k"], t["v"], t["q_pos"],
+                                t["pos"], causal=True)
+        out["err"] = float((merged - whole).abs().max())
+        out["empty_part"] = bool((part[2] < 0).all())
+    mesh2 = WorkerMesh({"data": 4, "model": 2}, dev)
+    cfg = reduced_config("qwen2-1.5b")
+    try:
+        ServeEngine(cfg, model_lib.init_model(cfg, device=dev),
+                    mesh=mesh2, rules=rules_for(cfg, "decode"))
+        out["model_axis"] = None
+    except NotImplementedError as e:
+        out["model_axis"] = str(e)
+    return out
+
+
+def elastic_world(rank, dev, cases):
+    return {"restore": restores_across_meshes(rank, dev, cases["restore"]),
+            "merge": merged_attention(rank, dev, cases["merge"]),
+            "resume": resumed_on_mesh(rank, dev, cases["resume"]),
+            "serve": [serve_on_mesh(rank, dev, c) for c in cases["serve"]],
+            "elastic": elastic_runs(rank, dev, cases["elastic"])}
