@@ -43,7 +43,7 @@ back to the CPU or to a plain version):
      standard 3-provider federation with ``[provision] matchmaker=torch``
      against the same run on the NumPy backend (equal jobs, pods, cost
      and Fig 2/3 series, every job completed), then a 2k-job 3-schedd
-     fair-share day the same way, then a `FUSION_JOBS` (5k) day at
+     fair-share day the same way, then a `FUSION_JOBS` (2k) day at
      ``negotiation_batch=8`` at the live-fusion cadence (negotiate every
      20 s inside a 60 s tick and metrics grid: the standard grid leaves
      no window to fuse in), where fused batches must occur and each must
@@ -172,9 +172,10 @@ back to the CPU or to a plain version):
      same 2 layers in bfloat16 with the kernels against the float32
      model of the same weights through the plain attention; then the
      main path: `repro_torch.launch.train.run_fixed` on qwen2-1.5b at
-     full width (28 layers, bfloat16, random weights from a seed), 6
-     steps of 8 x 512 tokens with checkpoints at steps 3 and 6: every
-     loss finite, each step 28 flash forward launches and 28 backward
+     full width (cut to `TRAIN_LAYERS`, 8 of 28 layers, bfloat16, random
+     weights from a seed), 6 steps of 8 x 512 tokens with checkpoints at
+     steps 3 and 6: every loss finite, each step 8 flash forward
+     launches and 8 backward
      launches, all on the tensor-core instances; step time, tokens/s,
      peak device memory; then the step-3 checkpoint restored into a fresh
      state (every parameter, both moments and the step bit for bit the
@@ -196,9 +197,10 @@ back to the CPU or to a plain version):
      mamba2 at full width cut to 2 layers in float32, kernels against the
      plain scan (loss 1e-5, each leaf 1e-4, one `ssd` and one `ssd_bwd`
      launch a layer), then in bfloat16 against that float32 model; then
-     the main path: `run_fixed` on mamba2-1.3b at full width (48 layers,
-     bfloat16), 6 steps of 8 x 512 with checkpoints at steps 3 and 6:
-     every loss finite, each step 48 `ssd` and 48 `ssd_bwd` launches and
+     the main path: `run_fixed` on mamba2-1.3b at full width (cut to
+     `TRAIN_LAYERS`, 16 of 48 layers, bfloat16), 6 steps of 8 x 512 with
+     checkpoints at steps 3 and 6: every loss finite, each step 16 `ssd`
+     and 16 `ssd_bwd` launches and
      nothing else, all on the tensor-core instances; step time, tokens/s,
      peak memory, and step 2 profiled, outside steps 3-6 (busy share,
      the backward's and the optimizer's shares; qwen2's run already
@@ -304,7 +306,7 @@ back to the CPU or to a plain version):
      shards and every expert gradient's norm, aux); qwen2-1.5b at full
      width (4 layers) sequence-parallel on (1, 8): loss_fn and its
      gradient in float32 (loss 1e-4, each leaf 1e-4 of its max), then in
-     bfloat16 (loss 4.2e-4 of itself, each leaf's |diff| / |g| 2.5e-2); its sharded zero3 step on (4, 2), 3 steps of
+     bfloat16 (loss 4.2e-4 of itself, each leaf's |diff| / |g| 2.5e-2); its sharded zero3 step at 2 layers on (4, 2), 3 steps of
      8 x 512 in float32, against rank 0's one-device step (loss 1e-4 of
      itself, parameters 2e-2); its int8-compressed step on (2, 2, 2) under base
      against the exact one (loss 1e-5, parameters 5e-2), each pod group's
@@ -323,12 +325,29 @@ back to the CPU or to a plain version):
      rank) and ``decode_sp`` (256 of the 2048 cache slots a rank, the
      ranks' flash outputs merged by their lse), 8 requests of 64-512
      prompt tokens and 16 new tokens: at 2 layers in float32 (greedy
-     tokens equal to the one-device engine's) and at full depth in
+     tokens equal to the one-device engine's) and at 8 of 28 layers in
      bfloat16 (the first tick's logits within 5e-2; where the tokens
      first part is printed), each rank's flash launches by instance
      exact (`serve_mesh_routes`); an `{"elastic": ...}` line (rescales
      with their save and restore seconds, each step's seconds and worker
      count, peaks by rank) and a `{"serve_mesh": ...}` line;
+ 28. in the same world, after phase 27's parts (`PARALLEL_PLAN`'s
+     "tp_serve" and "tp_train"): activation tensor parallelism over
+     "model".  `ServeEngine` under ``decode`` with phase 27's traffic,
+     each rank keeping the "model" cut of the weights and computing its
+     part of the heads, MLP columns, SSM heads and vocabulary:
+     qwen2-1.5b on (data 4, model 2) and (data 2, model 4) (its 2 kv
+     heads do not divide 4: the cache's slots are cut over "model") and
+     mamba2-1.3b on (data 2, model 4), at 2 layers in float32 (greedy
+     tokens equal to the one-device engine's, the first tick within
+     1e-4) and at full depth in bfloat16 (the first tick within 5e-2; a
+     partial dropped from the sums over "model" must read above it);
+     mamba2 cut to 2 layers in float32 trained under base on (4, 2), 3
+     steps of 8 x 512, against rank 0's one-device step (losses 1e-4 of
+     themselves, parameters 0.1 of the one-device run's change; a
+     dropped partial above the loss bar); each rank's flash, SSD and SSD
+     backward launches exact; `{"tp_serve": ...}` and `{"tp_train":
+     ...}` lines with each rank's peak memory and resident weight bytes;
  14. a JSON line per kernel (the water-fill's with its launches by
      instance and by entry point and the host breakdown; flash's, the
      SSD's and gmm's with their launches by instance and ptxas' report of
@@ -377,9 +396,11 @@ FUSION_CADENCE = {"tick_s": 60.0, "negotiate_interval_s": 20.0,
                   "metrics_interval_s": 60.0}
 #: jobs of the two live-fusion-cadence days (batch 8 and batch 1): 10,000
 #: until phase 26 joined the smoke; the smoke's 1200 s then did not hold a
-#: slower host's host-bound days (1305 s in all, the 10k pair 307 s), and
-#: 5,000 still fuse (109 batches on the CPU's torch backend)
-FUSION_JOBS = 5_000
+#: slower host's host-bound days (1305 s in all, the 10k pair 307 s), so
+#: 5,000; 2,000 since phase 28 joined it (a slow host's smoke 1320 s, the
+#: 5k pair 122 s); 2,000 still fuse (135 batches on the CPU's torch
+#: backend)
+FUSION_JOBS = 2_000
 
 # the cases of tests/test_kernel_flash_attention.py: B, Sq, Skv, Hq, Hkv,
 # Dh, causal, window, softcap
@@ -3419,6 +3440,11 @@ def whisper_train_phase(cfg, device, launch_counts, fa):
 
 # the training run: qwen2-1.5b at full width, all 28 layers, bfloat16
 TRAIN = dict(steps=6, batch=8, seq=512, ckpt_every=3)
+#: the depth phases 15 and 16 train qwen2-1.5b and mamba2-1.3b at, at
+#: full width: 28 and 48 layers until phase 28 joined the smoke (a slow
+#: host's smoke then took 1320 s of the 1200; phase 15 155 s of it, most
+#: of it qwen2's two 18.5 GB checkpoints and the resume)
+TRAIN_LAYERS = {ARCH: 8, SSD_ARCH: 16}
 # the float32 gate: the same widths cut to 2 layers
 TRAIN_F32 = dict(layers=2, batch=2, seq=512)
 # gates of the float32 model with the kernels against the plain versions
@@ -4923,14 +4949,17 @@ PARALLEL_TIMEOUT_S = 480.0
 #: (12 heads do not divide 8); qwen2-1.5b's sharded zero3 step on (4, 2);
 #: its int8-compressed step on (2, 2, 2) under base.  qwen2 is cut to
 #: ``layers`` (its 28 layers would not fit eight ranks and rank 0's
-#: one-device reference on the card); the zero3 step and the SP loss gate
-#: run in float32, the EP layer, the SP gradient and the int8 step in
-#: bfloat16
+#: one-device reference on the card; the zero3 step at 2, not 4, since
+#: phase 28 joined the smoke: the time limit.  SP and int8 stay at 4: at 2
+#: the random model's loss passes 1024, where one float32 ulp, 1.2e-4,
+#: is above their absolute loss bars of 1e-4 and 1e-5); the zero3 step
+#: and the SP loss gate run in float32, the EP layer, the SP gradient and
+#: the int8 step in bfloat16
 PARALLEL_PLAN = {
     "ep": dict(arch=MOE_ARCH, mesh={"data": 4, "model": 2}, tokens=1024),
     "sp": dict(arch=ARCH, layers=4, mesh={"data": 1, "model": 8}, batch=8,
                seq=512),
-    "step": dict(arch=ARCH, layers=4, mesh={"data": 4, "model": 2},
+    "step": dict(arch=ARCH, layers=2, mesh={"data": 4, "model": 2},
                  steps=3, batch=8, seq=512),
     "int8": dict(arch=ARCH, layers=4, mesh={"pod": 2, "data": 2, "model": 2},
                  batch=8, seq=512),
@@ -4938,14 +4967,35 @@ PARALLEL_PLAN = {
 #: phase 27, run in phase 26's world after its parts: elastic training
 #: (`run_elastic`) on qwen2-1.5b at full width cut to 2 layers, float32,
 #: zero3 over "data" (the rescale at step steps // 2 reshards 4 ranks'
-#: state onto 8); serving qwen2-1.5b at full width and depth in bfloat16
-#: on {"data": 8} under ``decode`` (a row a rank) and ``decode_sp`` (256
-#: cache slots a rank), with a float32 gate at ``gate_layers`` layers
+#: state onto 8); serving qwen2-1.5b at full width in bfloat16, cut to
+#: ``layers`` (its full depth until phase 28 joined the smoke: the time
+#: limit), on {"data": 8} under ``decode`` (a row a rank) and
+#: ``decode_sp`` (256 cache slots a rank), with a float32 gate at
+#: ``gate_layers`` layers
 PARALLEL_PLAN["elastic"] = dict(arch=ARCH, layers=2, steps=4, batch=8,
                                 seq=512)
 PARALLEL_PLAN["serve_mesh"] = dict(
     arch=ARCH, mesh={"data": 8}, rules=("decode", "decode_sp"), slots=8,
-    max_seq=2048, requests=8, prompt=(64, 512), new=16, gate_layers=2)
+    max_seq=2048, requests=8, prompt=(64, 512), new=16, gate_layers=2,
+    layers=8)
+#: phase 28, in the same world after phase 27's parts: activation tensor
+#: parallelism over "model".  Serving under ``decode`` with phase 27's
+#: traffic: qwen2-1.5b at full width and depth in bfloat16 on (data 4,
+#: model 2) (6 query heads and 1 kv head a rank) and (data 2, model 4)
+#: (3 query heads; its 2 kv heads do not divide 4, so the cache's slots
+#: are cut over "model"), mamba2-1.3b on (data 2, model 4) (16 of its 64
+#: SSM heads a rank), each with a float32 gate at ``gate_layers`` layers;
+#: mamba2-1.3b cut to 2 layers in float32, trained under base on (data 4,
+#: model 2), 3 steps of 8 x 512
+PARALLEL_PLAN["tp_serve"] = dict(
+    runs=[dict(arch=ARCH, mesh={"data": 4, "model": 2}),
+          dict(arch=ARCH, mesh={"data": 2, "model": 4}),
+          dict(arch=SSD_ARCH, mesh={"data": 2, "model": 4})],
+    rules="decode", slots=8, max_seq=2048, requests=8, prompt=(64, 512),
+    new=16, gate_layers=2)
+PARALLEL_PLAN["tp_train"] = dict(arch=SSD_ARCH, layers=2,
+                                 mesh={"data": 4, "model": 2}, rules="base",
+                                 steps=3, batch=8, seq=512)
 #: phase 27 at small size (tests/test_torch_cuda.py): the reduced qwen2,
 #: head dim 32
 MESH_PLAN_SMALL = {
@@ -4953,7 +5003,15 @@ MESH_PLAN_SMALL = {
                     changes=dict(d_head=32)),
     "serve_mesh": dict(PARALLEL_PLAN["serve_mesh"], reduced=True,
                        changes=dict(d_head=32), max_seq=64, prompt=(8, 24),
-                       new=4),
+                       new=4, layers=None),
+}
+#: phase 28 at small size (tests/test_torch_cuda.py): the reduced qwen2
+#: (4 heads, 2 kv heads) and mamba2 (8 SSM heads), head dim 32
+TP_PLAN_SMALL = {
+    "tp_serve": dict(PARALLEL_PLAN["tp_serve"], reduced=True,
+                     changes=dict(d_head=32), max_seq=64, prompt=(8, 24),
+                     new=4),
+    "tp_train": dict(PARALLEL_PLAN["tp_train"], reduced=True, seq=32),
 }
 #: phase 26 at small size (tests/test_torch_cuda.py): the reduced
 #: configs, head dim 32 (flash takes 32, 64 and 128)
@@ -5002,8 +5060,15 @@ SP_TIED_LEAF = "embed/table"
 GATE_ELASTIC_LOSS = GATE_STEP_LOSS
 GATE_ELASTIC_PARAMS_SHARE = 0.1
 GATE_SERVE_MESH_BF16 = GATE_BF16
+#: phase 28's bars: the float32 engines' first tick against one device's,
+#: relative (phase 6's), the bfloat16 engines' (phase 7's), the training
+#: losses (relative) and parameters as a share of the one-device run's
+#: change (phase 27's); a partial dropped from the row-parallel sums must
+#: read above the bfloat16 and the loss bars
+GATE_TP_F32, GATE_TP_BF16 = GATE_F32, GATE_BF16
+GATE_TP_LOSS, GATE_TP_PARAMS_SHARE = GATE_STEP_LOSS, GATE_ELASTIC_PARAMS_SHARE
 PARALLEL_KERNELS = ("flash_attention", "flash_attention_bwd", "gmm",
-                    "gmm_bwd")
+                    "gmm_bwd", "ssd", "ssd_bwd")
 
 
 def parallel_config(part: dict, dtype: str):
@@ -5028,10 +5093,12 @@ class PartClock:
         from repro_torch.kernels.build import launch_counts
         from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.moe_gmm import ops as gm
+        from repro_torch.kernels.ssd import ops as so
         self.dev, self.counts = dev, launch_counts
         self.routes = {"flash_attention": fa.route_counts,
                        "flash_attention_bwd": fa.bwd_route_counts,
-                       "gmm": gm.route_counts, "gmm_bwd": gm.bwd_route_counts}
+                       "gmm": gm.route_counts, "gmm_bwd": gm.bwd_route_counts,
+                       "ssd": so.route_counts, "ssd_bwd": so.bwd_route_counts}
         self.t0 = time.perf_counter()
         self.main_s = 0.0
         self.launches = {k: 0 for k in PARALLEL_KERNELS}
@@ -5081,7 +5148,10 @@ def parallel_launches(plan: dict, rank: int = 0,
     three gmm forwards and three backwards; SP one flash forward and one
     backward per layer; each step the same per layer and step (elastic:
     the steps the rank's meshes ran); serving one flash forward per
-    layer, each prefill (every rank computes it whole) and each tick."""
+    layer, each prefill (every rank computes it whole) and each tick;
+    phase 28's serving the same for qwen2 at the rank's heads and one
+    SSD launch per layer and prefill for mamba2 (none at a tick), its
+    training one SSD forward and one backward per layer and step."""
     none = {k: 0 for k in PARALLEL_KERNELS}
     per_layer = dict(none, flash_attention=1, flash_attention_bwd=1)
     steps = {"sp": 1, "step": plan.get("step", {}).get("steps"), "int8": 2}
@@ -5094,6 +5164,18 @@ def parallel_launches(plan: dict, rank: int = 0,
     for name in plan:
         if name == "ep":
             out[name] = dict(none, gmm=3, gmm_bwd=3)
+        elif name == "tp_serve":
+            part, out[name] = plan[name], dict(none)
+            for run in part["runs"]:
+                cfg = parallel_config(dict(part, **run), "float32")
+                if cfg.ssm is not None:     # mamba2: an SSD launch a layer
+                    out[name]["ssd"] += part["requests"] * cfg.n_layers
+                else:                       # one flash launch a layer
+                    out[name]["flash_attention"] += cfg.n_layers * (
+                        part["requests"] + part["new"] - 1)
+        elif name == "tp_train":
+            n = plan[name]["layers"] * plan[name]["steps"]
+            out[name] = dict(none, ssd=n, ssd_bwd=n)
         elif name == "serve_mesh":
             part = plan[name]
             calls = part["requests"] + part["new"] - 1
@@ -5422,15 +5504,21 @@ def _pod_quanta(cfg, rules, mesh, specs, batch, dev) -> list:
     compressed mean over "pod": amax/127, amax the shard's largest |g|
     over the pods.  The pods' gradients are formed as the int8 step forms
     them before its mean (each pod's loss a mean over its own rows, the
-    ranks' shares summed over "data" and "model").  Returns [(quantum,
+    ranks' shares summed over "data", and over "model" where the rules
+    keep activations uncut over it).  Returns [(quantum,
     the pods' mean of the shard)]."""
     from repro_torch.models import model as model_lib
     from repro_torch.models.param import tree_leaves, tree_map
     from repro_torch.parallel import collectives as coll
-    from repro_torch.parallel.sharding import constrainer
+    from repro_torch.parallel.sharding import (
+        constrainer, model_cut, split_model)
     inner = tuple(a for a in mesh.axis_names if a != "pod")
-    params = tree_map(lambda t: t.requires_grad_(),
-                      _same_params(cfg, dev, mesh))
+    # under the "model" cut a "model" group computes one share of the
+    # loss, and each rank's gradient is its part of a cut leaf
+    tp = model_cut(rules, mesh)
+    shares = tuple(a for a in inner if a != "model" or tp == 1)
+    params = tree_map(lambda t: t.requires_grad_(), model_lib.model_part(
+        _same_params(cfg, dev, mesh), cfg, rules, mesh))
     loss, _ = model_lib.loss_fn(params, cfg, batch, mesh=mesh,
                                 constrain=constrainer(rules, mesh),
                                 remat="none", mean_axes=inner)
@@ -5438,7 +5526,8 @@ def _pod_quanta(cfg, rules, mesh, specs, batch, dev) -> list:
     del params, loss
     out = []
     for g, spec in zip(grads, tree_leaves(specs)):
-        pod = coll.shard_of(coll.psum(g.float(), mesh, inner), spec, mesh)
+        pod = coll.shard_of(coll.psum(g.float(), mesh, shares),
+                            split_model(spec)[1] if tp > 1 else spec, mesh)
         amax = coll.pmax(pod.abs().max(), mesh, "pod")
         mean = coll.psum(pod, mesh, "pod") / mesh.shape["pod"]
         out.append((float(amax) / 127.0, mean.cpu()))
@@ -5784,7 +5873,7 @@ def serve_mesh_part(rank, dev, plan, clock):
     mesh = WorkerMesh(part["mesh"], dev)
     row = {"runs": {}}
     for dtype, layers in (("float32", part["gate_layers"]),
-                          ("bfloat16", None)):
+                          ("bfloat16", part["layers"])):
         cfg = parallel_config(dict(part, layers=layers), dtype)
         params = model_lib.init_model(cfg, seed=0, device=dev)
         reqs = make_requests(cfg, part["requests"], part["prompt"],
@@ -5866,6 +5955,211 @@ def serve_mesh_gates(row, plan):
                 f"fail")
 
 
+@contextlib.contextmanager
+def dropped_partial(rank: int):
+    """A planted fault: every sum of the ranks' partial results over
+    "model" (`collectives.from_model`: the row-parallel products, the
+    vocab-parallel embedding) leaves out the partial of the rank at
+    ``rank`` of the group."""
+    from repro_torch.parallel import collectives as coll
+    real = coll.from_model
+
+    def summed(x, mesh, axes="model"):
+        if mesh.index(axes) == rank:
+            x = x * 0           # in the graph: the leaves keep a gradient
+        return real(x, mesh, axes)
+
+    coll.from_model = summed
+    try:
+        yield
+    finally:
+        coll.from_model = real
+
+
+def _bytes(tree) -> int:
+    from repro_torch.models.param import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tp_serve_part(rank, dev, plan, clock):
+    """Phase 28 (a, b): `ServeEngine` under ``decode`` on each run's mesh,
+    the rank computing its part of the heads, MLP columns, SSM heads and
+    vocabulary: at ``gate_layers`` layers in float32 (rank 0 holds the
+    greedy tokens equal to the one-device engine's, and the first tick's
+    logits), then at full depth in bfloat16, the main path (rank 0: the
+    first tick's logits against the one-device engine's).  Each rank's
+    resident weight bytes against the whole model's.  Off the main path,
+    the first run's bfloat16 first tick with rank 0's partial dropped
+    from every sum over "model" (`dropped_partial`): a fault the bfloat16
+    gate must fail."""
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models import model as model_lib
+    from repro_torch.parallel.sharding import preset
+    from repro_torch.serve.engine import ServeEngine
+    part = plan["tp_serve"]
+    rules = preset(part["rules"])
+    meshes = [WorkerMesh(run["mesh"], dev) for run in part["runs"]]
+    row = {"runs": [], "weight_bytes": []}
+    archs = list(dict.fromkeys(run["arch"] for run in part["runs"]))
+    for arch in archs:
+        for dtype, layers in (("float32", part["gate_layers"]),
+                              ("bfloat16", None)):
+            cfg = parallel_config(dict(part, arch=arch, layers=layers),
+                                  dtype)
+            params = model_lib.init_model(cfg, seed=0, device=dev)
+            reqs = make_requests(cfg, part["requests"], part["prompt"],
+                                 part["new"], seed=28)
+            main = dtype == "bfloat16"
+            want = None
+            if rank == 0:           # the one-device engine, once an arch
+                one = ServeEngine(cfg, params, batch_slots=part["slots"],
+                                  max_seq=part["max_seq"])
+                want = _serve_run(one, reqs)
+                del one
+            for run, mesh in zip(part["runs"], meshes):
+                if run["arch"] != arch:
+                    continue
+                engine = ServeEngine(cfg, params, batch_slots=part["slots"],
+                                     max_seq=part["max_seq"], mesh=mesh,
+                                     rules=rules)
+                got = _serve_run(engine, reqs,
+                                 clock.main_path() if main else None)
+                out = {"arch": arch, "mesh": run["mesh"], "dtype": dtype,
+                       "layers": cfg.n_layers, "wall_s": got[2],
+                       "weight_bytes": _bytes(engine.params),
+                       "whole_weight_bytes": _bytes(params),
+                       "cache_bytes": _bytes(engine.cache)}
+                if main and (engine.prefill_calls, engine.decode_ticks) != (
+                        part["requests"], part["new"] - 1):
+                    raise AssertionError(
+                        f"tp_serve {arch} {run['mesh']}: "
+                        f"{engine.prefill_calls} prefills, "
+                        f"{engine.decode_ticks} ticks")
+                del engine
+                fault = None
+                if main and run is part["runs"][0]:
+                    engine = ServeEngine(
+                        cfg, params, batch_slots=part["slots"],
+                        max_seq=part["max_seq"], mesh=mesh, rules=rules)
+                    engine.submit(reqs[0])
+                    with dropped_partial(0):
+                        engine.step()
+                    fault = engine.last_logits.detach().float().clone()
+                    del engine
+                if rank == 0:
+                    out["logits"] = rel_err(got[1], want[1])
+                    out["tokens_equal"] = got[0] == want[0]
+                    out["first_parting"] = first_parting(got[0], want[0])
+                    if fault is not None:
+                        # the one-device first tick's row of that request
+                        out["logits_fault"] = rel_err(fault[0], want[1][0])
+                row["runs"].append(out)
+                row["weight_bytes"].append(out["weight_bytes"])
+            del params
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    return row
+
+
+def tp_serve_gates(row):
+    for out in row["runs"]:
+        label = (f"tp_serve {out['arch']} {out['dtype']} decode on "
+                 f"{out['mesh']}")
+        if out["dtype"] == "float32":
+            if not out["tokens_equal"]:
+                raise AssertionError(
+                    f"{label} at {out['layers']} layers: greedy tokens part "
+                    f"from one device's at {out['first_parting']}")
+            gate(f"{label}: first tick's logits vs one device",
+                 out["logits"], GATE_TP_F32)
+        else:
+            gate(f"{label}: first tick's logits vs one device",
+                 out["logits"], GATE_TP_BF16)
+        if "logits_fault" in out and not out["logits_fault"] > GATE_TP_BF16:
+            raise AssertionError(
+                f"{label}: the first tick with rank 0's partial dropped "
+                f"from the sums over \"model\" reads "
+                f"{out['logits_fault']:.3g}, not above the bar "
+                f"{GATE_TP_BF16:.3g}: the gate cannot fail")
+
+
+def tp_train_part(rank, dev, plan, clock):
+    """Phase 28 (c): mamba2 cut to 2 layers in float32, ``steps`` sharded
+    steps under base on (4, 2), the rank computing its 1/M of the SSM
+    heads and the vocabulary; rank 0 runs the one-device step on the same
+    weights and batches.  Off the main path, one step with rank 0's
+    partial dropped from every sum over "model": a fault the loss gate
+    must fail."""
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models.param import tree_leaves, tree_map
+    from repro_torch.parallel.collectives import unshard
+    from repro_torch.parallel.sharding import preset
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import (
+        init_train_state, make_train_step, param_specs, shard_params)
+    part = plan["tp_train"]
+    mesh = WorkerMesh(part["mesh"], dev)
+    cfg = parallel_config(part, "float32")
+    rules = preset(part["rules"])
+    opt = OptimizerConfig(lr=1e-3)
+    lr_kwargs = dict(peak=1e-3, warmup_steps=0, total_steps=10)
+    params = _same_params(cfg, dev, mesh)
+    specs = param_specs(cfg, rules, mesh)
+    step = make_train_step(cfg, opt, mesh, rules, remat="none",
+                           lr_kwargs=lr_kwargs)
+    batches = [_pipeline_batch(cfg, part, i, dev)
+               for i in range(part["steps"])]
+    state = init_train_state(shard_params(params, specs, mesh), opt)
+    losses = []
+    with clock.main_path():
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+    whole = [t.cpu().clone() for t in tree_leaves(tree_map(
+        lambda t, s: unshard(t, s, mesh), state.params, specs))]
+    row = {"rules": rules.name, "losses": losses,
+           "weight_bytes": _bytes(state.params),
+           "whole_weight_bytes": _bytes(params)}
+    del state
+    fault = init_train_state(shard_params(params, specs, mesh), opt)
+    with dropped_partial(0):
+        _, m = step(fault, batches[0])
+    fault_loss = float(m["loss"])
+    del fault
+    if rank == 0:
+        one = make_train_step(cfg, opt, remat="none", lr_kwargs=lr_kwargs,
+                              device=dev)
+        init = [t.cpu().clone() for t in tree_leaves(params)]
+        ref = init_train_state(params, opt)
+        ref_losses = []
+        for b in batches:
+            ref, m = one(ref, b)
+            ref_losses.append(float(m["loss"]))
+        final = [t.cpu() for t in tree_leaves(ref.params)]
+        row["loss"] = max(abs(a - b) / max(1.0, abs(b))
+                          for a, b in zip(losses, ref_losses))
+        row["loss_fault"] = abs(fault_loss - ref_losses[0]) / max(
+            1.0, abs(ref_losses[0]))
+        row["params"] = _max_diff(whole, final)
+        row["params_change"] = _max_diff(final, init)
+        row["params_share"] = row["params"] / row["params_change"]
+        del ref, one
+    del params
+    return row
+
+
+def tp_train_gates(row):
+    label = "tp_train mamba2 f32 base (4, 2)"
+    if not row["loss_fault"] > GATE_TP_LOSS:
+        raise AssertionError(
+            f"{label}: a step with rank 0's partial dropped from the sums "
+            f"over \"model\" reads {row['loss_fault']:.3g}, not above the "
+            f"bar {GATE_TP_LOSS:.3g}: the gate cannot fail")
+    gate(f"{label}: loss vs one device, relative", row["loss"], GATE_TP_LOSS)
+    gate(f"{label}: parameters vs one device, a share of its change",
+         row["params_share"], GATE_TP_PARAMS_SHARE)
+
+
 def parallel_rank(rank, dev, plan):
     """Phase 26 on one rank: the four parts, each timed, with its main
     path's launches; every rank's peak memory."""
@@ -5875,7 +6169,9 @@ def parallel_rank(rank, dev, plan):
     out = {}
     for name, fn in (("ep", ep_part), ("sp", sp_part), ("step", step_part),
                      ("int8", int8_part), ("elastic", elastic_part),
-                     ("serve_mesh", serve_mesh_part)):
+                     ("serve_mesh", serve_mesh_part),
+                     ("tp_serve", tp_serve_part),
+                     ("tp_train", tp_train_part)):
         if name not in plan:
             continue
         dist.barrier()
@@ -5910,8 +6206,9 @@ def serve_mesh_routes(plan: dict) -> dict:
     return out
 
 
-#: the parts of phase 27 (run in phase 26's world)
+#: the parts of phases 27 and 28 (run in phase 26's world)
 MESH_PARTS = ("elastic", "serve_mesh")
+TP_PARTS = ("tp_serve", "tp_train")
 
 
 def parallel_phase(plan=PARALLEL_PLAN, device="cuda",
@@ -5967,10 +6264,14 @@ def parallel_phase(plan=PARALLEL_PLAN, device="cuda",
             if got != routes:
                 raise AssertionError(f"phase 27 serve_mesh: rank {rank}'s "
                                      f"flash instances {got}, not {routes}")
+    if "tp_serve" in plan:
+        tp_serve_gates(rows[0]["tp_serve"])
+    if "tp_train" in plan:
+        tp_train_gates(rows[0]["tp_train"])
     for rank, r in enumerate(rows):
         for part, counts in parallel_launches(plan, rank, ranks).items():
             if r[part]["launches"] != counts:
-                raise AssertionError(f"phase 26/27 {part}: rank {rank} "
+                raise AssertionError(f"phase 26-28 {part}: rank {rank} "
                                      f"launched {r[part]['launches']}, not "
                                      f"{counts}")
     by_part = {part: {k: sum(r[part]["launches"][k] for r in rows)
@@ -5984,18 +6285,21 @@ def parallel_phase(plan=PARALLEL_PLAN, device="cuda",
             "launches_per_rank": [r[part]["launches"] for r in rows],
             "by_instance_rank0": rows[0][part]["by_instance"],
             "peak_gb": [r[part].get("peak_gb") for r in rows],
+            # each rank's resident weights (phase 28: a run's each)
+            "weight_bytes": [r[part].get("weight_bytes") for r in rows],
             **{k: v for k, v in rows[0][part].items() if k not in (
-                "wall_s", "main_s", "launches", "by_instance", "peak_gb")}}
+                "wall_s", "main_s", "launches", "by_instance", "peak_gb",
+                "weight_bytes")}}
 
     summary = {"parallel": {
         "ranks": ranks, "backend": "gloo", "world_wall_s": wall,
         "parts": {part: part_line(part) for part in plan
-                  if part not in MESH_PARTS},
+                  if part not in MESH_PARTS + TP_PARTS},
         "launches": {k: sum(by_part[part][k] for part in plan
-                            if part not in MESH_PARTS)
+                            if part not in MESH_PARTS + TP_PARTS)
                      for k in PARALLEL_KERNELS}}}
     print(json.dumps(summary), flush=True)
-    for part in MESH_PARTS:
+    for part in MESH_PARTS + TP_PARTS:
         if part in plan:
             print(json.dumps({part: dict(part_line(part), ranks=ranks,
                                          plan=plan[part])}), flush=True)
@@ -6216,12 +6520,14 @@ def main() -> int:
     phase_done("13")
     # phase 15: training -- flash attention's backward kernel against
     # its plain version, timed at qwen2's training shapes; the float32
-    # and bfloat16 2-layer gates; then qwen2-1.5b at full width through run_fixed, its
+    # and bfloat16 2-layer gates; then qwen2-1.5b at full width, cut to
+    # `TRAIN_LAYERS`, through run_fixed, its
     # main path (before the water-fill: the profiler reads it)
     cfg = get_config(ARCH)
     bwd_timed, bwd_err = flash_bwd_phase(fa, dev)
     train_f32_gate(cfg, dev, launch_counts)
     train_bf16_gate(cfg, dev, launch_counts)
+    cfg = cut_layers(cfg, TRAIN_LAYERS[ARCH])
     trained = train_phase(
         cfg, dev, launch_counts,
         {"flash_attention": (fa.route_counts, "wgmma"),
@@ -6261,7 +6567,8 @@ def main() -> int:
     phase_done("15")
     # phase 16: training mamba2 -- the SSD scan's backward kernel against
     # its plain version, timed at mamba2's and jamba's training shapes;
-    # the float32 and bfloat16 2-layer gates; then mamba2-1.3b at full
+    # the float32 and bfloat16 2-layer gates; then mamba2-1.3b (cut to
+    # `TRAIN_LAYERS`) at full
     # width through run_fixed, its main path (before the water-fill: the
     # profiler reads it)
     cfg = get_config(SSD_ARCH)
@@ -6270,6 +6577,7 @@ def main() -> int:
     train_f32_gate(cfg, dev, launch_counts, **ssd_kernels)
     train_bf16_gate(cfg, dev, launch_counts, limits=(
         GATE_SSD_TRAIN_BF16_LOSS, GATE_SSD_TRAIN_BF16_GRAD), **ssd_kernels)
+    cfg = cut_layers(cfg, TRAIN_LAYERS[SSD_ARCH])
     ssd_trained = train_phase(
         cfg, dev, launch_counts,
         {"ssd": (so.route_counts, "mma"), "ssd_bwd": (so.bwd_route_counts,
@@ -6456,11 +6764,15 @@ def main() -> int:
                        (gmm_line, "gmm"), (gmm_bwd_line, "gmm_bwd")):
         line["launches_parallel"] = sum(
             counts[name] for part, counts in by_part.items()
-            if part not in MESH_PARTS)
+            if part not in MESH_PARTS + TP_PARTS)
     for part in MESH_PARTS:
         flash_line[f"launches_{part}"] = by_part[part]["flash_attention"]
     bwd_line["launches_elastic"] = by_part["elastic"]["flash_attention_bwd"]
-    phase_done("26, 27")
+    flash_line["launches_tp_serve"] = by_part["tp_serve"]["flash_attention"]
+    ssd_line["launches_tp_serve"] = by_part["tp_serve"]["ssd"]
+    ssd_line["launches_tp_train"] = by_part["tp_train"]["ssd"]
+    ssd_bwd_line["launches_tp_train"] = by_part["tp_train"]["ssd_bwd"]
+    phase_done("26-28")
     print(json.dumps({"profiler_sessions": profiler_sessions}), flush=True)
     print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
                                   gmm_line, bwd_line, ssd_bwd_line,

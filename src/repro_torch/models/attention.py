@@ -32,9 +32,18 @@ are replicated over "model" (the base/ep presets) the rank slices its
 part of the sequence and the outputs are all-gathered back; where they
 are cut over "model" too (zero3) an all-to-all over "model" turns the
 rank's rows into its part of the sequence and back.  Every collective is
-differentiable (`parallel.collectives`).  Where the heads divide the
-"model" axis the rank attends its own rows with every head (the port
-keeps no head-sharded activations).
+differentiable (`parallel.collectives`).
+
+Where the rules cut the heads over "model" and they divide it
+(`parallel.sharding.Constrainer.cuts`: base, ep, decode, ...) the rank
+attends with its H/M query heads, from its columns of ``wq`` (and of
+``wk``/``wv`` and their biases where the kv heads divide too; else
+``wk``/``wv`` are gathered over "model" and the rank reads the kv heads
+its query heads use, `_kv_for_heads`), and ``wo`` is row-parallel: the
+ranks' float32 partials summed over "model" (Megatron's pair).  Its
+decode cache holds its kv heads, or, where the kv heads do not divide,
+its part of the slots over "model" (the reference's fallback): every
+query head's output over its slots is merged by `merge_partials`.
 
 Serving under a mesh whose rules cut the KV cache's slots over mesh axes
 (``decode_sp``: "data"; `parallel.sharding.serving_layout`) holds on each
@@ -53,11 +62,13 @@ from repro_torch.kernels.flash_attention.ops import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
-    apply_linear, apply_rmsnorm, apply_rope, init_linear,
+    apply_linear, apply_rmsnorm, apply_rope, init_linear, matmul_f32,
 )
 from repro_torch.models.param import Init, torch_dtype
 from repro_torch.parallel import collectives as coll
-from repro_torch.parallel.sharding import layout_rows, no_constraint
+from repro_torch.parallel.sharding import (
+    cuts, layout_rows, model_tp, no_constraint,
+)
 
 
 def init_attention(init: Init, cfg: ModelConfig) -> dict:
@@ -78,23 +89,122 @@ def init_attention(init: Init, cfg: ModelConfig) -> dict:
     return p
 
 
-def _project_qkv(p: dict, cfg: ModelConfig, xq: torch.Tensor,
-                 xkv: torch.Tensor, *, rope_on: bool,
-                 q_positions: torch.Tensor, kv_positions: torch.Tensor):
-    B, Sq, _ = xq.shape
-    Skv = xkv.shape[1]
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+def _heads_cut(cfg: ModelConfig, constrain) -> tuple[bool, bool]:
+    """(query heads cut, kv heads cut) over "model" on this call: the
+    reference constrainer's decision for q's "heads_act" and k's
+    "kv_act" (`parallel.sharding.Constrainer.cuts`)."""
+    return (cuts(constrain, "heads_act", cfg.n_heads),
+            cuts(constrain, "kv_act", cfg.n_kv_heads))
 
-    q = apply_linear(p["wq"], xq).reshape(B, Sq, H, Dh)
-    k = apply_linear(p["wk"], xkv).reshape(B, Skv, Hkv, Dh)
-    v = apply_linear(p["wv"], xkv).reshape(B, Skv, Hkv, Dh)
+
+def _linear_of(lin: dict, n: int, constrain, *, cut: bool,
+               alike: bool) -> dict:
+    """A projection with ``n`` output columns (cut over "model" by the
+    storage where ``n`` divides) as the call uses it: the rank's columns
+    (``cut``), or the whole (gathered over "model" where stored cut; see
+    `collectives.whole_leaf` for ``alike``)."""
+    if model_tp(constrain) == 1:
+        return lin
+    mesh = constrain.mesh
+    if cut:
+        return {k: coll.part_of_leaf(w, n, w.dim() - 1, mesh)
+                for k, w in lin.items()}
+    return {k: coll.whole_leaf(w, n, w.dim() - 1, mesh, alike=alike)
+            for k, w in lin.items()}
+
+
+def _row_parallel(lin: dict, o: torch.Tensor, n: int, constrain, *,
+                  cut: bool) -> torch.Tensor:
+    """The output projection over ``n`` input rows: with ``cut`` the
+    rank's rows, its float32 partial product summed over "model" and
+    rounded once (`collectives.from_model`); else the whole leaf."""
+    if not cut:
+        if model_tp(constrain) > 1:
+            lin = {"w": coll.whole_leaf(lin["w"], n, -2, constrain.mesh,
+                                        alike=True)}
+        return apply_linear(lin, o)
+    mesh = constrain.mesh
+    w = coll.part_of_leaf(lin["w"], n, 0, mesh)
+    return coll.from_model(matmul_f32(o, w), mesh).to(o.dtype)
+
+
+def _project_qkv(p: dict, cfg: ModelConfig, xq: torch.Tensor,
+                 xkv: torch.Tensor | None, *, rope_on: bool,
+                 q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                 constrain=no_constraint):
+    """q, k and v (k and v None without ``xkv``).  Where the call cuts
+    the query heads over "model" q holds the rank's heads, and k and v
+    the rank's kv heads where those divide too, else every kv head (the
+    rank then reads the ones its query heads use: `_kv_for_heads`)."""
+    B, Sq, _ = xq.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    hcut, kvcut = _heads_cut(cfg, constrain)
+    tp = model_tp(constrain)
+
+    def own(t):           # a replicated tensor entering the rank's heads
+        return coll.to_model(t, constrain.mesh) if hcut else t
+
+    xq_in = own(xq)
+    q = apply_linear(_linear_of(p["wq"], H * Dh, constrain, cut=hcut,
+                                alike=not hcut), xq_in)
+    q = q.reshape(B, Sq, H // tp if hcut else H, Dh)
     if cfg.qk_norm:
-        q = apply_rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = apply_rmsnorm(p["k_norm"], k, cfg.norm_eps)
+        q = apply_rmsnorm({"scale": own(p["q_norm"]["scale"])}, q,
+                          cfg.norm_eps)
     if rope_on:
         q = apply_rope(q, q_positions, cfg.rope_theta)
+    if xkv is None:
+        return q, None, None
+    Skv = xkv.shape[1]
+    xkv_in = xq_in if xkv is xq else own(xkv)
+    hk = Hkv // tp if kvcut else Hkv
+    k, v = (apply_linear(_linear_of(p[name], Hkv * Dh, constrain,
+                                    cut=kvcut, alike=not hcut),
+                         xkv_in).reshape(B, Skv, hk, Dh)
+            for name in ("wk", "wv"))
+    if cfg.qk_norm:
+        k = apply_rmsnorm({"scale": own(p["k_norm"]["scale"])}, k,
+                          cfg.norm_eps)
+    if rope_on:
         k = apply_rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
+
+
+@torch.no_grad()
+def serving_leaves(p: dict, cfg: ModelConfig, constrain) -> dict:
+    """The block's (stacked) projections as a serving rank keeps them, so
+    that no decode call gathers a weight: the ones the call uses whole
+    (`_linear_of`, `_row_parallel` without the cut: every projection
+    where the query heads do not divide "model", ``wk`` and ``wv`` where
+    only the kv heads do not) gathered once, the rest as stored."""
+    hcut, kvcut = _heads_cut(cfg, constrain)
+    if model_tp(constrain) == 1 or kvcut:
+        return p
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    out = dict(p)
+    for name, n in (("wk", Hkv * Dh), ("wv", Hkv * Dh)) + (
+            () if hcut else (("wq", H * Dh),)):
+        out[name] = _linear_of(p[name], n, constrain, cut=False, alike=True)
+    if not hcut:
+        out["wo"] = {"w": coll.whole_leaf(p["wo"]["w"], H * Dh, -2,
+                                          constrain.mesh, alike=True)}
+    return out
+
+
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                  mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """Of every kv head, those the rank's query heads (the "model" group's
+    equal part) read, in GQA order for them: a slice where the rank's
+    heads cover whole groups or lie in one, else one kv head per query
+    head."""
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    hq, g = H // mesh.shape["model"], H // Hkv
+    first = mesh.index("model") * hq
+    if hq % g == 0 or g % hq == 0:
+        n = max(hq // g, 1)
+        return tuple(t.narrow(2, first // g, n).contiguous() for t in (k, v))
+    idx = torch.arange(first, first + hq, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def default_positions(B: int, S: int, device) -> torch.Tensor:
@@ -104,22 +214,33 @@ def default_positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def _sp_attention(q, k, v, q_pos, kv_pos, mesh, rows, *, causal, window,
-                  softcap):
+                  softcap, tp: bool = False):
     """Sequence-parallel attention on this rank of the "model" group:
     q, k, v (B_loc, S, H, Dh) and positions (B_loc, S) of the rank's rows
-    (cut over ``rows``)."""
-    tp = mesh.shape["model"]
+    (cut over ``rows``).  With ``tp`` the call runs under the "model" cut
+    (`parallel.sharding.model_cut`): the rows are replicated over "model"
+    and the group's ranks back-propagate one loss alike, so the rank's
+    part of the sequence is `collectives.scatter_to_model`'s and the
+    outputs come back by `collectives.gather_from_model`."""
+    tp_size = mesh.shape["model"]
     B, S = q.shape[:2]
     if "model" in rows:             # rows cut over "model": rows -> seq
         def to_seq(t):
-            t = t.reshape(B, tp, S // tp, *t.shape[2:]).transpose(0, 1)
+            t = t.reshape(B, tp_size, S // tp_size, *t.shape[2:]
+                          ).transpose(0, 1)
             t = coll.all_to_all(t.contiguous(), mesh, "model")
-            return t.reshape(tp * B, S // tp, *t.shape[3:])
+            return t.reshape(tp_size * B, S // tp_size, *t.shape[3:])
 
         def to_rows(t):
-            t = coll.all_to_all(t.reshape(tp, B, S // tp, *t.shape[2:]),
-                                mesh, "model")
+            t = coll.all_to_all(t.reshape(tp_size, B, S // tp_size,
+                                          *t.shape[2:]), mesh, "model")
             return t.transpose(0, 1).reshape(B, S, *t.shape[3:])
+    elif tp:                        # replicated rows, one loss per group
+        def to_seq(t):
+            return coll.scatter_to_model(t, mesh, "model", 1)
+
+        def to_rows(t):
+            return coll.gather_from_model(t, mesh, "model", 1)
     else:                           # rows replicated over "model"
         def to_seq(t):
             return coll.own_slice(t, mesh, "model", 1).contiguous()
@@ -141,7 +262,7 @@ def _use_sp(cfg: ModelConfig, mesh, Sq: int, Skv: int, B: int,
         return False
     tp = dict(mesh.shape).get("model", 1)
     if tp <= 1 or cfg.n_heads % tp == 0:
-        return False  # the reference shards heads; the port keeps them
+        return False  # the heads are cut, or attention is whole per rank
     return Sq > 1 and Sq % tp == 0 and Skv % tp == 0
 
 
@@ -157,7 +278,9 @@ def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     positions 0..F-1, no RoPE, no causal mask.
     With return_kv=True returns (out, (k, v)) for cache filling -- k is
     post-RoPE, matching the decode path's cache convention.  Under a
-    ``mesh`` (x the rank's rows, laid out as ``constrain`` says) it is
+    ``mesh`` (x the rank's rows, laid out as ``constrain`` says) the rank
+    attends with its part of the heads where the call cuts them (its
+    returned k and v are then those `_project_qkv` describes), and it is
     sequence-parallel where `_use_sp` holds."""
     B, S, _ = x.shape
     if positions is None:
@@ -169,16 +292,25 @@ def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         xkv, causal, rope_on = kv_ctx, False, False
         kv_positions = default_positions(B, xkv.shape[1], x.device)
     q, k, v = _project_qkv(p, cfg, x, xkv, rope_on=rope_on,
-                           q_positions=positions, kv_positions=kv_positions)
-    if _use_sp(cfg, mesh, q.shape[1], k.shape[1], q.shape[0],
-               kv_ctx is not None):
+                           q_positions=positions, kv_positions=kv_positions,
+                           constrain=constrain)
+    hcut, kvcut = _heads_cut(cfg, constrain)
+    if hcut:
+        ka, va = (k, v) if kvcut else _kv_for_heads(k, v, cfg, mesh)
+        o = flash_attention(q, ka, va, positions, kv_positions,
+                            causal=causal, window=window,
+                            softcap=cfg.attn_logit_softcap)
+    elif _use_sp(cfg, mesh, q.shape[1], k.shape[1], q.shape[0],
+                 kv_ctx is not None):
         o = _sp_attention(q, k, v, positions, kv_positions, mesh,
                           layout_rows(constrain, mesh), causal=causal,
-                          window=window, softcap=cfg.attn_logit_softcap)
+                          window=window, softcap=cfg.attn_logit_softcap,
+                          tp=model_tp(constrain) > 1)
     else:
         o = flash_attention(q, k, v, positions, kv_positions, causal=causal,
                             window=window, softcap=cfg.attn_logit_softcap)
-    out = apply_linear(p["wo"], o.reshape(B, S, cfg.n_heads * cfg.d_head))
+    out = _row_parallel(p["wo"], o.reshape(B, S, -1),
+                        cfg.n_heads * cfg.d_head, constrain, cut=hcut)
     if return_kv:
         return out, (k, v)
     return out
@@ -188,10 +320,33 @@ def attn_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 # KV-cache decode path
 # ---------------------------------------------------------------------------
 
+def kv_slots(cfg: ModelConfig, mesh, constrain) -> tuple[str, ...]:
+    """The mesh axes a call's self-attention caches cut their slots over
+    (`parallel.sharding.Constrainer.kv_slots`; none without a mesh)."""
+    if mesh is None or not hasattr(constrain, "kv_slots"):
+        return ()
+    return constrain.kv_slots(cfg.n_kv_heads)
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, *,
-                  device: torch.device) -> dict:
+                  device: torch.device, layout=no_constraint,
+                  slots: bool = True) -> dict:
+    """A cache of ``batch`` rows and ``capacity`` slots; under a serving
+    ``layout`` (a `parallel.sharding.Constrainer`) the rank's part: its
+    kv heads where the layout cuts them over "model", and (with
+    ``slots``) its part of the slots over `kv_slots`."""
     Hkv, Dh = cfg.n_kv_heads, cfg.d_head
     dt = torch_dtype(dtype)
+    mesh = getattr(layout, "mesh", None)
+    if _heads_cut(cfg, layout)[1]:
+        Hkv //= model_tp(layout)
+    if slots and mesh is not None:
+        n = mesh.size(kv_slots(cfg, mesh, layout))
+        if capacity % n:
+            raise ValueError(f"serving: a cache of {capacity} slots does "
+                             f"not divide over {kv_slots(cfg, mesh, layout)}"
+                             f" ({n})")
+        capacity //= n
     return {
         "k": torch.zeros((batch, capacity, Hkv, Dh), dtype=dt, device=device),
         "v": torch.zeros((batch, capacity, Hkv, Dh), dtype=dt, device=device),
@@ -263,36 +418,47 @@ def attn_decode(p: dict, cfg: ModelConfig, x_t: torch.Tensor, cache: dict,
     (B,).  Returns (out, cache), the cache updated in place.  With
     ``cross`` the cache is the encoder output's, read and never written:
     q alone is projected, and attends every filled slot with no causal
-    mask and no window.  Under a ``mesh`` whose ``constrain`` cuts the
-    cache's slots (``kv_seq``), the cache is this rank's part: the rank
-    fills the slots it owns and its part's attention is merged over the
-    group (`merge_partials`)."""
+    mask and no window.  Under a ``mesh`` the cache is this rank's part
+    (`init_kv_cache`'s ``layout``): its kv heads where ``constrain`` cuts
+    them, and its slots over `kv_slots` -- it fills the slots it owns and
+    its part's attention is merged over those axes (`merge_partials`),
+    for every query head where the slots are cut over "model" (the
+    rank's query heads gathered first)."""
     B = x_t.shape[0]
+    H, Dh = cfg.n_heads, cfg.d_head
+    hcut, kvcut = _heads_cut(cfg, constrain)
     q_positions = lengths[:, None].to(torch.int32).contiguous()
     if cross:
-        H, Dh = cfg.n_heads, cfg.d_head
-        q = apply_linear(p["wq"], x_t).reshape(B, 1, H, Dh)
-        if cfg.qk_norm:
-            q = apply_rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        o = flash_attention(q, cache["k"], cache["v"], q_positions,
-                            cache["pos"], causal=False, window=None,
-                            softcap=cfg.attn_logit_softcap)
-        return apply_linear(p["wo"], o.reshape(B, 1, H * Dh)), cache
+        q, _, _ = _project_qkv(p, cfg, x_t, None, rope_on=False,
+                               q_positions=q_positions,
+                               kv_positions=q_positions, constrain=constrain)
+        k, v = cache["k"], cache["v"]
+        if hcut and not kvcut:
+            k, v = _kv_for_heads(k, v, cfg, mesh)
+        o = flash_attention(q, k, v, q_positions, cache["pos"], causal=False,
+                            window=None, softcap=cfg.attn_logit_softcap)
+        return _row_parallel(p["wo"], o.reshape(B, 1, -1), H * Dh,
+                             constrain, cut=hcut), cache
     q, k_t, v_t = _project_qkv(p, cfg, x_t, x_t, rope_on=rope_on,
                                q_positions=q_positions,
-                               kv_positions=q_positions)
-    kv_seq = getattr(constrain, "kv_seq", ()) if mesh is not None else ()
-    if kv_seq:
+                               kv_positions=q_positions, constrain=constrain)
+    slots = kv_slots(cfg, mesh, constrain)
+    every_head = hcut and "model" in slots
+    if every_head:               # the ranks' parts of the slots, every head
+        q = coll.gather_from_model(q, mesh, "model", 2)
+    if slots:
         cache = cache_fill(cache, k_t, v_t, q_positions, mesh=mesh,
-                           axes=kv_seq)
+                           axes=slots)
         o, lse = flash_attention_forward(
             q, cache["k"], cache["v"], q_positions, cache["pos"],
             causal=True, window=window, softcap=cfg.attn_logit_softcap)
-        o = merge_partials(o, lse, mesh, kv_seq)
+        o = merge_partials(o, lse, mesh, slots)
     else:
         cache = cache_fill(cache, k_t, v_t, q_positions)
         o = flash_attention(q, cache["k"], cache["v"], q_positions,
                             cache["pos"], causal=True, window=window,
                             softcap=cfg.attn_logit_softcap)
-    o = o.reshape(B, 1, cfg.n_heads * cfg.d_head)
-    return apply_linear(p["wo"], o), cache
+    if every_head:
+        o = coll.own_slice(o, mesh, "model", 2)
+    return _row_parallel(p["wo"], o.reshape(B, 1, -1), H * Dh, constrain,
+                         cut=hcut), cache

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.param import Init
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.sharding import cuts, no_constraint
 
 
 class _MatmulF32(torch.autograd.Function):
@@ -130,13 +132,33 @@ def init_embedding(init: Init, vocab: int, d: int, dtype) -> dict:
     return {"table": init.embed((vocab, d), dtype, axes=("vocab", "embed"))}
 
 
-def apply_embedding(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+def apply_embedding(p: dict, tokens: torch.Tensor, *,
+                    vocab: int | None = None,
+                    constrain=no_constraint) -> torch.Tensor:
+    """The rows of ``tokens``.  Under a call that cuts the ``vocab`` over
+    "model" ("vocab_act"; the storage cuts the table's rows alike) the
+    table is the rank's rows: ids outside them read 0, and the ranks'
+    rows are summed (`collectives.from_model`)."""
+    table = p["table"]
+    if not cuts(constrain, "vocab_act", vocab):
+        return table[tokens]
+    mesh = constrain.mesh
+    part = coll.part_of_leaf(table, vocab, 0, mesh).shape[0]
+    local = tokens - mesh.index("model") * part
+    mine = (local >= 0) & (local < part)
+    rows = table[local.clamp(0, part - 1)]
+    return coll.from_model(torch.where(mine[..., None], rows, 0), mesh)
 
 
-def apply_unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding: logits = x @ table^T (float32 logits)."""
-    return matmul_f32(x, p["table"].T)
+def apply_unembed(p: dict, x: torch.Tensor, *, vocab: int | None = None,
+                  constrain=no_constraint) -> torch.Tensor:
+    """Tied unembedding: logits = x @ table^T (float32 logits); under a
+    call that cuts the ``vocab``, the rank's vocabulary columns."""
+    table = p["table"]
+    if cuts(constrain, "vocab_act", vocab):
+        coll.part_of_leaf(table, vocab, 0, constrain.mesh)
+        x = coll.to_model(x, constrain.mesh)
+    return matmul_f32(x, table.T)
 
 
 # ---------------------------------------------------------------------------
@@ -198,10 +220,27 @@ def _activation(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mlp(p: dict, x: torch.Tensor, *, gated: bool = True,
-              act: str = "silu") -> torch.Tensor:
-    up = matmul_f32(x, p["up"])
+              act: str = "silu", d_ff: int | None = None,
+              constrain=no_constraint) -> torch.Tensor:
+    """The feed-forward block.  Under a call that cuts the ``d_ff``
+    columns over "model" ("mlp_act"), ``up``/``gate`` are the rank's
+    columns and ``down`` its rows (Megatron's column- and row-parallel
+    pair): the rank's float32 partial products are summed over "model"
+    and rounded once to x's dtype."""
+    mesh = None
+    if cuts(constrain, "mlp_act", d_ff):
+        mesh = constrain.mesh
+        for name, w in p.items():
+            coll.part_of_leaf(w, d_ff, 0 if name == "down" else 1, mesh)
+        x_in = coll.to_model(x, mesh)
+    else:
+        x_in = x
+    up = matmul_f32(x_in, p["up"])
     if gated:
-        h = _activation(act, matmul_f32(x, p["gate"])) * up
+        h = _activation(act, matmul_f32(x_in, p["gate"])) * up
     else:
         h = _activation(act, up)
+    if mesh is not None:
+        return coll.from_model(matmul_f32(h.to(x.dtype), p["down"]),
+                               mesh).to(x.dtype)
     return h.to(x.dtype) @ p["down"].to(x.dtype)

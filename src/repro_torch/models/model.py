@@ -42,9 +42,12 @@ from repro_torch.models.layers import (
     init_linear, init_norm, matmul_f32,
 )
 from repro_torch.models.param import Init, PyTree, torch_dtype, tree_map
-from repro_torch.parallel.collectives import own_slice, psum
+from repro_torch.parallel.collectives import (
+    from_model, gather_from_model, own_slice, part_of_leaf, psum, shard_of,
+    to_model, vocab_logsumexp,
+)
 from repro_torch.parallel.sharding import (
-    Constrainer, no_constraint, row_axes, rules_for,
+    Constrainer, cuts, no_constraint, row_axes, rules_for,
 )
 
 
@@ -142,11 +145,28 @@ def _maybe_abs_pos(cfg: ModelConfig, x: torch.Tensor,
     return (x.float() + sinusoidal(positions, cfg.d_model)).to(x.dtype)
 
 
-def _unembed(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """float32 logits."""
+def _unembed(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+             constrain=no_constraint) -> torch.Tensor:
+    """float32 logits: the rank's vocabulary columns under a call that
+    cuts the vocabulary over "model" ("vocab_act")."""
+    V = cfg.vocab_size
     if cfg.tie_embeddings:
-        return apply_unembed(params["embed"], x)
-    return matmul_f32(x, params["unembed"]["w"])
+        return apply_unembed(params["embed"], x, vocab=V,
+                             constrain=constrain)
+    w = params["unembed"]["w"]
+    if cuts(constrain, "vocab_act", V):
+        x = to_model(x, constrain.mesh)
+        part_of_leaf(w, V, 1, constrain.mesh)
+    return matmul_f32(x, w)
+
+
+def _whole_logits(logits: torch.Tensor, cfg: ModelConfig,
+                  constrain) -> torch.Tensor:
+    """The logits over the whole vocabulary (gathered over "model" where
+    the call cut it)."""
+    if cuts(constrain, "vocab_act", cfg.vocab_size):
+        return gather_from_model(logits, constrain.mesh, "model", -1)
+    return logits
 
 
 def _encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor, *,
@@ -178,12 +198,14 @@ def _enc_out(params: PyTree, cfg: ModelConfig, batch: dict, *,
                    constrain=constrain, remat=remat, unroll=unroll)
 
 
-def _input_embeds(params: PyTree, cfg: ModelConfig, batch: dict
+def _input_embeds(params: PyTree, cfg: ModelConfig, batch: dict,
+                  constrain=no_constraint
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (x (B,S,d), positions (B,S)); prepends the projected
     patches for VLM archs."""
     tokens = batch["tokens"].to(params_device(params))
-    x = apply_embedding(params["embed"], tokens)
+    x = apply_embedding(params["embed"], tokens, vocab=cfg.vocab_size,
+                        constrain=constrain)
     if cfg.frontend is not None:
         patches = batch["patches"].to(device=x.device, dtype=x.dtype)
         x = torch.cat([apply_linear(params["projector"], patches), x], dim=1)
@@ -201,10 +223,11 @@ def _input_embeds(params: PyTree, cfg: ModelConfig, batch: dict
 def _forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
              remat: str, unroll: bool, mesh=None, constrain=no_constraint
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(logits (B, S_text, vocab) float32, the MoE auxiliary loss)."""
+    """(logits (B, S_text, vocab) float32 -- the rank's vocabulary
+    columns under a call that cuts them -- the MoE auxiliary loss)."""
     enc_out = _enc_out(params, cfg, batch, mesh=mesh, constrain=constrain,
                        remat=remat, unroll=unroll)
-    x, positions = _input_embeds(params, cfg, batch)
+    x, positions = _input_embeds(params, cfg, batch, constrain)
     x, aux = tfm.stack_forward(params["stack"], cfg, x, positions=positions,
                                causal=True, cross=enc_out is not None,
                                enc_out=enc_out, mesh=mesh,
@@ -213,7 +236,7 @@ def _forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     if cfg.frontend is not None:        # only text positions produce logits
         x = x[:, cfg.frontend.n_prefix:, :]
-    return _unembed(params, cfg, x), aux
+    return _unembed(params, cfg, x, constrain), aux
 
 
 def _rank_batch(cfg: ModelConfig, batch: dict, mesh, constrain):
@@ -231,12 +254,15 @@ def forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
             unroll: bool = False) -> torch.Tensor:
     """Returns logits (B, S_text, vocab) float32.  (The MoE auxiliary loss
     that the stack returns beside them goes to `loss_fn`.)  Under a
-    ``mesh`` every rank passes the same global batch and whole
-    parameters, and gets the logits of its own rows."""
+    ``mesh`` every rank passes the same global batch and the parameters
+    as `model_part` cuts them (whole where the rules keep activations
+    uncut over "model"), and gets the logits of its own rows, over the
+    whole vocabulary."""
     if mesh is not None:
         batch, constrain = _rank_batch(cfg, batch, mesh, constrain)
-    return _forward(params, cfg, batch, remat=remat, unroll=unroll,
-                    mesh=mesh, constrain=constrain)[0]
+    logits = _forward(params, cfg, batch, remat=remat, unroll=unroll,
+                      mesh=mesh, constrain=constrain)[0]
+    return _whole_logits(logits, cfg, constrain)
 
 
 def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict, *,
@@ -274,28 +300,47 @@ def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict, *,
 def _mesh_loss(params, cfg, batch, *, mesh, constrain, remat, z_loss,
                unroll, mean_axes):
     """`loss_fn` on one rank of a mesh.  Every rank passes the same global
-    batch and whole parameters; the rank computes its own rows
-    (`_rank_batch`).  The loss is the mean over the valid labels of the
-    ranks of ``mean_axes`` (every mesh axis by default; the compressed
-    train step leaves "pod" out), their count from an all-reduce.
+    batch and the parameters as `model_part` cuts them; the rank computes
+    its own rows (`_rank_batch`).  The loss is the mean over the valid
+    labels of the ranks of ``mean_axes`` (every mesh axis by default; the
+    compressed train step leaves "pod" out), their count from an
+    all-reduce.
 
-    The returned loss has the value of that mean, and the gradient of
-    this rank's share of it: its rows' sum over the count, divided by the
-    ranks that hold the same rows (``rep``), plus its share of the MoE
-    auxiliary loss (a mean over the ranks, `share_mean`).  The shares of
-    the ranks of ``mean_axes`` add up to the loss, so the gradient is the
-    sum of the ranks' gradients over ``mean_axes``.  The metrics are the
+    The ranks that share a set of rows hold shares of the loss: every
+    rank of ``mean_axes`` when the activations are not cut over "model",
+    else every rank of ``mean_axes`` but "model" -- a "model" group (the
+    "model" cut, `parallel.sharding.model_cut`) computes its rows' loss
+    once, alike on its ranks: the logits are the rank's vocabulary
+    columns, log-sum-exp and the gold logit summed over "model"
+    (`collectives.vocab_logsumexp`, `from_model`), and each rank's
+    backward gives its own slices' gradient and the replicated leaves'
+    whole.  The returned loss has the value of the mean, and the gradient
+    of this rank's share: its rows' sum over the count, divided by the
+    share-holding ranks that hold the same rows (``rep``), plus its share
+    of the MoE auxiliary loss (a mean over the share-holding ranks,
+    `share_mean`).  The gradient is the sum of the ranks' gradients over
+    the share-holding axes (`train.train_step`).  The metrics are the
     reference's, for the whole group."""
     axes = mesh.axis_names if mean_axes is None else mesh.canonical(
         mean_axes)
     batch, constrain = _rank_batch(cfg, batch, mesh, constrain)
+    axes = tuple(a for a in axes if a in constrain.share_axes())
     logits, aux = _forward(params, cfg, batch, remat=remat, unroll=unroll,
                            mesh=mesh, constrain=constrain)
     labels = batch["labels"].to(logits.device)
     valid = labels >= 0
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None]
-                        )[..., 0]
+    labels_c = labels.clamp(min=0).long()
+    if cuts(constrain, "vocab_act", cfg.vocab_size):
+        logz = vocab_logsumexp(logits, mesh, "model")
+        part = logits.shape[-1]
+        local = labels_c - mesh.index("model") * part
+        mine = (local >= 0) & (local < part)
+        gold = torch.gather(logits, -1, local.clamp(0, part - 1)[..., None]
+                            )[..., 0]
+        gold = from_model(torch.where(mine, gold, 0.0), mesh, "model")
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
     rep = mesh.size(axes) // mesh.size(
         [a for a in constrain.rows if a in axes])
     n = psum(valid.sum().to(torch.int32), mesh, axes) // rep
@@ -315,31 +360,65 @@ def _mesh_loss(params, cfg, batch, *, mesh, constrain, remat, z_loss,
     return loss, metrics
 
 
+def model_specs(cfg: ModelConfig, rules, mesh) -> PyTree:
+    """The cut over "model" of every parameter that a call under
+    (``rules``, ``mesh``) uses as stored: the "model" entries of its
+    shape-aware spec where the rules cut activations over "model"
+    (`parallel.sharding.model_cut`), none elsewhere."""
+    from repro_torch.parallel.sharding import (
+        P, model_cut, param_spec_tree, split_model,
+    )
+    tp = model_cut(rules, mesh)
+    return tree_map(lambda s: split_model(s)[0] if tp > 1 else P(),
+                    param_spec_tree(leaf_tree(cfg), rules, mesh))
+
+
+def model_part(params: PyTree, cfg: ModelConfig, rules, mesh) -> PyTree:
+    """This rank's part (copies) of whole parameters as a call under
+    (``rules``, ``mesh``) takes them (`model_specs`)."""
+    return tree_map(lambda t, s: shard_of(t, s, mesh).clone(), params,
+                    model_specs(cfg, rules, mesh))
+
+
+def serving_part(params: PyTree, cfg: ModelConfig, rules, mesh) -> PyTree:
+    """`model_part` as a serving rank keeps it: under the "model" cut the
+    weights its calls would gather every call (the kv projections whose
+    heads do not divide "model", the SSM's ``in_proj`` and conv as the
+    rank's heads' columns: `transformer.serving_stack`) gathered once."""
+    part = model_part(params, cfg, rules, mesh)
+    constrain = Constrainer(rules, mesh, rows=())
+    if constrain.tp == 1:
+        return part
+    part["stack"] = tfm.serving_stack(part["stack"], cfg, constrain,
+                                      cross=cfg.encoder is not None)
+    if cfg.encoder is not None:
+        part["encoder"]["stack"] = tfm.serving_stack(
+            part["encoder"]["stack"], cfg, constrain)
+    return part
+
+
 # ---------------------------------------------------------------------------
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
-               device: str | torch.device | None = None) -> PyTree:
+               device: str | torch.device | None = None,
+               layout=no_constraint) -> PyTree:
     """``seq_len`` counts every position of the decoder's sequence (a VLM
     prefix included); enc-dec archs add a cross cache of the encoder's
-    frames."""
+    frames.  Under a serving ``layout`` (a `parallel.sharding.
+    Constrainer` on a mesh) each cache of the ``batch`` rows is the rank's
+    part, as the reference's decode-cache layout cuts it (its dry-run's
+    ``cache_shardings``): the kv heads over "model" where the call cuts
+    them, else the slots (with the layout's ``kv_seq``:
+    `attention.kv_slots`); the SSM state by head and the conv window's
+    channels of those heads (`ssm.init_ssm_state`)."""
     n_enc = cfg.encoder.n_frames if cfg.encoder is not None else 0
     return tfm.init_stack_cache(cfg, batch, seq_len,
                                 torch_dtype(cfg.activation_dtype),
                                 device=resolve_device(device),
-                                cross=cfg.encoder is not None, n_enc=n_enc)
-
-
-def _serving_mesh(mesh) -> None:
-    """Serving runs under meshes without a "model" axis: there the
-    reference's presets cut heads and MLP activations over "model"
-    (activation tensor parallelism), which is not ported."""
-    if mesh is not None and mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"serving on a mesh with a \"model\" axis of "
-            f"{mesh.shape['model']}: activation tensor parallelism is not "
-            f"ported yet (ROADMAP Queue 1 item 19)")
+                                cross=cfg.encoder is not None, n_enc=n_enc,
+                                layout=layout)
 
 
 @torch.no_grad()
@@ -350,28 +429,28 @@ def prefill(params: PyTree, cfg: ModelConfig, batch: dict, cache: PyTree, *,
     cache (in place).  Returns (last_logits (B, V) float32, cache,
     lengths (B,) int32: the positions filled, a VLM prefix included).
 
-    Under a ``mesh`` (serving: no "model" axis) every rank passes the
-    same whole batch and a whole cache and computes it all: ``constrain``
-    is a `Constrainer` whose ``rows`` are ``()`` (`serve.engine.
-    make_prefill_step` makes it; ``rules_for(cfg, "prefill")`` when none
-    is given), and the MoE layers dispatch over the mesh as `moe.
-    moe_forward` picks for rows replicated on every rank.  A caller that
-    holds a part of the cache keeps its part of the one filled here
-    (`serve.engine.ServeEngine`)."""
-    if mesh is not None:
-        _serving_mesh(mesh)
-        if not isinstance(constrain, Constrainer):
-            constrain = Constrainer(rules_for(cfg, "prefill"), mesh, rows=())
+    Under a ``mesh`` every rank passes the same whole batch and computes
+    every row: ``constrain`` is a `Constrainer` whose ``rows`` are ``()``
+    (`serve.engine.make_prefill_step` makes it; ``rules_for(cfg,
+    "prefill")`` when none is given).  The parameters are `model_part`'s
+    under its rules and the cache is the rank's part (`init_cache` with
+    ``layout=constrain``): where the rules cut activations over "model"
+    the rank computes its heads, MLP columns and vocabulary part, and
+    the logits come back whole; the MoE layers dispatch over the mesh as
+    `moe.moe_forward` picks for rows replicated on every rank."""
+    if mesh is not None and not isinstance(constrain, Constrainer):
+        constrain = Constrainer(rules_for(cfg, "prefill"), mesh, rows=())
     enc_out = _enc_out(params, cfg, batch, mesh=mesh, constrain=constrain,
                        unroll=unroll)
-    x, positions = _input_embeds(params, cfg, batch)
+    x, positions = _input_embeds(params, cfg, batch, constrain)
     x, cache = tfm.stack_prefill(params["stack"], cfg, x, cache,
                                  positions=positions,
                                  cross=enc_out is not None, enc_out=enc_out,
                                  mesh=mesh, constrain=constrain,
                                  unroll=unroll)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-    logits = _unembed(params, cfg, x[:, -1, :])
+    logits = _whole_logits(_unembed(params, cfg, x[:, -1, :], constrain),
+                           cfg, constrain)
     lengths = torch.full((x.shape[0],), x.shape[1], dtype=torch.int32,
                          device=x.device)
     return logits, cache, lengths
@@ -386,26 +465,26 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens_t: torch.Tensor,
     float32, cache (updated in place; a cross cache is only read), new
     lengths).
 
-    Under a ``mesh`` (serving: no "model" axis) the tokens, the cache
-    and the lengths are this rank's parts and the logits its rows', laid
-    out as ``constrain`` says (`parallel.sharding.serving_layout`: the
-    rows cut over its ``rows``, the attention caches' slots over its
-    ``kv_seq``)."""
-    if mesh is not None:
-        _serving_mesh(mesh)
+    Under a ``mesh`` the tokens, the cache and the lengths are this
+    rank's parts and the logits its rows', over the whole vocabulary,
+    laid out as ``constrain`` says (`parallel.sharding.serving_layout`:
+    the rows cut over its ``rows``, the attention caches' slots over its
+    ``kv_seq``, and the "model" cut as `prefill` has it)."""
     dev = params_device(params)
     lengths = lengths.to(dev)
-    x = apply_embedding(params["embed"], tokens_t.to(dev))
+    x = apply_embedding(params["embed"], tokens_t.to(dev),
+                        vocab=cfg.vocab_size, constrain=constrain)
     x = _maybe_abs_pos(cfg, x, lengths[:, None])
     x = x.to(torch_dtype(cfg.activation_dtype))
     x, cache = tfm.stack_decode(params["stack"], cfg, x, cache, lengths,
                                 cross=cfg.encoder is not None, mesh=mesh,
                                 constrain=constrain, unroll=unroll)
     x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-    logits = _unembed(params, cfg, x[:, 0, :])
+    logits = _whole_logits(_unembed(params, cfg, x[:, 0, :], constrain),
+                           cfg, constrain)
     return logits, cache, lengths + 1
 
 
 __all__ = ["init_model", "leaf_tree", "axes_tree", "init_cache", "forward",
-           "loss_fn", "prefill", "decode_step", "resolve_device",
+           "loss_fn", "model_specs", "model_part", "serving_part", "prefill", "decode_step", "resolve_device",
            "params_device", "sinusoidal"]

@@ -50,7 +50,12 @@ zero3 presets) the "model" group's rows are gathered first and each rank
 keeps its own after.  `moe_forward` picks EP under the reference's
 conditions; otherwise, under a mesh, every rank runs the dense dispatch
 on the gathered batch (capacity and drops are global, as in the
-reference) and keeps its rows.
+reference) and keeps its rows.  Under the "model" cut of the rules that
+cut activations (`parallel.sharding.model_cut`: ep, base, decode) the
+"model" group shares its rows and computes them alike: the experts and
+the shared experts are the rank's FF columns as stored, entered by
+`collectives.to_model` and summed by `collectives.from_model`, and the
+aux's mean is over the other axes.
 """
 from __future__ import annotations
 
@@ -62,7 +67,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.moe_gmm.ops import gmm
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.parallel import collectives as coll
-from repro_torch.parallel.sharding import default_rows
+from repro_torch.parallel.sharding import (
+    Constrainer, cuts, default_rows, model_tp, no_constraint,
+)
 from repro_torch.models.layers import apply_mlp, init_mlp
 from repro_torch.models.param import Init
 
@@ -119,9 +126,15 @@ def _pick(buf: torch.Tensor, place: torch.Tensor) -> torch.Tensor:
     return torch.cat([buf, buf.new_zeros((1, *buf.shape[1:]))])[place]
 
 
-def moe_forward_dense(p: dict, cfg: ModelConfig, x: torch.Tensor
+def moe_forward_dense(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
+                      constrain=no_constraint
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (y (B, S, d) in x's dtype, aux (float32 scalar))."""
+    """Returns (y (B, S, d) in x's dtype, aux (float32 scalar)).  Under a
+    call that cuts the expert FF dim over "model" ("mlp_act") the experts
+    are the rank's FF columns (and rows of ``down``): the capacity buffer
+    enters them by `collectives.to_model`, the down products' float32
+    partials are summed over "model" and rounded once, and the shared
+    experts are the MLP's column/row cut."""
     m = cfg.moe
     E, k = m.n_experts, m.top_k
     B, S, d = x.shape
@@ -143,11 +156,21 @@ def moe_forward_dense(p: dict, cfg: ModelConfig, x: torch.Tensor
     buf[place] = xt.repeat_interleave(k, dim=0)
     ex_in = buf[:E * C]
 
+    mesh = None
+    if cuts(constrain, "mlp_act", m.d_ff_expert):
+        mesh = constrain.mesh
+        for name in ("gate", "up", "down"):
+            coll.part_of_leaf(p[name], m.d_ff_expert, 1 if name == "down"
+                              else 2, mesh)
+        ex_in = coll.to_model(ex_in, mesh)
     sizes = torch.full((E,), C, dtype=torch.int32, device=x.device)
     h = gmm(ex_in, p["gate"], sizes, out_dtype=torch.float32)
     u = gmm(ex_in, p["up"], sizes, out_dtype=torch.float32)
     h = (F.silu(h) * u).to(x.dtype)
-    ex_out = gmm(h, p["down"], sizes, out_dtype=torch.float32).to(x.dtype)
+    ex_out = gmm(h, p["down"], sizes, out_dtype=torch.float32)
+    if mesh is not None:
+        ex_out = coll.from_model(ex_out, mesh)
+    ex_out = ex_out.to(x.dtype)
 
     out_rows = _pick(ex_out, place)
     g = gates.to(x.dtype).reshape(T * k, 1)
@@ -155,8 +178,17 @@ def moe_forward_dense(p: dict, cfg: ModelConfig, x: torch.Tensor
     y = y.to(x.dtype)
 
     if "shared" in p:
-        y = y + apply_mlp(p["shared"], xt, gated=cfg.gated_mlp, act=cfg.act)
+        y = y + _shared(p["shared"], cfg, xt, constrain)
     return y.reshape(B, S, d), aux
+
+
+def _shared(p: dict, cfg: ModelConfig, x: torch.Tensor, constrain):
+    """The shared experts: one MLP of ``n_shared_experts`` x the expert FF
+    width."""
+    m = cfg.moe
+    return apply_mlp(p, x, gated=cfg.gated_mlp, act=cfg.act,
+                     d_ff=m.d_ff_expert * m.n_shared_experts,
+                     constrain=constrain)
 
 
 # ---------------------------------------------------------------------------
@@ -188,10 +220,14 @@ def _sort_dispatch(values: torch.Tensor, key: torch.Tensor, n_buckets: int,
 
 
 def _ep_local(xt, router_w, w_gate, w_up, w_down, *, m: MoEConfig, mesh,
-              data_axis: str, model_axis: str, cf: float):
+              data_axis: str, model_axis: str, cf: float, tp: bool = False):
     """The per-rank body. xt: (T_loc, d) the rank's tokens; w_*: the
     rank's expert shards, (E_loc, d, f_loc) and (E_loc, f_loc, d).
-    Returns (y (T_loc, d), the rank's local aux estimate)."""
+    Returns (y (T_loc, d), the rank's local aux estimate).  With ``tp``
+    the "model" group back-propagates one loss alike (the "model" cut,
+    `parallel.sharding.model_cut`): the grouped rows enter the rank's FF
+    columns by `collectives.to_model` and the partials are summed by
+    `collectives.from_model`."""
     T_loc, d = xt.shape
     E, k = m.n_experts, m.top_k
     dsz = mesh.shape[data_axis]
@@ -226,13 +262,15 @@ def _ep_local(xt, router_w, w_gate, w_up, w_down, *, m: MoEConfig, mesh,
 
     sizes = torch.full((E_loc,), cap_e, dtype=torch.int32, device=xt.device)
     flat = grouped.reshape(E_loc * cap_e, d)
+    if tp:
+        flat = coll.to_model(flat, mesh, model_axis)
     h = gmm(flat, w_gate, sizes, out_dtype=torch.float32)
     u = gmm(flat, w_up, sizes, out_dtype=torch.float32)
     h = (F.silu(h) * u).to(xt.dtype)
     y_g = gmm(h, w_down, sizes, out_dtype=torch.float32).to(xt.dtype)
     # the down-projection partials summed over "model" in the activation
     # dtype (the float32 accumulation happened inside the products)
-    y_g = coll.psum(y_g, mesh, model_axis)
+    y_g = (coll.from_model if tp else coll.psum)(y_g, mesh, model_axis)
 
     # expert outputs back to the received order, then the reverse a2a
     ry = _pick(y_g, place2)[torch.argsort(order2)]
@@ -244,25 +282,28 @@ def _ep_local(xt, router_w, w_gate, w_up, w_down, *, m: MoEConfig, mesh,
     return y.to(xt.dtype), aux
 
 
-def _local_experts(w: torch.Tensor, E_loc: int, f_dim: int, mesh,
+def _local_experts(w: torch.Tensor, E_loc: int, f: int, f_dim: int, mesh,
                    data_axis: str, model_axis: str) -> torch.Tensor:
-    """The rank's expert shard of ``w``: given whole (E, ...), its E_loc
-    experts and its part of the FF dim ``f_dim``; given the shard, as it
-    is."""
-    if w.shape[0] == E_loc:
-        return w
-    w = coll.own_slice(w, mesh, data_axis, 0)
-    return coll.own_slice(w, mesh, model_axis, f_dim).contiguous()
+    """The rank's expert shard of ``w``: its E_loc experts (sliced when
+    ``w`` holds every expert) and its part of the FF dim ``f_dim`` (sliced
+    when ``w`` holds it whole, ``f`` wide)."""
+    if w.shape[0] != E_loc:
+        w = coll.own_slice(w, mesh, data_axis, 0)
+    if w.shape[f_dim] == f:
+        w = coll.own_slice(w, mesh, model_axis, f_dim)
+    return w.contiguous()
 
 
 def moe_forward_ep(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh, *,
                    rows: tuple[str, ...] | None = None,
-                   data_axis: str = "data", model_axis: str = "model"
+                   data_axis: str = "data", model_axis: str = "model",
+                   constrain=no_constraint
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel dispatch on this rank.  ``x`` (B_loc, S, d): the
     rank's rows, cut over ``rows`` (by default the batch axes ("pod",
     "data") present; with "model" among them the model group's rows are
-    gathered first).  ``p``'s experts are whole or this rank's shards;
+    gathered first).  ``p``'s experts are whole or this rank's shards
+    (under the "model" cut of ``constrain`` its FF part as stored);
     the router is whole.  Returns (y like x, aux: the mean of the ranks'
     local estimates)."""
     m = cfg.moe
@@ -270,21 +311,30 @@ def moe_forward_ep(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh, *,
     E_loc = m.n_experts // mesh.shape[data_axis]
     if rows is None:
         rows = default_rows(mesh)
+    tp = model_tp(constrain) > 1
     gathered = model_axis in rows and mesh.shape[model_axis] > 1
     xb = coll.all_gather(x, mesh, model_axis, 0) if gathered else x
-    w = {name: _local_experts(p[name], E_loc, 1 if name == "down" else 2,
-                              mesh, data_axis, model_axis)
+    w = {name: _local_experts(p[name], E_loc, m.d_ff_expert,
+                              1 if name == "down" else 2, mesh, data_axis,
+                              model_axis)
          for name in ("gate", "up", "down")}
     y, aux = _ep_local(xb.reshape(-1, d), p["router"], w["gate"], w["up"],
                        w["down"], m=m, mesh=mesh, data_axis=data_axis,
-                       model_axis=model_axis, cf=m.capacity_factor)
+                       model_axis=model_axis, cf=m.capacity_factor, tp=tp)
     y = y.reshape(xb.shape)
     if gathered:
         y = coll.own_slice(y, mesh, model_axis, 0)
-    aux = coll.share_mean(aux, mesh, mesh.axis_names)
+    aux = coll.share_mean(aux, mesh, _share_axes(mesh, constrain))
     if "shared" in p:
-        y = y + apply_mlp(p["shared"], x, gated=cfg.gated_mlp, act=cfg.act)
+        y = y + _shared(p["shared"], cfg, x, constrain)
     return y, aux
+
+
+def _share_axes(mesh, constrain) -> tuple[str, ...]:
+    """The axes whose ranks hold shares of the auxiliary loss's mean."""
+    if isinstance(constrain, Constrainer):
+        return constrain.share_axes()
+    return mesh.axis_names
 
 
 def use_ep(cfg: ModelConfig, mesh, batch: int) -> bool:
@@ -301,21 +351,26 @@ def use_ep(cfg: ModelConfig, mesh, batch: int) -> bool:
 
 
 def moe_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, mesh=None, *,
-                rows: tuple[str, ...] | None = None
+                rows: tuple[str, ...] | None = None,
+                constrain=no_constraint
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Dispatch selector.  Without a mesh: the dense dispatch.  With one
     (``x`` the rank's rows, cut over ``rows``): EP where `use_ep` holds,
     else the dense dispatch over the gathered batch, this rank keeping
-    its rows; aux is then a mean over the ranks (`share_mean`)."""
+    its rows; aux is then a mean over the ranks (`share_mean`).  Under
+    the "model" cut of ``constrain`` the experts are the rank's FF
+    part."""
     if mesh is None:
         return moe_forward_dense(p, cfg, x)
     if rows is None:
         rows = default_rows(mesh)
     if use_ep(cfg, mesh, x.shape[0] * mesh.size(rows)):
-        return moe_forward_ep(p, cfg, x, mesh, rows=rows)
-    y, aux = moe_forward_dense(p, cfg, coll.all_gather(x, mesh, rows, 0))
+        return moe_forward_ep(p, cfg, x, mesh, rows=rows,
+                              constrain=constrain)
+    y, aux = moe_forward_dense(p, cfg, coll.all_gather(x, mesh, rows, 0),
+                               constrain=constrain)
     return (coll.own_slice(y, mesh, rows, 0),
-            coll.share_mean(aux, mesh, mesh.axis_names))
+            coll.share_mean(aux, mesh, _share_axes(mesh, constrain)))
 
 
 __all__ = ["init_moe", "moe_forward_dense", "moe_forward_ep", "moe_forward",

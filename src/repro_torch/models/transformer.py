@@ -166,18 +166,22 @@ def _ffn(p: dict, cfg: ModelConfig, spec: SlotSpec, x: torch.Tensor, *,
     h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
     if spec.ffn == "moe":
         y, aux = moe_mod.moe_forward(p["ffn"], cfg, h, mesh,
-                                     rows=getattr(constrain, "rows", None))
+                                     rows=getattr(constrain, "rows", None),
+                                     constrain=constrain)
         return x + y, aux
-    return x + apply_mlp(p["ffn"], h, gated=cfg.gated_mlp, act=cfg.act), None
+    return x + apply_mlp(p["ffn"], h, gated=cfg.gated_mlp, act=cfg.act,
+                         d_ff=cfg.d_ff, constrain=constrain), None
 
 
 def _cross(p: dict, cfg: ModelConfig, x: torch.Tensor,
-           enc_out: torch.Tensor, return_kv: bool = False):
+           enc_out: torch.Tensor, return_kv: bool = False, *, mesh=None,
+           constrain=no_constraint):
     """The cross-attention sub-block with its residual over the encoder's
     output; with ``return_kv`` also its (k, v) for the cross cache."""
     h = apply_norm(cfg.norm, p["norm_ca"], x, cfg.norm_eps)
     y = attn.attn_forward(p["cross"], cfg, h, kv_ctx=enc_out,
-                          return_kv=return_kv)
+                          return_kv=return_kv, mesh=mesh,
+                          constrain=constrain)
     if return_kv:
         return x + y[0], y[1]
     return x + y
@@ -196,10 +200,10 @@ def apply_block(p: dict, cfg: ModelConfig, spec: SlotSpec, x: torch.Tensor,
                                 positions=positions, constrain=constrain,
                                 mesh=mesh)
     else:
-        mix = ssm_mod.ssm_forward(p["mixer"], cfg, h)
+        mix = ssm_mod.ssm_forward(p["mixer"], cfg, h, constrain=constrain)
     x = x + mix
     if spec.cross:
-        x = _cross(p, cfg, x, enc_out)
+        x = _cross(p, cfg, x, enc_out, mesh=mesh, constrain=constrain)
     return _ffn(p, cfg, spec, x, mesh=mesh, constrain=constrain)
 
 
@@ -222,6 +226,24 @@ def init_stack(init: Init, cfg: ModelConfig, *, n_layers: int | None = None,
 def _n_scan(params: dict) -> int:
     leaf = params["slot0"]["norm1"]["scale"]
     return leaf.shape[0]
+
+
+def serving_stack(params: dict, cfg: ModelConfig, constrain, *,
+                  cross: bool = False) -> dict:
+    """The stacked parameters as a serving rank keeps them under
+    ``constrain``'s "model" cut (`attn.serving_leaves`,
+    `ssm_mod.serving_leaves`: the weights a decode call would gather,
+    gathered once)."""
+    out = {}
+    for spec in slot_specs(cfg, cross=cross):
+        p = dict(params[f"slot{spec.slot}"])
+        leaves = (attn.serving_leaves if spec.mixer == "attn"
+                  else ssm_mod.serving_leaves)
+        p["mixer"] = leaves(p["mixer"], cfg, constrain)
+        if spec.cross:
+            p["cross"] = attn.serving_leaves(p["cross"], cfg, constrain)
+        out[f"slot{spec.slot}"] = p
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -270,10 +292,12 @@ def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, *,
                      device: torch.device, cross: bool = False,
-                     n_enc: int = 0) -> dict:
+                     n_enc: int = 0, layout=no_constraint) -> dict:
     """Cache tree matching the stacked params; each leaf has a leading
     n_scan axis.  With ``cross`` each slot also holds a ``crosskv``
-    cache of ``n_enc`` slots (the encoder's length)."""
+    cache of ``n_enc`` slots (the encoder's length).  Under a serving
+    ``layout`` each cache is the rank's part (`attn.init_kv_cache`,
+    `ssm_mod.init_ssm_state`; a cross cache keeps every slot)."""
     n_scan = cfg.n_scan
     out = {}
     for spec in slot_specs(cfg, cross=cross):
@@ -281,13 +305,15 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, *,
         if spec.mixer == "attn":
             cap = spec.cache_capacity(cfg, seq_len)
             slot["self"] = attn.init_kv_cache(cfg, batch, cap, dtype,
-                                              device=device)
+                                              device=device, layout=layout)
         else:
             slot["ssm"] = ssm_mod.init_ssm_state(cfg, batch, dtype,
-                                                 device=device)
+                                                 device=device,
+                                                 layout=layout)
         if spec.cross:
             slot["crosskv"] = attn.init_kv_cache(cfg, batch, n_enc, dtype,
-                                                 device=device)
+                                                 device=device,
+                                                 layout=layout, slots=False)
         out[f"slot{spec.slot}"] = {
             kind: {k: t[None].repeat(n_scan, *([1] * t.dim()))
                    for k, t in base.items()}
@@ -305,12 +331,14 @@ def apply_block_decode(p: dict, cfg: ModelConfig, spec: SlotSpec,
                                   rope_on=spec.rope_on, window=spec.window,
                                   mesh=mesh, constrain=constrain)
     else:
-        mix, _ = ssm_mod.ssm_decode(p["mixer"], cfg, h, cache["ssm"])
+        mix, _ = ssm_mod.ssm_decode(p["mixer"], cfg, h, cache["ssm"],
+                                    constrain=constrain)
     x_t = x_t + mix
     if spec.cross:
         h = apply_norm(cfg.norm, p["norm_ca"], x_t, cfg.norm_eps)
         y, _ = attn.attn_decode(p["cross"], cfg, h, cache["crosskv"],
-                                lengths, cross=True)
+                                lengths, cross=True, mesh=mesh,
+                                constrain=constrain)
         x_t = x_t + y
     return _ffn(p, cfg, spec, x_t, mesh=mesh, constrain=constrain)[0]
 
@@ -347,15 +375,19 @@ def apply_block_prefill(p: dict, cfg: ModelConfig, spec: SlotSpec,
     if spec.mixer == "attn":
         mix, (k, v) = attn.attn_forward(
             p["mixer"], cfg, h, rope_on=spec.rope_on, window=spec.window,
-            causal=True, positions=positions, return_kv=True)
-        attn.cache_fill(cache["self"], k, v, positions)
+            causal=True, positions=positions, return_kv=True, mesh=mesh,
+            constrain=constrain)
+        attn.cache_fill(cache["self"], k, v, positions, mesh=mesh,
+                        axes=attn.kv_slots(cfg, mesh, constrain))
     else:
         mix, state = ssm_mod.ssm_forward(p["mixer"], cfg, h,
-                                         return_state=True)
+                                         return_state=True,
+                                         constrain=constrain)
         ssm_mod.ssm_fill(cache["ssm"], state)
     x = x + mix
     if spec.cross:
-        x, (xk, xv) = _cross(p, cfg, x, enc_out, return_kv=True)
+        x, (xk, xv) = _cross(p, cfg, x, enc_out, return_kv=True, mesh=mesh,
+                             constrain=constrain)
         attn.cache_fill(cache["crosskv"], xk, xv, attn.default_positions(
             xk.shape[0], xk.shape[1], xk.device))
     return _ffn(p, cfg, spec, x, mesh=mesh, constrain=constrain)[0]
@@ -382,6 +414,6 @@ def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 __all__ = ["SlotSpec", "slot_specs", "init_block", "apply_block",
-           "init_stack", "stack_forward", "init_stack_cache",
+           "init_stack", "serving_stack", "stack_forward", "init_stack_cache",
            "apply_block_decode", "stack_decode", "apply_block_prefill",
            "stack_prefill"]

@@ -149,6 +149,50 @@ class _ShareMean(torch.autograd.Function):
         return g / ctx.n, None, None
 
 
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g.contiguous(), ctx.mesh, ctx.axes), None, None
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(g, ctx.mesh, ctx.axes, ctx.dim).contiguous(), \
+            None, None, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return _own(x, mesh, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
 def all_gather(x: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     """The group's ``x`` concatenated along ``dim`` in group order
     (differentiable: the gradient is the reduce-scatter)."""
@@ -186,6 +230,97 @@ def share_mean(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if mesh.size(axes) == 1:
         return x
     return _ShareMean.apply(x, mesh, axes)
+
+
+# ---------------------------------------------------------------------------
+# Megatron's region maps (activation tensor parallelism over "model")
+# ---------------------------------------------------------------------------
+#
+# Within a "model" group that computes one set of rows, a tensor is either
+# replicated (every rank holds the same value, and gets the same whole
+# cotangent in the backward pass) or the rank's own part.  The maps below
+# cross between the two; every rank of the group then back-propagates the
+# same loss, and a replicated leaf's gradient comes out whole and equal on
+# every rank of the group.
+
+def to_model(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """A replicated tensor entering the rank's own computation (a
+    column-parallel product): the identity, whose gradient is the sum of
+    the ranks' partial cotangents."""
+    if mesh.size(axes) == 1:
+        return x
+    return _ToModel.apply(x, mesh, axes)
+
+
+def from_model(x: torch.Tensor, mesh, axes="model") -> torch.Tensor:
+    """The ranks' partial results summed into a replicated tensor (after
+    a row-parallel product; a vocab-parallel sum): a psum whose gradient
+    is the replicated cotangent as it is."""
+    if mesh.size(axes) == 1:
+        return x
+    return _FromModel.apply(x, mesh, axes)
+
+
+def gather_from_model(x: torch.Tensor, mesh, axes="model",
+                      dim: int = -1) -> torch.Tensor:
+    """The ranks' parts concatenated along ``dim`` into a replicated
+    tensor (a leaf every rank then uses alike, logits made whole): the
+    gradient is the rank's part of the replicated cotangent."""
+    if mesh.size(axes) == 1:
+        return x
+    return _GatherFromModel.apply(x, mesh, axes, dim % x.dim())
+
+
+def scatter_to_model(x: torch.Tensor, mesh, axes="model",
+                     dim: int = -1) -> torch.Tensor:
+    """The rank's equal part along ``dim`` of a replicated tensor: the
+    gradient is the ranks' parts gathered, whole on every rank."""
+    if mesh.size(axes) == 1:
+        return x
+    return _ScatterToModel.apply(x, mesh, axes, dim % x.dim())
+
+
+def vocab_logsumexp(logits: torch.Tensor, mesh, axes="model"
+                    ) -> torch.Tensor:
+    """log(sum(exp)) over the last dim of logits cut over ``axes``: the
+    group's max (a constant shift, held out of the gradient), then the
+    sum of the exps over the group (`from_model`).  Replicated."""
+    if mesh.size(axes) == 1:
+        return torch.logsumexp(logits, dim=-1)
+    top = pmax(logits.detach().amax(dim=-1).float(), mesh, axes)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    total = from_model(torch.exp(logits - top[..., None]).sum(dim=-1),
+                       mesh, axes)
+    return top + torch.log(total)
+
+
+def whole_leaf(w: torch.Tensor, full: int, dim: int, mesh, *,
+               alike: bool, axes="model") -> torch.Tensor:
+    """A leaf whose ``dim`` (``full`` wide whole) the storage cuts over
+    ``axes`` where it divides: as it is when whole, else gathered.  With
+    ``alike`` the ranks use it alike (replicated computation: the
+    gradient is the rank's part), else each for its own part (the
+    gradient is the sum of the ranks', then the rank's part)."""
+    if w.shape[dim] == full:
+        return w
+    if w.shape[dim] * mesh.size(axes) != full:
+        raise ValueError(f"a leaf of {w.shape[dim]} along {dim} is neither "
+                         f"whole ({full}) nor a part over {axes}")
+    if alike:
+        return gather_from_model(w, mesh, axes, dim)
+    return all_gather(w, mesh, axes, dim % w.dim())
+
+
+def part_of_leaf(w: torch.Tensor, full: int, dim: int, mesh,
+                 axes="model") -> torch.Tensor:
+    """A leaf the storage cuts over ``axes`` along ``dim``, as the rank's
+    part: raises when it is whole (the cut is used as it is stored,
+    never gathered)."""
+    if w.shape[dim] * mesh.size(axes) != full:
+        raise ValueError(f"expected the rank's part ({full} // "
+                         f"{mesh.size(axes)}) along {dim}, got "
+                         f"{w.shape[dim]}")
+    return w
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +437,9 @@ def reduce_scatter_matmul_hint(x: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["pmax", "all_gather", "own_slice", "all_to_all",
-           "psum", "share_mean", "shard_of", "unshard", "replication",
+           "psum", "share_mean", "to_model", "from_model",
+           "gather_from_model", "scatter_to_model", "vocab_logsumexp",
+           "whole_leaf", "part_of_leaf", "shard_of", "unshard", "replication",
            "assert_replicated",
            "rng_seed", "compressed_psum", "compressed_psum_tree",
            "psum_scalar", "reduce_scatter_matmul_hint"]

@@ -27,11 +27,20 @@ on any mesh whose ``shape`` maps axis names to sizes (the port's
 
 How the port executes a spec (see `train.train_step`): each rank stores
 its shard of every leaf (``param_sharding_tree``'s placements: a
-``Shard(dim)`` or ``Replicate()`` per mesh dim) and all-gathers the full
-leaf before use, ZeRO-style.  There is no GSPMD to hint, so `constrainer`
-keeps the reference's decision (`constraint_spec`, the sequence-parallel
-fallback included) as a function the tests read, and the constraint
-itself returns its tensor unchanged.
+``Shard(dim)`` or ``Replicate()`` per mesh dim).  Where the rules cut
+activations over "model" (base, fsdp, ep, decode, decode_sp: `model_cut`)
+a leaf's "model" cut is used as it is stored -- Megatron-style activation
+tensor parallelism: a rank computes its part of the heads, the MLP
+columns, the SSM heads and the vocabulary -- and the leaf is all-gathered
+over the other axes only (`split_model`); elsewhere (zero3, zero3_ep)
+the rank all-gathers the full leaf before use, ZeRO-style.  There is no
+GSPMD to hint: `Constrainer.cuts` asks the reference's decision
+(`constraint_spec`, which drops an axis that does not divide and falls
+back to sequence parallelism) whether a call computes its part of an
+activation axis, and the constraint itself returns its tensor unchanged.
+`Constrainer.kv_slots` holds the reference's decode-cache fallback (its
+dry-run's ``cache_shardings``): the KV cache by kv head over "model"
+where the kv heads divide it, else by slot.
 """
 from __future__ import annotations
 
@@ -291,6 +300,35 @@ def row_axes(rules: ShardingRules, mesh, batch: int) -> tuple[str, ...]:
     return () if spec is None else _axes_of(spec[0])
 
 
+#: the activation axes whose cut over "model" is activation tensor
+#: parallelism
+MODEL_ACT_AXES = ("heads_act", "kv_act", "mlp_act", "ssm_heads", "vocab_act")
+
+
+def model_cut(rules: ShardingRules, mesh) -> int:
+    """The "model" axis's size where a call under ``rules`` computes its
+    part of the activations over it (the rules cut an activation axis
+    over "model" and keep the batch off it; the model group's ranks then
+    share their rows), else 1."""
+    m = mesh.shape.get("model", 1) if mesh is not None else 1
+    if m <= 1 or "model" in _axes_of(rules.mesh_axes("batch", mesh)):
+        return 1
+    if any(rules.mesh_axes(a, mesh) == "model" for a in MODEL_ACT_AXES):
+        return m
+    return 1
+
+
+def split_model(spec: P) -> tuple[P, P]:
+    """(the spec's "model" entries, the rest): the cut a rank uses as it is
+    stored under `model_cut`, and the axes it is all-gathered over."""
+    used = P(*("model" if "model" in _axes_of(e) else None for e in spec))
+    rest = []
+    for e in spec:
+        axs = tuple(a for a in _axes_of(e) if a != "model")
+        rest.append(axs if len(axs) > 1 else (axs[0] if axs else None))
+    return used, P(*rest)
+
+
 class Constrainer:
     """``constrain(x, logical_axes)``: the reference's in-graph activation
     hint.  The port's tensors are per-rank, so it returns ``x`` as it is;
@@ -298,7 +336,10 @@ class Constrainer:
     ``rows``,
     when set (`models.model.loss_fn` sets it), names the mesh axes the
     model's batch rows are cut over on this call; ``kv_seq`` (serving,
-    `serving_layout`) the axes a KV cache's slots are cut over."""
+    `serving_layout`) the axes a KV cache's slots are cut over.  ``tp``
+    is `model_cut`: the "model" group's size where the call computes its
+    part of the activations (and its leaves come cut as `split_model`
+    says), else 1."""
 
     def __init__(self, rules: ShardingRules, mesh,
                  rows: tuple[str, ...] | None = None,
@@ -307,9 +348,45 @@ class Constrainer:
         self.mesh = mesh
         self.rows = rows
         self.kv_seq = kv_seq
+        self.tp = model_cut(rules, mesh)
 
     def __call__(self, x, axes):
         return x
+
+    def cuts(self, logical: str, size: int) -> bool:
+        """Whether this call computes its part of an activation axis
+        ``logical`` (one of `MODEL_ACT_AXES`) of ``size``: the reference
+        constrainer's decision for that dim."""
+        if self.tp == 1:
+            return False
+        spec = constraint_spec((size,), (logical,), self.rules, self.mesh)
+        return spec is not None and spec[0] == "model"
+
+    def share_axes(self) -> tuple[str, ...]:
+        """The axes whose ranks hold shares of a mean (a loss, the MoE
+        auxiliary loss): every mesh axis but "model" under the cut (the
+        group computes one share alike)."""
+        return tuple(a for a in self.mesh.axis_names
+                     if self.tp == 1 or a != "model")
+
+    def kv_slots(self, n_kv_heads: int) -> tuple[str, ...]:
+        """The axes a KV cache's slots are cut over: ``kv_seq``, and
+        "model" under the cut when the kv heads do not divide it (the
+        reference's fallback, its dry-run's ``cache_shardings``)."""
+        if self.tp == 1 or self.cuts("kv_act", n_kv_heads):
+            return self.kv_seq
+        return self.mesh.canonical(self.kv_seq + ("model",))
+
+
+def model_tp(constrain) -> int:
+    """A constrainer's `Constrainer.tp` (1 for `no_constraint`)."""
+    return getattr(constrain, "tp", 1)
+
+
+def cuts(constrain, logical: str, size: int) -> bool:
+    """`Constrainer.cuts` of any constrainer (False for
+    `no_constraint`)."""
+    return model_tp(constrain) > 1 and constrain.cuts(logical, size)
 
 
 def no_constraint(x, axes):
@@ -356,5 +433,6 @@ __all__ = ["P", "ShardingRules", "BATCH_AXES", "preset", "rules_for",
            "logical_to_spec", "spec_tree", "spec_for", "placements",
            "param_spec_tree", "param_sharding_tree", "named_sharding_tree",
            "constraint_spec", "row_axes", "serving_layout", "Constrainer",
-           "constrainer",
+           "constrainer", "model_cut", "split_model", "model_tp", "cuts",
+           "MODEL_ACT_AXES",
            "no_constraint", "layout_rows", "default_rows", "batch_spec"]

@@ -15,16 +15,24 @@ prefilled alone, as a batch of one into a fresh one-row cache, and that
 row is copied into its slot of the engine's cache; the decode tick then
 runs over every row, and greedy argmax picks each token.
 
-Under a mesh (`launch.mesh.WorkerMesh`, no "model" axis: that would be
-activation tensor parallelism, ROADMAP Queue 1 item 19) the engine runs
-SPMD: every rank runs the same loop over the same requests, with whole
-parameters, and holds its part of the cache as the rules lay it out
-(`parallel.sharding.serving_layout`): under ``decode`` (and ``ep`` for
-MoE models) its rows, cut over "data"; under ``decode_sp`` (the rules
-of ``rules_for(cfg, "decode_long")``) every row but its part of each
-attention cache's slots.  A prefill is computed whole on every rank and
-each keeps its part; a tick's tokens come from the logits gathered over
-the mesh, and the ranks are held to the same tokens.
+Under a mesh (`launch.mesh.WorkerMesh`) the engine runs SPMD: every
+rank runs the same loop over the same requests and holds its part of the
+parameters and of the cache as the rules lay them out.  Where the rules
+cut activations over "model" (``decode``, ``ep`` and ``decode_sp`` on a
+mesh with a "model" axis: activation tensor parallelism) the rank keeps
+the "model" cut of the parameters (`models.model.serving_part`: the
+weights a call would gather, gathered once) and computes its part of
+the heads, MLP columns, SSM heads and vocabulary;
+its cache holds its kv heads (else its part of the slots over "model")
+and its SSM heads (`models.model.init_cache`'s layout).  The rows are
+cut as `parallel.sharding.serving_layout` says: under ``decode`` (and
+``ep`` for MoE models) over "data"; under ``decode_sp`` (the rules of
+``rules_for(cfg, "decode_long")``) every row, with its part of each
+attention cache's slots over "data".  A prefill computes every row of its
+request on every rank, in the rank's part of a one-row cache, and the
+rank that holds the row keeps it; a tick's tokens come from the logits
+(whole over the vocabulary) gathered over the rows' axes, and the ranks
+are held to the same tokens.
 """
 from __future__ import annotations
 
@@ -46,19 +54,22 @@ from repro_torch.parallel.sharding import (
 PyTree = Any
 
 
-def make_prefill_step(cfg: ModelConfig, mesh, rules: ShardingRules):
+def make_prefill_step(cfg: ModelConfig, mesh, rules: ShardingRules,
+                      kv_seq: tuple[str, ...] = ()):
     """``prefill_step(params, batch, cache)``: `models.model.prefill` on
-    a whole batch and a whole cache (under a mesh, on every rank: the
-    rows are on every rank, cut over no axis)."""
+    a whole batch (under a mesh, on every rank: the rows are on every
+    rank, cut over no axis; the cache is the rank's part, its slots cut
+    over ``kv_seq`` and "model" as `models.model.init_cache` lays them
+    out; ``prefill_step.layout`` is the constrainer)."""
     constrain = no_constraint
     if mesh is not None:
-        model_lib._serving_mesh(mesh)
-        constrain = Constrainer(rules, mesh, rows=())
+        constrain = Constrainer(rules, mesh, rows=(), kv_seq=kv_seq)
 
     def prefill_step(params, batch, cache):
         return model_lib.prefill(params, cfg, batch, cache, mesh=mesh,
                                  constrain=constrain)
 
+    prefill_step.layout = constrain
     return prefill_step
 
 
@@ -76,7 +87,6 @@ def make_decode_step(cfg: ModelConfig, mesh, rules: ShardingRules,
 
         decode_step.layout = None
         return decode_step
-    model_lib._serving_mesh(mesh)
     layout = serving_layout(rules, mesh, batch)
 
     def decode_step(params, tokens_t, cache, lengths):
@@ -129,14 +139,17 @@ class ServeEngine:
         self.queue: deque[Request] = deque()
         self.done: dict[int, Request] = {}
         rules = rules or rules_for(cfg, "decode")
-        self._prefill_one = make_prefill_step(cfg, mesh, rules)
         self._decode = make_decode_step(cfg, mesh, rules, batch_slots)
         self.layout = self._decode.layout
-        cache = model_lib.init_cache(cfg, batch_slots, max_seq,
-                                     device=self.device)
-        self.cache = (cache if mesh is None else
-                      _own_part(cache, mesh, self.layout.rows,
-                                self.layout.kv_seq))
+        rows = batch_slots
+        if mesh is not None:
+            self.params = model_lib.serving_part(params, cfg, rules, mesh)
+            rows //= mesh.size(self.layout.rows)
+        self._prefill_one = make_prefill_step(
+            cfg, mesh, rules, () if mesh is None else self.layout.kv_seq)
+        self.cache = model_lib.init_cache(cfg, rows, max_seq,
+                                          device=self.device,
+                                          layout=self.layout or no_constraint)
         self.lengths = torch.zeros((batch_slots,), dtype=torch.int32,
                                    device=self.device)
         self.last_tok = torch.zeros((batch_slots, 1), dtype=torch.int64,
@@ -169,23 +182,20 @@ class ServeEngine:
             self._reqs[req.rid] = req
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                      device=self.device)[None, :]
-            row_cache = model_lib.init_cache(self.cfg, 1, self.max_seq,
-                                             device=self.device)
+            row_cache = model_lib.init_cache(
+                self.cfg, 1, self.max_seq, device=self.device,
+                layout=self._prefill_one.layout)
             logits, row_cache, row_len = self._prefill_one(
                 self.params, {"tokens": prompt}, row_cache)
             self.prefill_calls += 1
             if self.mesh is None:
                 _splice_row(self.cache, row_cache, i)
             else:
-                # the row's slots this rank holds, into its row i if it
-                # holds that row
+                # into the rank's row i, if it holds that row
                 rows = self.layout.rows
                 per = len(self.slots) // self.mesh.size(rows)
-                mine = i // per == self.mesh.index(rows)
-                if mine:
-                    _splice_row(self.cache, _own_part(
-                        row_cache, self.mesh, (), self.layout.kv_seq),
-                        i % per)
+                if i // per == self.mesh.index(rows):
+                    _splice_row(self.cache, row_cache, i % per)
             self.lengths[i] = row_len[0]
             nxt = int(self._agreed(torch.argmax(logits[0]))[0])
             self.last_tok[i, 0] = nxt
@@ -241,28 +251,6 @@ class ServeEngine:
             raise AssertionError("ServeEngine: the ranks picked different "
                                  "tokens")
         return tokens
-
-
-def _own_part(cache: PyTree, mesh, rows: tuple[str, ...],
-              kv_seq: tuple[str, ...], seq: tuple[str, ...] = ()) -> PyTree:
-    """This rank's part (a copy) of a whole cache: its rows (axis 1,
-    after the layer-stack axis) over ``rows``, and its part of each
-    attention cache's slots (axis 2 of the ``self`` caches) over
-    ``kv_seq``."""
-    out = {}
-    for k, v in cache.items():
-        if isinstance(v, dict):
-            out[k] = _own_part(v, mesh, rows, kv_seq,
-                               kv_seq if k == "self" else ())
-            continue
-        for dim, axes in ((1, rows), (2, seq)):
-            if v.shape[dim] % mesh.size(axes):
-                raise ValueError(
-                    f"serving: a cache of {v.shape[dim]} along axis {dim} "
-                    f"does not divide over {axes} ({mesh.size(axes)})")
-        part = coll.own_slice(coll.own_slice(v, mesh, rows, 1), mesh, seq, 2)
-        out[k] = part.clone(memory_format=torch.contiguous_format)
-    return out
 
 
 def _splice_row(full: PyTree, row: PyTree, i: int):

@@ -72,9 +72,11 @@ def global_norm(tree: PyTree, *, mesh=None, specs: PyTree = None
         return torch.sqrt(sum(
             torch.linalg.vector_norm(leaf, dtype=torch.float32).square()
             for leaf in tree_leaves(tree)))
-    total = sum(torch.linalg.vector_norm(leaf, dtype=torch.float32).square()
-                / replication(spec, mesh)
-                for leaf, spec in zip(tree_leaves(tree), tree_leaves(specs)))
+    # leaf by leaf by name: a tree's key order need not be the specs'
+    total = sum(tree_leaves(tree_map(
+        lambda leaf, spec: torch.linalg.vector_norm(
+            leaf, dtype=torch.float32).square() / replication(spec, mesh),
+        tree, specs)))
     return torch.sqrt(psum(total, mesh, mesh.axis_names))
 
 

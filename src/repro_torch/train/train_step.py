@@ -15,13 +15,20 @@ averages them and the metrics (``tokens`` is summed), as the reference's
 With a ``mesh`` (`launch.mesh.WorkerMesh`, one rank per coordinate)
 and sharding ``rules`` the step is sharded ZeRO-style: each rank's state
 holds its shard of every parameter and moment (`param_specs`,
-`shard_state`), and the step all-gathers the whole parameters, computes
-the loss of its own rows of the global batch (every rank passes the same
-batch; `models.model.loss_fn` under a mesh, where attention is
+`shard_state`).  The step all-gathers the parameters -- over every axis
+where the rules keep activations uncut over "model" (zero3), over every
+axis but "model" where they cut them (base, fsdp, ep:
+`parallel.sharding.model_cut`; the rank then computes its part of the
+heads, MLP columns, SSM heads and vocabulary with its "model" cut as
+stored, `models.model.model_specs`) -- computes the loss of its own rows
+of the global batch (every rank passes the same batch;
+`models.model.loss_fn` under a mesh, where attention is
 sequence-parallel and the MoE layers expert-parallel as the reference
-selects), sums the gradients in float32 over the mesh
-(`parallel.collectives.psum`: the sum of the ranks' shares is the whole
-gradient), keeps its shard of the sum, and updates that shard with the
+selects), sums the gradients in float32 over the axes of the ranks that
+hold shares of the loss (`parallel.collectives.psum`: the mesh, or the
+mesh but "model" under the cut, where a "model" group computes its
+share alike and a replicated leaf's gradient is already whole on each of
+its ranks), keeps its shard of the sum, and updates that shard with the
 whole tree's clip factor.  With ``grad_compression="int8"`` (the
 reference's; its presets only: base/ep/decode, on a mesh with a
 "pod" axis) the loss is a mean within each pod, the gradients are summed
@@ -58,8 +65,8 @@ from repro_torch.parallel.collectives import (
     compressed_psum, psum, rng_seed, shard_of, unshard,
 )
 from repro_torch.parallel.sharding import (
-    P, ShardingRules, constrainer, param_sharding_tree, param_spec_tree,
-    placements, rules_for,
+    P, ShardingRules, constrainer, model_cut, param_sharding_tree,
+    param_spec_tree, placements, rules_for, split_model,
 )
 from repro_torch.train.optimizer import (
     OptimizerConfig, adamw_init, adamw_update,
@@ -141,9 +148,15 @@ def make_train_step(
     mean_axes = None
     if mesh is not None:
         specs = param_specs(cfg, rules, mesh)
+        # the axes a leaf is gathered over: under the "model" cut its
+        # "model" part is used as stored
+        tp = model_cut(rules, mesh)
+        gathered = tree_map(lambda s: split_model(s)[1] if tp > 1 else s,
+                            specs)
         constrain = constrainer(rules, mesh)
         mean_axes = tuple(a for a in mesh.axis_names
                           if a != "pod" or grad_compression is None)
+        sum_axes = tuple(a for a in mean_axes if a != "model" or tp == 1)
 
     def loss_for_batch(params, batch):
         if mesh is None:
@@ -180,15 +193,16 @@ def make_train_step(
                        for k, v in m_acc.items()}
 
     def sharded_grads(state, batch):
-        """Whole parameters in, this rank's shard of the reduced
-        gradient out."""
+        """The parameters as the forward uses them in (gathered over
+        ``gathered``'s axes), this rank's shard of the reduced gradient
+        out."""
         full = tree_map(lambda t, s: unshard(t, s, mesh), state.params,
-                        specs)
+                        gathered)
         grads, metrics = compute_grads(full, batch)
         del full
         grads = tree_map(
-            lambda g, s: shard_of(psum(g.float(), mesh, mean_axes), s,
-                                  mesh).clone(), grads, specs)
+            lambda g, s: shard_of(psum(g.float(), mesh, sum_axes), s,
+                                  mesh).clone(), grads, gathered)
         if grad_compression is not None:
             step = int(state.step)
             it = iter([compressed_psum(g, mesh, ("pod",),

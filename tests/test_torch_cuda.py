@@ -1404,6 +1404,27 @@ def test_mesh_phase_at_small_size_on_the_card(cuda, part):
     assert by_part[part]["flash_attention"] > 0
 
 
+@pytest.mark.parametrize("part", ["tp_serve", "tp_train"])
+def test_tp_phase_at_small_size_on_the_card(cuda, part):
+    """chip_smoke's phase 28 at small size (`TP_PLAN_SMALL`: the reduced
+    qwen2 and mamba2, head dim 32) in a world of 8 ranks on the card:
+    serving under decode on (4, 2) and (2, 4), each rank with its part of
+    the heads (float32 greedy tokens equal to one device's, the bfloat16
+    first tick within its bar and a dropped partial above it), or mamba2
+    trained under base on (4, 2) (the one-device losses and parameters,
+    a dropped partial above the loss bar); each rank's launches equal to
+    the shapes' exactly."""
+    from chip_smoke import (
+        PARALLEL_RANKS, TP_PLAN_SMALL, parallel_launches, parallel_phase,
+    )
+    plan = {part: TP_PLAN_SMALL[part]}
+    by_part = parallel_phase(plan, device="cuda")
+    want = [parallel_launches(plan, r)[part] for r in range(PARALLEL_RANKS)]
+    assert by_part == {part: {k: sum(w[k] for w in want)
+                              for k in by_part[part]}}
+    assert by_part[part]["ssd"] > 0
+
+
 def test_collectives_carry_cuda_tensors_on_gloo(cuda, tmp_path):
     """The collectives phase 26 uses, on CUDA tensors in a gloo world of
     4 ranks on the card: bfloat16 all-gather and all-to-all (as bytes),

@@ -387,10 +387,17 @@ def test_split_cache_merge_equals_whole_attention(world):
 
 
 def test_serving_with_a_model_axis_raises(world):
-    """A serving mesh with a "model" axis of 2 means activation tensor
-    parallelism, which is not ported: the engine refuses, naming its
-    ROADMAP item."""
+    """A serving mesh with a "model" axis of 2 no longer raises: the
+    engine serves with activation tensor parallelism (tests/
+    test_torch_tp.py holds its tokens against the JAX package's meshed
+    engine), each rank holding its half of the query heads' columns
+    (4 heads of 16 -> 32 of 64) and its kv head of the cache, its row of
+    the 4 over "data"."""
     out, _, _ = world
+    cfg = reduced_config("qwen2-1.5b")
     for r in out:
-        assert r["merge"]["model_axis"] is not None
-        assert "item 19" in r["merge"]["model_axis"]
+        assert r["merge"]["model_axis"] is None
+        assert r["merge"]["held"]["wq"] == (
+            cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.d_head // 2)
+        assert r["merge"]["held"]["k"] == (
+            cfg.n_layers, 1, 256, cfg.n_kv_heads // 2, cfg.d_head)

@@ -25,7 +25,7 @@ from repro_torch.models.param import (
 )
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (
-    constrainer, default_rows, preset, rules_for,
+    constrainer, default_rows, model_cut, preset, rules_for,
 )
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.train_step import (
@@ -139,22 +139,40 @@ def parallel_world(rank, dev, moe_case, g, seeds):
 # tests/test_torch_multidevice.py
 # ---------------------------------------------------------------------------
 
+def whole_gradient(params, grads, cfg, rules, mesh) -> list:
+    """The whole gradient of every leaf of ``params`` (``grads`` in
+    `tree_leaves` order) from each rank's gradient of its share of the
+    loss: summed over the axes of the ranks that hold shares (the mesh;
+    the mesh but "model" under the "model" cut, where the rank's gradient
+    is its part of a cut leaf), then gathered over the cut."""
+    tp = model_cut(rules, mesh)
+    axes = tuple(a for a in mesh.axis_names if a != "model" or tp == 1)
+    it = iter(grads)
+    whole = tree_map(
+        lambda _, s: coll.unshard(coll.psum(next(it).float(), mesh, axes),
+                                  s, mesh),
+        params, model_lib.model_specs(cfg, rules, mesh))
+    return [_np(g) for g in tree_leaves(whole)]
+
+
 def sp_losses(rank, dev, case):
-    """loss_fn and its gradient (summed over the mesh) on a (2, 4) mesh
-    under zero3 (rows cut over "model" too: the all-to-all) and base
-    (rows replicated over "model": the slice and gather)."""
+    """loss_fn and its gradient (made whole: `whole_gradient`) on a
+    (2, 4) mesh under zero3 (rows cut over "model" too: the all-to-all)
+    and base (rows replicated over "model": the slice and gather, the
+    MLP and vocabulary cut over "model")."""
     cfg = sp_config()
     params = params_from_reference(case["params"], device=dev)
     batch = _batch(case["batch"])
     mesh = WorkerMesh({"data": 2, "model": 4}, dev)
     out = {}
     for name in ("zero3", "base"):
-        pl = tree_map(lambda t: t.clone().requires_grad_(), params)
+        pl = tree_map(lambda t: t.clone().requires_grad_(),
+                      model_lib.model_part(params, cfg, preset(name), mesh))
         loss, metrics = model_lib.loss_fn(
             pl, cfg, batch, mesh=mesh,
             constrain=constrainer(preset(name), mesh), remat="none")
-        grads = [_np(coll.psum(g.float(), mesh, mesh.axis_names))
-                 for g in torch.autograd.grad(loss, tree_leaves(pl))]
+        grads = whole_gradient(pl, torch.autograd.grad(
+            loss, tree_leaves(pl)), cfg, preset(name), mesh)
         out[name] = {
             "loss": float(loss.detach()),
             "metrics": {k: float(v) for k, v in metrics.items()},
@@ -248,7 +266,8 @@ def multidevice_world(rank, dev, cases):
 # ---------------------------------------------------------------------------
 
 def cuda_collectives(rank, dev):
-    """Each collective of `parallel.collectives` on CUDA tensors."""
+    """Each collective of `parallel.collectives` on CUDA tensors (and
+    the region maps' forwards)."""
     mesh = WorkerMesh({"data": 2, "model": 2}, dev)
     x = torch.full((3, 4), float(rank), device=dev)
     b = (x + 0.5).to(torch.bfloat16)
@@ -263,6 +282,11 @@ def cuda_collectives(rank, dev):
             ).cpu().numpy(),
         "own_a2a": coll.all_to_all(b.reshape(2, 6)[:, :4].contiguous(),
                                    mesh, "model").float().cpu().numpy(),
+        # the region maps of activation tensor parallelism
+        "from_model_bf16": coll.from_model(b, mesh, mesh.axis_names).float(
+            ).cpu().numpy(),
+        "gather_from_model_bf16": coll.gather_from_model(
+            b, mesh, mesh.axis_names, 0).float().cpu().numpy(),
     }
     assert out["own_a2a"].shape == (2, 4)
     assert (out["psum_f32"] == 6.0).all()
@@ -393,8 +417,9 @@ def serve_on_mesh(rank, dev, case):
 def merged_attention(rank, dev, case):
     """A decode step's attention over a cache cut in 4 (one part holds
     no key): the rank's flash output and lse merged over "data", and the
-    attention over the whole cache; and a serving mesh with a "model"
-    axis of 2 refusing."""
+    attention over the whole cache; and an engine on a serving mesh with
+    a "model" axis of 2: the error it raises (None), and the widths of
+    the parameters and the cache it holds."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_forward,
     )
@@ -416,9 +441,13 @@ def merged_attention(rank, dev, case):
     mesh2 = WorkerMesh({"data": 4, "model": 2}, dev)
     cfg = reduced_config("qwen2-1.5b")
     try:
-        ServeEngine(cfg, model_lib.init_model(cfg, device=dev),
-                    mesh=mesh2, rules=rules_for(cfg, "decode"))
+        engine = ServeEngine(cfg, model_lib.init_model(cfg, device=dev),
+                             mesh=mesh2, rules=rules_for(cfg, "decode"))
         out["model_axis"] = None
+        out["held"] = {
+            "wq": tuple(engine.params["stack"]["slot0"]["mixer"]["wq"]["w"]
+                        .shape),
+            "k": tuple(engine.cache["slot0"]["self"]["k"].shape)}
     except NotImplementedError as e:
         out["model_axis"] = str(e)
     return out
@@ -430,3 +459,246 @@ def elastic_world(rank, dev, cases):
             "resume": resumed_on_mesh(rank, dev, cases["resume"]),
             "serve": [serve_on_mesh(rank, dev, c) for c in cases["serve"]],
             "elastic": elastic_runs(rank, dev, cases["elastic"])}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_tp.py
+# ---------------------------------------------------------------------------
+
+def tp_config(case):
+    cfg = reduced_config(case["arch"])
+    if case.get("capacity_factor"):
+        cfg = with_moe(cfg, cfg.moe.n_experts, case["capacity_factor"],
+                       **case.get("moe", {}))
+    return cfg
+
+
+def _layer(tree, slot, part):
+    """Layer 0 of a slot's stacked sub-tree."""
+    return tree_map(lambda t: t[0], tree["stack"][f"slot{slot}"][part])
+
+
+class KernelShapes:
+    """Records the shapes that reach flash attention (q, k), the SSD scan
+    (x), the grouped matmul (its weights) and the unembedding (the
+    logits), by wrapping the modules' references to them."""
+
+    def __init__(self):
+        from unittest import mock
+        from repro_torch.models import attention, ssm
+        self.seen = {"flash": set(), "ssd": set(), "gmm": set(),
+                     "logits": set()}
+
+        def record(name, fn, shape):
+            def wrapped(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                self.seen[name].add(shape(args, out))
+                return out
+            return wrapped
+        self.patches = [
+            mock.patch.object(attention, "flash_attention", record(
+                "flash", attention.flash_attention,
+                lambda a, o: (tuple(a[0].shape), tuple(a[1].shape)))),
+            mock.patch.object(ssm, "ssd", record(
+                "ssd", ssm.ssd, lambda a, o: tuple(a[0].shape))),
+            mock.patch.object(moe_mod, "gmm", record(
+                "gmm", moe_mod.gmm, lambda a, o: tuple(a[1].shape))),
+            mock.patch.object(model_lib, "_unembed", record(
+                "logits", model_lib._unembed, lambda a, o: tuple(o.shape))),
+        ]
+
+    def __enter__(self):
+        for p in self.patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.patches:
+            p.stop()
+
+
+def tp_layers(cfg, part, x, mesh, c):
+    """The blocks under the cut on this rank's rows of ``x``: attention
+    and the MLP (dense), the Mamba2 block, the MoE layer."""
+    from repro_torch.models import attention, ssm
+    from repro_torch.models.layers import apply_mlp
+    xl = coll.own_slice(torch.from_numpy(x), mesh, c.rows, 0)
+    out = {}
+    for slot in range(cfg.period):
+        kind = cfg.mixer_kind(slot)
+        if kind == "attn" and "attn" not in out:
+            out["attn"] = _np(attention.attn_forward(
+                _layer(part, slot, "mixer"), cfg, xl, constrain=c,
+                mesh=mesh))
+        if kind == "ssm" and "ssm" not in out:
+            out["ssm"] = _np(ssm.ssm_forward(_layer(part, slot, "mixer"),
+                                             cfg, xl, constrain=c))
+        ffn = cfg.ffn_kind(slot)
+        if ffn == "dense" and "mlp" not in out:
+            out["mlp"] = _np(apply_mlp(_layer(part, slot, "ffn"), xl,
+                                       gated=cfg.gated_mlp, act=cfg.act,
+                                       d_ff=cfg.d_ff, constrain=c))
+        if ffn == "moe" and "moe" not in out:
+            out["moe"] = _np(moe_mod.moe_forward(
+                _layer(part, slot, "ffn"), cfg, xl, mesh, rows=c.rows,
+                constrain=c)[0])
+    return out
+
+
+def tp_loss(cfg, params, rules, mesh, batch):
+    """loss_fn under the cut: the loss, its metrics and the whole
+    gradient (rank 0)."""
+    pl = tree_map(lambda t: t.clone().requires_grad_(),
+                  model_lib.model_part(params, cfg, rules, mesh))
+    loss, metrics = model_lib.loss_fn(pl, cfg, batch, mesh=mesh,
+                                      constrain=constrainer(rules, mesh),
+                                      remat="none")
+    grads = whole_gradient(pl, torch.autograd.grad(loss, tree_leaves(pl)),
+                           cfg, rules, mesh)
+    return {"loss": float(loss.detach()),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads if mesh.rank == 0 else None}
+
+
+def tp_decode(cfg, params, rules, mesh, prompts, steps):
+    """prefill (every row on every rank) and ``steps`` greedy decode
+    steps of this rank's rows, under the serving layout: the prefill's
+    logits, and each step's logits gathered over the rows."""
+    from repro_torch.parallel.sharding import Constrainer, serving_layout
+    part = model_lib.model_part(params, cfg, rules, mesh)
+    B = prompts.shape[0]
+    layout = serving_layout(rules, mesh, B)
+    pre = Constrainer(rules, mesh, rows=(), kv_seq=layout.kv_seq)
+    cache = model_lib.init_cache(cfg, B, 32, device=mesh.device,
+                                 layout=pre)
+    logits, cache, lengths = model_lib.prefill(
+        part, cfg, {"tokens": torch.from_numpy(prompts)}, cache, mesh=mesh,
+        constrain=pre)
+    out = {"prefill": _np(logits), "steps": []}
+    cache = tree_map(lambda t: coll.own_slice(t, mesh, layout.rows, 1)
+                     .clone(), cache)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    for _ in range(steps):
+        step, cache, _ = model_lib.decode_step(
+            part, cfg, coll.own_slice(tok, mesh, layout.rows, 0).clone(),
+            cache, coll.own_slice(lengths, mesh, layout.rows, 0).clone(),
+            mesh=mesh, constrain=layout)
+        step = coll.all_gather(step, mesh, layout.rows, 0)
+        out["steps"].append(_np(step))
+        tok, lengths = torch.argmax(step, dim=-1)[:, None], lengths + 1
+    return out
+
+
+def tp_case(rank, dev, case):
+    """One (arch, mesh) case: the blocks, the loss and its gradient with
+    the shapes that reached the kernels, prefill and decode, and the
+    engine."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = tp_config(case)
+    params = params_from_reference(case["params"], device=dev)
+    mesh = WorkerMesh(case["mesh"], dev)
+    rules = preset(case["rules"])
+    c = constrainer(rules, mesh)
+    c.rows = default_rows(mesh)
+    part = model_lib.model_part(params, cfg, rules, mesh)
+    out = {"index": mesh.index(c.rows), "tp": c.tp,
+           "layers": tp_layers(cfg, part, case["x"], mesh, c)}
+    with KernelShapes() as shapes:
+        out["loss"] = tp_loss(cfg, params, rules, mesh,
+                              _batch(case["batch"]))
+    out["shapes"] = {k: sorted(v) for k, v in shapes.seen.items()}
+    serve = preset(case["serve_rules"])
+    out["decode"] = tp_decode(cfg, params, serve, mesh, case["prompts"],
+                              case["decode_steps"])
+    engine = ServeEngine(cfg, params, batch_slots=case["slots"],
+                         max_seq=case["max_seq"], mesh=mesh, rules=serve)
+    for i, p in enumerate(case["prompts"]):
+        engine.submit(Request(rid=i, prompt=p, max_new_tokens=case["new"]))
+    first = None
+    while engine.queue or engine.busy_slots():
+        engine.step()
+        if first is None and engine.last_logits is not None:
+            first = _np(engine.last_logits)
+    out["engine"] = {"tokens": {i: r.output for i, r in engine.done.items()},
+                     "logits": first}
+    return out
+
+
+def planted(rank, dev, case):
+    """The three traps of the cut, each planted on mamba2's case: the
+    in_proj columns taken as a contiguous cut (not on head boundaries),
+    the gated norm's sum of squares left unsummed over "model", and the
+    loss's shares divided over the "model" ranks as if they were
+    replicas.  The Mamba2 block's output (rank's rows) under the first
+    two, the whole gradient under the third."""
+    from unittest import mock
+    from repro_torch.models import ssm
+    from repro_torch.parallel.sharding import Constrainer
+    cfg = tp_config(case)
+    params = params_from_reference(case["params"], device=dev)
+    mesh = WorkerMesh(case["mesh"], dev)
+    rules = preset(case["rules"])
+    c = constrainer(rules, mesh)
+    c.rows = default_rows(mesh)
+    part = model_lib.model_part(params, cfg, rules, mesh)
+    columns = ssm._rank_columns
+
+    def contiguous(cfg_, index, tp, device, conv):
+        width = len(columns(cfg_, index, tp, device, conv))
+        start = min(index * width, len(columns(cfg_, 0, 1, device, conv))
+                    - width)
+        return torch.arange(start, start + width, device=device)
+
+    gated = ssm._gated_norm
+    out = {}
+    with mock.patch.object(ssm, "_rank_columns", contiguous):
+        out["in_proj"] = tp_layers(cfg, part, case["x"], mesh, c)["ssm"]
+    with mock.patch.object(ssm, "_gated_norm",
+                           lambda p, y, z, eps, *a: gated(p, y, z, eps)):
+        out["norm"] = tp_layers(cfg, part, case["x"], mesh, c)["ssm"]
+    with mock.patch.object(Constrainer, "share_axes",
+                           lambda self: self.mesh.axis_names):
+        out["rep"] = tp_loss(cfg, params, rules, mesh,
+                             _batch(case["batch"]))["grads"]
+    return out
+
+
+def tp_steps(rank, dev, case):
+    """``sharded_steps`` under the case's rules, the gradient the first
+    step reduced (from AdamW's first moment), and on rank 0 the
+    one-device step's metrics and parameters on the same batches."""
+    cfg = tp_config(case)
+    mesh = WorkerMesh(case["mesh"], dev)
+    rules = preset(case["rules"])
+    opt = OptimizerConfig(lr=1e-3)
+    specs = param_specs(cfg, rules, mesh)
+    state = shard_state(init_train_state(params_from_reference(
+        case["params"], device=dev), opt), specs, mesh)
+    step = make_train_step(cfg, opt, mesh, rules, remat="none",
+                           lr_kwargs=LR_KWARGS)
+    out = {"metrics": [], "params": [], "grads": None}
+    for i, b in enumerate(case["batches"]):
+        state, m = step(state, _batch(b))
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        whole = gather_state(state, specs, mesh)
+        if rank == 0:
+            out["params"].append([_np(t) for t in tree_leaves(whole.params)])
+            if i == 0:
+                out["grads"] = reduced_gradient(whole, m, opt)
+    if rank == 0:
+        one = make_train_step(cfg, opt, remat="none", lr_kwargs=LR_KWARGS,
+                              device=dev)
+        state = init_train_state(params_from_reference(
+            case["params"], device=dev), opt)
+        out["one"] = []
+        for b in case["batches"]:
+            state, m = one(state, _batch(b))
+            out["one"].append((float(m["loss"]), [
+                _np(t) for t in tree_leaves(state.params)]))
+    return out
+
+
+def tp_world(rank, dev, cases):
+    return {"cases": [tp_case(rank, dev, c) for c in cases["cases"]],
+            "planted": planted(rank, dev, cases["planted"]),
+            "steps": [tp_steps(rank, dev, c) for c in cases["steps"]]}
