@@ -5,7 +5,7 @@ Run from the repository root on a machine with the card:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package.  Phases, run
-in the order 1, 2, 5-13, 15-24, 3, 4, 25, 26, 27, 14 (the water-fill's
+in the order 1, 2, 5-13, 15-24, 3, 4, 25, 26, 27, 28, 29, 14 (the water-fill's
 last: once its tier-1m case has run, `torch.profiler` reads no device
 events in the same process -- `repro_torch.kernels.waterfill.study`
 finds where -- so every phase that reads the profiler runs first); any
@@ -348,6 +348,19 @@ back to the CPU or to a plain version):
      dropped partial above the loss bar); each rank's flash, SSD and SSD
      backward launches exact; `{"tp_serve": ...}` and `{"tp_train":
      ...}` lines with each rank's peak memory and resident weight bytes;
+ 29. the dry-run (`repro_torch.launch.dryrun`): (a) its command line in
+     processes of its own, at once, for qwen2-1.5b × train_4k on both
+     production meshes and jamba-v0.1-52b × decode_32k (`DRYRUN_CELLS`):
+     each exits 0 with every result key, no error, and no CUDA context
+     made in its process; (b) phase 15's step (qwen2-1.5b at
+     `TRAIN_LAYERS`, 8 x 512, bfloat16) analysed on a mesh of one rank:
+     its kernel sites per step equal `training_launches` and phase 15's
+     measured launches per step, its argument bytes the state's
+     (parameters and both moments) as phase 15 measured them, and its
+     bound (the sites at the kernel model) over phase 15's median step
+     at most `DRYRUN_BOUND_SLACK`; a `{"dryrun_cli": ...}` and a
+     `{"dryrun_step": ...}` line (the ratio, the predicted peak against
+     `torch.cuda.max_memory_allocated`, the card's name and power limit);
  14. a JSON line per kernel (the water-fill's with its launches by
      instance and by entry point and the host breakdown; flash's, the
      SSD's and gmm's with their launches by instance and ptxas' report of
@@ -383,12 +396,18 @@ TIERS = {
     "100k": dict(jobs=100_000, C=4_096, W=512),
     "1m": dict(jobs=1_000_000, C=16_384, W=1_024),
 }
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, and the FP64 rate outside
-# the tensor cores (the water-fill's divides and compares are vector ops)
-HBM_BYTES_PER_S = 3.35e12
-FP64_OPS_PER_S = 34e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12        # dense tensor-core rate
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch import roofline_adjust as ra  # noqa: E402
+
+# NVIDIA H100 SXM data sheet (`roofline_adjust.H100`): HBM3 bandwidth, and
+# the FP64 rate outside the tensor cores (the water-fill's divides and
+# compares are vector ops); the kernels' bounds take their byte and FLOP
+# counts from `roofline_adjust`'s per-call formulas, which the dry-run
+# prices its kernel sites with
+HBM_BYTES_PER_S = ra.H100["hbm_bytes_per_s"]
+FP64_OPS_PER_S = ra.H100["fp64_flops_per_s"]
+FP32_OPS_PER_S = ra.H100["fp32_flops_per_s"]
+BF16_OPS_PER_S = ra.H100["bf16_flops_per_s"]        # dense tensor-core rate
 KERNEL_REPS = 20
 # negotiate every 20 s inside a 60 s tick and metrics grid: windows in
 # which a staged cycle may wait for the next (tests/test_live_fusion.py)
@@ -1422,24 +1441,19 @@ def attention_inputs(seed, B, Sq, Skv, Hq, Hkv, Dh, dtype, device, *,
 
 
 def flash_bound(q, k, v, q_pos, kv_pos, mask):
-    """Least time for this call, counting what this data needs: q, both
-    position arrays and the output once, and the K and V rows of the
-    cache slots that some query attends (an empty or never-attended slot
-    need not be read), at the HBM rate; against the QK^T and PV FLOPs of
-    the unmasked (query, key) pairs (4 * Dh per pair and query head) at
-    the tensor-core bf16 rate (float32 at the vector rate).  Returns
-    (ms, bound by, bytes, FLOPs)."""
-    item = q.element_size()
-    Hkv, Dh = k.shape[2], k.shape[3]
+    """Least time for this call, counting what this data needs
+    (`roofline_adjust.flash_cost`): q, both position arrays and the
+    output once, and the K and V rows of the cache slots that some query
+    attends (an empty or never-attended slot need not be read), at the
+    HBM rate; against the QK^T and PV FLOPs of the unmasked (query, key)
+    pairs (4 * Dh per pair and query head) at the tensor-core bf16 rate
+    (float32 at the vector rate).  Returns (ms, bound by, bytes, FLOPs)."""
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
     attended = int(mask.any(dim=1).sum().item())          # (b, slot) pairs
-    nbytes = 2 * q.numel() * item + 2 * attended * Hkv * Dh * item \
-        + 4 * (q_pos.numel() + kv_pos.numel())
-    flops = 4 * Dh * q.shape[2] * int(mask.sum().item())
-    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    if t_bytes >= t_ops:
-        return 1e3 * t_bytes, "bytes", nbytes, flops
-    return 1e3 * t_ops, "operations", nbytes, flops
+    nbytes, flops = ra.flash_cost(B, Sq, Skv, Hq, Hkv, Dh, q.element_size(),
+                                  int(mask.sum().item()), attended)
+    return (*ra.bound_ms(nbytes, flops, q.dtype), nbytes, flops)
 
 
 def flash_route(dtype, Sq, Hq, Hkv, Dh) -> str:
@@ -1968,39 +1982,20 @@ def ssd_serving_cases():
             for S in c["S"] for init in (False, True)]
 
 
-def ssd_flops(S, chunk, H, P, N, B=1, G=1):
-    """The causal work of a chunked scan: per chunk of L steps, the
-    L(L+1)/2 (query, key) pairs' C.B products once per group (2N FLOPs
-    each: the group's heads share them) and score.x products per head
-    (2P each), and per head the inter-chunk output and state update (2PN
-    each per step)."""
-    Q = min(chunk, S)
-    total = 0
-    for t0 in range(0, S, Q):
-        L = min(Q, S - t0)
-        total += (G * L * (L + 1) * N
-                  + H * (L * (L + 1) * P + 4 * L * P * N))
-    return B * total
+#: the causal work of a chunked scan (see `roofline_adjust.ssd_flops`)
+ssd_flops = ra.ssd_flops
 
 
 def ssd_bound(x, dt, Bm, Cm, init, chunk):
-    """Least time for one call: x, dt, A, D, B and C per group, and the
-    initial state once in, y and the final state once out, at the HBM
-    rate; against the causal FLOPs (`ssd_flops`) at the tensor-core bf16
-    rate (float32 at the vector rate).  Returns (ms, bound by, bytes,
-    FLOPs)."""
+    """Least time for one call (`roofline_adjust.ssd_cost`): x, dt, A, D,
+    B and C per group, and the initial state once in, y and the final
+    state once out, at the HBM rate; against the causal FLOPs
+    (`ssd_flops`) at the tensor-core bf16 rate (float32 at the vector
+    rate).  Returns (ms, bound by, bytes, FLOPs)."""
     Bsz, S, H, P = x.shape
-    N, item = Bm.shape[3], x.element_size()
-    state = Bsz * H * P * N * 4
-    nbytes = (2 * x.numel() * item + dt.numel() * 4 + 2 * H * 4
-              + (Bm.numel() + Cm.numel()) * item + state
-              + (state if init is not None else 0))
-    flops = ssd_flops(S, chunk, H, P, N, Bsz, Bm.shape[2])
-    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    if t_bytes >= t_ops:
-        return 1e3 * t_bytes, "bytes", nbytes, flops
-    return 1e3 * t_ops, "operations", nbytes, flops
+    nbytes, flops = ra.ssd_cost(Bsz, S, H, P, Bm.shape[2], Bm.shape[3],
+                                chunk, x.element_size(), init is not None)
+    return (*ra.bound_ms(nbytes, flops, x.dtype), nbytes, flops)
 
 
 def check_ssd(label, so, case, seed, dtype, device, *, timed=False,
@@ -2202,24 +2197,20 @@ def moe_serving_inputs(rows, K, N, dtype, device, seed=0, arch=MOE_ARCH):
 
 
 def gmm_bound(lhs, rhs, group_sizes, out):
-    """Least time for one call, counting what this data needs: lhs, the
-    weights of the experts whose groups are non-empty, the group sizes
-    and the output once, at the HBM rate; against 2 x K x N FLOPs per row
-    in a group at the tensor-core bf16 rate (float32 at the vector rate).
-    Returns (ms, bound by, bytes, FLOPs)."""
+    """Least time for one call, counting what this data needs
+    (`roofline_adjust.gmm_cost`): lhs, the weights of the experts whose
+    groups are non-empty, the group sizes and the output once, at the HBM
+    rate; against 2 x K x N FLOPs per row in a group at the tensor-core
+    bf16 rate (float32 at the vector rate).  Returns (ms, bound by,
+    bytes, FLOPs)."""
     E, K, N = rhs.shape
     sizes = group_sizes.tolist()
     rows = min(sum(max(g, 0) for g in sizes), lhs.shape[0])
     live = sum(1 for g in sizes if g > 0)
-    nbytes = (lhs.numel() * lhs.element_size()
-              + live * K * N * rhs.element_size() + 4 * E
-              + out.numel() * out.element_size())
-    flops = 2 * rows * K * N
-    rate = BF16_OPS_PER_S if lhs.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    if t_bytes >= t_ops:
-        return 1e3 * t_bytes, "bytes", nbytes, flops
-    return 1e3 * t_ops, "operations", nbytes, flops
+    nbytes, flops = ra.gmm_cost(lhs.shape[0], K, N, E, rows, live,
+                                lhs.element_size(), rhs.element_size(),
+                                out.element_size())
+    return (*ra.bound_ms(nbytes, flops, lhs.dtype), nbytes, flops)
 
 
 def gmm_route(dtype, K, N) -> str:
@@ -2473,7 +2464,7 @@ def plain_gmm_fn():
     """The MoE's expert products through `PlainGmmFn`."""
     from repro_torch.models import moe as moe_mod
     return swapped(moe_mod, "gmm",
-                   lambda lhs, rhs, gs, *, out_dtype=None:
+                   lambda lhs, rhs, gs, *, out_dtype=None, host_sizes=None:
                    PlainGmmFn.apply(lhs, rhs, gs, out_dtype))
 
 
@@ -3476,23 +3467,19 @@ RESUME_TOL = 1e-6
 
 
 def flash_bwd_bound(q, k, q_pos, kv_pos, mask):
-    """Least time for the backward of this call: FlashAttention-2's
-    backward work, 2.5 x the forward's QK^T and PV FLOPs of the unmasked
-    (query, key) pairs (4 Dh per pair and query head), at the
-    tensor-core bf16 rate (float32 at the vector rate), against the bytes
-    at the HBM rate: q, k, v, the output, its gradient and the forward's
-    float32 log-sum-exp read once, dq, dk and dv written once, the
-    positions.  Returns (ms, bound by, bytes, FLOPs)."""
-    item = q.element_size()
-    nbytes = (item * (4 * q.numel() + 4 * k.numel())
-              + 4 * (q_pos.numel() + kv_pos.numel())
-              + 4 * q.numel() // q.shape[3])
-    flops = 2.5 * 4 * q.shape[3] * q.shape[2] * int(mask.sum().item())
-    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    if t_bytes >= t_ops:
-        return 1e3 * t_bytes, "bytes", nbytes, flops
-    return 1e3 * t_ops, "operations", nbytes, flops
+    """Least time for the backward of this call
+    (`roofline_adjust.flash_bwd_cost`): FlashAttention-2's backward work,
+    2.5 x the forward's QK^T and PV FLOPs of the unmasked (query, key)
+    pairs (4 Dh per pair and query head), at the tensor-core bf16 rate
+    (float32 at the vector rate), against the bytes at the HBM rate: q,
+    k, v, the output, its gradient and the forward's float32 log-sum-exp
+    read once, dq, dk and dv written once, the positions.  Returns (ms,
+    bound by, bytes, FLOPs)."""
+    B, Sq, Hq, Dh = q.shape
+    nbytes, flops = ra.flash_bwd_cost(B, Sq, k.shape[1], Hq, k.shape[2], Dh,
+                                      q.element_size(),
+                                      int(mask.sum().item()))
+    return (*ra.bound_ms(nbytes, flops, q.dtype), nbytes, flops)
 
 
 #: the backward's kernels, by the name each holds after "flash_bwd_"
@@ -3874,6 +3861,7 @@ def train_phase(cfg, device, launch_counts, routes, *, per_step,
     ckpt = tempfile.mkdtemp(prefix="train_ckpt_", dir=build) if saves \
         else None
     steps = []
+    state_bytes = []    # the parameters' and both moments' bytes
 
     at_3 = {}           # the state after step 3, in host memory
 
@@ -3884,6 +3872,11 @@ def train_phase(cfg, device, launch_counts, routes, *, per_step,
         return {name: dict(c) for name, (c, _) in routes.items()}
 
     def on_step(i, state, metrics, seconds):
+        if i == 0:
+            state_bytes.append(sum(
+                t.numel() * t.element_size() for tree in (
+                    state.params, state.opt["mu"], state.opt["nu"])
+                for _, t in state_items(tree)))
         steps.append({"step": i, "seconds": seconds,
                       "counts": dict(launch_counts), "routes": by_instance(),
                       "loss": float(metrics["loss"]),
@@ -3995,6 +3988,7 @@ def train_phase(cfg, device, launch_counts, routes, *, per_step,
            "step_ms_median_3_6": step_ms,
            "tokens_per_s": tokens / (step_ms / 1e3),
            "max_memory_allocated_gb": peak / 1e9, "wall_s": wall,
+           "state_bytes": state_bytes[0],
            "launch_counts": counts, "routes": routed,
            "resumed_losses": again, "resume_worst_rel": worst,
            "cpu_losses": cpu, "cpu_worst_rel": cpu_worst,
@@ -4075,45 +4069,23 @@ def ssd_bwd_inputs(seed, case, dtype, device, *, inputs=None, dfinal=False):
             None if df is None else torch.tensor(df, device=device))
 
 
-def ssd_bwd_flops(S, chunk, H, P, N, B=1, G=1):
-    """The backward's work, counted as `ssd_flops` counts the forward's:
-    per chunk of L steps, the L(L+1)/2 (query, key) pairs' C.B once per
-    group (2N FLOPs each), and per head their dy.x, dx, dB and dC
-    products (2P, 2P, 2N and 2N each) and per step the products with a
-    (P, N) state (exp(cum) dy^T C, G B, G^T x and S_prev^T dy: 2PN
-    each)."""
-    Q = min(chunk, S)
-    total = 0
-    for t0 in range(0, S, Q):
-        L = min(Q, S - t0)
-        total += (G * L * (L + 1) * N
-                  + H * (L * (L + 1) * 2 * (N + P) + 8 * L * P * N))
-    return B * total
+#: the backward's work (see `roofline_adjust.ssd_bwd_flops`)
+ssd_bwd_flops = ra.ssd_bwd_flops
 
 
 def ssd_bwd_bound(x, Bm, init, dfinal, chunk):
-    """Least time for one backward call: x and dy, B and C per group, dt,
-    A, D, the states the forward kept (every chunk's but a first one
-    without an initial state, 4 bytes an element) and the final state's
-    gradient once in; dx, dB, dC, ddt, dA, dD and the initial state's
-    gradient once out, at the HBM rate; against `ssd_bwd_flops` at the
-    tensor-core bf16 rate (float32 at the vector rate).  Returns (ms,
-    bound by, bytes, FLOPs)."""
+    """Least time for one backward call (`roofline_adjust.ssd_bwd_cost`):
+    x and dy, B and C per group, dt, A, D, the states the forward kept
+    (every chunk's but a first one without an initial state, 4 bytes an
+    element) and the final state's gradient once in; dx, dB, dC, ddt, dA,
+    dD and the initial state's gradient once out, at the HBM rate;
+    against `ssd_bwd_flops` at the tensor-core bf16 rate (float32 at the
+    vector rate).  Returns (ms, bound by, bytes, FLOPs)."""
     Bsz, S, H, P = x.shape
-    G, N, item = Bm.shape[2], Bm.shape[3], x.element_size()
-    n_chunks = -(-S // min(chunk, S))
-    state = Bsz * H * P * N * 4
-    kept = (n_chunks - (init is None)) * state
-    nbytes = (3 * x.numel() * item + 4 * Bm.numel() * item
-              + 2 * Bsz * S * H * 4 + 4 * H * 4 + kept
-              + (state if dfinal is not None else 0)
-              + (state if init is not None else 0))
-    flops = ssd_bwd_flops(S, chunk, H, P, N, Bsz, G)
-    rate = BF16_OPS_PER_S if x.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    if t_bytes >= t_ops:
-        return 1e3 * t_bytes, "bytes", nbytes, flops
-    return 1e3 * t_ops, "operations", nbytes, flops
+    nbytes, flops = ra.ssd_bwd_cost(Bsz, S, H, P, Bm.shape[2], Bm.shape[3],
+                                    chunk, x.element_size(), init is not None,
+                                    dfinal is not None)
+    return (*ra.bound_ms(nbytes, flops, x.dtype), nbytes, flops)
 
 
 def check_ssd_bwd(label, so, case, seed, dtype, device, *, inputs=None,
@@ -4381,27 +4353,20 @@ def check_gmm_bwd(label, gm, lhs, rhs, gs, dout):
 
 
 def gmm_bwd_bound(lhs, rhs, group_sizes, dout, which):
-    """`gmm_bound`'s rule for one gradient (``which``: "dlhs" or "drhs"):
-    its inputs once in (dout as given, float32; rhs of the non-empty
-    groups for dlhs, lhs for drhs; the group sizes) and its output once
-    out, at the HBM rate, against 2 x K x N FLOPs per row in a group at
-    the tensor-core bf16 rate (float32 at the vector rate).  Returns (ms,
-    bound by, bytes, FLOPs)."""
+    """`gmm_bound`'s rule for one gradient (``which``: "dlhs" or "drhs";
+    `roofline_adjust.gmm_bwd_cost`): its inputs once in (dout as given,
+    float32; rhs of the non-empty groups for dlhs, lhs for drhs; the group
+    sizes) and its output once out, at the HBM rate, against 2 x K x N
+    FLOPs per row in a group at the tensor-core bf16 rate (float32 at the
+    vector rate).  Returns (ms, bound by, bytes, FLOPs)."""
     E, K, N = rhs.shape
     sizes = group_sizes.tolist()
     rows = min(sum(max(g, 0) for g in sizes), lhs.shape[0])
     live = sum(1 for g in sizes if g > 0)
-    weights = live * K * N * rhs.element_size()
-    nbytes = dout.numel() * dout.element_size() + 4 * E + (
-        weights + lhs.numel() * lhs.element_size() if which == "dlhs"
-        else lhs.numel() * lhs.element_size()
-        + E * K * N * rhs.element_size())
-    flops = 2 * rows * K * N
-    rate = BF16_OPS_PER_S if lhs.dtype == torch.bfloat16 else FP32_OPS_PER_S
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-    if t_bytes >= t_ops:
-        return 1e3 * t_bytes, "bytes", nbytes, flops
-    return 1e3 * t_ops, "operations", nbytes, flops
+    nbytes, flops = ra.gmm_bwd_cost(lhs.shape[0], K, N, E, rows, live,
+                                    lhs.element_size(), rhs.element_size(),
+                                    dout.element_size(), which)
+    return (*ra.bound_ms(nbytes, flops, lhs.dtype), nbytes, flops)
 
 
 def moe_training_shapes():
@@ -4478,9 +4443,7 @@ def time_gmm_bwd(gm, label, rows, K, N, device):
             "flops": b_flops, "bound_share": b_ms / ms,
             "device_bound_share": b_ms / by[name]}
         nbytes, flops = nbytes + b_bytes, flops + b_flops
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_OPS_PER_S
-    bound, bound_by = ((1e3 * t_bytes, "bytes") if t_bytes >= t_ops
-                       else (1e3 * t_ops, "operations"))
+    bound, bound_by = ra.bound_ms(nbytes, flops, torch.bfloat16)
     row.update(bound_ms=bound, bound_by=bound_by, bytes=nbytes, flops=flops,
                bound_share=bound / row["ms"],
                device_bound_share=bound / row["device_ms"])
@@ -6331,6 +6294,139 @@ def build_all(modules) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the dry-run
+# ---------------------------------------------------------------------------
+
+#: the dry-run's command line on the card's host: (arch, shape, --mesh)
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "both"),
+                ("jamba-v0.1-52b", "decode_32k", "single"))
+DRYRUN_KEYS = ("roofline", "roofline_extrapolated",
+               "roofline_kernel_adjusted", "memory",
+               "collective_bytes_per_chip")
+#: a step's bound over its measured time: a bound above the measured time
+#: would mean the count holds work the card did not do
+DRYRUN_BOUND_SLACK = 1.05
+DRYRUN_DIR = ROOT / "build" / "repro_torch" / "dryrun"
+
+
+def dryrun_cli_phase(timeout_s=240.0):
+    """Phase 29(a): `python -m repro_torch.launch.dryrun` for each of
+    `DRYRUN_CELLS`, the processes started together; each must exit 0 and
+    write, for each mesh, a result with every key of `DRYRUN_KEYS`, no
+    error, and ``cuda_initialized`` false (the dry-run made no CUDA
+    context in its process).  Prints and returns a ``{"dryrun_cli": ...}``
+    row."""
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + ([path] if path else [])))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--out", str(DRYRUN_DIR)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for arch, shape, mesh in DRYRUN_CELLS]
+    try:
+        outs = [p.communicate(timeout=timeout_s)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    cells = []
+    for (arch, shape, mesh), p, out in zip(DRYRUN_CELLS, procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"dry-run CLI {arch} × {shape}: exit "
+                                 f"{p.returncode}: {out[-2000:]}")
+        for suffix in {"both": ("single", "multi")}.get(mesh, (mesh,)):
+            res = json.loads((DRYRUN_DIR / f"{arch}_{shape}_{suffix}.json")
+                             .read_text())
+            missing = [k for k in DRYRUN_KEYS if k not in res]
+            if missing or "error" in res or res["cuda_initialized"]:
+                raise AssertionError(
+                    f"dry-run CLI {arch} × {shape} × {suffix}: missing "
+                    f"{missing}, error {res.get('error')}, CUDA context "
+                    f"{res.get('cuda_initialized')}")
+            adj = res["roofline_kernel_adjusted"]
+            cells.append({
+                "arch": arch, "cell": shape, "mesh": res["mesh"],
+                "sites": res["sites"], "trace_s": res["trace_s"],
+                "analysis_s": res["analysis_s"],
+                "step_bound_s": adj["step_time_lower_bound_s"],
+                "bottleneck": adj["bottleneck"],
+                "roofline_fraction": adj["roofline_fraction"],
+                "peak_gb": res["memory"]["peak_memory_in_bytes"] / 1e9,
+                "fits_hbm": res["memory"]["fits_hbm"],
+                "cuda_initialized": res["cuda_initialized"]})
+    row = {"wall_s": wall, "cells": cells}
+    print(json.dumps({"dryrun_cli": row}), flush=True)
+    return row
+
+
+def dryrun_step_phase(cfg, trained, card, train=TRAIN):
+    """Phase 29(b): phase 15's step (``cfg``: qwen2-1.5b cut to
+    `TRAIN_LAYERS`; `TRAIN`'s batch; `run_fixed`'s optimizer and remat)
+    analysed by the dry-run on a mesh of one rank, held against phase
+    15's measurements (``trained``, `train_phase`'s row at ``train``'s
+    batch): its sites per
+    step by kernel equal `training_launches` and the launches phase 15
+    counted per step, its parameters' and moments' bytes equal the
+    state's bytes exactly, and its bound over the measured median step is
+    at most `DRYRUN_BOUND_SLACK`.  Prints and returns a
+    ``{"dryrun_step": ...}`` row beside the card's name and power limit."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    cell = ShapeCell("train_phase", "train", train["seq"], train["batch"])
+    opt = OptimizerConfig(state_dtype=cfg.optimizer_state_dtype, lr=1e-3)
+    t0 = time.perf_counter()
+    with dryrun.fake_world(1):
+        mesh = WorkerMesh({"data": 1, "model": 1}, "cpu")
+        res = dryrun.analyse_step(cfg, cell, mesh, analysis=False,
+                                  remat="none", opt_cfg=opt)
+    wall = time.perf_counter() - t0
+    want = {k: n for k, n in training_launches(cfg).items() if n}
+    measured = {k: n // trained["steps"]
+                for k, n in trained["launch_counts"].items() if n}
+    if res["sites"] != want or want != measured:
+        raise AssertionError(f"dry-run of {cfg.name}'s step: sites "
+                             f"{res['sites']}, training_launches {want}, "
+                             f"measured per step {measured}")
+    args = res["memory"]["arguments"]
+    state = args["params"] + args["mu"] + args["nu"]
+    if state != trained["state_bytes"]:
+        raise AssertionError(f"dry-run of {cfg.name}'s step: state bytes "
+                             f"{state}, measured {trained['state_bytes']}")
+    adj = res["roofline_kernel_adjusted"]
+    bound_ms = 1e3 * adj["step_time_lower_bound_s"]
+    ratio = bound_ms / trained["step_ms_median_3_6"]
+    row = {"card": card, "arch": cfg.name, "layers": cfg.n_layers,
+           "batch": train["batch"], "seq": train["seq"],
+           "sites_per_step": res["sites"], "measured_per_step": measured,
+           "state_bytes": state, "argument_bytes":
+           res["memory"]["argument_size_in_bytes"],
+           "bound_ms": bound_ms, "bound_by": adj["bottleneck"],
+           "terms_ms": {k: 1e3 * adj[k] for k in (
+               "compute_s", "memory_s", "collective_s")},
+           "flops": adj["hlo_flops_per_chip"],
+           "bytes": adj["hlo_bytes_per_chip"],
+           "plain_bound_ms": 1e3 * res["roofline"]["step_time_lower_bound_s"],
+           "measured_step_ms": trained["step_ms_median_3_6"],
+           "bound_over_measured": ratio,
+           "predicted_peak_gb": res["memory"]["peak_memory_in_bytes"] / 1e9,
+           "max_memory_allocated_gb": trained["max_memory_allocated_gb"],
+           "wall_s": wall}
+    print(json.dumps({"dryrun_step": row}), flush=True)
+    gate(f"dry-run of {cfg.name}'s step: bound over the measured median "
+         f"step", ratio, DRYRUN_BOUND_SLACK)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6350,7 +6446,6 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
 
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels.build import launch_counts
     from repro_torch.kernels.flash_attention import ops as fa
@@ -6527,7 +6622,7 @@ def main() -> int:
     bwd_timed, bwd_err = flash_bwd_phase(fa, dev)
     train_f32_gate(cfg, dev, launch_counts)
     train_bf16_gate(cfg, dev, launch_counts)
-    cfg = cut_layers(cfg, TRAIN_LAYERS[ARCH])
+    cfg = train_cfg = cut_layers(cfg, TRAIN_LAYERS[ARCH])
     trained = train_phase(
         cfg, dev, launch_counts,
         {"flash_attention": (fa.route_counts, "wgmma"),
@@ -6773,6 +6868,11 @@ def main() -> int:
     ssd_line["launches_tp_train"] = by_part["tp_train"]["ssd"]
     ssd_bwd_line["launches_tp_train"] = by_part["tp_train"]["ssd_bwd"]
     phase_done("26-28")
+    # phase 29: the dry-run's command line on this host, then phase 15's
+    # step analysed and held against what phase 15 measured
+    dryrun_cli_phase()
+    dryrun_step_phase(train_cfg, trained, card)
+    phase_done("29")
     print(json.dumps({"profiler_sessions": profiler_sessions}), flush=True)
     print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
                                   gmm_line, bwd_line, ssd_bwd_line,

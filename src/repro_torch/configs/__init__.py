@@ -1,15 +1,19 @@
-"""Architecture registry: ``--arch <id>`` resolution and reduced smoke
-configs.
+"""Architecture registry: ``--arch <id>`` resolution, reduced smoke
+configs, and the dry-run's input specs.
 
-The port of the JAX package's registry without its ShapeDtypeStruct
-input specs, which only the dry-run reads (the dry-run is not ported
-yet).  ``get_config`` gives the published widths; ``reduced_config``
-the tiny same-family version the CPU tests run.
+The port of the JAX package's registry.  ``get_config`` gives the
+published widths; ``reduced_config`` the tiny same-family version the
+CPU tests run.  The input specs (the reference's ShapeDtypeStructs) are
+tensors on the "meta" device: shapes and dtypes, nothing allocated, so
+FULL configs are only ever touched abstractly (`launch.dryrun` makes
+fake tensors of them).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
+
+import torch
 
 from repro_torch.configs.shapes import SHAPES, ShapeCell, applicable
 from repro_torch.models.config import (
@@ -82,6 +86,65 @@ def reduced_config(name: str, *, n_layers: int | None = None) -> ModelConfig:
     return dataclasses.replace(cfg, **changes)
 
 
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors, never allocate) for every (arch × shape)
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _text_len(cfg: ModelConfig, seq_len: int) -> int:
+    """VLM cells reserve the patch prefix inside the assigned seq_len."""
+    if cfg.frontend is not None:
+        return max(seq_len - cfg.frontend.n_prefix, 1)
+    return seq_len
+
+
+def train_input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    B, S = cell.global_batch, cell.seq_len
+    St = _text_len(cfg, S)
+    specs = {
+        "tokens": _spec((B, St), torch.int32),
+        "labels": _spec((B, St), torch.int32),
+    }
+    if cfg.encoder is not None:
+        specs["frames"] = _spec((B, cfg.encoder.n_frames, cfg.d_model),
+                                torch.float32)
+    if cfg.frontend is not None:
+        specs["patches"] = _spec(
+            (B, cfg.frontend.n_prefix, cfg.frontend.d_input), torch.float32)
+    return specs
+
+
+def prefill_input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    specs = train_input_specs(cfg, cell)
+    specs.pop("labels")
+    return specs
+
+
+def decode_input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """serve_step inputs: one new token against a seq_len cache."""
+    from repro_torch.models import model as model_lib
+
+    B, S = cell.global_batch, cell.seq_len
+    return {
+        "tokens_t": _spec((B, 1), torch.int32),
+        "cache": model_lib.init_cache(cfg, B, S, device="meta"),
+        "lengths": _spec((B,), torch.int32),
+    }
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    if cell.kind == "train":
+        return train_input_specs(cfg, cell)
+    if cell.kind == "prefill":
+        return prefill_input_specs(cfg, cell)
+    if cell.kind == "decode":
+        return decode_input_specs(cfg, cell)
+    raise ValueError(cell.kind)
+
+
 def all_cells():
     """Yield (arch, cell, runs, skip_reason) for all 40 assigned cells."""
     for arch in ARCH_NAMES:
@@ -93,5 +156,6 @@ def all_cells():
 
 __all__ = [
     "ARCH_NAMES", "SHAPES", "ShapeCell", "get_config", "reduced_config",
-    "all_cells", "applicable",
+    "input_specs", "train_input_specs", "prefill_input_specs",
+    "decode_input_specs", "all_cells", "applicable",
 ]

@@ -41,6 +41,10 @@ with its lse and `ref.attention_backward_reference`.
 The CUDA sources are built at first use by `repro_torch.kernels.build`
 (nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
 headers), each into a library of its own.
+
+While the dry-run records (`kernels.sites.recorder`, `launch.dryrun`),
+each wrapper hands its call to the recorder before it looks at the
+device: nothing is built, launched or counted.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import sites
 from repro_torch.kernels.build import build_library, launch_counts
 from repro_torch.kernels.flash_attention.ref import (
     NEG_INF, attention_backward_reference, attention_reference,
@@ -328,6 +333,10 @@ def flash_attention(
     returns (B, Sq, Hq, Dh) in q's dtype.  A CUDA call that autograd
     records (grad enabled, q, k or v requiring grad) goes through
     `FlashAttentionFn`."""
+    if sites.recorder is not None:
+        return sites.recorder.flash_attention(
+            q, k, v, q_pos, kv_pos, causal=causal, window=window,
+            softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, q_pos, kv_pos, causal=causal,
                                    window=window, softcap=softcap,
@@ -360,6 +369,10 @@ def flash_attention_forward(
     ``return_lse``).  On CUDA tensors the routed instance writes both in
     one launch, counted like `flash_attention`'s; autograd does not
     record it (`FlashAttentionFn` does)."""
+    if sites.recorder is not None:
+        return sites.recorder.flash_attention_forward(
+            q, k, v, q_pos, kv_pos, causal=causal, window=window,
+            softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, q_pos, kv_pos, causal=causal,
                                    window=window, softcap=softcap,
@@ -447,6 +460,10 @@ def flash_attention_backward(
     (B, Sq, Hq) on q's device) and launches the instance `bwd_route`
     names on the current stream, or raises; on CPU tensors, and only
     there, it runs the plain version."""
+    if sites.recorder is not None:
+        return sites.recorder.flash_attention_backward(
+            q, k, v, out, dout, lse, q_pos, kv_pos, causal=causal,
+            window=window, softcap=softcap, scale=scale)
     if q.device.type == "cpu":
         return attention_backward_reference(
             q, k, v, out, dout, lse, q_pos, kv_pos, causal=causal,

@@ -50,6 +50,10 @@ The CUDA sources are built at first use by `repro_torch.kernels.build`
 (nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch headers;
 the tensor-map encoder is looked up through the CUDA runtime, so no
 ``-lcuda``), each into a library of its own.
+
+While the dry-run records (`kernels.sites.recorder`, `launch.dryrun`),
+each wrapper hands its call to the recorder before it looks at the
+device: nothing is built, launched or counted.
 """
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import sites
 from repro_torch.kernels.build import build_library, launch_counts
 from repro_torch.kernels.moe_gmm.ref import (
     expert_of_row, gmm_backward_reference, gmm_reference,
@@ -100,14 +105,18 @@ bwd_build_log: str | None = None
 
 def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor,
               group_sizes: torch.Tensor, *,
-              out_dtype: torch.dtype | None = None) -> torch.Tensor:
+              out_dtype: torch.dtype | None = None,
+              host_sizes: tuple[int, ...] | None = None) -> torch.Tensor:
     """One float32 matmul per group, no gather; rows past the total are
-    zero, and a group reaching past row T is cut there."""
+    zero, and a group reaching past row T is cut there.  ``host_sizes``,
+    when the caller knows the sizes on the host (the MoE layer's constant
+    capacity), are read instead of the tensor."""
     T = lhs.shape[0]
     out = torch.zeros((T, rhs.shape[2]), dtype=torch.float32,
                       device=lhs.device)
     start = 0
-    for g, size in enumerate(group_sizes.tolist()):
+    sizes = group_sizes.tolist() if host_sizes is None else host_sizes
+    for g, size in enumerate(sizes):
         end = min(start + max(int(size), 0), T)
         if end > start:
             out[start:end] = lhs[start:end].float() @ rhs[g].float()
@@ -324,13 +333,21 @@ def _checked(name: str, lhs: torch.Tensor, rhs: torch.Tensor,
 
 
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
-        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+        out_dtype: torch.dtype | None = None,
+        host_sizes: tuple[int, ...] | None = None) -> torch.Tensor:
     """Grouped matmul (see the module docstring): lhs (T, K) sorted by
     expert, rhs (E, K, N), group_sizes (E,) int32 -> (T, N) in
-    ``out_dtype`` (default lhs.dtype).  A CUDA call that autograd records
-    goes through `GmmFn`."""
+    ``out_dtype`` (default lhs.dtype).  ``host_sizes`` are the same sizes
+    as host ints where the caller knows them (the MoE layer's capacity):
+    the plain version and the dry-run read them instead of the tensor,
+    the kernel never reads either on the host.  A CUDA call that
+    autograd records goes through `GmmFn`."""
+    if sites.recorder is not None:
+        return sites.recorder.gmm(lhs, rhs, group_sizes, out_dtype=out_dtype,
+                                  host_sizes=host_sizes)
     if lhs.device.type == "cpu":
-        return gmm_plain(lhs, rhs, group_sizes, out_dtype=out_dtype)
+        return gmm_plain(lhs, rhs, group_sizes, out_dtype=out_dtype,
+                         host_sizes=host_sizes)
     if lhs.device.type != "cuda":
         raise ValueError(f"gmm: no kernel for device {lhs.device}")
     if torch.is_grad_enabled() and (lhs.requires_grad or rhs.requires_grad):
@@ -381,6 +398,9 @@ def gmm_backward(lhs: torch.Tensor, rhs: torch.Tensor,
     others; nothing at all, and no count, when it asks for neither), or
     raises; on CPU tensors, and only there, it runs
     `ref.gmm_backward_reference`."""
+    if sites.recorder is not None:
+        return sites.recorder.gmm_backward(lhs, rhs, group_sizes, dout,
+                                           need=need)
     if lhs.device.type == "cpu":
         return gmm_backward_reference(lhs, rhs, group_sizes, dout)
     if lhs.device.type != "cuda":

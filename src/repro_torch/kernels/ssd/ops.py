@@ -58,6 +58,10 @@ states.  `launch_counts["ssd_bwd"]` counts each backward call,
 The CUDA sources are built at first use by `repro_torch.kernels.build`
 (nvcc into ``build/repro_torch/``, bound with ctypes, no PyTorch
 headers), each into a library of its own.
+
+While the dry-run records (`kernels.sites.recorder`, `launch.dryrun`),
+each wrapper hands its call to the recorder before it looks at the
+device: nothing is built, launched or counted.
 """
 from __future__ import annotations
 
@@ -67,6 +71,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import sites
 from repro_torch.kernels.build import build_library, launch_counts
 from repro_torch.kernels.ssd.ref import (
     acc_dtype, expand_groups, ssd_backward_reference, ssd_reference,
@@ -492,6 +497,9 @@ def ssd(
     and the final state (B,H,P,N) in float32.  x, Bm and Cm may be views
     whose last axis is contiguous (as `_split_xbc` makes them).  A CUDA
     call that autograd records goes through `SSDFn`."""
+    if sites.recorder is not None:
+        return sites.recorder.ssd(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                  initial_state=initial_state)
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
                            initial_state=initial_state)
@@ -521,6 +529,9 @@ def ssd_forward(
     H, 2, P, N) from the tensor-core one; chunk 0's written only with an
     initial state).  On CPU tensors it runs `ssd_chunked` and keeps
     nothing (None)."""
+    if sites.recorder is not None:
+        return sites.recorder.ssd_forward(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                          initial_state=initial_state)
     if x.device.type == "cpu":
         return (*ssd_chunked(x, dt, A, Bm, Cm, D, chunk=chunk,
                              initial_state=initial_state), None)
@@ -552,6 +563,10 @@ def ssd_backward(
     often hands over views) and launches the instance `bwd_route` names on
     the current stream, or raises; on CPU tensors, and only there, it runs
     `ref.ssd_backward_reference`."""
+    if sites.recorder is not None:
+        return sites.recorder.ssd_backward(
+            x, dt, A, Bm, Cm, D, dy, chunk=chunk,
+            initial_state=initial_state, dfinal=dfinal, kept=kept)
     if x.device.type == "cpu":
         return ssd_backward_reference(x, dt, A, Bm, Cm, D, initial_state,
                                       dy, dfinal, chunk)

@@ -57,6 +57,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import sites
 from repro_torch.kernels.flash_attention.ops import (
     flash_attention, flash_attention_forward,
 )
@@ -377,7 +378,14 @@ def cache_fill(cache: dict, k: torch.Tensor, v: torch.Tensor,
         k, v, positions = k[:, -C:], v[:, -C:], positions[:, -C:]
     slots = (positions % C).long()
     bidx = torch.arange(k.shape[0], device=k.device)[:, None]
-    if n > 1:
+    if n > 1 and sites.recorder is not None:
+        # the dry-run traces shapes, and a boolean selection has none: the
+        # rank's writes stand as its share of each row's positions
+        m = -(-slots.shape[1] // n)
+        bidx = bidx.expand_as(slots)[:, :m]
+        slots, positions = slots[:, :m] % part, positions[:, :m]
+        k, v = k[:, :m], v[:, :m]
+    elif n > 1:
         mine = slots // part == mesh.index(axes)
         bidx = bidx.expand_as(slots)[mine]
         slots, positions = slots[mine] % part, positions[mine]

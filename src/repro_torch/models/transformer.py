@@ -31,8 +31,11 @@ products with no batch axis, as ``checkpoint_dots_with_no_batch_dims``
 keeps the reference's) and recomputes the rest; ``"none"`` keeps
 everything.
 
-Not on this slice, and refused with NotImplementedError: ``unroll``, which
-only matters to the dry-run's cost analysis (ROADMAP Queue 1 item 15).
+``unroll`` is the reference's switch between ``lax.scan`` over depth and
+a fully unrolled stack, which only the dry-run's cost analysis asks for
+(XLA counts a loop body once).  Here the depth loop is a Python loop with
+every layer a separate call either way, so ``unroll=True`` computes
+exactly what ``unroll=False`` does; it is accepted on every entry point.
 """
 from __future__ import annotations
 
@@ -52,11 +55,6 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.param import Init
 from repro_torch.parallel.sharding import no_constraint
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
-                               f"item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -93,11 +91,9 @@ def slot_specs(cfg: ModelConfig, *, cross: bool = False) -> list[SlotSpec]:
 REMAT_POLICIES = ("none", "full", "dots")
 
 
-def _check_modes(*, remat: str = "none", unroll: bool = False):
+def _check_modes(*, remat: str = "none"):
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat policy {remat}")
-    if unroll:
-        raise _not_ported("unroll=True (the dry-run's cost analysis)", "15")
 
 
 #: the products whose outputs ``remat="dots"`` keeps: matrix products
@@ -260,7 +256,7 @@ def stack_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     ``mesh``, x holds the rank's rows (laid out as ``constrain`` says):
     attention is sequence-parallel and the MoE layers expert-parallel
     where the reference's selectors say so."""
-    _check_modes(remat=remat, unroll=unroll)
+    _check_modes(remat=remat)
     B, S, _ = x.shape
     if positions is None:
         positions = attn.default_positions(B, S, x.device)
@@ -351,7 +347,6 @@ def stack_decode(params: dict, cfg: ModelConfig, x_t: torch.Tensor,
     place and returned.  Under a ``mesh`` x_t, the cache and lengths are
     this rank's parts, laid out as ``constrain`` says (its ``rows``; the
     attention caches' slots cut over its ``kv_seq``)."""
-    _check_modes(unroll=unroll)
     specs = slot_specs(cfg, cross=cross)
     n = _n_scan(params)
     for p, c in zip(_layers(params, n), _layers(cache, n)):
@@ -398,7 +393,6 @@ def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
                   cross: bool = False, enc_out: torch.Tensor | None = None,
                   mesh=None, constrain=no_constraint,
                   unroll: bool = False) -> tuple[torch.Tensor, dict]:
-    _check_modes(unroll=unroll)
     B, S, _ = x.shape
     if positions is None:
         positions = attn.default_positions(B, S, x.device)

@@ -55,7 +55,7 @@ PyTree = Any
 
 
 def make_prefill_step(cfg: ModelConfig, mesh, rules: ShardingRules,
-                      kv_seq: tuple[str, ...] = ()):
+                      kv_seq: tuple[str, ...] = (), *, unroll: bool = False):
     """``prefill_step(params, batch, cache)``: `models.model.prefill` on
     a whole batch (under a mesh, on every rank: the rows are on every
     rank, cut over no axis; the cache is the rank's part, its slots cut
@@ -67,14 +67,14 @@ def make_prefill_step(cfg: ModelConfig, mesh, rules: ShardingRules,
 
     def prefill_step(params, batch, cache):
         return model_lib.prefill(params, cfg, batch, cache, mesh=mesh,
-                                 constrain=constrain)
+                                 constrain=constrain, unroll=unroll)
 
     prefill_step.layout = constrain
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, mesh, rules: ShardingRules,
-                     batch: int | None = None):
+                     batch: int | None = None, *, unroll: bool = False):
     """``decode_step(params, tokens_t, cache, lengths)``: one token for
     every row.  The tokens (B, 1) and lengths (B,) are whole; under a
     mesh the cache is this rank's part (``decode_step.layout``, the
@@ -83,7 +83,7 @@ def make_decode_step(cfg: ModelConfig, mesh, rules: ShardingRules,
     if mesh is None:
         def decode_step(params, tokens_t, cache, lengths):
             return model_lib.decode_step(params, cfg, tokens_t, cache,
-                                         lengths)
+                                         lengths, unroll=unroll)
 
         decode_step.layout = None
         return decode_step
@@ -96,7 +96,7 @@ def make_decode_step(cfg: ModelConfig, mesh, rules: ShardingRules,
             params, cfg,
             coll.own_slice(tokens_t, mesh, layout.rows, 0).clone(), cache,
             coll.own_slice(lengths, mesh, layout.rows, 0).clone(),
-            mesh=mesh, constrain=layout)
+            mesh=mesh, constrain=layout, unroll=unroll)
         return (coll.all_gather(logits, mesh, layout.rows, 0), cache,
                 lengths + 1)
 

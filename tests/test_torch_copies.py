@@ -40,8 +40,8 @@ DIFFERING = {
     "core/__init__.py": "exports TorchMatchmaker instead of the JAX "
                         "backends",
     "core/matchmaker/base.py": "adds problem_from_reference at the end",
-    "configs/__init__.py": "no ShapeDtypeStruct input specs (only the "
-                           "dry-run reads them, and it is not ported)",
+    "configs/__init__.py": "the input specs are meta tensors, not "
+                           "ShapeDtypeStructs (`_spec` makes them)",
     "data/__init__.py": "exports stub_modality_inputs beside "
                         "make_batch_specs",
 }
@@ -51,7 +51,7 @@ PORT_OWN = {
     "core/matchmaker/torch_backend.py", "kernels/__init__.py",
     "kernels/waterfill/__init__.py", "kernels/waterfill/ops.py",
     "kernels/waterfill/ref.py", "kernels/waterfill/study.py",
-    "kernels/build.py",
+    "kernels/build.py", "kernels/sites.py",
     "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
     "kernels/flash_attention/study.py",
     "kernels/ssd/__init__.py", "kernels/ssd/ops.py", "kernels/ssd/ref.py",
@@ -63,7 +63,8 @@ PORT_OWN = {
     "models/moe.py",
     "serve/__init__.py", "serve/engine.py",
     "launch/__init__.py", "launch/serve.py", "launch/train.py",
-    "launch/mesh.py", "parallel/sharding.py", "parallel/collectives.py",
+    "launch/mesh.py", "launch/dryrun.py", "launch/roofline_adjust.py",
+    "parallel/sharding.py", "parallel/collectives.py",
     "train/optimizer.py", "train/schedule.py", "train/train_step.py",
     "data/pipeline.py", "checkpoint/manager.py",
 }
@@ -117,8 +118,10 @@ def test_every_port_file_is_classified():
 
 
 def test_config_registry_is_the_reference_without_input_specs():
-    """configs/__init__.py keeps the reference's registry and
-    reduced_config verbatim and drops only the dry-run's input specs."""
+    """configs/__init__.py holds every function of the reference's
+    registry, the registry, reduced_config and the input specs' text
+    length verbatim; the input specs keep their names and make meta
+    tensors (`_spec`) where the reference makes ShapeDtypeStructs."""
     def functions(text):
         return {n.name: ast.get_source_segment(text, n)
                 for n in ast.parse(text).body
@@ -126,11 +129,13 @@ def test_config_registry_is_the_reference_without_input_specs():
 
     ref = functions(substituted("configs/__init__.py"))
     port = functions((PORT / "configs/__init__.py").read_text())
-    specs = {"_text_len", "train_input_specs", "prefill_input_specs",
-             "decode_input_specs", "input_specs"}
-    assert set(ref) - specs == set(port)
-    for name in port:
+    specs = {"train_input_specs", "prefill_input_specs",
+             "decode_input_specs"}
+    assert set(port) == set(ref) | {"_spec"}
+    for name in set(ref) - specs:
         assert port[name] == ref[name], name
+    for name in specs:
+        assert "ShapeDtypeStruct" not in port[name], name
 
 
 def test_pipeline_draws_are_the_references_letter_for_letter():

@@ -1439,3 +1439,49 @@ def test_collectives_carry_cuda_tensors_on_gloo(cuda, tmp_path):
         for k in out[0]:
             assert np.array_equal(r[k], out[0][k]) or k.startswith("own"), k
     assert (out[0]["psum_i32"] == sum(range(4))).all()
+
+
+def test_dryrun_step_phase_at_small_size_on_the_card(cuda):
+    """chip_smoke's phase 29(b) at small size: the reduced qwen2 (head dim
+    32, bfloat16) trained by `run_fixed` on the card, its launches per
+    step, state bytes and step times measured as `train_phase` measures
+    them; the dry-run's analysis of the same step must count its
+    launches as sites, its state's bytes exactly, and bound its median
+    step."""
+    import dataclasses
+    import statistics
+
+    from chip_smoke import card_line, dryrun_step_phase, state_items
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.build import launch_counts
+    from repro_torch.launch import train as launch_train
+
+    cfg = dataclasses.replace(reduced_config("qwen2-1.5b"), d_head=32,
+                              param_dtype="bfloat16",
+                              activation_dtype="bfloat16")
+    train = dict(steps=4, batch=2, seq=64)
+    seconds, state_bytes = [], []
+
+    def on_step(i, state, metrics, s):
+        seconds.append(s)
+        if i == 0:
+            state_bytes.append(sum(
+                t.numel() * t.element_size() for tree in (
+                    state.params, state.opt["mu"], state.opt["nu"])
+                for _, t in state_items(tree)))
+
+    for name in launch_counts:
+        launch_counts[name] = 0
+    torch.cuda.reset_peak_memory_stats()
+    launch_train.run_fixed(cfg, steps=train["steps"], batch=train["batch"],
+                           seq=train["seq"], ckpt_dir=None, device=cuda,
+                           log_every=10, on_step=on_step)
+    trained = {"steps": train["steps"], "launch_counts": dict(launch_counts),
+               "state_bytes": state_bytes[0],
+               "step_ms_median_3_6": 1e3 * statistics.median(seconds[2:]),
+               "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+    row = dryrun_step_phase(cfg, trained, card_line(), train=train)
+    assert row["sites_per_step"] == {"flash_attention": cfg.n_layers,
+                                     "flash_attention_bwd": cfg.n_layers}
+    assert 0 < row["bound_over_measured"] <= 1.05

@@ -213,8 +213,10 @@ def test_moe_models_through_the_gmm_function_match_reference(reference_runs,
     calls = {"forward": 0, "backward": 0}
     backward = gmm_ops.gmm_backward
 
-    def through_fn(lhs, rhs, group_sizes, *, out_dtype=None):
+    def through_fn(lhs, rhs, group_sizes, *, out_dtype=None,
+                   host_sizes=None):
         calls["forward"] += 1
+        assert host_sizes == (int(group_sizes[0]),) * len(group_sizes)
         return gmm_ops.GmmFn.apply(lhs, rhs, group_sizes, out_dtype)
 
     def counted(*args, **kw):
@@ -337,14 +339,26 @@ def test_backward_stacks_each_stacked_leaf_once(n_layers):
     assert mode.calls.get("aten.select_backward.default", 0) <= 1  # the CE
 
 
-def test_unknown_remat_and_unroll_are_refused():
-    cfg = reduced_config("qwen2-1.5b")
-    params = model_lib.init_model(cfg, device="cpu")
-    batch = to_torch(batch_of(cfg))
+def test_unknown_remat_and_unroll_are_refused(reference_runs):
+    """An unknown remat policy is refused; ``unroll=True`` is accepted (the
+    depth loop is a Python loop either way): the same loss bit for bit as
+    ``unroll=False``, and the reference's ``loss_fn(unroll=True)`` within
+    `LOSS_TOL`."""
+    arch = "qwen2-1.5b"
+    cfg = reduced_config(arch)
+    ref = reference_runs(arch)
+    params = carried(ref["params"])
+    batch = to_torch(ref["batch"])
     with pytest.raises(ValueError, match="unknown remat policy"):
         model_lib.loss_fn(params, cfg, batch, remat="some")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        model_lib.loss_fn(params, cfg, batch, unroll=True)
+    rolled, _ = model_lib.loss_fn(params, cfg, batch, remat="none")
+    unrolled, _ = model_lib.loss_fn(params, cfg, batch, remat="none",
+                                    unroll=True)
+    assert torch.equal(rolled, unrolled)
+    ref_unrolled, _ = ref_model.loss_fn(ref["params"], ref_reduced_config(arch),
+                                        to_jax(ref["batch"]), remat="none",
+                                        unroll=True)
+    assert rel(unrolled, ref_unrolled) <= LOSS_TOL
 
 
 # ---------------------------------------------------------------------------

@@ -702,3 +702,28 @@ def tp_world(rank, dev, cases):
     return {"cases": [tp_case(rank, dev, c) for c in cases["cases"]],
             "planted": planted(rank, dev, cases["planted"]),
             "steps": [tp_steps(rank, dev, c) for c in cases["steps"]]}
+
+
+def dryrun_numbers(counter) -> dict:
+    """What `launch.dryrun.OpCounter` counted, as plain values."""
+    from collections import Counter
+    return {"flops": dict(counter.flops), "bytes": counter.bytes,
+            "coll": dict(counter.coll), "links": dict(counter.links),
+            "sites": dict(Counter(s.kernel for s in counter.sites))}
+
+
+def dryrun_counts(rank, dev, case):
+    """`launch.dryrun.trace` of a reduced config's train step under each
+    of the case's rules, run for real on this rank's CPU tensors (zero
+    tokens, uninitialised weights: the counts depend on shapes alone),
+    counted by the dry-run's mode."""
+    from repro_torch.configs import input_specs
+    from repro_torch.launch import dryrun
+
+    cfg, cell = case["cfg"], case["cell"]
+    mesh = WorkerMesh(case["mesh"], dev)
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype)
+             for k, v in input_specs(cfg, cell).items()}
+    return {rules: dryrun_numbers(dryrun.trace(
+        cfg, mesh, cell, fake=False, remat="none", rules_name=rules,
+        batch=batch)[0]) for rules in case["rules"]}
