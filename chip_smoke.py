@@ -5,10 +5,11 @@ Run from the repository root on a machine with the card:
     python3 chip_smoke.py
 
 It imports nothing of JAX and nothing of the JAX package.  Phases, run
-in the order 1, 2, 5-13, 15-24, 3, 4, 25, 26, 27, 28, 29, 14 (the water-fill's
-last: once its tier-1m case has run, `torch.profiler` reads no device
-events in the same process -- `repro_torch.kernels.waterfill.study`
-finds where -- so every phase that reads the profiler runs first); any
+in the order 1, 2, 5-13, 15-24, 3, 4, 25, 26, 27, 28, 30, 29, 14 (the
+water-fill's last: once its tier-1m case has run, `torch.profiler` reads
+no device events in the same process --
+`repro_torch.kernels.waterfill.study` finds where -- so every phase that
+reads the profiler runs first); any
 failure raises and exits non-zero (nothing is caught, and nothing falls
 back to the CPU or to a plain version):
 
@@ -340,7 +341,9 @@ back to the CPU or to a plain version):
      heads do not divide 4: the cache's slots are cut over "model") and
      mamba2-1.3b on (data 2, model 4), at 2 layers in float32 (greedy
      tokens equal to the one-device engine's, the first tick within
-     1e-4) and at full depth in bfloat16 (the first tick within 5e-2; a
+     1e-4) and in bfloat16 at `TRAIN_LAYERS` (qwen2 8 of 28 layers,
+     mamba2 16 of 48; full depth until phase 30 joined the smoke: the
+     time limit) (the first tick within 5e-2; a
      partial dropped from the sums over "model" must read above it);
      mamba2 cut to 2 layers in float32 trained under base on (4, 2), 3
      steps of 8 x 512, against rank 0's one-device step (losses 1e-4 of
@@ -349,11 +352,12 @@ back to the CPU or to a plain version):
      backward launches exact; `{"tp_serve": ...}` and `{"tp_train":
      ...}` lines with each rank's peak memory and resident weight bytes;
  29. the dry-run (`repro_torch.launch.dryrun`): (a) its command line in
-     processes of its own, at once, for qwen2-1.5b × train_4k on both
-     production meshes and jamba-v0.1-52b × decode_32k (`DRYRUN_CELLS`):
-     each exits 0 with every result key, no error, and no CUDA context
-     made in its process; (b) phase 15's step (qwen2-1.5b at
-     `TRAIN_LAYERS`, 8 x 512, bfloat16) analysed on a mesh of one rank:
+     processes of its own, at once, for qwen2-1.5b × train_4k and ×
+     prefill_32k on both production meshes and jamba-v0.1-52b ×
+     decode_32k (`DRYRUN_CELLS`): each exits 0 with every result key, no
+     error, and no CUDA context made in its process; (b) phase 15's step
+     (qwen2-1.5b at `TRAIN_LAYERS`, 8 x 512, bfloat16) analysed on a mesh
+     of one rank:
      its kernel sites per step equal `training_launches` and phase 15's
      measured launches per step, its argument bytes the state's
      (parameters and both moments) as phase 15 measured them, and its
@@ -361,6 +365,31 @@ back to the CPU or to a plain version):
      at most `DRYRUN_BOUND_SLACK`; a `{"dryrun_cli": ...}` and a
      `{"dryrun_step": ...}` line (the ratio, the predicted peak against
      `torch.cuda.max_memory_allocated`, the card's name and power limit);
+ 30. in phase 26's world, after phase 28's parts (`PARALLEL_PLAN`'s
+     "prefill_rows"; it runs before phase 29): a batched prefill,
+     `make_prefill_step(..., batch=8)`, whose rows are cut over the mesh
+     as the reference lowers its prefill, each rank prefilling its rows
+     of 8 prompts of 512 tokens into its part of the cache and the logits
+     gathered: qwen2-1.5b at full width on {"data": 8} (a row a rank) and
+     (data 4, model 2) (2 rows, 6 query heads and 1 kv head a rank) and
+     mamba2-1.3b on (data 2, model 4) (4 rows, 16 of 64 SSM heads) under
+     ``decode``, jamba-v0.1-52b at full width under ``ep`` on (data 4,
+     model 2) (2 rows and 4 of 16 experts a rank), cut to 2 layers with
+     attention every second layer (a Mamba layer and an attention layer
+     with the MoE layer: one period of jamba holds four MoE layers, which
+     would not fit eight ranks and rank 0's reference) at a capacity that
+     drops nothing (`dispatch_demand`).  In float32 at 2 layers the
+     gathered logits within 1e-4 of rank 0's one-device prefill of the
+     batch, relative, the lengths equal, every rank's cache part within
+     1e-4 of that prefill's part (`models.model.cache_part`), and every
+     rank prefilling its neighbour's rows (a planted fault) above the
+     bars; in bfloat16 (qwen2 at 8 layers, mamba2 at `TRAIN_LAYERS`' 16)
+     the logits within 5e-2, each rank's flash, SSD and gmm launches
+     exact at its rows (`prefill_rows_expected`: the rows each kernel got
+     and the instances); the uncut prefill of the same batch (every row
+     on every rank) timed beside it, a measured reference; a
+     `{"prefill_rows": ...}` line with each run's wall, main-path and
+     uncut seconds and peak memory by rank;
  14. a JSON line per kernel (the water-fill's with its launches by
      instance and by entry point and the host breakdown; flash's, the
      SSD's and gmm's with their launches by instance and ptxas' report of
@@ -4943,22 +4972,49 @@ PARALLEL_PLAN["serve_mesh"] = dict(
     layers=8)
 #: phase 28, in the same world after phase 27's parts: activation tensor
 #: parallelism over "model".  Serving under ``decode`` with phase 27's
-#: traffic: qwen2-1.5b at full width and depth in bfloat16 on (data 4,
-#: model 2) (6 query heads and 1 kv head a rank) and (data 2, model 4)
-#: (3 query heads; its 2 kv heads do not divide 4, so the cache's slots
-#: are cut over "model"), mamba2-1.3b on (data 2, model 4) (16 of its 64
-#: SSM heads a rank), each with a float32 gate at ``gate_layers`` layers;
-#: mamba2-1.3b cut to 2 layers in float32, trained under base on (data 4,
-#: model 2), 3 steps of 8 x 512
+#: traffic: qwen2-1.5b at full width in bfloat16 on (data 4, model 2) (6
+#: query heads and 1 kv head a rank) and (data 2, model 4) (3 query heads;
+#: its 2 kv heads do not divide 4, so the cache's slots are cut over
+#: "model"), mamba2-1.3b on (data 2, model 4) (16 of its 64 SSM heads a
+#: rank), cut to ``layers`` by arch (their full depth until phase 30
+#: joined the smoke: the time limit; a slower host took 102.7 s for the
+#: part at full depth, run 31b, 48.8 s in 30b), each with a float32 gate
+#: at ``gate_layers`` layers; mamba2-1.3b cut to 2 layers in float32,
+#: trained under base on (data 4, model 2), 3 steps of 8 x 512
 PARALLEL_PLAN["tp_serve"] = dict(
     runs=[dict(arch=ARCH, mesh={"data": 4, "model": 2}),
           dict(arch=ARCH, mesh={"data": 2, "model": 4}),
           dict(arch=SSD_ARCH, mesh={"data": 2, "model": 4})],
     rules="decode", slots=8, max_seq=2048, requests=8, prompt=(64, 512),
-    new=16, gate_layers=2)
+    new=16, gate_layers=2, layers=dict(TRAIN_LAYERS))
 PARALLEL_PLAN["tp_train"] = dict(arch=SSD_ARCH, layers=2,
                                  mesh={"data": 4, "model": 2}, rules="base",
                                  steps=3, batch=8, seq=512)
+#: phase 30, in the same world after phase 28's parts: a batched prefill
+#: (`make_prefill_step(..., batch=8)`) with its rows cut over the mesh, 8
+#: prompts of 512 tokens under ``decode``: qwen2-1.5b at full width cut to
+#: 8 layers (as phase 27's serving) on {"data": 8} (a row a rank) and on
+#: (data 4, model 2) (2 rows, 6 query heads and 1 kv head a rank),
+#: mamba2-1.3b at `TRAIN_LAYERS`' 16 layers on (data 2, model 4) (4 rows,
+#: 16 of 64 SSM heads); jamba-v0.1-52b under ``ep`` on (data 4, model 2)
+#: (2 rows and 4 of 16 experts a rank, half of each expert's FF columns),
+#: cut to the fewest layers that hold one MoE layer: its period is 8 (a
+#: cut keeps whole periods) and one period holds four MoE layers (22.5 GB
+#: of bfloat16 experts, 45 GB in float32 on rank 0 alone), so the cut
+#: takes attention every second layer (``attn_every`` 2) and 2 layers: a
+#: Mamba layer with its dense FFN, an attention layer with the MoE layer
+#: (14.7 GB in float32 on rank 0, 3.1 GB a rank: each keeps its own
+#: experts), at a capacity that drops nothing (`dispatch_demand`).  A
+#: float32 gate at ``gate_layers`` layers for each (jamba's 2 are its cut)
+PARALLEL_PLAN["prefill_rows"] = dict(
+    runs=[dict(arch=ARCH, mesh={"data": 8}, rules="decode", layers=8),
+          dict(arch=ARCH, mesh={"data": 4, "model": 2}, rules="decode",
+               layers=8),
+          dict(arch=SSD_ARCH, mesh={"data": 2, "model": 4}, rules="decode",
+               layers=TRAIN_LAYERS[SSD_ARCH]),
+          dict(arch=MOE_ARCH, mesh={"data": 4, "model": 2}, rules="ep",
+               layers=2, changes=dict(attn_every=2))],
+    batch=8, seq=512, gate_layers=2)
 #: phase 27 at small size (tests/test_torch_cuda.py): the reduced qwen2,
 #: head dim 32
 MESH_PLAN_SMALL = {
@@ -4973,9 +5029,16 @@ MESH_PLAN_SMALL = {
 TP_PLAN_SMALL = {
     "tp_serve": dict(PARALLEL_PLAN["tp_serve"], reduced=True,
                      changes=dict(d_head=32), max_seq=64, prompt=(8, 24),
-                     new=4),
+                     new=4, layers={}),
     "tp_train": dict(PARALLEL_PLAN["tp_train"], reduced=True, seq=32),
 }
+#: phase 30 at small size (tests/test_torch_cuda.py): the reduced configs
+#: (qwen2 4 heads and 2 kv heads, mamba2 8 SSM heads, jamba 4 experts),
+#: head dim 32, 32 tokens a prompt
+ROWS_PLAN_SMALL = {"prefill_rows": dict(
+    PARALLEL_PLAN["prefill_rows"], reduced=True, seq=32, runs=[
+        dict(run, layers=2, changes=dict(run.get("changes", {}), d_head=32))
+        for run in PARALLEL_PLAN["prefill_rows"]["runs"]])}
 #: phase 26 at small size (tests/test_torch_cuda.py): the reduced
 #: configs, head dim 32 (flash takes 32, 64 and 128)
 PARALLEL_PLAN_SMALL = {
@@ -5114,7 +5177,8 @@ def parallel_launches(plan: dict, rank: int = 0,
     layer, each prefill (every rank computes it whole) and each tick;
     phase 28's serving the same for qwen2 at the rank's heads and one
     SSD launch per layer and prefill for mamba2 (none at a tick), its
-    training one SSD forward and one backward per layer and step."""
+    training one SSD forward and one backward per layer and step; phase
+    30's cut prefills as `prefill_rows_expected` counts them."""
     none = {k: 0 for k in PARALLEL_KERNELS}
     per_layer = dict(none, flash_attention=1, flash_attention_bwd=1)
     steps = {"sp": 1, "step": plan.get("step", {}).get("steps"), "int8": 2}
@@ -5130,7 +5194,9 @@ def parallel_launches(plan: dict, rank: int = 0,
         elif name == "tp_serve":
             part, out[name] = plan[name], dict(none)
             for run in part["runs"]:
-                cfg = parallel_config(dict(part, **run), "float32")
+                cfg = parallel_config(dict(
+                    part, **run, layers=part["layers"].get(run["arch"])),
+                    "float32")
                 if cfg.ssm is not None:     # mamba2: an SSD launch a layer
                     out[name]["ssd"] += part["requests"] * cfg.n_layers
                 else:                       # one flash launch a layer
@@ -5139,6 +5205,11 @@ def parallel_launches(plan: dict, rank: int = 0,
         elif name == "tp_train":
             n = plan[name]["layers"] * plan[name]["steps"]
             out[name] = dict(none, ssd=n, ssd_bwd=n)
+        elif name == "prefill_rows":
+            out[name] = dict(none)
+            for _, by in prefill_rows_expected(plan):
+                for kernel, insts in by.items():
+                    out[name][kernel] += sum(insts.values())
         elif name == "serve_mesh":
             part = plan[name]
             calls = part["requests"] + part["new"] - 1
@@ -5194,26 +5265,37 @@ def ep_no_drop_capacity(cfg, mesh, x):
     tokens) at which neither drops an assignment: C_send holds the most
     assignments a rank sends one rank, cap_e the most an expert receives,
     the dense C the most an expert gets of all the tokens."""
-    from repro_torch.parallel import collectives as coll
     m = cfg.moe
     dsz = mesh.shape["data"]
-    E_loc = m.n_experts // dsz
     T = x.shape[0] * x.shape[1]
     A = T * m.top_k
     p_router = _ep_router(cfg, x.device)
     idx = torch.topk(torch.softmax(x.reshape(T, -1).float() @ p_router, -1),
                      m.top_k, dim=-1).indices.reshape(-1)
     per_expert = torch.bincount(idx, minlength=m.n_experts).to(torch.int32)
+    cf, most = ep_factor(per_expert, A, mesh)
+    dense_cf = most * m.n_experts / (dsz * A)
+    return cf * 1.0001, dense_cf * 1.0001
+
+
+def ep_factor(per_expert, A, mesh, data_axis="data") -> tuple[float, int]:
+    """(the least capacity factor at which expert parallelism drops none
+    of a rank's ``A`` assignments, ``per_expert`` of them to each expert,
+    the most assignments an expert gets from the "data" group): C_send
+    must hold the most a rank sends one rank, cap_e the most an expert
+    receives (collective over the mesh)."""
+    from repro_torch.parallel import collectives as coll
+    dsz = mesh.shape[data_axis]
+    E_loc = per_expert.numel() // dsz
     per_dst = per_expert.reshape(dsz, E_loc).sum(1)
     most_sent = int(coll.pmax(per_dst.max(), mesh, mesh.axis_names))
     # assignments an expert gets from the "data" group (the pod's tokens)
-    totals = coll.psum(per_expert, mesh, "data")
+    totals = coll.psum(per_expert, mesh, data_axis)
     most = int(coll.pmax(totals.max(), mesh, mesh.axis_names))
     cf = most_sent * dsz / A
     while math.ceil(dsz * math.ceil(A * cf / dsz) * cf / E_loc) < most:
         cf *= 1.05
-    dense_cf = most * m.n_experts / (dsz * A)
-    return cf * 1.0001, dense_cf * 1.0001
+    return cf, most
 
 
 def ep_part(rank, dev, plan, clock):
@@ -5949,8 +6031,9 @@ def tp_serve_part(rank, dev, plan, clock):
     the rank computing its part of the heads, MLP columns, SSM heads and
     vocabulary: at ``gate_layers`` layers in float32 (rank 0 holds the
     greedy tokens equal to the one-device engine's, and the first tick's
-    logits), then at full depth in bfloat16, the main path (rank 0: the
-    first tick's logits against the one-device engine's).  Each rank's
+    logits), then at its arch's ``layers`` (full depth where none) in
+    bfloat16, the main path (rank 0: the first tick's logits against the
+    one-device engine's).  Each rank's
     resident weight bytes against the whole model's.  Off the main path,
     the first run's bfloat16 first tick with rank 0's partial dropped
     from every sum over "model" (`dropped_partial`): a fault the bfloat16
@@ -5966,7 +6049,7 @@ def tp_serve_part(rank, dev, plan, clock):
     archs = list(dict.fromkeys(run["arch"] for run in part["runs"]))
     for arch in archs:
         for dtype, layers in (("float32", part["gate_layers"]),
-                              ("bfloat16", None)):
+                              ("bfloat16", part["layers"].get(arch))):
             cfg = parallel_config(dict(part, arch=arch, layers=layers),
                                   dtype)
             params = model_lib.init_model(cfg, seed=0, device=dev)
@@ -6123,6 +6206,367 @@ def tp_train_gates(row):
          row["params_share"], GATE_TP_PARAMS_SHARE)
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the prefill's rows cut over the mesh
+# ---------------------------------------------------------------------------
+
+#: phase 30's bars: the float32 prefill's gathered logits and each rank's
+#: cache part against rank 0's one-device prefill, relative (phase 28's
+#: float32 bar), the bfloat16 logits (phase 28's); a planted fault (every
+#: rank prefills its neighbour's rows) must read above them
+GATE_ROWS_F32, GATE_ROWS_BF16 = GATE_TP_F32, GATE_TP_BF16
+
+
+@contextlib.contextmanager
+def dispatch_demand(out: list):
+    """Appends, for each MoE dispatch the model makes while open, the
+    least capacity factor at which it drops no assignment: the dense
+    dispatch's capacity at its busiest expert, expert parallelism's as
+    `ep_factor` (phase 26's rule) reckons it.  The router comes before
+    any capacity, so a call on the same inputs routes alike at every
+    factor."""
+    from repro_torch.models import moe as moe_mod
+    dense, ep = moe_mod.moe_forward_dense, moe_mod._ep_local
+
+    def per_expert(x2d, router, m):
+        idx = moe_mod._router_topk(x2d.float() @ router.float(),
+                                   m.top_k)[2]
+        return torch.bincount(idx.reshape(-1), minlength=m.n_experts).to(
+            torch.int32)
+
+    def dense_demand(p, cfg, x, **kw):
+        m = cfg.moe
+        T = x.shape[0] * x.shape[1]
+        most = int(per_expert(x.reshape(T, -1), p["router"], m).max())
+        out.append(most * m.n_experts / (T * m.top_k))
+        return dense(p, cfg, x, **kw)
+
+    def ep_demand(xt, router_w, *args, m, mesh, data_axis, **kw):
+        out.append(ep_factor(per_expert(xt, router_w, m),
+                             xt.shape[0] * m.top_k, mesh, data_axis)[0])
+        return ep(xt, router_w, *args, m=m, mesh=mesh, data_axis=data_axis,
+                  **kw)
+
+    moe_mod.moe_forward_dense, moe_mod._ep_local = dense_demand, ep_demand
+    try:
+        yield out
+    finally:
+        moe_mod.moe_forward_dense, moe_mod._ep_local = dense, ep
+
+
+def no_drop(cfg, call):
+    """``cfg`` at a capacity factor at which ``call(cfg)`` (one model
+    call) drops no MoE assignment: the call runs once at cfg's own factor
+    with `dispatch_demand` open; ``cfg`` itself without MoE."""
+    if cfg.moe is None:
+        return cfg
+    demand = []
+    with dispatch_demand(demand):
+        call(cfg)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=max(demand) * 1.0001))
+
+
+@contextlib.contextmanager
+def kernel_rows(seen: dict):
+    """Records the rows each kernel call of the model gets (by kernel, a
+    set): flash attention's queries' and the SSD scan's leading dim, and
+    the grouped matmul's experts (its weights' leading dim)."""
+    from repro_torch.models import attention, ssm
+    from repro_torch.models import moe as moe_mod
+    sites = [(attention, "flash_attention", 0), (ssm, "ssd", 0),
+             (moe_mod, "gmm", 1)]
+    real = [getattr(mod, attr) for mod, attr, _ in sites]
+
+    def record(name, fn, arg):
+        def wrapped(*args, **kwargs):
+            seen.setdefault(name, set()).add(int(args[arg].shape[0]))
+            return fn(*args, **kwargs)
+        return wrapped
+    for (mod, attr, arg), fn in zip(sites, real):
+        setattr(mod, attr, record(attr, fn, arg))
+    try:
+        yield seen
+    finally:
+        for (mod, attr, _), fn in zip(sites, real):
+            setattr(mod, attr, fn)
+
+
+def rows_params(cfg, rules, mesh, rank, dev):
+    """(this rank's serving part of the weights drawn from seed 0, rank
+    0's whole weights or None).  The part is `models.model.serving_part`'s
+    and, under expert parallelism, holds the rank's own experts only (the
+    dispatch reads no other).  A model with experts is drawn by one rank
+    at a time: eight whole copies of jamba's cut would not fit the
+    card."""
+    import torch.distributed as dist
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.param import tree_map
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import Constrainer
+
+    axes = model_lib.axes_tree(cfg)
+
+    def draw():
+        whole = model_lib.init_model(cfg, seed=0, device=dev)
+        part = tree_map(lambda t, a: coll.own_slice(
+            t, mesh, "data", a.index("expert")).clone()
+            if "expert" in a and rules.name == "ep" else t,
+            model_lib.model_part(whole, cfg, rules, mesh), axes)
+        return whole, part
+
+    if cfg.moe is None:
+        whole, part = draw()
+    else:
+        for turn in range(mesh.size(mesh.axis_names)):
+            if turn == rank:
+                whole, part = draw()
+                if rank:
+                    whole = None
+                    if dev.type == "cuda":
+                        torch.cuda.empty_cache()
+            dist.barrier()
+    # the weights a call would gather, gathered once (`serving_part`)
+    constrain = Constrainer(rules, mesh, rows=())
+    if constrain.tp > 1:
+        part["stack"] = tfm.serving_stack(part["stack"], cfg, constrain)
+    return part, whole if rank == 0 else None
+
+
+def from_rank0(tree, like, dev):
+    """Rank 0's ``tree`` on every rank of the world (host copies over
+    gloo); ``like`` (a tree of the same shapes on the CPU) holds the other
+    ranks' buffers."""
+    import torch.distributed as dist
+    from repro_torch.models.param import tree_map
+
+    def one(t, buf):
+        buf = t.detach().cpu().clone() if t is not None else buf
+        dist.broadcast(buf, src=0)
+        return buf.to(dev)
+    if tree is None:
+        return tree_map(lambda b: one(None, b), like)
+    return tree_map(one, tree, like)
+
+
+def _cache_err(got, want) -> tuple[float, bool]:
+    """(the largest relative error of a cache's float leaves, its slot
+    positions equal)."""
+    from repro_torch.models.param import tree_leaves
+    err, pos = 0.0, True
+    for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+        if b.dtype == torch.int32:
+            pos = pos and torch.equal(a, b)
+        else:
+            err = max(err, rel_err(a, b))
+    return err, pos
+
+
+def prefill_rows_run(rank, dev, part, run, mesh, dtype, layers, clock):
+    """One run of phase 30 at ``layers`` in ``dtype``: the batch's prefill
+    through `make_prefill_step(..., batch=B)`, every rank its rows.  In
+    float32 (the gates): rank 0 holds the gathered logits and lengths
+    against its one-device prefill of the whole batch, every rank its
+    cache part against that prefill's (broadcast from rank 0; its part by
+    `models.model.cache_part`), and the same with every rank prefilling
+    its neighbour's rows (the batch rolled by a rank's rows: a planted
+    fault).  In bfloat16 (the main path, with the rows each kernel got):
+    the cut prefill and the uncut one (every row on every rank, as
+    before: a measured reference, not a gate), each once to warm and once
+    timed; rank 0 holds the logits against its one-device prefill."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.parallel.sharding import preset
+    from repro_torch.serve.engine import make_prefill_step
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    cfg = parallel_config(dict(part, **dict(run, layers=layers)), dtype)
+    rules = preset(run["rules"])
+    B, S = part["batch"], part["seq"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, device=dev)}
+    mine, whole = rows_params(cfg, rules, mesh, rank, dev)
+    layout = make_prefill_step(cfg, mesh, rules, batch=B).layout
+    n = B // mesh.size(layout.rows)
+
+    def cut(c, b=batch):
+        step = make_prefill_step(c, mesh, rules, batch=B)
+        return step(mine, b, model_lib.init_cache(c, n, S, device=dev,
+                                                  layout=step.layout))
+
+    def uncut(c):
+        step = make_prefill_step(c, mesh, rules)
+        return step(mine, batch, model_lib.init_cache(c, B, S, device=dev,
+                                                      layout=step.layout))
+
+    def synced(fn, *args):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t
+
+    row = {"arch": cfg.name, "mesh": run["mesh"], "rules": rules.name,
+           "dtype": dtype, "layers": cfg.n_layers, "rows": list(layout.rows),
+           "rows_per_rank": n}
+    cut_cfg = no_drop(cfg, cut)
+    if cfg.moe is not None:
+        row["capacity_factor"] = cut_cfg.moe.capacity_factor
+    fault = None
+    if dtype == "bfloat16":
+        uncut_cfg = no_drop(cfg, uncut)
+        cut(cut_cfg)
+        uncut(uncut_cfg)
+        seen: dict = {}
+        before = clock.main_s
+        with clock.main_path(), kernel_rows(seen):
+            logits, cache, lengths = cut(cut_cfg)
+        row["main_s"] = clock.main_s - before
+        row["kernel_rows"] = {k: sorted(v) for k, v in seen.items()}
+        row["uncut_s"] = synced(uncut, uncut_cfg)[1]
+    else:
+        logits, cache, lengths = cut(cut_cfg)
+        rolled = {k: v.roll(-n, 0) for k, v in batch.items()}
+        fault = cut(cut_cfg, rolled)
+    ref = None
+    if rank == 0:                   # the one-device prefill of the batch
+
+        def one(c):
+            return model_lib.prefill(whole, c, batch, model_lib.init_cache(
+                c, B, S, device=dev))
+        ref = one(no_drop(cfg, one))
+        row["logits"] = rel_err(logits, ref[0])
+        row["lengths_equal"] = bool(torch.equal(lengths, ref[2]))
+        if fault is not None:
+            row["logits_fault"] = rel_err(fault[0], ref[0])
+    if fault is not None:           # every rank's cache part
+        like = model_lib.init_cache(cfg, B, S, device="cpu")
+        want = model_lib.cache_part(from_rank0(
+            None if ref is None else ref[1], like, dev), cfg, layout)
+        row["cache"], row["cache_pos_equal"] = _cache_err(cache, want)
+        row["cache_fault"] = _cache_err(fault[1], want)[0]
+    del mine, whole, ref, cache, fault
+    if dev.type == "cuda":
+        row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        torch.cuda.empty_cache()
+    row["wall_s"] = time.perf_counter() - t0
+    return row
+
+
+def prefill_rows_part(rank, dev, plan, clock):
+    """Phase 30 (`PARALLEL_PLAN`'s "prefill_rows"): each run's float32
+    gate at ``gate_layers`` layers, then its bfloat16 main path at its
+    ``layers`` (`prefill_rows_run`)."""
+    from repro_torch.launch.mesh import WorkerMesh
+    part = plan["prefill_rows"]
+    meshes = [WorkerMesh(run["mesh"], dev) for run in part["runs"]]
+    return {"runs": [
+        prefill_rows_run(rank, dev, part, run, mesh, dtype, layers, clock)
+        for run, mesh in zip(part["runs"], meshes)
+        for dtype, layers in (("float32", part["gate_layers"]),
+                              ("bfloat16", run["layers"]))]}
+
+
+def prefill_rows_expected(plan: dict) -> list:
+    """Per bfloat16 run, on each rank's main path: the rows each kernel
+    must get (flash attention and the SSD scan the rank's rows, the
+    grouped matmul the rank's experts), and each kernel's launches by
+    instance (one flash launch an attention layer, one SSD launch a Mamba
+    layer, three gmm launches a MoE layer; the instances `flash_route`,
+    `ssd_route` and `gmm_route` name at the run's shapes)."""
+    part = plan["prefill_rows"]
+    out = []
+    for run in part["runs"]:
+        cfg = parallel_config(dict(part, **run), "bfloat16")
+        mesh = run["mesh"]
+        rows = part["batch"] // mesh.get("data", 1)
+        mixers = [cfg.mixer_kind(s) for s in range(cfg.period)]
+        moe = [cfg.ffn_kind(s) for s in range(cfg.period)].count("moe")
+        want, by = {}, {}
+        if "attn" in mixers:
+            want["flash_attention"] = [rows]
+            by["flash_attention"] = {flash_route(
+                torch.bfloat16, part["seq"], cfg.n_heads, cfg.n_kv_heads,
+                cfg.d_head): cfg.n_scan * mixers.count("attn")}
+        if "ssm" in mixers:
+            s = cfg.ssm
+            want["ssd"] = [rows]
+            by["ssd"] = {ssd_route(torch.bfloat16, s.head_dim, s.d_state,
+                                   s.chunk): cfg.n_scan * mixers.count("ssm")}
+        if moe:
+            m = cfg.moe
+            f = m.d_ff_expert // mesh.get("model", 1)
+            want["gmm"] = [m.n_experts // mesh["data"]]
+            by["gmm"] = {}
+            for K, N, calls in ((cfg.d_model, f, 2), (f, cfg.d_model, 1)):
+                inst = gmm_route(torch.bfloat16, K, N)
+                by["gmm"][inst] = by["gmm"].get(inst, 0) + \
+                    calls * cfg.n_scan * moe
+        out.append((want, by))
+    return out
+
+
+def prefill_rows_gates(rows, plan):
+    """Phase 30's gates: the float32 runs' logits, lengths and every
+    rank's cache part against one device, each planted fault above the
+    bars, the bfloat16 logits against one device, and the rows and the
+    instance each kernel got on every rank's main path."""
+    expected = prefill_rows_expected(plan)
+    runs0 = rows[0]["prefill_rows"]["runs"]
+    for i, out in enumerate(runs0):
+        label = (f"prefill_rows {out['arch']} {out['dtype']} {out['rules']} "
+                 f"on {out['mesh']} (rows over {out['rows']})")
+        if out["dtype"] == "float32":
+            gate(f"{label}: gathered logits vs one device", out["logits"],
+                 GATE_ROWS_F32)
+            if not out["lengths_equal"]:
+                raise AssertionError(f"{label}: lengths differ")
+            for rank, r in enumerate(rows):
+                o = r["prefill_rows"]["runs"][i]
+                gate(f"{label}: rank {rank}'s cache part vs one device",
+                     o["cache"], GATE_ROWS_F32)
+                if not o["cache_pos_equal"]:
+                    raise AssertionError(f"{label}: rank {rank}'s slot "
+                                         f"positions differ")
+                if not o["cache_fault"] > GATE_ROWS_F32:
+                    raise AssertionError(
+                        f"{label}: rank {rank} prefilling its neighbour's "
+                        f"rows reads {o['cache_fault']:.3g} in the cache, "
+                        f"not above the bar: the gate cannot fail")
+            if not out["logits_fault"] > max(GATE_ROWS_F32, GATE_ROWS_BF16):
+                raise AssertionError(
+                    f"{label}: every rank prefilling its neighbour's rows "
+                    f"reads {out['logits_fault']:.3g}, not above the bars: "
+                    f"the gate cannot fail")
+            continue
+        gate(f"{label}: gathered logits vs one device", out["logits"],
+             GATE_ROWS_BF16)
+        want, routes = expected[i // 2]
+        for rank, r in enumerate(rows):
+            got = r["prefill_rows"]["runs"][i]["kernel_rows"]
+            if got != want:
+                raise AssertionError(f"{label}: rank {rank}'s kernels got "
+                                     f"rows {got}, not {want}")
+    # the instances: every main-path launch on its run's route
+    want: dict = {}
+    for _, by in expected:
+        for kernel, insts in by.items():
+            for inst, k in insts.items():
+                want.setdefault(kernel, {})
+                want[kernel][inst] = want[kernel].get(inst, 0) + k
+    for rank, r in enumerate(rows):
+        got = {k: v for k, v in r["prefill_rows"]["by_instance"].items()
+               if v}
+        if got != want:
+            raise AssertionError(f"phase 30: rank {rank}'s launches by "
+                                 f"instance {got}, not {want}")
+
+
 def parallel_rank(rank, dev, plan):
     """Phase 26 on one rank: the four parts, each timed, with its main
     path's launches; every rank's peak memory."""
@@ -6134,7 +6578,8 @@ def parallel_rank(rank, dev, plan):
                      ("int8", int8_part), ("elastic", elastic_part),
                      ("serve_mesh", serve_mesh_part),
                      ("tp_serve", tp_serve_part),
-                     ("tp_train", tp_train_part)):
+                     ("tp_train", tp_train_part),
+                     ("prefill_rows", prefill_rows_part)):
         if name not in plan:
             continue
         dist.barrier()
@@ -6169,21 +6614,25 @@ def serve_mesh_routes(plan: dict) -> dict:
     return out
 
 
-#: the parts of phases 27 and 28 (run in phase 26's world)
+#: the parts of phases 27, 28 and 30 (run in phase 26's world)
 MESH_PARTS = ("elastic", "serve_mesh")
 TP_PARTS = ("tp_serve", "tp_train")
+ROWS_PARTS = ("prefill_rows",)
 
 
 def parallel_phase(plan=PARALLEL_PLAN, device="cuda",
                    ranks=PARALLEL_RANKS) -> dict:
-    """Phases 26 and 27: one world of ``ranks`` processes (spawn, gloo on
-    the rank's device, all on card 0), the parts on meshes made over the
-    same ranks, their gates, and each rank's launches held exactly to
+    """Phases 26-28 and 30: one world of ``ranks`` processes (spawn, gloo
+    on the rank's device, all on card 0), the parts on meshes made over
+    the same ranks, their gates, and each rank's launches held exactly to
     `parallel_launches` (and serving's flash instances to
-    `serve_mesh_routes`).  Prints a ``{"parallel": ...}`` line for phase
-    26's parts, and ``{"elastic": ...}`` and ``{"serve_mesh": ...}`` for
-    phase 27's.  Returns each part's launches by kernel, as the ranks
-    counted them on its main path, summed over the ranks."""
+    `serve_mesh_routes`, phase 30's to `prefill_rows_expected`).  Prints
+    a ``{"parallel": ...}`` line for phase 26's parts, and a line for
+    each of phases 27, 28 and 30's (``{"elastic": ...}``,
+    ``{"serve_mesh": ...}``, ``{"tp_serve": ...}``, ``{"tp_train":
+    ...}``, ``{"prefill_rows": ...}``).  Returns each part's launches by
+    kernel, as the ranks counted them on its main path, summed over the
+    ranks."""
     import shutil
     from repro_torch.launch.mesh import spawn_world
     if device == "cuda":
@@ -6231,6 +6680,8 @@ def parallel_phase(plan=PARALLEL_PLAN, device="cuda",
         tp_serve_gates(rows[0]["tp_serve"])
     if "tp_train" in plan:
         tp_train_gates(rows[0]["tp_train"])
+    if "prefill_rows" in plan:
+        prefill_rows_gates(rows, plan)
     for rank, r in enumerate(rows):
         for part, counts in parallel_launches(plan, rank, ranks).items():
             if r[part]["launches"] != counts:
@@ -6254,17 +6705,30 @@ def parallel_phase(plan=PARALLEL_PLAN, device="cuda",
                 "wall_s", "main_s", "launches", "by_instance", "peak_gb",
                 "weight_bytes")}}
 
+    def rows_line():
+        """Phase 30's runs: rank 0's row of each, with every rank's wall,
+        main-path and uncut seconds and peak beside it."""
+        line = part_line("prefill_rows")
+        line["runs"] = [dict(run, **{f"{k}_by_rank": [
+            r["prefill_rows"]["runs"][i].get(k) for r in rows]
+            for k in ("wall_s", "main_s", "uncut_s", "peak_gb", "cache",
+                      "cache_fault")})
+            for i, run in enumerate(line["runs"])]
+        return line
+
     summary = {"parallel": {
         "ranks": ranks, "backend": "gloo", "world_wall_s": wall,
         "parts": {part: part_line(part) for part in plan
-                  if part not in MESH_PARTS + TP_PARTS},
+                  if part not in MESH_PARTS + TP_PARTS + ROWS_PARTS},
         "launches": {k: sum(by_part[part][k] for part in plan
-                            if part not in MESH_PARTS + TP_PARTS)
+                            if part not in MESH_PARTS + TP_PARTS
+                            + ROWS_PARTS)
                      for k in PARALLEL_KERNELS}}}
     print(json.dumps(summary), flush=True)
-    for part in MESH_PARTS + TP_PARTS:
+    for part in MESH_PARTS + TP_PARTS + ROWS_PARTS:
         if part in plan:
-            print(json.dumps({part: dict(part_line(part), ranks=ranks,
+            line = rows_line() if part in ROWS_PARTS else part_line(part)
+            print(json.dumps({part: dict(line, ranks=ranks,
                                          plan=plan[part])}), flush=True)
     return by_part
 
@@ -6300,7 +6764,8 @@ def build_all(modules) -> None:
 
 #: the dry-run's command line on the card's host: (arch, shape, --mesh)
 DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", "both"),
-                ("jamba-v0.1-52b", "decode_32k", "single"))
+                ("jamba-v0.1-52b", "decode_32k", "single"),
+                ("qwen2-1.5b", "prefill_32k", "both"))
 DRYRUN_KEYS = ("roofline", "roofline_extrapolated",
                "roofline_kernel_adjusted", "memory",
                "collective_bytes_per_chip")
@@ -6360,6 +6825,9 @@ def dryrun_cli_phase(timeout_s=240.0):
                 "roofline_fraction": adj["roofline_fraction"],
                 "peak_gb": res["memory"]["peak_memory_in_bytes"] / 1e9,
                 "fits_hbm": res["memory"]["fits_hbm"],
+                "rows": res.get("rows"),
+                "flops_per_chip": adj["hlo_flops_per_chip"],
+                "useful_flop_ratio": adj["useful_flop_ratio"],
                 "cuda_initialized": res["cuda_initialized"]})
     row = {"wall_s": wall, "cells": cells}
     print(json.dumps({"dryrun_cli": row}), flush=True)
@@ -6849,17 +7317,18 @@ def main() -> int:
     service = service_phase(launch_counts)
     waterfill_line["launches_service"] = service["waterfill_launches"]
     phase_done("25")
-    # phases 26 and 27 in one world of 8 ranks that share the card (gloo):
-    # parallel/ -- expert-parallel MoE, sequence-parallel attention, the
-    # sharded and the int8-compressed train steps; then elastic training
-    # and serving under a mesh
+    # phases 26-28 and 30 in one world of 8 ranks that share the card
+    # (gloo): parallel/ -- expert-parallel MoE, sequence-parallel
+    # attention, the sharded and the int8-compressed train steps; elastic
+    # training and serving under a mesh; the "model" cut; the prefill's
+    # rows cut over the mesh
     by_part = parallel_phase()
     for line, name in ((flash_line, "flash_attention"),
                        (bwd_line, "flash_attention_bwd"),
                        (gmm_line, "gmm"), (gmm_bwd_line, "gmm_bwd")):
         line["launches_parallel"] = sum(
             counts[name] for part, counts in by_part.items()
-            if part not in MESH_PARTS + TP_PARTS)
+            if part not in MESH_PARTS + TP_PARTS + ROWS_PARTS)
     for part in MESH_PARTS:
         flash_line[f"launches_{part}"] = by_part[part]["flash_attention"]
     bwd_line["launches_elastic"] = by_part["elastic"]["flash_attention_bwd"]
@@ -6867,7 +7336,10 @@ def main() -> int:
     ssd_line["launches_tp_serve"] = by_part["tp_serve"]["ssd"]
     ssd_line["launches_tp_train"] = by_part["tp_train"]["ssd"]
     ssd_bwd_line["launches_tp_train"] = by_part["tp_train"]["ssd_bwd"]
-    phase_done("26-28")
+    for line, name in ((flash_line, "flash_attention"), (ssd_line, "ssd"),
+                       (gmm_line, "gmm")):
+        line["launches_prefill_rows"] = by_part["prefill_rows"][name]
+    phase_done("26-28, 30")
     # phase 29: the dry-run's command line on this host, then phase 15's
     # step analysed and held against what phase 15 measured
     dryrun_cli_phase()

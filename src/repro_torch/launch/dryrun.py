@@ -566,27 +566,31 @@ def _serving_params(cfg, mesh, rules):
     return serving_part(_whole_params(cfg), cfg, rules, mesh)
 
 
-def build_prefill(cfg: ModelConfig, mesh, cell, *,
-                  unroll: bool = False) -> Built:
-    """`make_prefill_step` on the whole batch (every rank computes every
-    row), the serving rank's parameters (`serving_part`) and its part of
-    the cache (`init_cache` under the step's layout)."""
+def build_prefill(cfg: ModelConfig, mesh, cell, *, unroll: bool = False,
+                  batch=None) -> Built:
+    """`make_prefill_step` on the whole batch of the cell's rows (fake,
+    or ``batch``; the rank prefills its rows of `prefill_layout`: over
+    ("pod", "data") as the reference lowers its prefill), the serving
+    rank's parameters (`serving_part`) and its part of the rows' cache
+    (`init_cache` under the step's layout)."""
     from repro_torch.models.model import init_cache
     from repro_torch.parallel.sharding import rules_for
     from repro_torch.serve.engine import make_prefill_step
 
     rules = rules_for(cfg, "prefill")
-    step = make_prefill_step(cfg, mesh, rules, unroll=unroll)
-    params = _serving_params(cfg, mesh, rules)
     B, S = cell.global_batch, cell.seq_len
-    cache = init_cache(cfg, B, S, device="cpu", layout=step.layout)
-    batch = {k: _fake(v) for k, v in input_specs(cfg, cell).items()}
+    step = make_prefill_step(cfg, mesh, rules, batch=B, unroll=unroll)
+    params = _serving_params(cfg, mesh, rules)
+    rows = B // mesh.size(step.layout.rows)
+    cache = init_cache(cfg, rows, S, device="cpu", layout=step.layout)
+    if batch is None:
+        batch = {k: _fake(v) for k, v in input_specs(cfg, cell).items()}
 
     def run():
         return step(params, batch, cache)
 
     return Built(run, {"params": params, "batch": batch, "cache": cache},
-                 {"rules": rules.name})
+                 {"rules": rules.name, "rows": list(step.layout.rows)})
 
 
 def build_decode(cfg: ModelConfig, mesh, cell, *,
@@ -619,7 +623,8 @@ def build_step(cfg, mesh, cell, *, unroll: bool = False, **kw) -> Built:
     if cell.kind == "train":
         return build_train(cfg, mesh, cell, unroll=unroll, **kw)
     if cell.kind == "prefill":
-        return build_prefill(cfg, mesh, cell, unroll=unroll)
+        return build_prefill(cfg, mesh, cell, unroll=unroll,
+                             batch=kw.get("batch"))
     return build_decode(cfg, mesh, cell, unroll=unroll)
 
 

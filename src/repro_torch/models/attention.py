@@ -356,6 +356,26 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype, *,
     }
 
 
+def kv_cache_part(cache: dict, cfg: ModelConfig, layout, *,
+                  slots: bool = True) -> dict:
+    """The rank's part of a whole cache (leading stack axes allowed) as
+    `init_kv_cache` lays it out under ``layout``: its rows over the
+    layout's ``rows``, its slots over `kv_slots` (with ``slots``) and its
+    kv heads over "model" where the layout cuts them."""
+    mesh, rows = layout.mesh, layout.rows
+    axes = kv_slots(cfg, mesh, layout) if slots else ()
+    kvcut = _heads_cut(cfg, layout)[1]
+    out = {}
+    for name, t in cache.items():
+        b = t.dim() - (2 if name == "pos" else 4)       # the rows' dim
+        t = coll.own_slice(coll.own_slice(t, mesh, rows, b), mesh, axes,
+                           b + 1)
+        if name != "pos" and kvcut:
+            t = coll.own_slice(t, mesh, "model", b + 2)
+        out[name] = t.contiguous()
+    return out
+
+
 def cache_fill(cache: dict, k: torch.Tensor, v: torch.Tensor,
                positions: torch.Tensor, *, mesh=None,
                axes: tuple[str, ...] = ()) -> dict:

@@ -423,6 +423,15 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                                 layout=layout)
 
 
+def cache_part(cache: PyTree, cfg: ModelConfig, layout) -> PyTree:
+    """The rank's part of a whole cache, as `init_cache` lays it
+    out under a serving ``layout`` (its rows, and its kv heads, slots and
+    SSM heads as the layout cuts them): what a rank's prefill under that
+    layout fills."""
+    return tfm.stack_cache_part(cache, cfg, layout,
+                                cross=cfg.encoder is not None)
+
+
 @torch.no_grad()
 def prefill(params: PyTree, cfg: ModelConfig, batch: dict, cache: PyTree, *,
             mesh=None, constrain=no_constraint, unroll: bool = False
@@ -431,15 +440,23 @@ def prefill(params: PyTree, cfg: ModelConfig, batch: dict, cache: PyTree, *,
     cache (in place).  Returns (last_logits (B, V) float32, cache,
     lengths (B,) int32: the positions filled, a VLM prefix included).
 
-    Under a ``mesh`` every rank passes the same whole batch and computes
-    every row: ``constrain`` is a `Constrainer` whose ``rows`` are ``()``
-    (`serve.engine.make_prefill_step` makes it; ``rules_for(cfg,
-    "prefill")`` when none is given).  The parameters are `model_part`'s
-    under its rules and the cache is the rank's part (`init_cache` with
+    Under a ``mesh`` ``batch`` holds this rank's rows, as ``constrain``
+    (a `Constrainer`) cuts them over its ``rows``: the rank's part of a
+    batch that `serve.engine.make_prefill_step` cuts
+    (`parallel.sharding.prefill_layout`), or every row where ``rows`` is
+    ``()`` (the engine's prefill of one request; ``rules_for(cfg,
+    "prefill")`` with every row when no constrainer is given).  The
+    parameters are `model_part`'s under its rules and the cache is the
+    rank's part of the rows' cache (`init_cache` with
     ``layout=constrain``): where the rules cut activations over "model"
-    the rank computes its heads, MLP columns and vocabulary part, and
-    the logits come back whole; the MoE layers dispatch over the mesh as
-    `moe.moe_forward` picks for rows replicated on every rank."""
+    the rank computes its heads, MLP columns, SSM heads and vocabulary
+    part; the logits are its rows', whole over the vocabulary; the
+    encoder runs over its rows' frames, the MoE layers dispatch over the
+    mesh as `moe.moe_forward` picks for rows cut over ``rows``
+    (expert-parallel on the rank's rows under ``ep``), and attention is
+    sequence-parallel over "model" on its rows where the heads do not
+    divide it (`attention._use_sp`).
+    """
     if mesh is not None and not isinstance(constrain, Constrainer):
         constrain = Constrainer(rules_for(cfg, "prefill"), mesh, rows=())
     enc_out = _enc_out(params, cfg, batch, mesh=mesh, constrain=constrain,
@@ -488,5 +505,6 @@ def decode_step(params: PyTree, cfg: ModelConfig, tokens_t: torch.Tensor,
 
 
 __all__ = ["init_model", "leaf_tree", "axes_tree", "init_cache", "forward",
-           "loss_fn", "model_specs", "model_part", "serving_part", "prefill", "decode_step", "resolve_device",
+           "loss_fn", "model_specs", "model_part", "serving_part",
+           "cache_part", "prefill", "decode_step", "resolve_device",
            "params_device", "sinusoidal"]

@@ -265,6 +265,23 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype, *,
     }
 
 
+def ssm_state_part(state: dict, cfg: ModelConfig, layout) -> dict:
+    """The rank's part of a whole decode state (leading stack axes
+    allowed) as `init_ssm_state` lays it out under ``layout``: its rows
+    over the layout's ``rows``, and where the layout cuts the SSM heads
+    its heads and the conv channels they read (`_rank_columns`)."""
+    mesh, rows = layout.mesh, layout.rows
+    conv, h = state["conv"], state["ssm"]
+    conv = coll.own_slice(conv, mesh, rows, conv.dim() - 3)
+    h = coll.own_slice(h, mesh, rows, h.dim() - 4)
+    if cuts(layout, "ssm_heads", _dims(cfg)[2]):
+        conv = conv.index_select(conv.dim() - 1, _rank_columns(
+            cfg, mesh.index("model"), model_tp(layout), conv.device,
+            conv=True))
+        h = coll.own_slice(h, mesh, "model", h.dim() - 3)
+    return {"conv": conv.contiguous(), "ssm": h.contiguous()}
+
+
 def ssm_fill(state: dict, new: dict) -> dict:
     """Writes a prefill's decode-ready state into ``state`` in place."""
     state["conv"].copy_(new["conv"])

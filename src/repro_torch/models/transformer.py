@@ -317,6 +317,25 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, *,
     return out
 
 
+def stack_cache_part(cache: dict, cfg: ModelConfig, layout, *,
+                     cross: bool = False) -> dict:
+    """The rank's part of a whole stack cache (`init_stack_cache`'s tree)
+    as `init_stack_cache` lays it out under ``layout``."""
+    out = {}
+    for spec in slot_specs(cfg, cross=cross):
+        c = cache[f"slot{spec.slot}"]
+        slot = {}
+        if "self" in c:
+            slot["self"] = attn.kv_cache_part(c["self"], cfg, layout)
+        if "ssm" in c:
+            slot["ssm"] = ssm_mod.ssm_state_part(c["ssm"], cfg, layout)
+        if "crosskv" in c:
+            slot["crosskv"] = attn.kv_cache_part(c["crosskv"], cfg, layout,
+                                                 slots=False)
+        out[f"slot{spec.slot}"] = slot
+    return out
+
+
 def apply_block_decode(p: dict, cfg: ModelConfig, spec: SlotSpec,
                        x_t: torch.Tensor, cache: dict,
                        lengths: torch.Tensor, *, mesh=None,
@@ -409,5 +428,6 @@ def stack_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 __all__ = ["SlotSpec", "slot_specs", "init_block", "apply_block",
            "init_stack", "serving_stack", "stack_forward", "init_stack_cache",
+           "stack_cache_part",
            "apply_block_decode", "stack_decode", "apply_block_prefill",
            "stack_prefill"]

@@ -410,6 +410,29 @@ def serving_layout(rules: ShardingRules, mesh, batch: int) -> Constrainer:
     return Constrainer(rules, mesh, rows=rows, kv_seq=kv)
 
 
+def prefill_layout(rules: ShardingRules, mesh, batch: int | None,
+                   kv_seq: tuple[str, ...] | None = None) -> Constrainer:
+    """How a prefill of ``batch`` rows lies on the mesh, as the
+    constrainer of its call: the KV caches' slots cut over ``kv_seq``
+    (`serving_layout`'s when None), and the rows over the rules' batch
+    axes left -- all of them or none, as the reference's dry-run lowers
+    its prefill (``batch_shardings_for``: the batch over ("pod", "data")
+    when their product, above 1, divides it, else whole).  Where the
+    product does not divide ``batch`` this keeps every row on every rank,
+    while `serving_layout` cuts them over the longest prefix that divides
+    (`row_axes`: 4 rows on pod 2 × data 4 go over "pod" there); the
+    prefill follows the reference.  ``batch`` None or 1 keeps every row
+    (the engine's prefill of one request); so does ``decode_sp`` on a
+    mesh without "pod", its batch axis being its slots'."""
+    if kv_seq is None:
+        kv_seq = serving_layout(rules, mesh, batch or 1).kv_seq
+    axes = tuple(a for a in _axes_of(rules.mesh_axes("batch", mesh))
+                 if a not in kv_seq)
+    n = _size(mesh, axes)
+    rows = axes if batch is not None and n > 1 and batch % n == 0 else ()
+    return Constrainer(rules, mesh, rows=rows, kv_seq=tuple(kv_seq))
+
+
 def layout_rows(constrain, mesh) -> tuple[str, ...]:
     """The axes a model call's rows are cut over: the constrainer's
     ``rows``, else the batch axes ("pod", "data") present in the mesh
@@ -432,7 +455,8 @@ def batch_spec(mesh, *extra: str | None) -> P:
 __all__ = ["P", "ShardingRules", "BATCH_AXES", "preset", "rules_for",
            "logical_to_spec", "spec_tree", "spec_for", "placements",
            "param_spec_tree", "param_sharding_tree", "named_sharding_tree",
-           "constraint_spec", "row_axes", "serving_layout", "Constrainer",
+           "constraint_spec", "row_axes", "serving_layout", "prefill_layout",
+           "Constrainer",
            "constrainer", "model_cut", "split_model", "model_tp", "cuts",
            "MODEL_ACT_AXES",
            "no_constraint", "layout_rows", "default_rows", "batch_spec"]

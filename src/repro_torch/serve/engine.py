@@ -28,9 +28,11 @@ and its SSM heads (`models.model.init_cache`'s layout).  The rows are
 cut as `parallel.sharding.serving_layout` says: under ``decode`` (and
 ``ep`` for MoE models) over "data"; under ``decode_sp`` (the rules of
 ``rules_for(cfg, "decode_long")``) every row, with its part of each
-attention cache's slots over "data".  A prefill computes every row of its
-request on every rank, in the rank's part of a one-row cache, and the
-rank that holds the row keeps it; a tick's tokens come from the logits
+attention cache's slots over "data".  The engine prefills one request as
+a batch of one, as the JAX package's does: every rank computes that row,
+in the rank's part of a one-row cache, and the rank that holds the row
+keeps it (a batched prefill, `make_prefill_step` with ``batch``, cuts
+its rows over the mesh instead); a tick's tokens come from the logits
 (whole over the vocabulary) gathered over the rows' axes, and the ranks
 are held to the same tokens.
 """
@@ -48,26 +50,47 @@ from repro_torch.models import model as model_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import (
-    Constrainer, ShardingRules, no_constraint, rules_for, serving_layout,
+    ShardingRules, no_constraint, prefill_layout, rules_for, serving_layout,
 )
 
 PyTree = Any
 
 
 def make_prefill_step(cfg: ModelConfig, mesh, rules: ShardingRules,
-                      kv_seq: tuple[str, ...] = (), *, unroll: bool = False):
+                      kv_seq: tuple[str, ...] | None = None, *,
+                      batch: int | None = None, unroll: bool = False):
     """``prefill_step(params, batch, cache)``: `models.model.prefill` on
-    a whole batch (under a mesh, on every rank: the rows are on every
-    rank, cut over no axis; the cache is the rank's part, its slots cut
-    over ``kv_seq`` and "model" as `models.model.init_cache` lays them
-    out; ``prefill_step.layout`` is the constrainer)."""
-    constrain = no_constraint
+    a whole batch.  Under a mesh the layout is `parallel.sharding.
+    prefill_layout`'s for ``batch`` rows (``prefill_step.layout``, the
+    constrainer; the cache is the rank's part of it, `models.model.
+    init_cache` with ``layout=prefill_step.layout``): with the rows cut
+    (over "data", and "pod", where their product divides ``batch``, as
+    the reference lowers its prefill) the step takes the whole batch,
+    the rank prefills its rows of every entry (tokens, and frames or
+    patches), fills its rows' part of the cache, and returns the logits
+    (B, V) gathered over the rows' axes and the lengths (B,) whole.
+    With ``batch`` unset or 1 (the engine's prefill of one request) or
+    the rows uncut, every rank computes every row.  ``kv_seq`` (the
+    axes the caches' slots are cut over) defaults to `serving_layout`'s.
+    """
+    constrain, rows = no_constraint, ()
     if mesh is not None:
-        constrain = Constrainer(rules, mesh, rows=(), kv_seq=kv_seq)
+        constrain = prefill_layout(rules, mesh, batch, kv_seq)
+        rows = constrain.rows
 
     def prefill_step(params, batch, cache):
-        return model_lib.prefill(params, cfg, batch, cache, mesh=mesh,
-                                 constrain=constrain, unroll=unroll)
+        if rows:
+            # views: nothing of the batch reaches a kernel as it is
+            batch = {k: coll.own_slice(v, mesh, rows, 0)
+                     for k, v in batch.items()}
+        logits, cache, lengths = model_lib.prefill(
+            params, cfg, batch, cache, mesh=mesh, constrain=constrain,
+            unroll=unroll)
+        if rows:
+            # every row has the prompt's length
+            logits = coll.all_gather(logits, mesh, rows, 0)
+            lengths = lengths.repeat(mesh.size(rows))
+        return logits, cache, lengths
 
     prefill_step.layout = constrain
     return prefill_step

@@ -1425,6 +1425,28 @@ def test_tp_phase_at_small_size_on_the_card(cuda, part):
     assert by_part[part]["ssd"] > 0
 
 
+def test_prefill_rows_phase_at_small_size_on_the_card(cuda):
+    """chip_smoke's phase 30 at small size (`ROWS_PLAN_SMALL`: the reduced
+    qwen2, mamba2 and jamba, head dim 32, 8 prompts of 32 tokens) in a
+    world of 8 ranks on the card: a batched prefill with its rows cut
+    over {"data": 8}, (4, 2) and (2, 4) (jamba under ep), the float32
+    logits and every rank's cache part against one device's, a planted
+    fault (every rank prefills its neighbour's rows) above the bars, the
+    bfloat16 logits within theirs; each rank's kernels at its rows and its
+    launches by instance equal to the shapes' exactly."""
+    from chip_smoke import (
+        PARALLEL_RANKS, ROWS_PLAN_SMALL, parallel_launches, parallel_phase,
+    )
+    part = "prefill_rows"
+    plan = {part: ROWS_PLAN_SMALL[part]}
+    by_part = parallel_phase(plan, device="cuda")
+    want = [parallel_launches(plan, r)[part] for r in range(PARALLEL_RANKS)]
+    assert by_part == {part: {k: sum(w[k] for w in want)
+                              for k in by_part[part]}}
+    for kernel in ("flash_attention", "ssd", "gmm"):
+        assert by_part[part][kernel] > 0, kernel
+
+
 def test_collectives_carry_cuda_tensors_on_gloo(cuda, tmp_path):
     """The collectives phase 26 uses, on CUDA tensors in a gloo world of
     4 ranks on the card: bfloat16 all-gather and all-to-all (as bytes),

@@ -8,6 +8,7 @@ against a measured step) is `chip_smoke.py`'s phase 29 and
 tests/test_torch_cuda.py."""
 import dataclasses
 import json
+import math
 import os
 from collections import Counter
 
@@ -45,18 +46,23 @@ RUNNABLE = [(a, s) for a, s in CELLS
             if applicable(get_config(a), SHAPES[s])[0]]
 
 
-def _ref_cache_shardings():
-    """The reference dry-run's ``cache_shardings`` (its module sets
-    XLA_FLAGS when imported; the environment is put back)."""
+def _ref_dryrun(name):
+    """A function of the reference dry-run (its module sets XLA_FLAGS
+    when imported; the environment is put back)."""
     saved = os.environ.get("XLA_FLAGS")
     try:
-        from repro.launch.dryrun import cache_shardings
+        from repro.launch import dryrun as ref_dryrun
     finally:
         if saved is None:
             os.environ.pop("XLA_FLAGS", None)
         else:
             os.environ["XLA_FLAGS"] = saved
-    return cache_shardings
+    return getattr(ref_dryrun, name)
+
+
+def _ref_cache_shardings():
+    """The reference dry-run's ``cache_shardings``."""
+    return _ref_dryrun("cache_shardings")
 
 
 def _paths(tree, pre=""):
@@ -313,11 +319,118 @@ def test_decode_cache_shards_follow_reference(arch, shape):
             assert H % 16 == 0
 
 
+PROD_MESHES = {"16x16": {"data": 16, "model": 16},
+               "2x16x16": {"pod": 2, "data": 16, "model": 16}}
+
+
+@pytest.mark.parametrize("mesh_name", PROD_MESHES)
+@pytest.mark.parametrize("arch", [a for a, s in RUNNABLE
+                                  if s == "prefill_32k"])
+def test_prefill_rows_and_cache_follow_reference(arch, mesh_name):
+    """The prefill step's rows on each production mesh are the
+    reference's ``batch_shardings_for`` batch axes (("pod", "data") when
+    they divide the batch, else none), and each rank's part of the cache
+    holds the rows the reference's ``cache_shardings`` gives it; the
+    step takes the whole batch."""
+    shape = PROD_MESHES[mesh_name]
+    cfg, cell = get_config(arch), SHAPES["prefill_32k"]
+    ref_cfg = ref_get_config(arch)
+    abstract = AbstractMesh(tuple(shape.values()), tuple(shape))
+    B, S = cell.global_batch, cell.seq_len
+    b_sh = _ref_dryrun("batch_shardings_for")(
+        ref_cfg, abstract, ref_input_specs(ref_cfg, cell), B)
+    bdims = {sh.spec[0] for sh in b_sh.values()}
+    assert len(bdims) == 1
+    bdim = bdims.pop()
+    want_rows = () if bdim is None else tuple(
+        bdim if isinstance(bdim, tuple) else (bdim,))
+    ref_cache = ref_model.init_cache(ref_cfg, B, S, abstract=True)
+    ref_sh = _ref_cache_shardings()(ref_cfg, abstract, ref_cache, B)
+    want = {jax.tree_util.keystr(p).replace("']['", "/").strip("[']"):
+            _shard(leaf.shape, sh.spec, shape)[1]
+            for (p, leaf), sh in zip(
+                jax.tree_util.tree_flatten_with_path(ref_cache)[0],
+                jax.tree_util.tree_leaves(ref_sh))}
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with dryrun.fake_world(math.prod(shape.values())), FakeTensorMode():
+        mesh = WorkerMesh(shape, "cpu")
+        built = dryrun.build_prefill(cfg, mesh, cell)
+        got = {k: t.shape[1] for k, t in
+               _paths(built.arguments["cache"]).items()}
+        batch = {k: tuple(t.shape) for k, t in
+                 built.arguments["batch"].items()}
+    assert tuple(built.notes["rows"]) == want_rows
+    assert want_rows == tuple(a for a in ("pod", "data") if a in shape)
+    assert got == want
+    assert all(b[0] == B for b in batch.values())
+
+
+def _count(run):
+    counter = dryrun.OpCounter()
+    with dryrun.recording(counter):
+        run()
+    return counter
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-1.3b"])
+def test_cut_prefill_counts_the_uncut_prefill_of_its_rows(arch):
+    """In a fake world of 16 on (data 4, model 4), the prefill step of B
+    rows cut over "data" counts what the uncut step counts over B / 4
+    rows -- the same FLOPs, sites, eager bytes and collective bytes --
+    and the step's own gather of its results over the rows besides (the
+    logits' all-gather, the lengths made whole): no more."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.layers import _rope_freqs
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.sharding import rules_for
+    from repro_torch.serve.engine import make_prefill_step
+
+    cfg = _tiny(arch, periods=1)
+    B, S, n = 8, 32, 4
+    rules = rules_for(cfg, "prefill")
+
+    def batch(rows):
+        return {k: torch.empty(v.shape, dtype=v.dtype) for k, v in
+                input_specs(cfg, ShapeCell("t", "prefill", S, rows)).items()}
+    try:
+        with dryrun.fake_world(16), FakeTensorMode():
+            mesh = WorkerMesh({"data": n, "model": 4}, "cpu")
+            params = dryrun._serving_params(cfg, mesh, rules)
+            counts = {}
+            for name, rows, step in (
+                    ("cut", B, make_prefill_step(cfg, mesh, rules, batch=B)),
+                    ("uncut", B // n, make_prefill_step(cfg, mesh, rules))):
+                cache = model_lib.init_cache(cfg, B // n, S, device="cpu",
+                                             layout=step.layout)
+                b = batch(rows)
+                counts[name] = _count(lambda: step(params, b, cache))
+                assert step.layout.rows == (("data",) if name == "cut"
+                                            else ())
+            logits = torch.empty((B // n, cfg.vocab_size))
+            lengths = torch.empty((B // n,), dtype=torch.int32)
+            counts["gather"] = _count(lambda: (
+                coll.all_gather(logits, mesh, ("data",), 0),
+                lengths.repeat(n)))
+    finally:
+        _rope_freqs.cache_clear()
+    cut, uncut, gather = (counts[k] for k in ("cut", "uncut", "gather"))
+    assert cut.flops == uncut.flops and not gather.flops
+    assert Counter(cut.sites) == Counter(uncut.sites) and cut.sites
+    assert cut.bytes == uncut.bytes + gather.bytes
+    assert cut.coll == {k: uncut.coll[k] + gather.coll[k]
+                        for k in dryrun.COLLECTIVE_KINDS}
+    assert cut.links == {k: uncut.links[k] + gather.links[k]
+                         for k in uncut.links}
+    assert gather.coll["all-gather"] == B * cfg.vocab_size * 4
+
+
 # ---------------------------------------------------------------------------
 # the count: depth extrapolation, sites, arguments, a real world
 # ---------------------------------------------------------------------------
 
 TINY = ShapeCell("tiny", "train", 32, 8)
+TINY_PREFILL = ShapeCell("tiny_prefill", "prefill", 32, 8)
 SMALL_MESH = {"data": 2, "model": 2}
 
 
@@ -407,10 +520,11 @@ def test_fake_world_counts_what_a_gloo_world_runs(tmp_path):
     counts the FLOPs, bytes, collective bytes and sites that the same
     step counts when it runs for real on rank 0 of a gloo world of 4 CPU
     processes, under zero3 (the batch over every axis) and under base
-    (heads, MLP and vocabulary cut over "model")."""
+    (heads, MLP and vocabulary cut over "model"); so does its prefill
+    step, the rows cut over "data" and the logits gathered."""
     cfg = _tiny("qwen2-1.5b", periods=1)
     case = {"cfg": cfg, "cell": TINY, "mesh": SMALL_MESH,
-            "rules": ["zero3", "base"]}
+            "rules": ["zero3", "base"], "prefill": TINY_PREFILL}
     real = spawn_world(torch_world.dryrun_counts, 4, backend="gloo",
                        init_file=tmp_path / "store", timeout_s=120,
                        args=(case,))[0]
@@ -424,6 +538,13 @@ def test_fake_world_counts_what_a_gloo_world_runs(tmp_path):
             fake = torch_world.dryrun_numbers(counter)
             assert fake == real[rules], rules
             assert sum(fake["coll"].values()) > 0
+        batch = {k: torch.zeros(v.shape, dtype=v.dtype)
+                 for k, v in input_specs(cfg, TINY_PREFILL).items()}
+        counter, built = dryrun.trace(cfg, mesh, TINY_PREFILL, batch=batch)
+        fake = torch_world.dryrun_numbers(counter)
+        assert built.notes["rows"] == ["data"]
+        assert fake == real["prefill"]
+        assert fake["coll"]["all-gather"] > 0
 
 
 def test_int8_without_pod_is_the_uncompressed_step():

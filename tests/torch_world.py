@@ -466,7 +466,8 @@ def elastic_world(rank, dev, cases):
 # ---------------------------------------------------------------------------
 
 def tp_config(case):
-    cfg = reduced_config(case["arch"])
+    cfg = dataclasses.replace(reduced_config(case["arch"]),
+                              **case.get("changes", {}))
     if case.get("capacity_factor"):
         cfg = with_moe(cfg, cfg.moe.n_experts, case["capacity_factor"],
                        **case.get("moe", {}))
@@ -714,16 +715,72 @@ def dryrun_numbers(counter) -> dict:
 
 def dryrun_counts(rank, dev, case):
     """`launch.dryrun.trace` of a reduced config's train step under each
-    of the case's rules, run for real on this rank's CPU tensors (zero
-    tokens, uninitialised weights: the counts depend on shapes alone),
-    counted by the dry-run's mode."""
+    of the case's rules, and of its prefill step (the case's
+    ``prefill`` cell, its rows cut over the mesh), run for real on this
+    rank's CPU tensors (zero tokens, uninitialised weights: the counts
+    depend on shapes alone), counted by the dry-run's mode."""
     from repro_torch.configs import input_specs
     from repro_torch.launch import dryrun
 
     cfg, cell = case["cfg"], case["cell"]
     mesh = WorkerMesh(case["mesh"], dev)
-    batch = {k: torch.zeros(v.shape, dtype=v.dtype)
-             for k, v in input_specs(cfg, cell).items()}
-    return {rules: dryrun_numbers(dryrun.trace(
+
+    def zeros(cell):
+        return {k: torch.zeros(v.shape, dtype=v.dtype)
+                for k, v in input_specs(cfg, cell).items()}
+    out = {rules: dryrun_numbers(dryrun.trace(
         cfg, mesh, cell, fake=False, remat="none", rules_name=rules,
-        batch=batch)[0]) for rules in case["rules"]}
+        batch=zeros(cell))[0]) for rules in case["rules"]}
+    out["prefill"] = dryrun_numbers(dryrun.trace(
+        cfg, mesh, case["prefill"], fake=False,
+        batch=zeros(case["prefill"]))[0])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_prefill_rows.py
+# ---------------------------------------------------------------------------
+
+def prefill_rows_case(rank, dev, case):
+    """A batched prefill through `make_prefill_step(..., batch=B)` on the
+    case's mesh under its rules (the rank's serving part of the
+    weights), then ``decode_steps`` greedy steps of `make_decode_step` on
+    the cache it filled: the layouts, the gathered logits, the lengths,
+    the rank's cache part, the shapes that reached the kernels in the
+    prefill and each step's gathered logits.  A rank
+    outside the mesh returns None (after making it: group creation is
+    collective)."""
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+    mesh = WorkerMesh(case["mesh"], dev)
+    if not mesh.inside:
+        return None
+    cfg = tp_config(case)
+    rules = preset(case["rules"])
+    part = model_lib.serving_part(params_from_reference(
+        case["params"], device=dev), cfg, rules, mesh)
+    batch = _batch(case["batch"])
+    B = batch["tokens"].shape[0]
+    step = make_prefill_step(cfg, mesh, rules, batch=B)
+    rows = B // mesh.size(step.layout.rows)
+    cache = model_lib.init_cache(cfg, rows, case["max_seq"], device=dev,
+                                 layout=step.layout)
+    with KernelShapes() as shapes:
+        logits, cache, lengths = step(part, batch, cache)
+    out = {"coord": dict(mesh.coord), "rows": step.layout.rows,
+           "shapes": {k: sorted(v) for k, v in shapes.seen.items()},
+           "kv_seq": step.layout.kv_seq, "logits": _np(logits),
+           "lengths": lengths.numpy(),
+           "cache": tree_map(lambda t: t.clone().numpy(), cache),
+           "steps": []}
+    decode = make_decode_step(cfg, mesh, rules, B)
+    out["decode_rows"] = decode.layout.rows
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    for _ in range(case["decode_steps"]):
+        logits, cache, lengths = decode(part, tok, cache, lengths)
+        out["steps"].append(_np(logits))
+        tok = torch.argmax(logits, dim=-1)[:, None]
+    return out
+
+
+def prefill_rows_world(rank, dev, cases):
+    return [prefill_rows_case(rank, dev, c) for c in cases]
