@@ -427,6 +427,7 @@ TIERS = {
 }
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.launch import roofline_adjust as ra  # noqa: E402
+from repro_torch.observability.steps import SPANS  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (`roofline_adjust.H100`): HBM3 bandwidth, and
 # the FP64 rate outside the tensor cores (the water-fill's divides and
@@ -1569,6 +1570,7 @@ def device_kernels(fn, reps: int, match: str | None = None) -> list:
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key not in SPANS
                    and (match is None or match in e.key)]
         n = sum(e.count for e in kernels)
         if n > 0:
@@ -2936,9 +2938,11 @@ def profile_ticks(cfg, params, engine, ticks=4,
     finally:
         model_lib._unembed = unembed
     stats = prof.key_averages()
-    # kernels only: a CPU op's entry repeats its kernels' device time
+    # kernels only: a CPU op's entry repeats its kernels' device time, a
+    # label's mirror on the device's timeline spans its kernels and gaps
     device = [e for e in stats
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key not in SPANS and e.key != "unembed"]
 
     def ms(events):
         return sum(e.self_device_time_total for e in events) / 1e3 / ticks
@@ -2999,7 +3003,8 @@ def prefill_profile(cfg, params, S=1024, reps=3):
     with profiled([ProfilerActivity.CUDA]) as prof:
         run()
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in SPANS]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     row = {"tokens": S, "wall_ms": 1e3 * wall, "device_busy_ms": busy,
            "device_idle_share": 1 - busy / (1e3 * wall),
@@ -3816,9 +3821,10 @@ def train_bf16_gate(cfg, device, launch_counts, *,
     torch.cuda.empty_cache()
 
 
-#: profiler labels of a training step's parts, set by `make_train_step`
-#: (the backward runs on autograd's device thread, outside them, so it
-#: is the rest of the step)
+#: the program spans of a training step whose device-timeline span the
+#: summary reads (`make_train_step`); every program span's mirror on the
+#: device's timeline is left out of the busy time
+#: (`observability.steps.SPANS`)
 STEP_LABELS = ("forward", "optimizer")
 
 
@@ -3832,7 +3838,7 @@ def profile_summary(prof, wall_ms, kernel="flash_bwd_"):
     stats = prof.key_averages()
     device = [e for e in stats
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.key not in STEP_LABELS]
+              and e.key not in SPANS]
     span = {e.key: e.device_time_total / 1e3 for e in stats
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.key in STEP_LABELS}

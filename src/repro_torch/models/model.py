@@ -28,6 +28,10 @@ CUDA device, training runs the backward kernels of attention, the SSD
 scan and the grouped matmul (the MoE layer's expert products), so every
 family trains there; on the CPU every family trains through the plain
 versions.
+
+The training forward runs its input embedding, final norm and loss (the
+unembedding, then log-sum-exp, CE and z-loss) under the program spans
+``"embed"``, ``"final_norm"`` and ``"loss"`` (`observability.steps`).
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from repro_torch.models.layers import (
     init_linear, init_norm, matmul_f32,
 )
 from repro_torch.models.param import Init, PyTree, torch_dtype, tree_map
+from repro_torch.observability.steps import span
 from repro_torch.parallel.collectives import (
     from_model, gather_from_model, own_slice, part_of_leaf, psum, shard_of,
     to_model, vocab_logsumexp,
@@ -229,16 +234,19 @@ def _forward(params: PyTree, cfg: ModelConfig, batch: dict, *,
     columns under a call that cuts them -- the MoE auxiliary loss)."""
     enc_out = _enc_out(params, cfg, batch, mesh=mesh, constrain=constrain,
                        remat=remat, unroll=unroll)
-    x, positions = _input_embeds(params, cfg, batch, constrain)
+    with span("embed"):
+        x, positions = _input_embeds(params, cfg, batch, constrain)
     x, aux = tfm.stack_forward(params["stack"], cfg, x, positions=positions,
                                causal=True, cross=enc_out is not None,
                                enc_out=enc_out, mesh=mesh,
                                constrain=constrain, remat=remat,
                                unroll=unroll)
-    x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    with span("final_norm"):
+        x = apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     if cfg.frontend is not None:        # only text positions produce logits
         x = x[:, cfg.frontend.n_prefix:, :]
-    return _unembed(params, cfg, x, constrain), aux
+    with span("loss"):
+        return _unembed(params, cfg, x, constrain), aux
 
 
 def _rank_batch(cfg: ModelConfig, batch: dict, mesh, constrain):
@@ -283,17 +291,18 @@ def loss_fn(params: PyTree, cfg: ModelConfig, batch: dict, *,
                           remat=remat, z_loss=z_loss, unroll=unroll,
                           mean_axes=mean_axes)
     logits, aux = _forward(params, cfg, batch, remat=remat, unroll=unroll)
-    labels = batch["labels"].to(logits.device)
-    valid = labels >= 0
-    labels_c = labels.clamp(min=0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
-    ce = (logz - gold) * valid
-    n = valid.sum().clamp(min=1)
-    ce_mean = ce.sum() / n
-    zl = z_loss * (logz.square() * valid).sum() / n
-    aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
-    total = ce_mean + zl + aux_w * aux
+    with span("loss"):
+        labels = batch["labels"].to(logits.device)
+        valid = labels >= 0
+        labels_c = labels.clamp(min=0).long()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+        ce = (logz - gold) * valid
+        n = valid.sum().clamp(min=1)
+        ce_mean = ce.sum() / n
+        zl = z_loss * (logz.square() * valid).sum() / n
+        aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+        total = ce_mean + zl + aux_w * aux
     metrics = {"loss": total, "ce": ce_mean, "z_loss": zl, "moe_aux": aux,
                "tokens": n.float()}
     return total, metrics
@@ -329,36 +338,37 @@ def _mesh_loss(params, cfg, batch, *, mesh, constrain, remat, z_loss,
     axes = tuple(a for a in axes if a in constrain.share_axes())
     logits, aux = _forward(params, cfg, batch, remat=remat, unroll=unroll,
                            mesh=mesh, constrain=constrain)
-    labels = batch["labels"].to(logits.device)
-    valid = labels >= 0
-    labels_c = labels.clamp(min=0).long()
-    if cuts(constrain, "vocab_act", cfg.vocab_size):
-        logz = vocab_logsumexp(logits, mesh, "model")
-        part = logits.shape[-1]
-        local = labels_c - mesh.index("model") * part
-        mine = (local >= 0) & (local < part)
-        gold = torch.gather(logits, -1, local.clamp(0, part - 1)[..., None]
-                            )[..., 0]
-        gold = from_model(torch.where(mine, gold, 0.0), mesh, "model")
-    else:
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
-    rep = mesh.size(axes) // mesh.size(
-        [a for a in constrain.rows if a in axes])
-    n = psum(valid.sum().to(torch.int32), mesh, axes) // rep
-    n = n.clamp(min=1)
-    sums = torch.stack([((logz - gold) * valid).sum(),
-                        (logz.square() * valid).sum()])
-    share = (sums[0] + z_loss * sums[1]) / n / rep
-    total_sums = psum(sums.detach(), mesh, axes) / rep
-    ce_mean = total_sums[0] / n
-    zl = z_loss * total_sums[1] / n
-    aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
-    total = ce_mean + zl + aux_w * aux.detach()
-    share = share + aux_w * aux
-    loss = share + (total - share).detach()
-    metrics = {"loss": total, "ce": ce_mean, "z_loss": zl,
-               "moe_aux": aux.detach(), "tokens": n.float()}
+    with span("loss"):
+        labels = batch["labels"].to(logits.device)
+        valid = labels >= 0
+        labels_c = labels.clamp(min=0).long()
+        if cuts(constrain, "vocab_act", cfg.vocab_size):
+            logz = vocab_logsumexp(logits, mesh, "model")
+            part = logits.shape[-1]
+            local = labels_c - mesh.index("model") * part
+            mine = (local >= 0) & (local < part)
+            gold = torch.gather(logits, -1,
+                                local.clamp(0, part - 1)[..., None])[..., 0]
+            gold = from_model(torch.where(mine, gold, 0.0), mesh, "model")
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+        rep = mesh.size(axes) // mesh.size(
+            [a for a in constrain.rows if a in axes])
+        n = psum(valid.sum().to(torch.int32), mesh, axes) // rep
+        n = n.clamp(min=1)
+        sums = torch.stack([((logz - gold) * valid).sum(),
+                            (logz.square() * valid).sum()])
+        share = (sums[0] + z_loss * sums[1]) / n / rep
+        total_sums = psum(sums.detach(), mesh, axes) / rep
+        ce_mean = total_sums[0] / n
+        zl = z_loss * total_sums[1] / n
+        aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+        total = ce_mean + zl + aux_w * aux.detach()
+        share = share + aux_w * aux
+        loss = share + (total - share).detach()
+        metrics = {"loss": total, "ce": ce_mean, "z_loss": zl,
+                   "moe_aux": aux.detach(), "tokens": n.float()}
     return loss, metrics
 
 

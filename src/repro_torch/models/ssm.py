@@ -7,7 +7,9 @@ version on CPU tensors.  Everything around it is plain PyTorch, as the
 reference computes it outside its kernel: the projections, the 4-tap
 depthwise conv (written as shifted multiply-adds in float32, so no
 cuDNN and no TF32), softplus, the gated RMS norm and the one-token
-decode update.
+decode update.  Each of these runs under its program span
+(``"mixer.in_proj"``, ``"mixer.conv"``, ``"mixer.dt"``, ``"mixer.ssd"``,
+``"mixer.gate_norm"``, ``"mixer.out_proj"``: `observability.steps`).
 
 Decode state per layer:
   conv:  (B, d_conv-1, conv_ch)   rolling conv window (conv_ch = di + 2*G*N)
@@ -29,6 +31,7 @@ from repro_torch.kernels.ssd.ops import ssd, ssd_decode_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_linear, init_linear, matmul_f32
 from repro_torch.models.param import Init, torch_dtype
+from repro_torch.observability.steps import span
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.sharding import cuts, model_tp, no_constraint
 
@@ -182,13 +185,14 @@ def _out(q: dict, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
     (``tp`` > 1) the norm's sum of squares over "model" and the rank's
     rows of ``out_proj``, its float32 partial summed over "model"
     (`collectives.from_model`) and rounded once."""
-    if tp == 1:
-        y = _gated_norm(q, y, z, cfg.norm_eps)
-        return apply_linear(q["out_proj"], y)
-    mesh = constrain.mesh
-    y = _gated_norm(q, y, z, cfg.norm_eps, mesh, _dims(cfg)[1])
-    return coll.from_model(matmul_f32(y, q["out_proj"]["w"]), mesh
-                           ).to(y.dtype)
+    mesh = constrain.mesh if tp > 1 else None
+    with span("mixer.gate_norm"):
+        y = _gated_norm(q, y, z, cfg.norm_eps, mesh, _dims(cfg)[1])
+    with span("mixer.out_proj"):
+        if tp == 1:
+            return apply_linear(q["out_proj"], y)
+        return coll.from_model(matmul_f32(y, q["out_proj"]["w"]), mesh
+                               ).to(y.dtype)
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
@@ -228,16 +232,19 @@ def ssm_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     s = cfg.ssm
     q, tp = _mixer(p, cfg, constrain, x.device)
     x_in = coll.to_model(x, constrain.mesh) if tp > 1 else x
-    proj = apply_linear(q["in_proj"], x_in)
-    z, xbc_raw, dt = _split_proj(cfg, proj, tp)
-    xbc = F.silu(_causal_conv(xbc_raw, q["conv_w"], q["conv_b"]))
-    xs, B, C = _split_xbc(cfg, xbc, tp)
-
-    dt = F.softplus(dt.float() + q["dt_bias"])
-    A = -torch.exp(q["A_log"])
-    y, state = ssd(xs, dt, A, B, C, q["D"], chunk=s.chunk,
-                   initial_state=initial_state)
-    y = y.reshape(*y.shape[:-2], -1)
+    with span("mixer.in_proj"):
+        proj = apply_linear(q["in_proj"], x_in)
+        z, xbc_raw, dt = _split_proj(cfg, proj, tp)
+    with span("mixer.conv"):
+        xbc = F.silu(_causal_conv(xbc_raw, q["conv_w"], q["conv_b"]))
+        xs, B, C = _split_xbc(cfg, xbc, tp)
+    with span("mixer.dt"):
+        dt = F.softplus(dt.float() + q["dt_bias"])
+        A = -torch.exp(q["A_log"])
+    with span("mixer.ssd"):
+        y, state = ssd(xs, dt, A, B, C, q["D"], chunk=s.chunk,
+                       initial_state=initial_state)
+        y = y.reshape(*y.shape[:-2], -1)
     out = _out(q, cfg, y, z, constrain, tp)
     if return_state:
         return out, {"ssm": state, "conv": _conv_window(xbc_raw, s.d_conv)}

@@ -36,6 +36,10 @@ a fully unrolled stack, which only the dry-run's cost analysis asks for
 (XLA counts a loop body once).  Here the depth loop is a Python loop with
 every layer a separate call either way, so ``unroll=True`` computes
 exactly what ``unroll=False`` does; it is accepted on every entry point.
+
+A block's norms run under the program span ``"block.norm"``, an
+attention, MLP or MoE sublayer under ``"attn"``, ``"mlp"`` or ``"moe"``
+(`observability.steps.span`; the SSD mixer's spans are `models.ssm`'s).
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from repro_torch.models.layers import (
     apply_mlp, apply_norm, init_mlp, init_norm,
 )
 from repro_torch.models.param import Init
+from repro_torch.observability.steps import span
 from repro_torch.parallel.sharding import no_constraint
 
 
@@ -159,14 +164,18 @@ def _ffn(p: dict, cfg: ModelConfig, spec: SlotSpec, x: torch.Tensor, *,
     loss or None)."""
     if spec.ffn == "none":
         return x, None
-    h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
+    with span("block.norm"):
+        h = apply_norm(cfg.norm, p["norm2"], x, cfg.norm_eps)
     if spec.ffn == "moe":
-        y, aux = moe_mod.moe_forward(p["ffn"], cfg, h, mesh,
-                                     rows=getattr(constrain, "rows", None),
-                                     constrain=constrain)
+        with span("moe"):
+            y, aux = moe_mod.moe_forward(
+                p["ffn"], cfg, h, mesh, rows=getattr(constrain, "rows", None),
+                constrain=constrain)
         return x + y, aux
-    return x + apply_mlp(p["ffn"], h, gated=cfg.gated_mlp, act=cfg.act,
-                         d_ff=cfg.d_ff, constrain=constrain), None
+    with span("mlp"):
+        y = apply_mlp(p["ffn"], h, gated=cfg.gated_mlp, act=cfg.act,
+                      d_ff=cfg.d_ff, constrain=constrain)
+    return x + y, None
 
 
 def _cross(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -174,10 +183,12 @@ def _cross(p: dict, cfg: ModelConfig, x: torch.Tensor,
            constrain=no_constraint):
     """The cross-attention sub-block with its residual over the encoder's
     output; with ``return_kv`` also its (k, v) for the cross cache."""
-    h = apply_norm(cfg.norm, p["norm_ca"], x, cfg.norm_eps)
-    y = attn.attn_forward(p["cross"], cfg, h, kv_ctx=enc_out,
-                          return_kv=return_kv, mesh=mesh,
-                          constrain=constrain)
+    with span("block.norm"):
+        h = apply_norm(cfg.norm, p["norm_ca"], x, cfg.norm_eps)
+    with span("attn"):
+        y = attn.attn_forward(p["cross"], cfg, h, kv_ctx=enc_out,
+                              return_kv=return_kv, mesh=mesh,
+                              constrain=constrain)
     if return_kv:
         return x + y[0], y[1]
     return x + y
@@ -189,12 +200,14 @@ def apply_block(p: dict, cfg: ModelConfig, spec: SlotSpec, x: torch.Tensor,
                 constrain=no_constraint
                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Full-sequence block.  Returns (x, MoE aux or None)."""
-    h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
+    with span("block.norm"):
+        h = apply_norm(cfg.norm, p["norm1"], x, cfg.norm_eps)
     if spec.mixer == "attn":
-        mix = attn.attn_forward(p["mixer"], cfg, h, rope_on=spec.rope_on,
-                                window=spec.window, causal=causal,
-                                positions=positions, constrain=constrain,
-                                mesh=mesh)
+        with span("attn"):
+            mix = attn.attn_forward(p["mixer"], cfg, h,
+                                    rope_on=spec.rope_on, window=spec.window,
+                                    causal=causal, positions=positions,
+                                    constrain=constrain, mesh=mesh)
     else:
         mix = ssm_mod.ssm_forward(p["mixer"], cfg, h, constrain=constrain)
     x = x + mix

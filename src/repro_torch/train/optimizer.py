@@ -19,6 +19,8 @@ update is elementwise, so the slabs change nothing in the result.
 
 Under a mesh (`train.train_step`'s sharded step) the trees hold each
 rank's shards; only the gradient's global norm needs the other ranks.
+The norm and the clip factor run under the program span
+``"optimizer.norm"`` (`observability.steps.span`).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Any
 import torch
 
 from repro_torch.models.param import torch_dtype, tree_leaves, tree_map
+from repro_torch.observability.steps import span
 from repro_torch.parallel.collectives import psum, replication
 
 PyTree = Any
@@ -109,8 +112,10 @@ def adamw_update(
     holds this rank's shards and the clip factor is the whole tree's
     (`global_norm`)."""
     count = state["count"] + 1
-    gnorm = global_norm(grads, mesh=mesh, specs=specs)
-    clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    with span("optimizer.norm"):
+        gnorm = global_norm(grads, mesh=mesh, specs=specs)
+        clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                           max=1.0)
 
     b1, b2 = cfg.b1, cfg.b2
     c1 = 1.0 - b1 ** count.float()

@@ -67,6 +67,7 @@ PORT_OWN = {
     "parallel/sharding.py", "parallel/collectives.py",
     "train/optimizer.py", "train/schedule.py", "train/train_step.py",
     "data/pipeline.py", "checkpoint/manager.py",
+    "observability/steps.py",
 }
 
 
