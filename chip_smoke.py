@@ -16,8 +16,8 @@ back to the CPU or to a plain version):
   1. the card: name and power limit as nvidia-smi reports them;
   2. build every kernel from the checkout's CUDA sources, one nvcc per
      source, all started together (water-fill, flash attention, SSD and
-     grouped matmul, each with its backward), with ptxas' register and
-     shared-memory report;
+     grouped matmul, each with its backward, and the Mamba mixer's causal
+     conv), with ptxas' register and shared-memory report;
   3. the water-fill kernel against its plain PyTorch version on the card,
      on the matchmaking tiers (10k/100k/1m jobs), a fractional-request
      problem, a finite budget with an `active` mask, a drained pool, a
@@ -183,7 +183,14 @@ back to the CPU or to a plain version):
      first run's after step 3) retakes steps 4-6 (one profiled: the
      device's busy share and the backward's share) with losses within
      `RESUME_TOL` of the first run's;
- 16. training mamba2: the SSD scan's backward kernel (`ssd_bwd.cu`)
+ 16. training mamba2: the causal conv's kernels (`causal_conv.cu`,
+     `conv_phase`) on `CONV_CASES`, the forward bit for bit the plain
+     version's, dx, dw and db within `CONV_TOL` of autograd's through it
+     (norm-relative), two backward calls bitwise equal, one launch each
+     way a call, then timed each way at the cell's shape (mamba2's 8 x
+     512, C 4352, x a view of the fused projection: CUDA events, device
+     time, the bound, the plain version's forward and backward); the SSD
+     scan's backward kernel (`ssd_bwd.cu`)
      against the plain backward (`ssd_backward_reference`, given the
      states the forward kept) on `SSD_CASES` (both dtypes), the
      tensor-core edge cases `SSD_TC_CASES` (ragged tails, an initial
@@ -197,11 +204,12 @@ back to the CPU or to a plain version):
      device time in all and by kernel, the bound, the plain backward);
      mamba2 at full width cut to 2 layers in float32, kernels against the
      plain scan (loss 1e-5, each leaf 1e-4, one `ssd` and one `ssd_bwd`
-     launch a layer), then in bfloat16 against that float32 model; then
-     the main path: `run_fixed` on mamba2-1.3b at full width (cut to
+     launch a layer, and a causal conv each way; the plain side's conv is
+     the plain version too), then in bfloat16 against that float32 model;
+     then the main path: `run_fixed` on mamba2-1.3b at full width (cut to
      `TRAIN_LAYERS`, 16 of 48 layers, bfloat16), 6 steps of 8 x 512 with
-     checkpoints at steps 3 and 6: every loss finite, each step 16 `ssd`
-     and 16 `ssd_bwd` launches and
+     checkpoints at steps 3 and 6: every loss finite, each step 16 `ssd`,
+     16 `ssd_bwd`, 16 `causal_conv` and 16 `causal_conv_bwd` launches and
      nothing else, all on the tensor-core instances; step time, tokens/s,
      peak memory, and step 2 profiled, outside steps 3-6 (busy share,
      the backward's and the optimizer's shares; qwen2's run already
@@ -2454,11 +2462,16 @@ def plain_attention():
     return swapped(attn_mod, "flash_attention", attention_reference)
 
 
+@contextlib.contextmanager
 def plain_ssd():
-    """The model's SSD scan through the plain version."""
+    """The Mamba mixer's kernels, the SSD scan and the causal conv,
+    through their plain versions."""
+    from repro_torch.kernels.causal_conv.ref import causal_conv_silu
     from repro_torch.kernels.ssd.ops import ssd_chunked
     from repro_torch.models import ssm as ssm_mod
-    return swapped(ssm_mod, "ssd", ssd_chunked)
+    with swapped(ssm_mod, "ssd", ssd_chunked), \
+            swapped(ssm_mod, "causal_conv_silu", causal_conv_silu):
+        yield
 
 
 def plain_gmm():
@@ -3020,10 +3033,10 @@ def prefill_profile(cfg, params, S=1024, reps=3):
 
 def expected_launches(cfg, engine) -> dict:
     """The launches a serving run must count, by kernel: flash attention
-    once per attention layer and model call, the SSD scan once per Mamba
-    layer and prefill (decode runs the plain one-token update), the
-    grouped matmul three times (gate, up, down) per MoE layer and model
-    call, and no water-fill and no backward."""
+    once per attention layer and model call, the SSD scan and the causal
+    conv once per Mamba layer and prefill (decode runs the plain
+    one-token update), the grouped matmul three times (gate, up, down) per
+    MoE layer and model call, and no water-fill and no backward."""
     mixers = [cfg.mixer_kind(s) for s in range(cfg.period)]
     ffns = [cfg.ffn_kind(s) for s in range(cfg.period)]
     attn = cfg.n_scan * mixers.count("attn")
@@ -3032,7 +3045,8 @@ def expected_launches(cfg, engine) -> dict:
     calls = engine.prefill_calls + engine.decode_ticks
     return {"waterfill": 0, "flash_attention": attn * calls,
             "ssd": ssm * engine.prefill_calls, "gmm": 3 * moe * calls,
-            "flash_attention_bwd": 0, "ssd_bwd": 0, "gmm_bwd": 0}
+            "flash_attention_bwd": 0, "ssd_bwd": 0, "gmm_bwd": 0,
+            "causal_conv": ssm * engine.prefill_calls, "causal_conv_bwd": 0}
 
 
 def expected_flash_routes(cfg, engine) -> dict:
@@ -4250,6 +4264,173 @@ def ssd_bwd_tile_passes(so):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The Mamba mixer's causal conv
+# ---------------------------------------------------------------------------
+
+#: channels: mamba2-1.3b's (4096 + 2 x 128), jamba's (8192 + 2 x 64), a
+#: meshed rank's of mamba2 with its heads cut 4 ways (1024 + 256), the
+#: tiny float32 models' (128 + 2 x 16) and 100 (not a multiple of 8: one
+#: channel a lane); steps from a one-token prefill to a long one
+CONV_CHANNELS = (4352, 8320, 1280, 160, 100)
+CONV_STEPS = (1, 3, 512, 2048)
+#: the causal conv's cases (B, S, C, K, layout): x a view of a fused
+#: projection ("proj": z, xBC, dt, as the model passes it), contiguous
+#: ("dense"), or a view whose rows start at odd offsets ("odd": no vector
+#: access lines up); and fewer taps
+CONV_CASES = [(1 if S == 2048 else 2, S, C, 4, "proj") for C in CONV_CHANNELS
+              for S in CONV_STEPS] + [
+    (2, 77, 4352, 4, "dense"), (2, 77, 4352, 4, "odd"),
+    (2, 40, 160, 3, "proj"), (2, 40, 160, 2, "dense"), (2, 40, 160, 1, "odd")]
+#: the cell's shape: mamba2-1.3b training, 8 x 512 (B, S, C, K)
+CONV_TIMED = (8, 512, 4352, 4)
+#: dx, dw and db against autograd through the plain version, as ||kernel -
+#: plain|| / ||plain||: float32 sums in another order, then one rounding
+#: to the dtype on each side (2^-9 of an element in bfloat16)
+CONV_TOL = 1e-2
+
+
+def conv_inputs(case, dtype, device, seed=0):
+    """x (B, S, C) laid out as the case says, the taps w (K, C), the bias
+    b (C,) and an output gradient dy (B, S, C), from ``seed``."""
+    B, S, C, K, layout = case
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def draw(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=device)
+                ).to(dtype)
+    if layout == "proj":
+        x = draw(B, S, 2 * C + 64)[..., C:2 * C]
+    elif layout == "odd":
+        x = draw(B, S, C + 3)[..., 1:C + 1]
+    else:
+        x = draw(B, S, C)
+    return x, draw(K, C, scale=0.5), draw(C, scale=0.5), draw(B, S, C)
+
+
+def norm_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| in float32."""
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp(min=1e-30))
+
+
+def check_conv(cc, case, dtype, device, seed=0) -> dict:
+    """The causal conv's kernels against the plain version on one case:
+    the forward bit for bit, dx, dw and db within `CONV_TOL` of autograd's
+    through the plain version, two backward calls bitwise equal, one
+    launch each way a call.  Returns the row."""
+    from repro_torch.kernels.build import launch_counts
+    from repro_torch.kernels.causal_conv.ref import causal_conv_silu
+    x, w, b, dy = conv_inputs(case, dtype, device, seed)
+    label = f"conv{case}-{str(dtype).split('.')[1]}"
+    names = ("causal_conv", "causal_conv_bwd")
+    before = {k: launch_counts[k] for k in names}
+    with torch.no_grad():
+        y = cc.causal_conv_silu(x, w, b)
+        want = causal_conv_silu(x, w, b)
+    grads = cc.causal_conv_backward(x, w, b, dy)
+    again = cc.causal_conv_backward(x, w, b, dy)
+    launched = {k: launch_counts[k] - before[k] for k in names}
+    if launched != {"causal_conv": 1, "causal_conv_bwd": 2}:
+        raise AssertionError(f"{label}: launches {launched}")
+    if not bitwise_equal(y.float(), want.float()):
+        raise AssertionError(
+            f"{label}: the forward differs from the plain version in "
+            f"{int((y != want).sum())} of {y.numel()} elements")
+    if not all(bitwise_equal(g.float(), h.float())
+               for g, h in zip(grads, again)):
+        raise AssertionError(f"{label}: two backward calls differ")
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    plain = torch.autograd.grad(causal_conv_silu(*leaves), leaves, dy)
+    row = {"conv_case": label}
+    for name, g, p in zip(("dx", "dw", "db"), grads, plain):
+        if g.dtype != p.dtype or g.shape != p.shape:
+            raise AssertionError(f"{label}: {name} {g.dtype} "
+                                 f"{tuple(g.shape)}, plain {p.dtype} "
+                                 f"{tuple(p.shape)}")
+        row[name] = norm_rel(g, p)
+        if not row[name] <= CONV_TOL:
+            raise AssertionError(f"{label}: {name} {row[name]:.3g} > "
+                                 f"{CONV_TOL}")
+    return row
+
+
+def time_conv(cc, device) -> dict:
+    """The causal conv at the cell's shape (`CONV_TIMED`, bfloat16, x a
+    view of the fused projection), checked as `check_conv` checks, then
+    timed each way: CUDA events (median of KERNEL_REPS) and device time,
+    beside the bound (`roofline_adjust.conv_cost`, `conv_bwd_cost`) and the
+    plain version's forward and autograd backward (no PyTorch call
+    computes it: library_ms is null)."""
+    from repro_torch.kernels.causal_conv.ref import causal_conv_silu
+    from repro_torch.launch import roofline_adjust as ra
+    B, S, C, K = CONV_TIMED
+    case = (B, S, C, K, "proj")
+    row = check_conv(cc, case, torch.bfloat16, device, seed=5)
+    x, w, b, dy = conv_inputs(case, torch.bfloat16, device, seed=5)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    y_plain = causal_conv_silu(*leaves)
+
+    def forward():
+        return cc.causal_conv_forward(x, w, b)
+
+    def backward():
+        return cc.causal_conv_backward(x, w, b, dy)
+
+    def plain():
+        return causal_conv_silu(x, w, b)
+
+    def plain_backward():
+        return torch.autograd.grad(y_plain, leaves, dy, retain_graph=True)
+
+    site = ra.Site("causal_conv", (B, S, C, K), "bfloat16")
+    bound, by = ra.bound_ms(*ra.kernel_cost(site), torch.bfloat16)
+    bwd_bound, bwd_by = ra.bound_ms(*ra.kernel_cost(dataclasses.replace(
+        site, kernel="causal_conv_bwd")), torch.bfloat16)
+    row.update(
+        conv_case=f"mamba2-train-{B}x{S}", shape=[B, S, C, K],
+        ms=cuda_ms(forward, KERNEL_REPS),
+        device_ms=device_ms(forward, KERNEL_REPS, "causal_conv"),
+        plain_ms=cuda_ms(plain, KERNEL_REPS), bound_ms=bound, bound_by=by,
+        bwd_ms=cuda_ms(backward, KERNEL_REPS),
+        bwd_device_ms=device_ms(backward, KERNEL_REPS, "causal_conv"),
+        plain_bwd_ms=cuda_ms(plain_backward, KERNEL_REPS),
+        bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by, library_ms=None)
+    row["device_bound_share"] = bound / row["device_ms"]
+    row["bwd_device_bound_share"] = bwd_bound / row["bwd_device_ms"]
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def conv_phase(cc, device) -> dict:
+    """`check_conv` on every `CONV_CASES` case in both dtypes, then
+    `time_conv`; returns the kernel's line for the ``{"kernels": ...}``
+    summary (its main path's launches are added by the caller)."""
+    rows = [check_conv(cc, case, dtype, device, seed=i)
+            for i, case in enumerate(CONV_CASES)
+            for dtype in (torch.float32, torch.bfloat16)]
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    timed = time_conv(cc, device)
+    torch.cuda.empty_cache()
+    return {"name": "causal_conv", "route": "cuda",
+            "source": "src/repro_torch/kernels/causal_conv/causal_conv.cu",
+            "replaces": "none: the JAX package convolves with "
+                        "jax.lax.conv_general_dilated (XLA); the plain "
+                        "version is kernels/causal_conv/ref.py",
+            "forward_bitwise_cases": len(rows) + 1,
+            "max_grad_norm_rel_err": max(r[n] for r in rows + [timed]
+                                         for n in ("dx", "dw", "db")),
+            **{k: timed[k] for k in (
+                "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "bwd_ms", "bwd_device_ms", "plain_bwd_ms",
+                "bwd_bound_ms", "bwd_bound_by", "library_ms",
+                "device_bound_share", "bwd_device_bound_share")},
+            "ptxas": [r for r in ptxas_report(cc.build_log, "causal_conv")
+                      if "Li4EE" in r["kernel"]]}
+
+
 def ssd_bwd_phase(so, device):
     """The backward kernel against the plain backward on every `SSD_CASES`
     case in both dtypes, every `SSD_TC_CASES` case (bfloat16, the fused
@@ -4525,15 +4706,16 @@ def training_launches(cfg) -> dict:
     """The launches one `loss_fn` and its backward make (remat "none"),
     by kernel: flash attention and its backward once per attention
     layer (an encoder's included) and once more per decoder layer of an
-    enc-dec model (its cross-attention), the SSD scan and its backward
-    once per Mamba layer, the grouped matmul and its backward three times
-    per MoE layer."""
+    enc-dec model (its cross-attention), the SSD scan, the causal conv
+    and their backwards once per Mamba layer, the grouped matmul and its
+    backward three times per MoE layer."""
     layers = cfg.n_layers + (cfg.encoder.n_layers if cfg.encoder else 0)
     mixers = [cfg.mixer_kind(i) for i in range(layers)]
     ffns = [cfg.ffn_kind(i) for i in range(layers)]
     cross = cfg.n_layers if cfg.encoder is not None else 0
     fwd = {"flash_attention": mixers.count("attn") + cross,
-           "ssd": mixers.count("ssm"), "gmm": 3 * ffns.count("moe")}
+           "ssd": mixers.count("ssm"), "gmm": 3 * ffns.count("moe"),
+           "causal_conv": mixers.count("ssm")}
     return {**fwd, **{f"{k}_bwd": n for k, n in fwd.items()}}
 
 
@@ -6922,13 +7104,14 @@ def main() -> int:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.build import launch_counts
+    from repro_torch.kernels.causal_conv import ops as cc
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.moe_gmm import ops as gm
     from repro_torch.kernels.ssd import ops as so
     from repro_torch.kernels.waterfill import ops
 
     # phase 2: build every kernel from the checkout's sources
-    build_all([ops, fa, so, gm])
+    build_all([ops, fa, so, gm, cc])
 
     phase_done("2")
     # phase 5: flash attention against its plain version, timed at the
@@ -7001,9 +7184,10 @@ def main() -> int:
     # phase 10: serving mamba2, its main path: the scan runs once per
     # layer and prefill, every one on the tensor cores, and decode runs
     # the plain one-token update
-    served = serve_phase(cfg, params, launch_counts, kernels=("ssd",),
-                         profile_kernel=None,
+    served = serve_phase(cfg, params, launch_counts,
+                         kernels=("ssd", "causal_conv"), profile_kernel=None,
                          routes={"ssd": so.route_counts})
+    conv_served = served["launch_counts"]["causal_conv"]
     longest = ssd_timed[SSD_TIMED.index(max(SSD_TIMED))]   # mamba2, 1024
     ssd_line = {
         "name": "ssd", "route": "cuda",
@@ -7141,6 +7325,7 @@ def main() -> int:
     # width through run_fixed, its main path (before the water-fill: the
     # profiler reads it)
     cfg = get_config(SSD_ARCH)
+    conv_line = conv_phase(cc, dev)
     ssd_bwd_timed, ssd_bwd_err = ssd_bwd_phase(so, dev)
     ssd_kernels = dict(kernels=("ssd", "ssd_bwd"), plain=plain_ssd)
     train_f32_gate(cfg, dev, launch_counts, **ssd_kernels)
@@ -7190,6 +7375,10 @@ def main() -> int:
         "train_step_ms": ssd_trained["step_ms_median_3_6"],
         "train_tokens_per_s": ssd_trained["tokens_per_s"],
         "train_peak_gb": ssd_trained["max_memory_allocated_gb"]}
+    conv_line["launches"] = ssd_trained["launch_counts"]["causal_conv"]
+    conv_line["launches_bwd"] = ssd_trained["launch_counts"][
+        "causal_conv_bwd"]
+    conv_line["launches_serving"] = conv_served
 
     phase_done("16")
     # phase 17: training jamba -- the grouped matmul's backward kernel
@@ -7354,7 +7543,7 @@ def main() -> int:
     print(json.dumps({"profiler_sessions": profiler_sessions}), flush=True)
     print(json.dumps({"kernels": [waterfill_line, flash_line, ssd_line,
                                   gmm_line, bwd_line, ssd_bwd_line,
-                                  gmm_bwd_line]}),
+                                  gmm_bwd_line, conv_line]}),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: its library's entry point, whatever number of kernels that runs (a
 #: backward's passes, gmm_bwd's dlhs and drhs).
 launch_counts = {"waterfill": 0, "flash_attention": 0, "ssd": 0, "gmm": 0,
-                 "flash_attention_bwd": 0, "ssd_bwd": 0, "gmm_bwd": 0}
+                 "flash_attention_bwd": 0, "ssd_bwd": 0, "gmm_bwd": 0,
+                 "causal_conv": 0, "causal_conv_bwd": 0}
 
 
 def nvcc() -> str:

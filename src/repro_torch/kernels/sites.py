@@ -4,7 +4,7 @@
 While it records, ``recorder`` holds its recorder, and each kernel
 wrapper of the port -- `flash_attention`, `flash_attention_forward`,
 `flash_attention_backward`, `ssd`, `ssd_forward`, `ssd_backward`, `gmm`,
-`gmm_backward` -- hands its call to it before anything else: the
+`gmm_backward`, `causal_conv_silu` -- hands its call to it before anything else: the
 recorder notes the call as a site (its shapes, dtype and mask) and
 returns outputs of the right shapes, so no kernel is built or launched
 and no plain version runs.  Everywhere else ``recorder`` is None, and the

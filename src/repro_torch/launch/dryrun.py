@@ -388,6 +388,26 @@ class SiteRecorder:
         return tuple(self._empty(t.shape, t.dtype, t) if n else None
                      for t, n in zip((lhs, rhs), need))
 
+    # causal conv ----------------------------------------------------------
+    @staticmethod
+    def conv_site(x, w, kernel="causal_conv") -> Site:
+        B, S, C = x.shape
+        return Site(kernel, (B, S, C, w.shape[0]), _dt(x))
+
+    def causal_conv_silu(self, x, w, b):
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (x, w, b)):
+            return _ConvSite.apply(self, x, w, b)
+        return self.causal_conv_forward(x, w, b)
+
+    def causal_conv_forward(self, x, w, b):
+        self.counter.sites.append(self.conv_site(x, w))
+        return self._empty(x.shape, x.dtype, x)
+
+    def causal_conv_backward(self, x, w, b, dy):
+        self.counter.sites.append(self.conv_site(x, w, "causal_conv_bwd"))
+        return tuple(self._empty(t.shape, t.dtype, t) for t in (x, w, b))
+
 
 class _FlashSite(torch.autograd.Function):
     @staticmethod
@@ -444,6 +464,21 @@ class _GmmSite(torch.autograd.Function):
         dlhs, drhs = ctx.rec.gmm_backward(lhs, rhs, None, dout, need=need,
                                           host_sizes=ctx.host_sizes)
         return None, dlhs, drhs, None, None
+
+
+class _ConvSite(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rec, x, w, b):
+        ctx.rec = rec
+        ctx.save_for_backward(x, w, b)      # as CausalConvFn
+        return rec.causal_conv_forward(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        grads = ctx.rec.causal_conv_backward(x, w, b, dy)
+        return (None, *(g if need else None
+                        for g, need in zip(grads, ctx.needs_input_grad[1:])))
 
 
 @contextlib.contextmanager

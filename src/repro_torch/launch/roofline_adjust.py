@@ -3,26 +3,30 @@
 The port of the JAX package's ``launch/roofline_adjust.py``.  The
 dry-run (`launch.dryrun`) counts a step's operations on fake tensors;
 each call of a kernel wrapper (flash attention, the SSD scan, the
-grouped matmul, and their backwards) is recorded as a `Site` instead of
-running.  This module prices a site two ways:
+grouped matmul, the Mamba mixer's causal conv, and their backwards) is
+recorded as a `Site` instead of running.  This module prices a site two ways:
 
   * ``plain_cost``: what the kernel's plain PyTorch version would cost,
-    CALIBRATED, not hand-derived: `_calibrate_attention` and
-    `_calibrate_ssd` count the plain functions
+    CALIBRATED, not hand-derived: `_calibrate_attention`,
+    `_calibrate_ssd` and `_calibrate_conv` count the plain functions
     (`kernels.flash_attention.ref.attention_reference`,
-    `kernels.ssd.ops.ssd_chunked`) and their autograd gradients with the
-    dry-run's counting mode at the reference's small shapes and divide by
-    the score (or intra-chunk) elements; linearity in those elements
-    makes the factor exact up to boundary terms.  The grouped matmul's
-    plain cost is its kernel cost (the reference priced its capacity
-    einsums as ordinary products, which is what the formula counts).
+    `kernels.ssd.ops.ssd_chunked`, `kernels.causal_conv.ref.
+    causal_conv_silu`) and their autograd gradients with the dry-run's
+    counting mode at small shapes (the reference's, for the first two)
+    and divide by the score (intra-chunk, activation) elements;
+    linearity in those elements makes the factor exact up to boundary
+    terms.  The grouped matmul's plain cost is its kernel cost (the
+    reference priced its capacity einsums as ordinary products, which is
+    what the formula counts).
   * ``kernel_cost``: the least the card must do for the call, counting
     what it needs: each input read once and each output written once, and
     the products of the (query, key) pairs the mask leaves (flash), the
-    causal chunk products (SSD), 2 K N per row in a group (gmm).  These are
-    the formulas `chip_smoke.py`'s bounds use (`flash_cost`,
+    causal chunk products (SSD), 2 K N per row in a group (gmm), 2 K
+    (forward) and 4 K (backward) per activation element (the conv).
+    These are the formulas `chip_smoke.py`'s bounds use (`flash_cost`,
     `flash_bwd_cost`, `ssd_cost`, `ssd_bwd_cost`, `gmm_cost`,
-    `gmm_bwd_cost`; `bound_ms` turns one into a time).
+    `gmm_bwd_cost`, `conv_cost`, `conv_bwd_cost`; `bound_ms` turns one
+    into a time).
 
 ``kernel_adjusted`` swaps the one for the other:
 
@@ -30,8 +34,8 @@ running.  This module prices a site two ways:
 
 over the dry-run's recorded sites (one rank's calls), or, as the
 reference does, over the call sites enumerated from the config
-(`attention_sites`, `ssd_sites`, `gmm_sites`: the whole step's, divided
-by the chips, under idealized even sharding).
+(`attention_sites`, `ssd_sites`, `gmm_sites`, and a conv a Mamba layer:
+the whole step's, divided by the chips, under idealized even sharding).
 
 `H100` holds the card's rates, each from the NVIDIA H100 SXM data sheet:
 dense bfloat16 tensor-core FLOP/s, the FP32 and FP64 vector rates (the
@@ -195,6 +199,22 @@ def gmm_bwd_cost(T: int, K: int, N: int, E: int, rows: int, live: int,
     return nbytes, 2 * rows * K * N
 
 
+def conv_cost(B: int, S: int, C: int, K: int,
+              item: int) -> tuple[int, int]:
+    """(bytes, FLOPs) of one causal conv forward (with its bias and
+    SiLU): x, the K taps and the bias once in, y once out; a product and
+    a sum a tap and output element."""
+    return (2 * B * S * C + K * C + C) * item, 2 * K * B * S * C
+
+
+def conv_bwd_cost(B: int, S: int, C: int, K: int,
+                  item: int) -> tuple[int, int]:
+    """(bytes, FLOPs) of one causal conv backward: dy, x, the taps and
+    the bias once in; dx and the taps' and the bias's gradients once
+    out; dx's and dw's products and sums, 4 K an element."""
+    return (3 * B * S * C + 2 * K * C + 2 * C) * item, 4 * K * B * S * C
+
+
 # ---------------------------------------------------------------------------
 # Sites
 # ---------------------------------------------------------------------------
@@ -205,8 +225,9 @@ class Site:
 
     ``kernel`` is the launch count's key (`kernels.build.launch_counts`):
     "flash_attention", "flash_attention_bwd", "ssd", "ssd_bwd", "gmm",
-    "gmm_bwd".  ``shape``: (B, Sq, Skv, Hq, Hkv, Dh) for flash, (B, S, H,
-    P, G, N) for SSD, (T, K, N, E) for gmm.  ``dtype`` is the inputs'
+    "gmm_bwd", "causal_conv", "causal_conv_bwd".  ``shape``: (B, Sq, Skv,
+    Hq, Hkv, Dh) for flash, (B, S, H, P, G, N) for SSD, (T, K, N, E) for
+    gmm, (B, S, C, K) for the conv.  ``dtype`` is the inputs'
     (lhs's for gmm).  Flash: ``causal``, ``window``; SSD: ``chunk``,
     ``init`` (an initial state), ``dfinal`` (a final state's gradient);
     gmm: ``rows`` in groups, ``live`` non-empty groups, ``out_dtype`` (the
@@ -261,6 +282,10 @@ def kernel_cost(site: Site) -> tuple[float, float]:
         return ssd_cost(*s, site.chunk, item, site.init)
     if k == "ssd_bwd":
         return ssd_bwd_cost(*s, site.chunk, item, site.init, site.dfinal)
+    if k == "causal_conv":
+        return conv_cost(*s, item)
+    if k == "causal_conv_bwd":
+        return conv_bwd_cost(*s, item)
     if k in ("gmm", "gmm_bwd"):
         T, K, N, E = s
         out_item = _dtype(site.out_dtype or site.dtype).itemsize
@@ -280,8 +305,11 @@ def kernel_cost(site: Site) -> tuple[float, float]:
 def _elems(site: Site) -> int:
     """The elements a plain version's cost is linear in: the score
     rectangle B Hq Sq Skv (flash), the intra-chunk squares B nc Q^2 H
-    (SSD)."""
+    (SSD), the activation B S C (the conv)."""
     s = site.shape
+    if site.kernel.startswith("causal_conv"):
+        B, S, C, _ = s
+        return B * S * C
     if site.kernel.startswith("flash"):
         B, Sq, Skv, Hq, _, _ = s
         return B * Hq * Sq * Skv
@@ -296,6 +324,7 @@ def plain_cost(site: Site) -> tuple[float, float]:
     if site.kernel.startswith("gmm"):
         return kernel_cost(site)
     cal = (_calibrate_attention() if site.kernel.startswith("flash")
+           else _calibrate_conv() if site.kernel.startswith("causal_conv")
            else _calibrate_ssd())
     n = _elems(site)
     if site.kernel.endswith("_bwd"):
@@ -370,6 +399,27 @@ def _calibrate_ssd() -> dict[str, float]:
     f_fwd, b_fwd = _count(fwd, *((s, d, False) for s, d in shapes))
     f_grad, b_grad = _count(grad, *((s, d, i in (0, 1, 3, 4))
                                     for i, (s, d) in enumerate(shapes)))
+    return {"f_fwd": f_fwd / elems, "b_fwd": b_fwd / elems,
+            "f_grad": f_grad / elems, "b_grad": b_grad / elems}
+
+
+@functools.lru_cache(maxsize=None)
+def _calibrate_conv() -> dict[str, float]:
+    """Per-activation-element flops/bytes of the plain causal conv and
+    its SiLU."""
+    from repro_torch.kernels.causal_conv.ref import causal_conv_silu
+
+    B, S, C, K = 2, 256, 256, 4
+    elems = B * S * C
+
+    def grad(x, w, b):
+        loss = causal_conv_silu(x, w, b).float().sum()
+        torch.autograd.grad(loss, (x, w, b))
+
+    shapes = [((B, S, C), _AD), ((K, C), _AD), ((C,), _AD)]
+    f_fwd, b_fwd = _count(causal_conv_silu, *((s, d, False)
+                                              for s, d in shapes))
+    f_grad, b_grad = _count(grad, *((s, d, True) for s, d in shapes))
     return {"f_fwd": f_fwd / elems, "b_fwd": b_fwd / elems,
             "f_grad": f_grad / elems, "b_grad": b_grad / elems}
 
@@ -496,9 +546,9 @@ def gmm_sites(cfg: ModelConfig, cell: ShapeCell):
 def config_sites(cfg: ModelConfig, cell: ShapeCell, *,
                  remat: str = "full") -> list[Site]:
     """The step's kernel calls enumerated from the config, global: each of
-    `attention_sites`, `ssd_sites` and `gmm_sites` as `Site`s in the
-    activation dtype, a training site with its backward and, under
-    ``remat="full"``, its recomputed forward."""
+    `attention_sites`, `ssd_sites` and `gmm_sites`, and each Mamba layer's
+    causal conv, as `Site`s in the activation dtype, a training site with
+    its backward and, under ``remat="full"``, its recomputed forward."""
     dt = str(cfg.activation_dtype)
     B, S = cell.global_batch, cell.seq_len
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -544,8 +594,11 @@ def config_sites(cfg: ModelConfig, cell: ShapeCell, *,
         s = cfg.ssm
         shape = (B, S, s.n_heads(cfg.d_model), s.head_dim, s.ngroups,
                  s.d_state)
+        conv_ch = s.d_inner(cfg.d_model) + 2 * s.ngroups * s.d_state
         for i in range(cfg.n_layers):
             if cfg.mixer_kind(i) == "ssm":
+                add(Site("causal_conv", (B, S, conv_ch, s.d_conv), dt),
+                    cell.kind == "train")
                 add(Site("ssd", shape, dt, chunk=s.chunk),
                     cell.kind == "train")
     for rows, K, N, E, train in gmm_sites(cfg, cell):
@@ -572,6 +625,8 @@ def kernel_adjusted(raw: dict[str, float], cfg: ModelConfig,
         sites, per = config_sites(cfg, cell, remat=remat), chips
     acc = {"ref_attn_ssd_flops": 0.0, "ref_attn_ssd_bytes": 0.0,
            "kernel_attn_ssd_flops": 0.0, "kernel_attn_ssd_bytes": 0.0,
+           "ref_conv_flops": 0.0, "ref_conv_bytes": 0.0,
+           "kernel_conv_flops": 0.0, "kernel_conv_bytes": 0.0,
            "gmm_flops": 0.0, "gmm_bytes": 0.0}
     for site in sites:
         rb, rf = plain_cost(site)
@@ -580,17 +635,19 @@ def kernel_adjusted(raw: dict[str, float], cfg: ModelConfig,
             acc["gmm_flops"] += kf
             acc["gmm_bytes"] += kb
             continue
-        acc["ref_attn_ssd_flops"] += rf
-        acc["ref_attn_ssd_bytes"] += rb
-        acc["kernel_attn_ssd_flops"] += kf
-        acc["kernel_attn_ssd_bytes"] += kb
+        group = "conv" if site.kernel.startswith("causal_conv") \
+            else "attn_ssd"
+        acc[f"ref_{group}_flops"] += rf
+        acc[f"ref_{group}_bytes"] += rb
+        acc[f"kernel_{group}_flops"] += kf
+        acc[f"kernel_{group}_bytes"] += kb
+
+    def swapped(what):
+        return sum(acc[f"kernel_{g}_{what}"] - acc[f"ref_{g}_{what}"]
+                   for g in ("attn_ssd", "conv")) / per
     return {
-        "flops": max(raw["flops"] + (acc["kernel_attn_ssd_flops"]
-                                     - acc["ref_attn_ssd_flops"]) / per,
-                     0.0),
-        "bytes": max(raw["bytes"] + (acc["kernel_attn_ssd_bytes"]
-                                     - acc["ref_attn_ssd_bytes"]) / per,
-                     0.0),
+        "flops": max(raw["flops"] + swapped("flops"), 0.0),
+        "bytes": max(raw["bytes"] + swapped("bytes"), 0.0),
         **{f"{k}_per_chip": v / per for k, v in acc.items()},
     }
 
@@ -609,6 +666,7 @@ def step_bound(flops_by_dtype: dict[str, float], nbytes: float,
 
 __all__ = ["H100", "Site", "flops_rate", "bound_ms", "flash_cost",
            "flash_bwd_cost", "ssd_flops", "ssd_cost", "ssd_bwd_flops",
-           "ssd_bwd_cost", "gmm_cost", "gmm_bwd_cost", "flash_pairs",
+           "ssd_bwd_cost", "gmm_cost", "gmm_bwd_cost", "conv_cost",
+           "conv_bwd_cost", "flash_pairs",
            "kernel_cost", "plain_cost", "attention_sites", "ssd_sites",
            "gmm_sites", "config_sites", "kernel_adjusted", "step_bound"]

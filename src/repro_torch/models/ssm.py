@@ -3,11 +3,13 @@ selective state-space scan, gated RMS norm, output projection.
 
 The port of the JAX package's ``models/ssm.py``.  The scan core is
 `kernels.ssd.ssd`: the Hopper kernel on CUDA tensors, the plain chunked
-version on CPU tensors.  Everything around it is plain PyTorch, as the
-reference computes it outside its kernel: the projections, the 4-tap
-depthwise conv (written as shifted multiply-adds in float32, so no
-cuDNN and no TF32), softplus, the gated RMS norm and the one-token
-decode update.  Each of these runs under its program span
+version on CPU tensors.  The 4-tap causal depthwise conv and its SiLU
+are `kernels.causal_conv.causal_conv_silu`: one Hopper kernel each way
+on CUDA tensors; on CPU tensors its plain version, shifted multiply-adds
+in float32 (no cuDNN, no TF32).  Everything else is plain PyTorch, as
+the reference computes it outside its kernels: the projections,
+softplus, the gated RMS norm and the one-token decode update (its
+rolling conv included).  Each of these runs under its program span
 (``"mixer.in_proj"``, ``"mixer.conv"``, ``"mixer.dt"``, ``"mixer.ssd"``,
 ``"mixer.gate_norm"``, ``"mixer.out_proj"``: `observability.steps`).
 
@@ -27,6 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.causal_conv.ops import causal_conv_silu
 from repro_torch.kernels.ssd.ops import ssd, ssd_decode_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_linear, init_linear, matmul_f32
@@ -195,22 +198,6 @@ def _out(q: dict, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
                                ).to(y.dtype)
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over (B, S, C) with taps (K, C): the K-1
-    rows before the sequence are 0.  Products and sums in float32, the
-    result rounded to the input dtype before the bias, as the
-    reference's convolution in the input dtype does."""
-    K, S = w.shape[0], xbc.shape[1]
-    wf = w.to(xbc.dtype).float()
-    xp = F.pad(xbc.float(), (0, 0, K - 1, 0))
-    out = xp[:, 0:S] * wf[0]
-    for k in range(1, K):
-        out = out + xp[:, k:k + S] * wf[k]
-    out = out.to(xbc.dtype)
-    return out + b.to(out.dtype)
-
-
 def _conv_window(xbc_raw: torch.Tensor, K: int) -> torch.Tensor:
     """The last K-1 raw conv inputs, with zeros in front of a shorter
     sequence."""
@@ -236,7 +223,7 @@ def ssm_forward(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         proj = apply_linear(q["in_proj"], x_in)
         z, xbc_raw, dt = _split_proj(cfg, proj, tp)
     with span("mixer.conv"):
-        xbc = F.silu(_causal_conv(xbc_raw, q["conv_w"], q["conv_b"]))
+        xbc = causal_conv_silu(xbc_raw, q["conv_w"], q["conv_b"])
         xs, B, C = _split_xbc(cfg, xbc, tp)
     with span("mixer.dt"):
         dt = F.softplus(dt.float() + q["dt_bias"])

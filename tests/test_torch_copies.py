@@ -58,6 +58,8 @@ PORT_OWN = {
     "kernels/ssd/study.py", "kernels/ssd/bwd_study.py",
     "kernels/moe_gmm/ops.py", "kernels/moe_gmm/ref.py",
     "kernels/moe_gmm/bwd_study.py",
+    "kernels/causal_conv/__init__.py", "kernels/causal_conv/ops.py",
+    "kernels/causal_conv/ref.py",
     "models/param.py", "models/layers.py", "models/attention.py",
     "models/transformer.py", "models/model.py", "models/ssm.py",
     "models/moe.py",

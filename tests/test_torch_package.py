@@ -33,7 +33,8 @@ def test_every_port_module_imports_without_jax_or_reference():
     first = ["repro_torch.kernels.waterfill.ops",
              "repro_torch.kernels.flash_attention.ops",
              "repro_torch.kernels.ssd.ops",
-             "repro_torch.kernels.moe_gmm.ops"]
+             "repro_torch.kernels.moe_gmm.ops",
+             "repro_torch.kernels.causal_conv.ops"]
     code = (
         "import importlib, json, sys\n"
         f"for m in {json.dumps(first + mods + ['chip_smoke'])}:\n"
@@ -42,14 +43,15 @@ def test_every_port_module_imports_without_jax_or_reference():
         "from repro_torch.kernels.flash_attention import ops as fa\n"
         "from repro_torch.kernels.ssd import ops as so\n"
         "from repro_torch.kernels.moe_gmm import ops as gm\n"
+        "from repro_torch.kernels.causal_conv import ops as cc\n"
         "from repro_torch.kernels import build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps({'bad': bad, 'launches': build.launch_counts, "
         "'built': [wf.build_log, fa.build_log, fa.bwd_build_log, "
         "so.build_log, so.bwd_build_log, gm.build_log, gm.bwd_build_log, "
-        "wf._lib, fa._lib, fa._bwd_lib, so._lib, so._bwd_lib, gm._lib, "
-        "gm._bwd_lib] != [None] * 14}))\n")
+        "cc.build_log, wf._lib, fa._lib, fa._bwd_lib, so._lib, so._bwd_lib, "
+        "gm._lib, gm._bwd_lib, cc._lib] != [None] * 16}))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -60,7 +62,9 @@ def test_every_port_module_imports_without_jax_or_reference():
                                            "flash_attention": 0, "ssd": 0,
                                            "gmm": 0,
                                            "flash_attention_bwd": 0,
-                                           "ssd_bwd": 0, "gmm_bwd": 0},
+                                           "ssd_bwd": 0, "gmm_bwd": 0,
+                                           "causal_conv": 0,
+                                           "causal_conv_bwd": 0},
                    "built": False}
     assert len(mods) >= 63
 
